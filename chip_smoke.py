@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the port's main render path once on one NVIDIA GPU.
+"""Drive the port's main render path and its entry points once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--save DIR]
 
 Phases, one JSON line each:
   1. device  — the card's name and power limit, torch and CUDA versions;
-  2. build   — K1 and K2 (nvcc, csrc/*.cu) and K3 (Triton) from the
-               sources in this checkout;
+  2. build   — K1, K2 and the probe kernels P1-P3 (nvcc, csrc/*.cu, one
+               process per source) and K3 (Triton) from the sources in
+               this checkout;
   3. scene   — the procedural 200^3 fBm grid (vpt render procedural),
                one point light and the sun, built and shadow-baked on the
                card;
@@ -25,9 +27,23 @@ Phases, one JSON line each:
                exact; image means within 0.5%);
   7. profile — torch.profiler over 8 cached spp at 1080p: each kernel's
                device time and the device's idle share of that run's
-               wall time (the profiler's own host cost included).
-Then the nvidia-smi line, the kernels' JSON line (1080p numbers), and
-the result line.
+               wall time (the profiler's own host cost included);
+  8. cli     — `vpt-torch render procedural` (vpt_tpu_torch.app.cli.main)
+               at 1920x1080, black environment, cached shadows, the
+               light of phase 3, 16 spp, --save-exr, into a temporary
+               directory: the PNG must decode to (1080, 1920, 3), the EXR
+               must be finite and not black, and K1-K3 must each launch
+               16 times;
+  9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
+               with their sweeps and the corner-table point, through
+               P1-P3, each of which must launch; then each probe kernel
+               beside its plain version (max |diff| must be 0: integer-
+               index copies and in-order adds) and its library call, at
+               the tools' largest shapes.
+Then the nvidia-smi line, the kernels' JSON line (K1-K3 at 1080p, P1-P3
+at the probes' shapes; each with its bound: the larger of the bytes it
+must move over 3.35 TB/s and its operations over 67 TFLOP/s, the H100
+SXM's published float32 rate), and the result line.
 Any failure raises, and the script exits non-zero without a result.
 Without a CUDA device it exits non-zero before doing anything.
 """
@@ -38,8 +54,10 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -52,6 +70,15 @@ WARMUP_SPP, TIMED_SPP, TRACKED_SPP, PROFILED_SPP = 2, 64, 8, 8
 PARITY_SIZE, PARITY_SPP = 256, 2
 MIN_SHARE, MAX_MEAN_REL = 0.99, 0.005
 K2_TOL, K3_TOL = 1e-5, 1e-6
+CLI_SPP = 16
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
+# Operations per ray step of K1 and per ray of K2, counted from the
+# sources: a threefry-2x32 is 80 integer operations (20 rounds of add,
+# rotate, xor, plus 6 key injections); K1 draws 5 uniforms and one step
+# key per step, plus ~200 float operations of fetch, flight and NEE; K2
+# draws 4 uniforms, plus ~60 float operations of camera arithmetic.
+K1_OPS_PER_STEP, K2_OPS_PER_RAY = 6 * 80 + 200, 4 * 80 + 60
+K1_ROW_BYTES = 15 * 4  # the columns every step loads (taus not counted)
 
 
 def emit(phase, **kw):
@@ -65,20 +92,11 @@ def smi_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """(mean device milliseconds of fn() over reps launches, the last
-    call's result)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
+def bound(n_bytes, n_ops):
+    """(least ms the card could take, what sets it)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_abs(a, b):
@@ -151,19 +169,25 @@ def main():
     import numpy as np
 
     from vpt_tpu_torch.accel.shadow import attach_shadow_cache
+    from vpt_tpu_torch.app import cli
     from vpt_tpu_torch.core import rng
-    from vpt_tpu_torch.core.camera import Camera
     from vpt_tpu_torch.lights.lights import PointLights
-    from vpt_tpu_torch.ops import cuda
+    from vpt_tpu_torch.ops import cuda, probe
     from vpt_tpu_torch.render import film as film_mod
     from vpt_tpu_torch.render import fused, renderer
     from vpt_tpu_torch.render.params import Environment, RenderParams
     from vpt_tpu_torch.scene.scene import build_scene
+    from vpt_tpu_torch.tools.common import time_ms
     from vpt_tpu_torch.volume.procedural import create_procedural_grid
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(name)s: %(message)s")
     dev = torch.device("cuda", 0)
+
+    def cuda_ms(fn, reps):
+        """(mean device ms of fn() over reps back-to-back calls after a
+        warm-up call, the last result), by CUDA events."""
+        return time_ms(fn, dev, reps)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = [fused.FUSED_DIRECT, renderer.RAYGEN, film_mod.FILM_ACCUMULATE]
@@ -198,7 +222,8 @@ def main():
                                   device=dev)
     stage["procedural_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lights = PointLights.make([LIGHT_POS], [[1.0, 1.0, 1.0]], [LIGHT_POWER])
+    lights = PointLights.make([LIGHT_POS], [[1.0, 1.0, 1.0]], [LIGHT_POWER],
+                              device=dev)
     scene = build_scene([grid], lights=lights, device=dev)
     torch.cuda.synchronize()
     stage["build_scene_s"] = time.perf_counter() - t0
@@ -207,16 +232,10 @@ def main():
     torch.cuda.synchronize()
     stage["shadow_bake_s"] = time.perf_counter() - t0
     corners = scene.atlas.density_corners
-    lo = scene.root_pmin.cpu().numpy()
-    hi = scene.root_pmax.cpu().numpy()
-    centre = (lo + hi) / 2
-    dist = float(np.linalg.norm(hi - lo)) * 1.2
 
     def framed(w, h):
-        # the CLI's default framing (vpt_tpu/app/cli.py:386-393)
-        cam = Camera.make(centre + np.array([0.0, dist * 0.15, dist]),
-                          centre, vfov=30.0, aspect=w / h, device=dev)
-        return dataclasses.replace(scene, camera=cam)
+        return dataclasses.replace(
+            scene, camera=cli.default_framing(scene, w, h))
 
     emit("scene", grid=[int(v) for v in grid.dim], voxels=int(corners.shape[0]),
          corner_table=list(corners.shape),
@@ -309,7 +328,6 @@ def main():
         if not sm["finite"] or not sm["image_mean"] > 0.0:
             raise RuntimeError(f"1080p {name} image is not finite or black")
     if args.save:
-        import os
         os.makedirs(args.save, exist_ok=True)
         np.save(os.path.join(args.save, "chip_smoke_1080p_cached.npy"),
                 r.display_image())
@@ -374,17 +392,144 @@ def main():
          device_busy_ms_per_spp=busy / PROFILED_SPP if dev_ms else None,
          idle_share=1.0 - busy / wall_ms if dev_ms else None)
 
-    errs = {"fused_direct": k1_1080["cached"]["max_abs"],
-            "primary_rays": k2_1080, "film_accumulate": k3_1080}
+    # the bounds of K1-K3 at 1080p, from this run's data
+    n_rays = W * H
+    steps = float(sample[2].double().sum())  # K1 walk steps, cached
+    rows = min(steps, corners.shape[0])
+    bounds = {
+        # rays in (origin, direction), L/alpha/cost/unfinished/depth out,
+        # and at most one 15-column row per step, each row once
+        "fused_direct": bound(n_rays * (24 + 28) + rows * K1_ROW_BYTES,
+                              steps * K1_OPS_PER_STEP),
+        "primary_rays": bound(n_rays * 24, n_rays * K2_OPS_PER_RAY),
+        # 7 film fields and value/alpha/depth/cost/trunc in, 7 fields out
+        "film_accumulate": bound(n_rays * (7 + 7 + 7) * 4, n_rays * 20)}
+
+    # ---- 8. the `render` entry point at 1080p ---------------------------
+    from vpt_tpu_torch.utils.exr import read_exr_rgb
+    from vpt_tpu_torch.utils.io import read_png
+    for k in kernels:
+        k.launches = 0
+    cli_stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli.main(["render", "procedural", "-o", os.path.join(tmp, "cli.png"),
+                  "--spp", str(CLI_SPP), "--width", str(W),
+                  "--height", str(H), "--env-type", "black",
+                  "--shadow-mode", "cached", "--save-exr", "--light",
+                  *(str(v) for v in LIGHT_POS), "1", "1", "1",
+                  str(LIGHT_POWER)], stats=cli_stats)
+        t_cli = time.perf_counter() - t0
+        img = read_png(os.path.join(tmp, "cli.png"))
+        rad = read_exr_rgb(os.path.join(tmp, "cli.exr"))
+    cli_launches = {k.name: k.launches for k in kernels}
+    emit("cli", png_shape=list(img.shape),
+         png_mean=float(img.mean()), exr_mean=float(rad.mean()),
+         exr_finite=bool(np.isfinite(rad).all()), launches=cli_launches,
+         wall_s=t_cli, **cli_stats)
+    if img.shape != (H, W, 3) or not img.max() > 0:
+        raise RuntimeError(f"cli: PNG {img.shape} max {img.max()}")
+    if not np.isfinite(rad).all() or not rad.mean() > 0.0:
+        raise RuntimeError("cli: the EXR is not finite or black")
+    if any(n != CLI_SPP for n in cli_launches.values()):
+        raise RuntimeError(f"cli: launches {cli_launches}, expected "
+                           f"{CLI_SPP} each")
+    del img, rad
+
+    # ---- 9. the probe entry points, then each probe kernel timed ---------
+    from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
+        probe_gather
+
+    def to_stderr(text):
+        print(text, file=sys.stderr, flush=True)
+    for k in probe.KERNELS:
+        k.launches = 0
+    recs = {m.__name__.rsplit(".", 1)[1]: m.run(dev, out=to_stderr)
+            for m in (probe_gather, probe_axis0, probe_dyngather)}
+    probe_launches = {k.name: k.launches for k in probe.KERNELS}
+    emit("probes", launches=probe_launches, records=recs)
+    bad = [r["name"] for rs in recs.values() for r in rs
+           if not r.get("ok", True)]
+    if bad:
+        raise RuntimeError(f"probes: kernel disagrees with plain: {bad}")
+    for k in probe.KERNELS:
+        if probe_launches[k.name] <= 0:
+            raise RuntimeError(f"{k.name} was never launched by the probes")
+    launches.update(probe_launches)
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows_n, width = probe_gather.CORNER_ROWS, probe_gather.CORNER_W
+    table = torch.rand((rows_n, width), generator=g, device=dev)
+    idx = torch.randint(0, rows_n, (W * H,), generator=g, device=dev,
+                        dtype=torch.int32)
+    tk, got = cuda_ms(lambda: probe.gather_rows(table, idx), 20)
+    tp, want = cuda_ms(lambda: probe.gather_rows_plain(table, idx), 5)
+    tl, _ = cuda_ms(lambda: torch.index_select(table, 0, idx), 20)
+    n_rows = int(torch.unique(idx).numel())
+    errs = {"gather_rows": max_abs((got,), (want,))}
+    timing.update(gather_rows=(tk, tp, tl))
+    bounds["gather_rows"] = bound(
+        n_rows * width * 4 + idx.numel() * 4 + got.numel() * 4, 0)
+    shapes = {"gather_rows": f"table ({rows_n},{width}) f32, "
+                             f"{idx.numel()} random int32 rows"}
+    del table, got, want
+
+    n = probe_dyngather.NS[-1]
+    x = torch.rand((n, 128), generator=g, device=dev)
+    i32 = torch.randint(0, n, (n, 128), generator=g, device=dev,
+                        dtype=torch.int32)
+    i64 = i32.to(torch.int64)
+    tk, got = cuda_ms(lambda: probe.take_along(x, i32, 0), 50)
+    tp, want = cuda_ms(lambda: probe.take_along_plain(x, i32, 0), 50)
+    tl, _ = cuda_ms(lambda: torch.gather(x, 0, i64), 50)
+    t64, got64 = cuda_ms(lambda: probe.take_along(x, i32, 0, 64), 20)
+    tp64, want64 = cuda_ms(lambda: probe.take_along_plain(x, i32, 0, 64), 5)
+    errs["take_along"] = max_abs((got, got64), (want, want64))
+    timing.update(take_along=(tk, tp, tl))
+    touched = int(torch.unique(i64 * 128 + torch.arange(128, device=dev)
+                               ).numel())
+    bounds["take_along"] = bound((touched + 2 * x.numel()) * 4, x.numel())
+    shapes["take_along"] = f"x ({n},128) f32, axis 0, iters 1"
+
+    xr = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8,
+                                                                        128)
+    tk, got = cuda_ms(lambda: probe.roll(xr, 3, 1), 50)
+    tp, want = cuda_ms(lambda: probe.roll_plain(xr, 3, 1), 50)
+    errs["roll"] = max_abs((got,), (want,))
+    timing.update(roll=(tk, tp, tp))  # the plain version is torch.roll
+    bounds["roll"] = bound(2 * xr.numel() * 4, 0)
+    shapes["roll"] = "x (8,128) f32, shift 3, axis 1"
+    emit("probe_timing",
+         ms={k: {"kernel": timing[k][0], "plain": timing[k][1],
+                 "library": timing[k][2]} for k in shapes},
+         take_along_iters64_ms={"kernel": t64, "plain": tp64},
+         max_abs=errs, shapes=shapes)
+    for name, err in errs.items():
+        if err != 0.0:
+            raise RuntimeError(f"{name} differs from its plain version by "
+                               f"{err}")
+    errs.update(fused_direct=k1_1080["cached"]["max_abs"],
+                primary_rays=k2_1080, film_accumulate=k3_1080)
+
     line = {"kernels": [dict(
         name=k.name, route=k.route, source=k.source, replaces=k.replaces,
         launches=launches[k.name], max_abs_err=errs[k.name],
-        ms=timing[k.name][0], plain_ms=timing[k.name][1]) for k in kernels]}
-    line["kernels"][0]["agree_share"] = {
-        m: st["share"] for m, st in k1_1080.items()}
-    line["kernels"][0]["tracked_ms"] = timing["fused_direct_tracked"][0]
-    line["kernels"][0]["tracked_plain_ms"] = timing["fused_direct_tracked"][1]
-    line["kernels"][1]["also_replaces"] = "vpt_tpu/core/camera.py:73"
+        ms=timing[k.name][0], plain_ms=timing[k.name][1],
+        bound_ms=bounds[k.name][0], bound_by=bounds[k.name][1],
+        library_ms=timing[k.name][2] if len(timing[k.name]) > 2 else None)
+        for k in kernels + list(probe.KERNELS)]}
+    by_name = {k["name"]: k for k in line["kernels"]}
+    by_name["fused_direct"].update(
+        agree_share={m: st["share"] for m, st in k1_1080.items()},
+        tracked_ms=timing["fused_direct_tracked"][0],
+        tracked_plain_ms=timing["fused_direct_tracked"][1])
+    by_name["primary_rays"]["also_replaces"] = "vpt_tpu/core/camera.py:73"
+    by_name["gather_rows"]["also_replaces"] = "tools/probe_gather.py:135"
+    by_name["take_along"].update(
+        also_replaces="tools/probe_dyngather.py:73", iters64_ms=t64,
+        iters64_plain_ms=tp64)
+    for name, shape in shapes.items():
+        by_name[name]["shape"] = shape
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

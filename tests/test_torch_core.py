@@ -122,7 +122,8 @@ def test_camera_make_and_get_rays(aperture):
     kw = dict(vup=(0.0, 1.0, 0.0), vfov=35.0, aspect=16 / 9,
               aperture=aperture)
     jc = jcam.Camera.make([1.0, 2.0, 6.0], [0.2, 0.1, -0.3], **kw)
-    tc = tcam.Camera.make([1.0, 2.0, 6.0], [0.2, 0.1, -0.3], **kw)
+    tc = tcam.Camera.make([1.0, 2.0, 6.0], [0.2, 0.1, -0.3], **kw,
+                          device="cpu")
     for name in ("origin", "lower_left_corner", "horizontal", "vertical",
                  "u", "v", "w", "lens_radius", "focus_dist"):
         np.testing.assert_allclose(getattr(tc, name).numpy(),

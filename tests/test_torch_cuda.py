@@ -42,7 +42,8 @@ def _blob_scene(device, n=16):
                  transform=np.diag([0.2, 0.2, 0.2, 1.0]), voxel_size=0.2,
                  max_density=float(dens.max()), min_density=1e-6)
     s = build_scene([g], lights=PointLights.make([[2.0, 3.0, 4.0]],
-                                                 [[1, 1, 1]], [30.0]),
+                                                 [[1, 1, 1]], [30.0],
+                                                 device=device),
                     device=device)
     lo, hi = s.root_pmin.cpu().numpy(), s.root_pmax.cpu().numpy()
     c, d = (lo + hi) / 2, float(np.linalg.norm(hi - lo)) * 1.2
@@ -144,6 +145,57 @@ def test_reassigned_scene_and_params_are_rendered(device):
                            [x.cpu().numpy() for x in ref])
     assert share >= 0.99 and rel <= 0.005, (share, rel)
     assert float(ref[0].mean()) > 0.0
+
+
+@pytest.mark.cuda
+def test_cli_renders_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """`vpt-torch render` without --cpu renders on the card through
+    K1-K3 and writes a non-black PNG and a finite EXR."""
+    from vpt_tpu_torch.app import cli
+    from vpt_tpu_torch.utils.exr import read_exr_rgb
+    from vpt_tpu_torch.utils.io import read_png
+    from vpt_tpu_torch.volume import procedural
+
+    monkeypatch.setattr(procedural, "default_procedural_grid",
+                        lambda device: procedural.create_procedural_grid(
+                            vmin=(-32.0,) * 3, vmax=(32.0,) * 3,
+                            scale=0.03, device=device))
+    kernels = (fused.FUSED_DIRECT, renderer.RAYGEN, tfilm.FILM_ACCUMULATE)
+    before = [k.launches for k in kernels]
+    out = tmp_path / "card.png"
+    cli.main(["render", "procedural", "-o", str(out), "--spp", "4",
+              "--width", "64", "--height", "64", "--env-type", "black",
+              "--shadow-mode", "cached", "--save-exr",
+              "--light", "0", "48", "48", "1", "1", "1", "2000"])
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 4]
+    img = read_png(str(out))
+    assert img.shape == (64, 64, 3) and img.max() > 0
+    rad = read_exr_rgb(str(tmp_path / "card.exr"))
+    assert np.isfinite(rad).all() and rad.mean() > 0
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain(cuda_device):
+    """P1-P3 equal their plain versions exactly on the card."""
+    from vpt_tpu_torch.ops import probe
+    g = torch.Generator().manual_seed(0)
+    table = torch.rand((5000, 31), generator=g).to(cuda_device)
+    idx = torch.randint(0, 5000, (7001,), generator=g,
+                        dtype=torch.int32).to(cuda_device)
+    for t in (table, table[:, 0]):
+        assert torch.equal(probe.gather_rows(t, idx),
+                           probe.gather_rows_plain(t, idx))
+    x = torch.rand((300, 128), generator=g).to(cuda_device)
+    for axis, iters, dtype in ((0, 1, torch.uint32), (0, 64, torch.int32),
+                               (1, 64, torch.int32)):
+        i = torch.randint(0, x.shape[axis], x.shape, generator=g).to(
+            dtype).to(cuda_device)
+        assert torch.equal(probe.take_along(x, i, axis, iters),
+                           probe.take_along_plain(x, i, axis, iters))
+    for axis, shift in ((1, 3), (0, -7)):
+        assert torch.equal(probe.roll(x, shift, axis),
+                           probe.roll_plain(x, shift, axis))
+    torch.cuda.synchronize()
 
 
 def _c_fields(source, struct):

@@ -24,7 +24,7 @@ def scenes():
     js = attach_shadow_cache(build_scene(
         [_blob()], lights=PointLights.make([[3.0, 4.0, 5.0]], [[1, 1, 1]],
                                            [50.0])), 150.0, 30.0)
-    return js, scene_from_arrays(jax_scene_arrays(js))
+    return js, scene_from_arrays(jax_scene_arrays(js), device="cpu")
 
 
 def _positions(js, seed):
@@ -85,7 +85,8 @@ def test_density_color_lut(scenes):
 
 def test_no_cache_raises(scenes):
     js, _ = scenes
-    bare = scene_from_arrays(jax_scene_arrays(build_scene([_blob()])))
+    bare = scene_from_arrays(jax_scene_arrays(build_scene([_blob()])),
+                             device="cpu")
     p = torch.zeros((4, 3))
     with pytest.raises(ValueError):
         ttrack._unified_fetch_single(bare, TParams(), p, p + 1.0,

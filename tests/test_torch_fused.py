@@ -53,7 +53,7 @@ def scenes():
                              sphere=Sphere.make(center=(3.6, 3.4, 4.0),
                                                 radius=0.7)))
     js = attach_shadow_cache(js, 150.0, 30.0)
-    return js, scene_from_arrays(jax_scene_arrays(js))
+    return js, scene_from_arrays(jax_scene_arrays(js), device="cpu")
 
 
 def _rays(js, n=2048, seed=0):
@@ -128,7 +128,7 @@ def test_out_of_slice_options_raise(scenes):
 def test_cached_without_bake_raises():
     bare = scene_from_arrays(jax_scene_arrays(build_scene(
         [_blob()], lights=PointLights.make([[3.0, 4.0, 5.0]], [[1, 1, 1]],
-                                           [5.0]))))
+                                           [5.0]))), device="cpu")
     o = torch.zeros((4, 3))
     with pytest.raises(ValueError):
         t_fused.fused_direct(bare, TParams(shadow_mode="cached",

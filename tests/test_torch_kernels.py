@@ -4,6 +4,7 @@ themselves are held against their plain versions on the card by
 tests/test_torch_cuda.py."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -31,7 +32,8 @@ KERNELS = (fused.FUSED_DIRECT, renderer.RAYGEN, tfilm.FILM_ACCUMULATE)
 def _scene(device="cpu"):
     g = _blob(16)
     s = build_scene([g], lights=PointLights.make([[2.0, 3.0, 4.0]],
-                                                 [[1, 1, 1]], [30.0]),
+                                                 [[1, 1, 1]], [30.0],
+                                                 device=device),
                     device=device)
     c = ((s.root_pmin + s.root_pmax) / 2).cpu().numpy()
     d = float(np.linalg.norm((s.root_pmax - s.root_pmin).cpu().numpy())) * 1.2
@@ -97,7 +99,7 @@ def test_film_save_load_round_trip(tmp_path):
     film = _film_inputs("cpu", seed=2)[0]
     path = str(tmp_path / "film.npz")
     tfilm.save_film(path, film, 7)
-    back, it = tfilm.load_film(path)
+    back, it = tfilm.load_film(path, device="cpu")
     assert it == 7
     for name in ("accum", "alpha", "depth", "cost", "trunc"):
         assert torch.equal(getattr(back, name), getattr(film, name))
@@ -122,32 +124,88 @@ def test_kernel_paths_reject_cpu_tensors():
         tfilm._accumulate_triton(film, val, alpha, 0, None, None, None)
 
 
-def test_port_never_imports_jax():
-    """``import vpt_tpu_torch`` and one CPU render leave jax and vpt_tpu
-    out of sys.modules."""
-    code = (
-        "import sys\n"
-        "import vpt_tpu_torch\n"
-        "from vpt_tpu_torch.volume.procedural import create_procedural_grid\n"
-        "from vpt_tpu_torch.scene.scene import build_scene\n"
-        "from vpt_tpu_torch.lights.lights import PointLights\n"
-        "from vpt_tpu_torch.accel.shadow import attach_shadow_cache\n"
-        "from vpt_tpu_torch.render.params import RenderParams\n"
-        "from vpt_tpu_torch.render.renderer import ProgressiveRenderer\n"
-        "g = create_procedural_grid(vmin=(-6,)*3, vmax=(6,)*3, scale=0.1)\n"
-        "s = build_scene([g], lights=PointLights.make([[0, 9, 9]],"
-        " [[1, 1, 1]], [50.0]))\n"
-        "s = attach_shadow_cache(s, 150.0, 30.0)\n"
-        "r = ProgressiveRenderer(s, RenderParams(width=8, height=8,"
-        " environment_type=2, shadow_mode='cached', ray_depth=3))\n"
-        "f = r.render(1)\n"
-        "assert f.accum.shape == (8, 8, 3)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'"
-        " or m.startswith(('jax.', 'jaxlib', 'vpt_tpu.')) or m == 'vpt_tpu')\n"
-        "print('IMPORTED', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+# One subprocess serves the two tests below: it imports every module of
+# the port, renders on the CPU, and tries the entry points without a
+# device; it prints one JSON line.
+_SUBPROCESS = """
+import importlib, json, pkgutil, sys
+import vpt_tpu_torch
+for m in pkgutil.walk_packages(vpt_tpu_torch.__path__, "vpt_tpu_torch."):
+    importlib.import_module(m.name)
+import torch
+from vpt_tpu_torch.volume.procedural import create_procedural_grid
+from vpt_tpu_torch.scene.scene import build_scene
+from vpt_tpu_torch.lights.lights import PointLights
+from vpt_tpu_torch.accel.shadow import attach_shadow_cache
+from vpt_tpu_torch.render.params import RenderParams
+from vpt_tpu_torch.render.renderer import ProgressiveRenderer
+from vpt_tpu_torch.app import cli
+out = {}
+g = create_procedural_grid(vmin=(-6,)*3, vmax=(6,)*3, scale=0.1,
+                           device='cpu')
+s = build_scene([g], lights=PointLights.make([[0, 9, 9]], [[1, 1, 1]],
+                                             [50.0], device='cpu'),
+                device='cpu')
+s = attach_shadow_cache(s, 150.0, 30.0)
+r = ProgressiveRenderer(s, RenderParams(width=8, height=8,
+    environment_type=2, shadow_mode='cached', ray_depth=3))
+out['cpu_render'] = list(r.render(1).accum.shape)
+out['cpu_scene'] = str(s.device)
+out['cuda_available'] = torch.cuda.is_available()
+def fails(fn):
+    try:
+        fn()
+    except SystemExit as e:
+        return 'exit %s' % (e.code,) if e.code else False
+    except Exception as e:
+        return type(e).__name__
+    return False
+out['build_scene'] = fails(lambda: build_scene([g]))
+out['grid'] = fails(lambda: create_procedural_grid(vmin=(-2,)*3,
+                                                   vmax=(2,)*3))
+out['cli'] = fails(lambda: cli.main(['render', 'procedural', '--env-type',
+                                     'black', '--spp', '1', '--width', '8',
+                                     '--height', '8', '-o', 'x.png']))
+out['imported'] = sorted(m for m in sys.modules if m == 'jax' or
+    m.startswith(('jax.', 'jaxlib', 'vpt_tpu.')) or m == 'vpt_tpu')
+out['modules'] = sorted(m for m in sys.modules
+                        if m.startswith('vpt_tpu_torch.'))
+print('RESULT', json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def port_subprocess(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", _SUBPROCESS],
+                         cwd=str(tmp_path_factory.mktemp("port")), env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "IMPORTED []" in res.stdout
+    line = next(ln for ln in res.stdout.splitlines()
+                if ln.startswith("RESULT "))
+    return json.loads(line[len("RESULT "):])
+
+
+def test_port_never_imports_jax(port_subprocess):
+    """Every module of vpt_tpu_torch (app.cli, tools.*, utils.*,
+    ops.probe included) and one CPU render leave jax and vpt_tpu out of
+    sys.modules."""
+    out = port_subprocess
+    assert out["cpu_render"] == [8, 8, 3]
+    assert out["imported"] == []
+    for mod in ("app.cli", "tools.probe_gather", "tools.probe_axis0",
+                "tools.probe_dyngather", "utils.exr", "utils.io",
+                "utils.logger", "ops.probe", "core.device"):
+        assert f"vpt_tpu_torch.{mod}" in out["modules"]
+
+
+def test_entry_points_default_to_the_card(port_subprocess):
+    """Without a device argument the entry points build on the card; on
+    a machine without one they raise torch's CUDA error (no fallback to
+    the CPU), and the CLI without --cpu fails; device='cpu' works."""
+    out = port_subprocess
+    assert out["cpu_scene"] == "cpu"
+    if out["cuda_available"]:
+        pytest.skip("this machine has a card: the defaults run there")
+    assert out["build_scene"] and out["grid"] and out["cli"]
+    assert not str(out["cli"]).startswith("exit 0")

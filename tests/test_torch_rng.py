@@ -40,7 +40,7 @@ def test_prngkey_fold_in_split(seed):
 def test_uniform_bits(seed, shape):
     key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
     want = np.asarray(jax.random.uniform(key, shape, jnp.float32))
-    got = rng.uniform(_pair(key), shape).numpy()
+    got = rng.uniform(_pair(key), shape, "cpu").numpy()
     assert got.shape == want.shape
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
@@ -48,7 +48,7 @@ def test_uniform_bits(seed, shape):
 def test_random_bits_match_jax():
     key = jax.random.PRNGKey(11)
     want = np.asarray(jax.random.bits(key, (257,), jnp.uint32))
-    got = rng.random_bits(_pair(key), 257).numpy().astype(np.uint32)
+    got = rng.random_bits(_pair(key), 257, "cpu").numpy().astype(np.uint32)
     np.testing.assert_array_equal(got, want)
 
 

@@ -39,7 +39,9 @@ def built(grids):
             jbuild([g], lights=JLights.make([lp], [[1, 1, 1]], [50.0])),
             150.0, 30.0)
         ts = tshadow.attach_shadow_cache(
-            tbuild([g], lights=TLights.make([lp], [[1, 1, 1]], [50.0])),
+            tbuild([g], lights=TLights.make([lp], [[1, 1, 1]], [50.0],
+                                             device="cpu"),
+                   device="cpu"),
             150.0, 30.0)
         out[name] = (js, ts)
     return out
@@ -47,7 +49,7 @@ def built(grids):
 
 def test_fbm_fill_matches():
     jg = jproc.create_procedural_grid(**PROC_KW)
-    tg = tproc.create_procedural_grid(**PROC_KW)
+    tg = tproc.create_procedural_grid(**PROC_KW, device="cpu")
     assert (jg.density_zyx > 0).mean() > 0.1
     np.testing.assert_allclose(tg.density_zyx, jg.density_zyx, atol=1e-5)
     assert tg.max_density == pytest.approx(jg.max_density, abs=1e-5)
@@ -101,7 +103,8 @@ def test_big_layout_bake_matches():
         jbuild([g], lights=JLights.make(lp, [[1, 1, 1]], [50.0])),
         150.0, 30.0, tau_downsample=2)
     ts = tshadow.attach_shadow_cache(
-        tbuild([g], lights=TLights.make(lp, [[1, 1, 1]], [50.0])),
+        tbuild([g], lights=TLights.make(lp, [[1, 1, 1]], [50.0], device="cpu"),
+               device="cpu"),
         150.0, 30.0, tau_downsample=2)
     np.testing.assert_allclose(ts.atlas.density_corners.numpy()[:, 15:],
                                np.asarray(js.atlas.density_corners)[:, 15:],
@@ -139,7 +142,8 @@ def test_torch_sweep_equals_native(grids, band):
     assert dll.grow_empty_boxes(ii.ctypes.data, coords.ctypes.data,
                                 r.ctypes.data, coords.shape[1], nx, ny, nz,
                                 native.ctypes.data) == 0
-    sweep = tgrid._grow_boxes_sweep(ii.reshape(-1), coords, r, nx, ny, nz)
+    sweep = tgrid._grow_boxes_sweep(ii.reshape(-1), coords, r, nx, ny, nz,
+                                    "cpu")
     assert native.max() > 0
     np.testing.assert_array_equal(sweep, native)
 
@@ -147,12 +151,13 @@ def test_torch_sweep_equals_native(grids, band):
 def test_scene_from_arrays_round_trip(built):
     js, ts = built["blob24"]
     arrays = jax_scene_arrays(js)
-    conv = scene_from_arrays(arrays)
+    conv = scene_from_arrays(arrays, device="cpu")
     back = scene_to_arrays(conv)
     for k, v in back.items():
         np.testing.assert_array_equal(v, np.asarray(arrays[k], v.dtype),
                                       err_msg=k)
-    again = scene_to_arrays(scene_from_arrays(scene_to_arrays(ts)))
+    again = scene_to_arrays(scene_from_arrays(scene_to_arrays(ts),
+                                               device="cpu"))
     for k, v in scene_to_arrays(ts).items():
         np.testing.assert_array_equal(again[k], v, err_msg=k)
 
@@ -160,10 +165,10 @@ def test_scene_from_arrays_round_trip(built):
 def test_out_of_slice_scenes_raise(grids):
     g = grids["blob24"][0]
     with pytest.raises(NotImplementedError):
-        tbuild([g, g])
+        tbuild([g, g], device="cpu")
     emissive = _blob(emission=True)
     with pytest.raises(NotImplementedError):
-        tbuild([emissive])
+        tbuild([emissive], device="cpu")
     arrays = jax_scene_arrays(jbuild([emissive]))
     with pytest.raises(NotImplementedError):
-        scene_from_arrays(arrays)
+        scene_from_arrays(arrays, device="cpu")

@@ -33,6 +33,17 @@ def jax_scene_arrays(scene) -> dict:
     return out
 
 
+def _radiance_ok(La, Lb, rtol, atol):
+    return np.all(np.abs(La - Lb) <= atol + rtol * np.abs(Lb), axis=-1)
+
+
+def radiance_share(a, b, rtol=1e-4, atol=1e-6):
+    """Share of pixels whose (..., 3) radiance in ``a`` agrees with
+    ``b`` within rtol + atol, agreement()'s radiance test."""
+    return float(_radiance_ok(np.asarray(a, np.float64),
+                              np.asarray(b, np.float64), rtol, atol).mean())
+
+
 def agreement(a, b, rtol=1e-4, atol=1e-6, alpha_tol=1e-5):
     """Per-ray agreement of two (L, alpha, cost, unfinished, depth)
     tuples: L within rtol + atol, alpha within alpha_tol, cost and
@@ -40,7 +51,7 @@ def agreement(a, b, rtol=1e-4, atol=1e-6, alpha_tol=1e-5):
     difference of the image means)."""
     La, aa, ca, ua = (np.asarray(x, np.float64) for x in a[:4])
     Lb, ab, cb, ub = (np.asarray(x, np.float64) for x in b[:4])
-    ok = np.all(np.abs(La - Lb) <= atol + rtol * np.abs(Lb), axis=-1)
+    ok = _radiance_ok(La, Lb, rtol, atol)
     ok &= np.abs(aa - ab) <= alpha_tol
     ok &= (ca == cb) & (ua == ub)
     mean_b = float(Lb.mean())

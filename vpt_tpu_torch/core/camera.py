@@ -12,6 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from vpt_tpu_torch.core import rng
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.core.vecmath import TWO_PI, cross, normalize
 
 
@@ -31,7 +32,7 @@ class Camera:
 
     @staticmethod
     def make(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov=30.0, aspect=1.0,
-             aperture=0.0, device=None) -> "Camera":
+             aperture=0.0, device=DEFAULT_DEVICE) -> "Camera":
         """camera::update_camera (camera.h:110-129); the focus plane sits
         at the lookat distance."""
         f32 = dict(dtype=torch.float32)

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -62,7 +64,7 @@ def split(key, num: int = 2) -> list[tuple[int, int]]:
     return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
 
 
-def random_bits(key, n: int, device=None) -> torch.Tensor:
+def random_bits(key, n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
     """(n,) int64 tensor of the 32-bit draws of a flat shape of n."""
     i = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(key[0], key[1], i >> 32, i & MASK)
@@ -76,7 +78,7 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def uniform(key, shape, device=None) -> torch.Tensor:
+def uniform(key, shape, device=DEFAULT_DEVICE) -> torch.Tensor:
     """jax.random.uniform(key, shape, float32) with minval 0, maxval 1."""
     shape = tuple(shape)
     n = 1

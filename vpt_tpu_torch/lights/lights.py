@@ -7,6 +7,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
+
 
 @dataclass(frozen=True)
 class PointLights:
@@ -19,7 +21,7 @@ class PointLights:
         return self.pos.shape[0]
 
     @staticmethod
-    def make(pos, color, power, device=None) -> "PointLights":
+    def make(pos, color, power, device=DEFAULT_DEVICE) -> "PointLights":
         f32 = dict(dtype=torch.float32, device=device)
         return PointLights(
             pos=torch.as_tensor(np.atleast_2d(pos), **f32),
@@ -27,7 +29,7 @@ class PointLights:
             power=torch.as_tensor(np.atleast_1d(power), **f32))
 
     @staticmethod
-    def empty(device=None) -> "PointLights":
+    def empty(device=DEFAULT_DEVICE) -> "PointLights":
         return PointLights(pos=torch.zeros((0, 3), device=device),
                            color=torch.zeros((0, 3), device=device),
                            power=torch.zeros((0,), device=device))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-nvcc compiles every source into one shared library with a plain C
-interface, loaded with ctypes, at first use — never at import, so the
+nvcc compiles every source into an object, all sources at once in
+parallel processes, and links them into one shared library with a plain
+C interface, loaded with ctypes, at first use — never at import, so the
 CPU-only tests import every module.  The library lands in
 ``csrc/build/`` (gitignored) under a name keyed by the hash of the
 sources and flags, so an edited source rebuilds.  ``-fmad=false`` keeps
@@ -21,11 +22,12 @@ from dataclasses import dataclass
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "csrc")
-SOURCES = ("fused_direct.cu", "raygen.cu")
+SOURCES = ("fused_direct.cu", "raygen.cu", "gather_rows.cu",
+           "take_along.cu", "roll.cu")
 HEADERS = ("vpt_common.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass
@@ -74,25 +76,55 @@ def load_library() -> Library:
     path = os.path.join(build, f"libvpt_kernels_{h.hexdigest()[:16]}.so")
     ptxas_log = ""
     if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stderr[-4000:])
-        ptxas_log = res.stderr
-        os.replace(tmp, path)
+        ptxas_log = _build(path)
     dll = ctypes.CDLL(path)
-    vp = ctypes.c_void_p
-    dll.vpt_fused_direct.restype = ctypes.c_int
-    dll.vpt_fused_direct.argtypes = [vp] * 12
-    dll.vpt_primary_rays.restype = ctypes.c_int
-    dll.vpt_primary_rays.argtypes = [vp] * 4
-    for fn in ("vpt_fused_params_size", "vpt_raygen_params_size"):
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn, args in (
+            ("vpt_fused_direct", [vp] * 12),
+            ("vpt_primary_rays", [vp] * 4),
+            ("vpt_fused_params_size", []),
+            ("vpt_raygen_params_size", []),
+            ("vpt_gather_rows", [vp, vp, vp, i64, i32, i64, vp]),
+            ("vpt_take_along_i32", [vp, vp, vp, i32, i32, i32, i32, vp]),
+            ("vpt_take_along_u32", [vp, vp, vp, i32, i32, i32, i32, vp]),
+            ("vpt_roll", [vp, vp, i32, i32, i32, i32, vp])):
         getattr(dll, fn).restype = ctypes.c_int
-        getattr(dll, fn).argtypes = []
+        getattr(dll, fn).argtypes = args
     _LIBRARY = Library(dll, path, ptxas_log)
     return _LIBRARY
+
+
+def _build(path: str) -> str:
+    """Compile every source to an object (one nvcc each, all started
+    together), link them into ``path``; returns the compilers' logs."""
+    nvcc = _nvcc()
+    tmp = f"{path}.{os.getpid()}"
+    procs = []
+    for s in SOURCES:
+        obj = f"{tmp}.{s}.o"
+        procs.append((s, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for s, obj, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{s}:\n{out[-4000:]}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", f"{tmp}.so",
+                              *(obj for _, obj, _ in procs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + res.stderr[-4000:])
+        os.replace(f"{tmp}.so", path)
+    finally:
+        for _, obj, _ in procs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(logs)
 
 
 def check_struct(struct, size_fn) -> None:

@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.core.tonemap import aces_tonemap, gamma_encode
 from vpt_tpu_torch.csrc import film_accumulate as k3
 from vpt_tpu_torch.ops import cuda
@@ -34,7 +35,7 @@ class Film:
     trunc: torch.Tensor  # (H, W) TOTAL step-budget truncations (additive)
 
     @staticmethod
-    def zeros(height: int, width: int, device="cpu") -> "Film":
+    def zeros(height: int, width: int, device=DEFAULT_DEVICE) -> "Film":
         def z(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=device)
         return Film(accum=z(height, width, 3), alpha=z(height, width),
@@ -124,7 +125,7 @@ def save_film(path: str, film: Film, iteration: int):
                         iteration=np.int64(iteration))
 
 
-def load_film(path: str, device="cpu"):
+def load_film(path: str, device=DEFAULT_DEVICE):
     """(film, iteration); checkpoints without trunc load zeros there."""
     z = np.load(path)
     arrays = {k: z[k] for k in _FIELDS if k in z.files}

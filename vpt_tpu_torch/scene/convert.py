@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.core.camera import Camera
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.lights.lights import PointLights
 from vpt_tpu_torch.scene.geometry import Sphere
 from vpt_tpu_torch.scene.scene import Instances, Scene
@@ -35,7 +36,7 @@ def _tensor(a, device):
     return torch.as_tensor(a.astype(np.float32), device=device)
 
 
-def scene_from_arrays(arrays: dict, device="cpu") -> Scene:
+def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
     """Port Scene from ``{dotted leaf name: numpy array}``.
 
     Raises NotImplementedError for what this slice does not render:

@@ -8,6 +8,8 @@ from dataclasses import dataclass
 
 import torch
 
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
+
 
 @dataclass(frozen=True)
 class Sphere:
@@ -19,7 +21,8 @@ class Sphere:
 
     @staticmethod
     def make(center=(0.0, 1000.0, 0.0), radius=1.0, color=(10.0, 0.0, 0.0),
-             roughness=1.0, enabled=True, device=None) -> "Sphere":
+             roughness=1.0, enabled=True,
+             device=DEFAULT_DEVICE) -> "Sphere":
         f32 = dict(dtype=torch.float32, device=device)
         return Sphere(center=torch.as_tensor(center, **f32),
                       radius=torch.as_tensor(radius, **f32),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.core.camera import Camera
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.lights.lights import PointLights
 from vpt_tpu_torch.scene.geometry import Sphere
 from vpt_tpu_torch.volume.grid import HostGrid, VolumeAtlas, build_atlas
@@ -80,7 +81,8 @@ def _pack_instance_rows(atlas: VolumeAtlas, inv_xform: np.ndarray):
     return rows
 
 
-def default_camera(root_pmin, root_pmax, aspect=1.0, device=None):
+def default_camera(root_pmin, root_pmax, aspect=1.0,
+                   device=DEFAULT_DEVICE):
     """build_scene's default framing (main.cpp:1320-1334)."""
     center = (root_pmin + root_pmax) / 2
     dist = float(np.linalg.norm(root_pmax - root_pmin)) * 1.5
@@ -94,7 +96,7 @@ def build_scene(host_grids: list[HostGrid], camera: Camera | None = None,
                 emission_lut: np.ndarray | None = None,
                 density_color_lut: np.ndarray | None = None,
                 band_divisors: tuple | None = None,
-                device="cpu") -> Scene:
+                device=DEFAULT_DEVICE) -> Scene:
     """Assemble a single-instance Scene on ``device``: the grid's own
     file transform, root bounds = instance bounds padded by 1
     (bvh_builder.cpp:76-78), corner rows from volume/grid.py."""
@@ -129,8 +131,9 @@ def build_scene(host_grids: list[HostGrid], camera: Camera | None = None,
         max_extinction=torch.tensor(g.max_density, **f32),
         min_extinction=torch.tensor(g.min_density, **f32),
         lights=(lights if lights is not None
-                else PointLights.empty()).to(device),
-        sphere=(sphere if sphere is not None else Sphere.make()).to(device),
+                else PointLights.empty(device)).to(device),
+        sphere=(sphere if sphere is not None
+                else Sphere.make(device=device)).to(device),
         camera=camera.to(device),
         emission_lut=torch.as_tensor(luts[0], **f32),
         density_color_lut=torch.as_tensor(luts[1], **f32))

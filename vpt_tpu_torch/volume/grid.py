@@ -25,6 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
+
 log = logging.getLogger("vpt_tpu_torch")
 
 BAND_DIVISORS = (0.0, 1 / 8, 1 / 4, 1 / 2, 1.0)
@@ -93,7 +95,8 @@ def _corner_pack_plain(d_zyx: torch.Tensor) -> torch.Tensor:
     return torch.stack([t.reshape(-1) for t in taps], dim=1)
 
 
-def _grow_boxes_sweep(ii_flat, coords, r, nx, ny, nz, device="cpu"):
+def _grow_boxes_sweep(ii_flat, coords, r, nx, ny, nz,
+                      device=DEFAULT_DEVICE):
     """Greedy empty-box growth on ``device``, (6, n) int32 numpy:
     vpt_tpu/volume/grid.py::_grow_boxes_numpy in torch.  Per direction,
     binary growth by halving steps, each probe an O(1) occupancy query
@@ -143,7 +146,7 @@ def _grow_boxes_sweep(ii_flat, coords, r, nx, ny, nz, device="cpu"):
 
 
 def _empty_box_extents(occ: np.ndarray, where: np.ndarray | None = None,
-                       device="cpu") -> np.ndarray:
+                       device=DEFAULT_DEVICE) -> np.ndarray:
     """Per-voxel guaranteed-empty boxes, (6, nz, ny, nx) float32 extents
     [xm, ym, zm, xp, yp, zp] (voxels); -1 for occupied or unselected
     voxels.  Greedy growth from the chebyshev cube, validated against an
@@ -170,7 +173,7 @@ def _empty_box_extents(occ: np.ndarray, where: np.ndarray | None = None,
 
 
 def _corner_pack(d_zyx: np.ndarray, band_divisors: tuple | None = None,
-                 device="cpu") -> np.ndarray:
+                 device=DEFAULT_DEVICE) -> np.ndarray:
     """(nz,ny,nx) -> (V, 15) rows: 8 edge-clamped taps, T_box (a density
     bound for every trilinear sample whose base voxel lies in the box;
     banded at BAND_DIVISORS x the grid max, 0 = empty) and the box's
@@ -207,7 +210,7 @@ def _corner_pack(d_zyx: np.ndarray, band_divisors: tuple | None = None,
 
 
 def build_atlas(host_grids: list[HostGrid], band_divisors=None,
-                device="cpu") -> VolumeAtlas:
+                device=DEFAULT_DEVICE) -> VolumeAtlas:
     """Pack the one grid of a single-instance scene into device tensors
     (float32 corner rows)."""
     if len(host_grids) != 1:

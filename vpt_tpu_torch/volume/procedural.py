@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 
+from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.volume.grid import HostGrid
 
 MASK = 0xFFFFFFFF
@@ -97,7 +98,8 @@ def create_procedural_grid(vmin=(-100.0, -100.0, -100.0),
                            vmax=(100.0, 100.0, 100.0), res=1.0,
                            noise_type: int = NOISE_FBM_PERLIN,
                            scale: float = 0.01, seed: int = 123,
-                           chunk_z: int = 0, device="cpu") -> HostGrid:
+                           chunk_z: int = 0,
+                           device=DEFAULT_DEVICE) -> HostGrid:
     """GPU_PROC_VOL::create_volume (gpu_vdb.cpp:508-609): an fBm-filled
     dense grid over [vmin, vmax] at voxel size ``res``; negative noise
     clamps to 0.  ``chunk_z`` > 0 evaluates z-slabs of that many slices
@@ -137,7 +139,7 @@ def create_procedural_grid(vmin=(-100.0, -100.0, -100.0),
         min_density=float(np.maximum(dens, np.finfo(np.float32).eps).min()))
 
 
-def default_procedural_grid(device="cpu") -> HostGrid:
+def default_procedural_grid(device=DEFAULT_DEVICE) -> HostGrid:
     """The reference's no-asset demo volume (main.cpp:1281-1297): a
     [-100,100]^3 box at voxel size 1."""
     return create_procedural_grid(device=device)
