@@ -8,23 +8,36 @@ Phases, one JSON line each:
   1. device  — the card's name and power limit, torch and CUDA versions;
   2. build   — K1, K2 and the probe kernels P1-P3 (nvcc, csrc/*.cu, one
                process per source) and K3 (Triton) from the sources in
-               this checkout;
+               this checkout; K1's registers and spills (ptxas) and its
+               schedule (SMs, resident blocks per SM) for both routes;
   3. scene   — the procedural 200^3 fBm grid (vpt render procedural),
                one point light and the sun, built and shadow-baked on the
                card;
-  4. parity  — a quick early gate: each kernel against its plain PyTorch
-               version on the same inputs at 256x256, 2 spp, to the
-               tolerances of phase 6;
+  4. parity  — a quick early gate at 256x256, 2 spp: each kernel against
+               its plain PyTorch version on the same inputs, to the
+               tolerances of phase 6, and K1's in-kernel-ray route
+               against its buffer route on K2's rays, bit for bit;
   5. main    — 1920x1080 through ProgressiveRenderer: cached shadows,
-               2 warm-up + 64 timed spp, then tracked shadows, 8 spp;
-               every kernel must have launched; the image must be finite
+               2 warm-up + 64 timed spp, then tracked shadows, 64 spp;
+               with cached shadows K1's in-kernel-ray route and K3 must
+               have launched, the standalone K2 and K1's buffer route
+               never; with tracked shadows K2, K1's buffer route and K3,
+               the in-kernel-ray route never; the image must be finite
                and not black;
   6. timing  — each kernel beside its plain version on the main path's
                1080p inputs, both timed and held together: K2 max |diff|
                <= 1e-5, K3 on the rendered film <= 1e-6, K1 ray by ray
                in both shadow modes (>= 99% of rays agree: L within rtol
                1e-4 + atol 1e-6, alpha within 1e-5, cost and unfinished
-               exact; image means within 0.5%);
+               exact; image means within 0.5%), its buffer route against
+               fused_direct_plain on K2's rays and its in-kernel-ray route
+               against the plain pipeline and, bit for bit, against the
+               buffer route; the warp efficiency of the launch-order
+               schedule from the cost AOV, at 32 and 128;
+  6b. schedule — K1's live schedule choices at 1080p on both routes, each
+               held to the default launch bit for bit: the refill rule
+               and slot tiles (SCHEDULES), and corner rows padded to 32
+               floats (one aligned 128-byte line per row);
   7. profile — torch.profiler over 8 cached spp at 1080p: each kernel's
                device time and the device's idle share of that run's
                wall time (the profiler's own host cost included);
@@ -32,18 +45,23 @@ Phases, one JSON line each:
                at 1920x1080, black environment, cached shadows, the
                light of phase 3, 16 spp, --save-exr, into a temporary
                directory: the PNG must decode to (1080, 1920, 3), the EXR
-               must be finite and not black, and K1-K3 must each launch
-               16 times;
+               must be finite and not black, and K1's in-kernel-ray route
+               and K3 must each launch 16 times, K2 and K1's buffer route
+               never;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch; then each probe kernel
                beside its plain version (max |diff| must be 0: integer-
                index copies and in-order adds) and its library call, at
-               the tools' largest shapes.
-Then the nvidia-smi line, the kernels' JSON line (K1-K3 at 1080p, P1-P3
-at the probes' shapes; each with its bound: the larger of the bytes it
-must move over 3.35 TB/s and its operations over 67 TFLOP/s, the H100
-SXM's published float32 rate), and the result line.
+               the tools' largest shapes; then the small-shape wrappers'
+               host cost: device time (profiler) beside event time, and
+               the wrapper's parts by the host clock.
+Then the nvidia-smi line, the kernels' JSON line (K1 on both routes; K2,
+its own launches beside those of K1's in-kernel-ray route, which runs
+its code; K3 at 1080p; P1-P3 at the probes' shapes; each with
+its bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over 67 TFLOP/s, the H100 SXM's published float32 rate), and
+the result line.
 Any failure raises, and the script exits non-zero without a result.
 Without a CUDA device it exits non-zero before doing anything.
 """
@@ -66,7 +84,7 @@ LIGHT_POS = (0.0, 150.0, 150.0)
 LIGHT_POWER = 20000.0
 AZIMUTH, ELEVATION = 150.0, 30.0
 W, H = 1920, 1080
-WARMUP_SPP, TIMED_SPP, TRACKED_SPP, PROFILED_SPP = 2, 64, 8, 8
+WARMUP_SPP, TIMED_SPP, TRACKED_SPP, PROFILED_SPP = 2, 64, 64, 8
 PARITY_SIZE, PARITY_SPP = 256, 2
 MIN_SHARE, MAX_MEAN_REL = 0.99, 0.005
 K2_TOL, K3_TOL = 1e-5, 1e-6
@@ -79,6 +97,15 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 # draws 4 uniforms, plus ~60 float operations of camera arithmetic.
 K1_OPS_PER_STEP, K2_OPS_PER_RAY = 6 * 80 + 200, 4 * 80 + 60
 K1_ROW_BYTES = 15 * 4  # the columns every step loads (taus not counted)
+ROUTES = ("rays_in_memory", "rays_in_kernel")  # K1's two ray sources
+# K1's refill rules timed in phase 6b: FusedParams overrides
+SCHEDULES = {
+    "any_idle": dict(refill_min=1, tile_w=0, tile_h=0),
+    "half_idle": dict(refill_min=16, tile_w=0, tile_h=0),
+    "24_idle": dict(refill_min=24, tile_w=0, tile_h=0),
+    "whole_warp": dict(refill_min=32, tile_w=0, tile_h=0),
+    "tile8x4_whole_warp": dict(refill_min=32, tile_w=8, tile_h=4),
+}
 
 
 def emit(phase, **kw):
@@ -130,17 +157,35 @@ def k1_agreement(pairs):
                 max_abs=worst, rays=rays)
 
 
-def check_parity(where, k1, k2_err, k3_err):
+def same_bits(a, b):
+    """True when two tuples of float32 tensors are equal bit for bit."""
+    import torch
+    return all(x.shape == y.shape and torch.equal(x.view(torch.int32),
+                                                  y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def check_parity(where, k1, k2_err, k3_err, routes_same):
     for mode, st in k1.items():
         if st["share"] < MIN_SHARE or st["mean_rel"] > MAX_MEAN_REL:
             raise RuntimeError(f"{where}: K1 disagrees with the plain "
-                               f"fused_direct ({mode}): {st}")
+                               f"pipeline ({mode}): {st}")
+    for mode, same in routes_same.items():
+        if not same:
+            raise RuntimeError(f"{where}: K1's in-kernel-ray route differs "
+                               f"from its buffer route on K2's rays ({mode})")
     if not k2_err <= K2_TOL:
         raise RuntimeError(f"{where}: K2 disagrees with the plain version: "
                            f"{k2_err}")
     if not k3_err <= K3_TOL:
         raise RuntimeError(f"{where}: K3 disagrees with the plain version: "
                            f"{k3_err}")
+
+
+def k1_registers(summary):
+    """K1's ptxas lines by route (its template argument)."""
+    return {ROUTES[1] if "ILb1E" in n else ROUTES[0]: v
+            for n, v in summary.items() if "fused_direct_kernel" in n}
 
 
 def device_ms(prof):
@@ -190,7 +235,8 @@ def main():
         return time_ms(fn, dev, reps)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = [fused.FUSED_DIRECT, renderer.RAYGEN, film_mod.FILM_ACCUMULATE]
+    kernels = [fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY, renderer.RAYGEN,
+               film_mod.FILM_ACCUMULATE]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -211,8 +257,11 @@ def main():
                         depth=z, cost=z, trunc=z)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
+    k1_ptxas = k1_registers(cuda.ptxas_summary(lib.ptxas_log))
+    k1_launch = {route: fused.launch_info(route == "rays_in_kernel", 128)
+                 for route in ROUTES}
     emit("build", nvcc_s=t_nvcc, triton_s=t_triton, library=lib.path,
-         ptxas=regs)
+         ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
 
     # ---- 3. scene ----------------------------------------------------
     stage = {}
@@ -254,19 +303,25 @@ def main():
     s256 = framed(PARITY_SIZE, PARITY_SIZE)
     k2_err = k3_err = 0.0
     pairs = {"cached": [], "tracked": []}
+    gen_pairs = {"cached": [], "tracked": []}
+    routes_same = {"cached": True, "tracked": True}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for it in range(PARITY_SPP):
         p = params(PARITY_SIZE, PARITY_SIZE, "cached")
         key = rng.render_key(SEED, it)
         rays = renderer._primary_rays_cuda(s256.camera, p, key)
-        k2_err = max(k2_err, max_abs(rays, renderer.primary_rays_plain(
-            s256.camera, p, key)))
-        tkey = rng.fold_in(rng.split(key)[1], renderer.TILE_FOLD)
+        rays_p = renderer.primary_rays_plain(s256.camera, p, key)
+        k2_err = max(k2_err, max_abs(rays, rays_p))
+        tkey = renderer.tile_key(key)
         for mode in pairs:
             pm = params(PARITY_SIZE, PARITY_SIZE, mode)
+            out_b = fused._fused_direct_cuda(s256, pm, tkey, *rays)
+            out_g = renderer._trace_primary_cuda(s256, pm, key)
+            routes_same[mode] &= same_bits(out_g, out_b)
             pairs[mode].append(
-                (fused._fused_direct_cuda(s256, pm, tkey, *rays),
-                 fused.fused_direct_plain(s256, pm, tkey, *rays)))
+                (out_b, fused.fused_direct_plain(s256, pm, tkey, *rays)))
+            gen_pairs[mode].append(
+                (out_g, fused.fused_direct_plain(s256, pm, tkey, *rays_p)))
         # K3 on a random film state, with non-finite pixels injected
         hw = (PARITY_SIZE, PARITY_SIZE)
         f0 = film_mod.Film(*(torch.rand(s, generator=gen, device=dev)
@@ -282,10 +337,13 @@ def main():
                                                     *aux)),
             film_fields(film_mod.accumulate_plain(f0, val, a, it + 3, *aux))))
     k1_256 = {m: k1_agreement(pr) for m, pr in pairs.items()}
-    del pairs
+    k1_256.update({f"{m}_{ROUTES[1]}": k1_agreement(pr)
+                   for m, pr in gen_pairs.items()})
+    del pairs, gen_pairs
     emit("parity", size=PARITY_SIZE, spp=PARITY_SPP, k1=k1_256,
-         k2_max_abs=k2_err, k3_max_abs=k3_err)
-    check_parity("256^2", k1_256, k2_err, k3_err)
+         k1_routes_bit_equal=routes_same, k2_max_abs=k2_err,
+         k3_max_abs=k3_err)
+    check_parity("256^2", k1_256, k2_err, k3_err, routes_same)
 
     # ---- 5. the main path at 1080p -------------------------------------
     s1080 = framed(W, H)
@@ -301,12 +359,17 @@ def main():
     r.step(TIMED_SPP)
     torch.cuda.synchronize()
     t_cached = time.perf_counter() - t0
+    by_mode = {"cached": {k.name: k.launches for k in kernels}}
+    for k in kernels:
+        k.launches = 0
     rt = renderer.ProgressiveRenderer(s1080, pt)
     t0 = time.perf_counter()
     rt.step(TRACKED_SPP)
     torch.cuda.synchronize()
     t_tracked = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    by_mode["tracked"] = {k.name: k.launches for k in kernels}
+    launches = {k.name: sum(m[k.name] for m in by_mode.values())
+                for k in kernels}
     peak = torch.cuda.max_memory_allocated()
 
     def summary(film, spp, seconds, timed_spp):
@@ -320,10 +383,19 @@ def main():
     cached_sum = summary(r.film, WARMUP_SPP + TIMED_SPP, t_cached, TIMED_SPP)
     tracked_sum = summary(rt.film, TRACKED_SPP, t_tracked, TRACKED_SPP)
     emit("main", width=W, height=H, cached=cached_sum, tracked=tracked_sum,
-         launches=launches, peak_mem_bytes=int(peak))
-    for k in kernels:
-        if launches[k.name] <= 0:
-            raise RuntimeError(f"{k.name} was never launched on the main path")
+         launches=launches, launches_by_mode=by_mode,
+         rays_in_kernel=renderer.RAYS_IN_KERNEL, peak_mem_bytes=int(peak))
+    # K1 on the ray source of its shadow mode, and nothing else
+    for mode, got in by_mode.items():
+        on = {film_mod.FILM_ACCUMULATE.name}
+        on |= ({fused.FUSED_DIRECT_PRIMARY.name}
+               if renderer.RAYS_IN_KERNEL[mode] else
+               {fused.FUSED_DIRECT.name, renderer.RAYGEN.name})
+        for name, n in got.items():
+            if (n > 0) != (name in on):
+                raise RuntimeError(f"the main path ({mode}) launched {name} "
+                                   f"{n} times; expected "
+                                   f"{'some' if name in on else 'none'}")
     for name, sm in (("cached", cached_sum), ("tracked", tracked_sum)):
         if not sm["finite"] or not sm["image_mean"] > 0.0:
             raise RuntimeError(f"1080p {name} image is not finite or black")
@@ -338,7 +410,7 @@ def main():
     # kernels from prepared launches, so the events time the kernel; the
     # outputs of the timed calls are held against each other
     key = rng.render_key(SEED, r.iteration)
-    tkey = rng.fold_in(rng.split(key)[1], renderer.TILE_FOLD)
+    tkey = renderer.tile_key(key)
     lc, lt = r.launches, rt.launches
     tk, (o, d) = cuda_ms(lambda: renderer._primary_rays_cuda(
         s1080.camera, pc, key, lc.raygen), 20)
@@ -346,16 +418,28 @@ def main():
         s1080.camera, pc, key), 5)
     timing = {"primary_rays": (tk, tp)}
     k2_1080 = max_abs((o, d), rays_p)
-    k1_1080 = {}
-    for mode, p, launch, reps in (("cached", pc, lc.fused, 5),
-                                  ("tracked", pt, lt.fused, 3)):
+    k1_1080, warp_eff, routes_same = {}, {}, {}
+    for mode, p, lts, reps in (("cached", pc, lc, 5),
+                               ("tracked", pt, lt, 3)):
         tk, out_k = cuda_ms(lambda: fused._fused_direct_cuda(
-            s1080, p, tkey, o, d, launch), reps)
+            s1080, p, tkey, o, d, lts.fused, W), reps)
+        tg, out_g = cuda_ms(lambda: renderer._trace_primary_cuda(
+            s1080, p, key, lts), reps)
         tp, out_p = cuda_ms(lambda: fused.fused_direct_plain(
             s1080, p, tkey, o, d), 1)
-        timing["fused_direct" if mode == "cached"
-               else "fused_direct_tracked"] = (tk, tp)
+        sfx = "" if mode == "cached" else "_tracked"
+        timing["fused_direct" + sfx] = (tk, tp)
+        # the plain pipeline: primary_rays_plain, then fused_direct_plain
+        timing["fused_direct_primary" + sfx] = (
+            tg, timing["primary_rays"][1] + tp)
         k1_1080[mode] = k1_agreement([(out_k, out_p)])
+        routes_same[mode] = same_bits(out_g, out_k)
+        out_pp = fused.fused_direct_plain(s1080, p, tkey, *rays_p)
+        k1_1080[f"{mode}_{ROUTES[1]}"] = k1_agreement([(out_g, out_pp)])
+        del out_g, out_pp
+        # the launch-order schedule's lane use, from this spp's cost AOV
+        warp_eff[mode] = {g: fused.warp_efficiency(out_k[2], g)
+                          for g in (32, 128)}
         if mode == "cached":
             sample = out_k
         del out_k, out_p
@@ -373,8 +457,46 @@ def main():
     k3_1080 = max_abs(film_fields(fk), film_fields(fp))
     emit("timing", shapes=f"{W}x{H}",
          ms={k: {"kernel": v[0], "plain": v[1]} for k, v in timing.items()},
-         k1=k1_1080, k2_max_abs=k2_1080, k3_max_abs=k3_1080)
-    check_parity("1080p", k1_1080, k2_1080, k3_1080)
+         k1=k1_1080, k1_routes_bit_equal=routes_same, k2_max_abs=k2_1080,
+         k3_max_abs=k3_1080, k1_launch_order_warp_efficiency=warp_eff,
+         k1_launch=k1_launch, k1_ptxas=k1_ptxas,
+         k1_grid_blocks={r_: v["sms"] * v["blocks_per_sm"]
+                         for r_, v in k1_launch.items()},
+         k1_schedule=fused.SCHEDULE)
+    check_parity("1080p", k1_1080, k2_1080, k3_1080, routes_same)
+
+    # ---- 6b. K1's live schedule choices at 1080p on both routes ---------
+    def with_params(launch, **kw):
+        q = type(launch.params).from_buffer_copy(launch.params)
+        for name, v in kw.items():
+            setattr(q, name, v)
+        return dataclasses.replace(launch, params=q)
+    schedule = {}
+    for mode, p, lts, reps in (("cached", pc, lc, 5),
+                               ("tracked", pt, lt, 3)):
+        ref = fused._fused_direct_cuda(s1080, p, tkey, o, d, lts.fused)
+        schedule[mode] = {}
+        for name, kw in SCHEDULES.items():
+            fl = with_params(lts.fused, **kw)
+            lv = dataclasses.replace(lts, fused=fl)
+            tm, out_m = cuda_ms(lambda: fused._fused_direct_cuda(
+                s1080, p, tkey, o, d, fl, W), reps)
+            tg, out_g = cuda_ms(lambda: renderer._trace_primary_cuda(
+                s1080, p, key, lv), reps)
+            if not (same_bits(out_m, ref) and same_bits(out_g, ref)):
+                raise RuntimeError(f"K1 with refill {name} ({mode}) differs "
+                                   f"from the default")
+            schedule[mode][name] = {ROUTES[0]: tm, ROUTES[1]: tg}
+        padded = torch.nn.functional.pad(corners, (0, 1)).contiguous()
+        fl = dataclasses.replace(with_params(lts.fused, row_w=32),
+                                 corners=padded)
+        tm, out_m = cuda_ms(lambda: fused._fused_direct_cuda(
+            s1080, p, tkey, o, d, fl, W), reps)
+        if not same_bits(out_m, ref):
+            raise RuntimeError(f"K1 on padded rows ({mode}) differs")
+        schedule[mode]["rows_padded_to_32"] = {ROUTES[0]: tm}
+        del ref, out_m, out_g, padded
+    emit("schedule", ms=schedule, default=fused.SCHEDULE)
 
     # ---- 7. profile: device time and idle share over 8 cached spp ------
     from torch.profiler import ProfilerActivity, profile
@@ -401,6 +523,11 @@ def main():
         # and at most one 15-column row per step, each row once
         "fused_direct": bound(n_rays * (24 + 28) + rows * K1_ROW_BYTES,
                               steps * K1_OPS_PER_STEP),
+        # the same with the rays made in the lanes: no ray bytes in,
+        # K2's operations added
+        "fused_direct_primary": bound(
+            n_rays * 28 + rows * K1_ROW_BYTES,
+            steps * K1_OPS_PER_STEP + n_rays * K2_OPS_PER_RAY),
         "primary_rays": bound(n_rays * 24, n_rays * K2_OPS_PER_RAY),
         # 7 film fields and value/alpha/depth/cost/trunc in, 7 fields out
         "film_accumulate": bound(n_rays * (7 + 7 + 7) * 4, n_rays * 20)}
@@ -431,9 +558,11 @@ def main():
         raise RuntimeError(f"cli: PNG {img.shape} max {img.max()}")
     if not np.isfinite(rad).all() or not rad.mean() > 0.0:
         raise RuntimeError("cli: the EXR is not finite or black")
-    if any(n != CLI_SPP for n in cli_launches.values()):
-        raise RuntimeError(f"cli: launches {cli_launches}, expected "
-                           f"{CLI_SPP} each")
+    want = {k.name: 0 for k in kernels}
+    want.update({fused.FUSED_DIRECT_PRIMARY.name: CLI_SPP,
+                 film_mod.FILM_ACCUMULATE.name: CLI_SPP})
+    if cli_launches != want:
+        raise RuntimeError(f"cli: launches {cli_launches}, expected {want}")
     del img, rad
 
     # ---- 9. the probe entry points, then each probe kernel timed ---------
@@ -508,9 +637,51 @@ def main():
         if err != 0.0:
             raise RuntimeError(f"{name} differs from its plain version by "
                                f"{err}")
-    errs.update(fused_direct=k1_1080["cached"]["max_abs"],
-                primary_rays=k2_1080, film_accumulate=k3_1080)
 
+    # the small-shape wrappers' host cost: each call's device time (the
+    # profiler) beside its event time, and the wrapper's parts by the
+    # host clock
+    def device_us_per_call(fn, n=200):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return {k: v * 1e3 / n for k, v in device_ms(pr).items()}
+
+    def host_us(fn, n=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / n
+        torch.cuda.synchronize()
+        return us
+    calls = {"take_along": lambda: probe.take_along(x, i32, 0),
+             "torch.gather": lambda: torch.gather(x, 0, i64),
+             "roll": lambda: probe.roll(xr, 3, 1),
+             "torch.roll": lambda: torch.roll(xr, 3, 1)}
+    dll, stream = cuda.load_library().dll, torch.cuda.current_stream(
+        dev).cuda_stream
+    out_r = torch.empty_like(xr)
+    parts = {"load_library": cuda.load_library,
+             "torch.cuda.current_stream": lambda: torch.cuda.current_stream(
+                 dev).cuda_stream,
+             "cuda.current_stream": lambda: cuda.current_stream(dev),
+             "check_cuda_tensor": lambda: cuda.check_cuda_tensor(
+                 xr, "x", dtype=torch.float32),
+             "empty_like": lambda: torch.empty_like(xr),
+             "dll.vpt_roll": lambda: dll.vpt_roll(
+                 xr.data_ptr(), out_r.data_ptr(), 8, 128, 1, 3, stream)}
+    emit("host_cost",
+         device_us={k: device_us_per_call(fn) for k, fn in calls.items()},
+         event_us={k: cuda_ms(fn, 200)[0] * 1e3 for k, fn in calls.items()},
+         host_us={k: host_us(fn) for k, fn in {**calls, **parts}.items()})
+    del x, i32, i64
+    errs.update(fused_direct=k1_1080["cached"]["max_abs"],
+                fused_direct_primary=k1_1080[f"cached_{ROUTES[1]}"]["max_abs"],
+                primary_rays=k2_1080, film_accumulate=k3_1080)
     line = {"kernels": [dict(
         name=k.name, route=k.route, source=k.source, replaces=k.replaces,
         launches=launches[k.name], max_abs_err=errs[k.name],
@@ -521,9 +692,26 @@ def main():
     by_name = {k["name"]: k for k in line["kernels"]}
     by_name["fused_direct"].update(
         agree_share={m: st["share"] for m, st in k1_1080.items()},
+        routes_bit_equal=routes_same,
         tracked_ms=timing["fused_direct_tracked"][0],
         tracked_plain_ms=timing["fused_direct_tracked"][1])
-    by_name["primary_rays"]["also_replaces"] = "vpt_tpu/core/camera.py:73"
+    by_name["fused_direct_primary"].update(
+        also_replaces="vpt_tpu/render/renderer.py:37",
+        # against the plain pipeline, whose rays differ from K2's by up to
+        # k2 max_abs_err: held by the share rule of phase 6, and to the
+        # buffer route on K2's rays bit for bit
+        agree_share={m: k1_1080[f"{m}_{ROUTES[1]}"]["share"]
+                     for m in ("cached", "tracked")},
+        tolerance=f"share of rays agreeing >= {MIN_SHARE}, image means "
+                  f"within {MAX_MEAN_REL}; bit-equal to the buffer route",
+        routes_bit_equal=routes_same,
+        tracked_ms=timing["fused_direct_primary_tracked"][0],
+        tracked_plain_ms=timing["fused_direct_primary_tracked"][1])
+    # K2's ray also runs inside K1's in-kernel-ray route, once per launch
+    by_name["primary_rays"].update(
+        also_replaces="vpt_tpu/core/camera.py:73",
+        runs_inside="fused_direct_primary",
+        inside_launches=launches["fused_direct_primary"])
     by_name["gather_rows"]["also_replaces"] = "tools/probe_gather.py:135"
     by_name["take_along"].update(
         also_replaces="tools/probe_dyngather.py:73", iters64_ms=t64,

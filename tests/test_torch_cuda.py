@@ -78,6 +78,65 @@ def test_k1_k2_match_plain(cuda_device, mode):
     assert share >= 0.99 and rel <= 0.005, (share, rel)
 
 
+def _same_bits(a, b):
+    return all(x.shape == y.shape and torch.equal(x.view(torch.int32),
+                                                  y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+def test_k1_rays_in_kernel_match_buffer_route(cuda_device, mode):
+    """K1's in-kernel-ray route writes the bits of its buffer route fed
+    with K2's rays, and agrees with the plain pipeline."""
+    s = _blob_scene(cuda_device)
+    p = RenderParams(width=48, height=40, shadow_mode=mode,
+                     environment_type=2, ray_depth=8)
+    key = rng.render_key(0, 3)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    tkey = renderer.tile_key(key)
+    buf = fused._fused_direct_cuda(s, p, tkey, o, d)
+    gen = renderer._trace_primary_cuda(s, p, key)
+    torch.cuda.synchronize()
+    assert _same_bits(gen, buf)
+    ref = fused.fused_direct_plain(s, p, tkey,
+                                   *renderer.primary_rays_plain(s.camera, p,
+                                                                key))
+    share, rel = agreement([x.cpu().numpy() for x in gen],
+                           [x.cpu().numpy() for x in ref])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+@pytest.mark.parametrize("n", [1, 31, 33, 4097, "grid_lanes-1"])
+def test_k1_drains_any_ray_count(cuda_device, mode, n):
+    """The persistent grid ends with every ray written whatever the ray
+    count: each ray's outputs equal its outputs in a larger launch bit for
+    bit (its draws depend on its index only) and the plain version's, on
+    both routes."""
+    s = _blob_scene(cuda_device)
+    if n == "grid_lanes-1":
+        info = fused.launch_info(False, 128)
+        n = info["sms"] * info["blocks_per_sm"] * info["threads"] - 1
+    p = RenderParams(width=n, height=1, shadow_mode=mode,
+                     environment_type=2, ray_depth=8)
+    key = rng.render_key(0, 5)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    tkey = renderer.tile_key(key)
+    out = fused._fused_direct_cuda(s, p, tkey, o, d)
+    o2, d2 = (torch.cat([x, x[:64]]) for x in (o, d))
+    wide = fused._fused_direct_cuda(s, p, tkey, o2, d2)
+    gen = renderer._trace_primary_cuda(s, p, key)
+    torch.cuda.synchronize()
+    assert _same_bits(out, tuple(x[:n] for x in wide))
+    assert _same_bits(gen, out)
+    ref = fused.fused_direct_plain(s, p, tkey, o, d)
+    share, rel = agreement([x.cpu().numpy() for x in out],
+                           [x.cpu().numpy() for x in ref])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
+
+
 @pytest.mark.cuda
 def test_k3_matches_plain(cuda_device):
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -100,16 +159,22 @@ def test_k3_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_wrappers_launch_kernels(cuda_device):
+@pytest.mark.parametrize("mode,want", [("cached", [2, 2, 0, 0]),
+                                       ("tracked", [0, 2, 2, 2])])
+def test_wrappers_launch_kernels(cuda_device, mode, want):
+    """The renderer runs K3 and K1 on its shadow mode's ray source: the
+    in-kernel-ray route for cached shadows, K2 and K1's buffer route for
+    tracked ones."""
     s = _blob_scene(cuda_device)
-    kernels = (fused.FUSED_DIRECT, renderer.RAYGEN, tfilm.FILM_ACCUMULATE)
+    kernels = (fused.FUSED_DIRECT_PRIMARY, tfilm.FILM_ACCUMULATE,
+               fused.FUSED_DIRECT, renderer.RAYGEN)
     for k in kernels:
         k.launches = 0
-    p = RenderParams(width=16, height=16, shadow_mode="cached",
+    p = RenderParams(width=16, height=16, shadow_mode=mode,
                      environment_type=2, ray_depth=4)
     r = renderer.ProgressiveRenderer(s, p)
     r.render(2)
-    assert [k.launches for k in kernels] == [2, 2, 2]
+    assert [k.launches for k in kernels] == want
     assert torch.isfinite(r.film.accum).all()
 
 
@@ -137,7 +202,7 @@ def test_reassigned_scene_and_params_are_rendered(device):
     film = r.step(1)
     key = rng.render_key(p2.seed, 0)
     o, d = renderer.primary_rays_plain(s2.camera, p2, key)
-    tkey = rng.fold_in(rng.split(key)[1], renderer.TILE_FOLD)
+    tkey = renderer.tile_key(key)
     ref = fused.fused_direct_plain(s2, p2, tkey, o, d)
     got = (film.accum.reshape(-1, 3), film.alpha.reshape(-1),
            film.cost.reshape(-1), film.trunc.reshape(-1))
@@ -149,8 +214,9 @@ def test_reassigned_scene_and_params_are_rendered(device):
 
 @pytest.mark.cuda
 def test_cli_renders_on_the_card(cuda_device, tmp_path, monkeypatch):
-    """`vpt-torch render` without --cpu renders on the card through
-    K1-K3 and writes a non-black PNG and a finite EXR."""
+    """`vpt-torch render` without --cpu renders on the card through K1
+    (its in-kernel-ray route, K2's code inside) and K3, and writes a
+    non-black PNG and a finite EXR."""
     from vpt_tpu_torch.app import cli
     from vpt_tpu_torch.utils.exr import read_exr_rgb
     from vpt_tpu_torch.utils.io import read_png
@@ -160,14 +226,15 @@ def test_cli_renders_on_the_card(cuda_device, tmp_path, monkeypatch):
                         lambda device: procedural.create_procedural_grid(
                             vmin=(-32.0,) * 3, vmax=(32.0,) * 3,
                             scale=0.03, device=device))
-    kernels = (fused.FUSED_DIRECT, renderer.RAYGEN, tfilm.FILM_ACCUMULATE)
+    kernels = (fused.FUSED_DIRECT_PRIMARY, tfilm.FILM_ACCUMULATE,
+               fused.FUSED_DIRECT, renderer.RAYGEN)
     before = [k.launches for k in kernels]
     out = tmp_path / "card.png"
     cli.main(["render", "procedural", "-o", str(out), "--spp", "4",
               "--width", "64", "--height", "64", "--env-type", "black",
               "--shadow-mode", "cached", "--save-exr",
               "--light", "0", "48", "48", "1", "1", "1", "2000"])
-    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 4]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 0, 0]
     img = read_png(str(out))
     assert img.shape == (64, 64, 3) and img.max() > 0
     rad = read_exr_rgb(str(tmp_path / "card.exr"))
@@ -215,7 +282,7 @@ def _c_fields(source, struct):
 
 @pytest.mark.parametrize("source,struct,mirror", [
     ("fused_direct.cu", "FusedParams", fused._FusedParams),
-    ("raygen.cu", "RaygenParams", renderer._RaygenParams)])
+    ("raygen.cuh", "RaygenParams", renderer._RaygenParams)])
 def test_ctypes_mirrors_match_c_structs(source, struct, mirror):
     """The ctypes launch structs list the C structs' fields in order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]

@@ -1,27 +1,44 @@
-// K1 — the fused walk, one thread per ray.
+// K1 — the fused walk: persistent warps, one ray per lane, each lane
+// refilled with a new ray when its own ends.
 //
 // Replaces: vpt_tpu/render/fused.py::fused_direct (Q = 1, single
 // instance) with vpt_tpu/render/tracking.py::_unified_fetch_single
-// inlined as fetch_row.  Its plain PyTorch version is
+// inlined as fetch_row; on its in-kernel-ray route also K2's
+// renderer.py::_pixel_jitter + camera.py::Camera.get_rays (raygen.cuh).
+// Its plain PyTorch version is
 // vpt_tpu_torch/render/fused.py::fused_direct_plain.
 //
 // What bounds it on the H100: each walk step is one dependent load of a
 // 60-124 byte corner row at a data-dependent address (the next step's
-// position depends on this row's density and box extents), and rays of
-// one warp take different numbers of steps and different phases
-// (divergence).  Arithmetic is small beside the load latency.
+// position depends on this row's density and box extents), and the rays
+// of one warp take different numbers of steps (a mean of 5.7 in cached
+// mode, up to the step cap) and different phases (divergence).
 //
-// What the design does about it: the 23-entry walk state lives in
-// registers for the whole walk, so a step costs one row load and no
-// other memory traffic; a thread stops as soon as its ray is DONE (a
-// DONE lane of the reference's lockstep loop is never modified, so this
-// equals the reference's Q = 1 loop); the row loads only the columns the
-// step needs (15, plus the taus on accepted events in cached mode); the
-// random numbers are computed in-thread from the counter, never loaded.
-// A persistent grid with an atomic ray counter and SoA corner columns
-// are later work.
+// What the design does about it:
+// - the 23-entry walk state lives in registers for the whole walk, so a
+//   step costs one row load and no other memory traffic; the row loads
+//   only the columns the step needs (15, plus the taus on accepted
+//   events in cached mode); the draws are computed in the lane from
+//   their counters, never loaded;
+// - persistent warps: the grid is SMs x resident blocks per SM (asked of
+//   the runtime once per library load).  When at least refill_min lanes
+//   of a warp are idle, one lane takes as many slots as lanes are idle
+//   from a global counter (one atomicAdd; the base is shuffled to the
+//   idle lanes, each taking the slot of its rank among them), so lanes
+//   do not sit idle while the warp's longest ray runs; slots may walk
+//   the frame in small tiles, so a warp's rays are neighbours.  Every draw is a function of (key, ray
+//   index, the ray's own step), so any schedule writes the same bits as
+//   the reference's Q = 1 loop, where a DONE lane is never modified.
+//   The schedule per shadow mode (render/fused.py::SCHEDULE) and the
+//   resident blocks (5: 96 registers, no spills, where 4 leaves warps
+//   short and 6 spills) were chosen by timing on the H100 (PERF.md);
+// - the per-launch keys (fold_in(key, s) for each step s, its HG
+//   subkeys, and the pre-loop seek key) are computed once per block
+//   into shared memory, not by every step of every lane;
+// - on the in-kernel-ray route a lane generates its own primary ray, so
+//   the sample writes and reads no ray buffer.
 
-#include "vpt_common.cuh"
+#include "raygen.cuh"
 
 using namespace vpt;
 
@@ -29,13 +46,20 @@ namespace {
 
 constexpr int P_SEEK = 0, P_MARCH = 1, P_SHADOW = 2, P_DONE = 4;
 constexpr int AS_SUN = 0, AS_PT = 1, AS_SPHERE = 2;
+constexpr uint32_t SEEK_FOLD = 1u << 20, HG_FOLD = 7u;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 128;
+// __launch_bounds__' resident blocks per SM: 96 registers, no spills
+constexpr int MIN_BLOCKS = 5;
+constexpr int KEY_CACHE = 1024;   // steps whose keys live in shared memory
+constexpr int KEYS_PER_STEP = 5;  // fold_in(key, s) and 4 HG subkeys
 
 // Mirror of vpt_tpu_torch/render/fused.py::_FusedParams (all 4-byte
 // fields, same order).
 struct FusedParams {
     int B, max_steps, ray_depth, n_lights, n_pt_walks, cached;
     int reference_falloff, use_double_hg, env_constant, row_w, tau_off,
-        grid_off;
+        grid_off, refill_min, tile_w, tile_h, frame_w;
     int dim[3];
     unsigned key[2];
     float sigma_max, sigma_c, sigma_r, inv_rate_march, rate_inv_shadow,
@@ -108,15 +132,35 @@ __device__ __forceinline__ float phase_eval(const FusedParams& p, float c) {
     return hg(c, p.g1);
 }
 
-// core/phase.py::sample_hg, direction only; element `ray` of the draws.
-__device__ V3 sample_hg(V3 wo, Key key, float g, unsigned long long ray) {
-    const float u1 = uniform_at(split_at(key, 0), ray);
+// The subkeys phase_sample draws from at step key ks:
+// split(fold_in(ks, 7)) for one HG lobe; for two, split of each half.
+__device__ __forceinline__ void hg_keys(Key ks, bool two_lobes,
+                                        Key (&hk)[4]) {
+    const Key kh = fold_in(ks, HG_FOLD);
+    if (two_lobes) {
+        const Key k1 = split_at(kh, 0), k2 = split_at(kh, 1);
+        hk[0] = split_at(k1, 0);
+        hk[1] = split_at(k1, 1);
+        hk[2] = split_at(k2, 0);
+        hk[3] = split_at(k2, 1);
+    } else {
+        hk[0] = split_at(kh, 0);
+        hk[1] = split_at(kh, 1);
+        hk[2] = hk[3] = Key{0u, 0u};
+    }
+}
+
+// core/phase.py::sample_hg, direction only; element `ray` of the draws
+// from split(key) = (ka, kb).
+__device__ V3 sample_hg(V3 wo, Key ka, Key kb, float g,
+                        unsigned long long ray) {
+    const float u1 = uniform_at(ka, ray);
     const float sqr_term = (1.0f - g * g) / (1.0f - g + 2.0f * g * u1);
     const float cos_aniso = (1.0f + g * g - sqr_term * sqr_term) /
                             (2.0f * (fabsf(g) < 1e-6f ? 1.0f : g));
     const float ct = fabsf(g) < EPS ? 1.0f - 2.0f * u1 : cos_aniso;
     const float st = sqrtf(jmax(1.0f - ct * ct, 0.0f));
-    const float phi = TWO_PI_F * uniform_at(split_at(key, 1), ray);
+    const float phi = TWO_PI_F * uniform_at(kb, ray);
     // coordinate_system(-wo)
     const V3 v1 = -wo;
     const bool cond = fabsf(v1.x) > fabsf(v1.y);
@@ -126,12 +170,13 @@ __device__ V3 sample_hg(V3 wo, Key key, float g, unsigned long long ray) {
     return v2 * st * cosf(phi) + v3_ * st * sinf(phi) + wo * ct;
 }
 
-__device__ V3 phase_sample(const FusedParams& p, V3 dir, Key key,
+// core/phase.py::phase_sample at the step's HG subkeys (hg_keys).
+__device__ V3 phase_sample(const FusedParams& p, V3 dir, const Key (&hk)[4],
                            unsigned long long ray) {
-    if (!p.use_double_hg) return sample_hg(dir, key, p.g1, ray);
+    if (!p.use_double_hg) return sample_hg(dir, hk[0], hk[1], p.g1, ray);
     // sample_double_hg(-dir): wo = dir, lobes from split(key)
-    const V3 d1 = sample_hg(dir, split_at(key, 0), p.g1, ray);
-    const V3 d2 = sample_hg(dir, split_at(key, 1), p.g2, ray);
+    const V3 d1 = sample_hg(dir, hk[0], hk[1], p.g1, ray);
+    const V3 d2 = sample_hg(dir, hk[2], hk[3], p.g2, ray);
     if (p.phase_f > 0.9999f) return d1;
     if (p.phase_f < EPS) return d2;
     return normalize(d1 + (d2 - d1) * (1.0f - p.phase_f));
@@ -140,16 +185,24 @@ __device__ V3 phase_sample(const FusedParams& p, V3 dir, Key key,
 struct Fetch {
     float density, s_box, t_box;
     const float* row;  // the corner row, for the taus of an accepted event
-    float w8[8];
+    V3 fr;  // the point's fractions in its cell, for the 8 weights
 };
+
+// The trilinear weight of corner k (x fastest), as _trilerp_weights.
+__device__ __forceinline__ float corner_weight(const Fetch& f, int k) {
+    const float wx = (k & 1) ? f.fr.x : 1.0f - f.fr.x;
+    const float wy = (k & 2) ? f.fr.y : 1.0f - f.fr.y;
+    const float wz = (k & 4) ? f.fr.z : 1.0f - f.fr.z;
+    return wx * wy * wz;
+}
 
 // Trilinear tau of channel ch (0 = sun, 1 + l = point light l).
 __device__ __forceinline__ float tau_at(const FusedParams& p, const Fetch& f,
                                         int ch) {
     const float* tr = f.row + p.tau_off + 8 * ch;
-    float s = tr[0] * f.w8[0];
+    float s = tr[0] * corner_weight(f, 0);
 #pragma unroll
-    for (int k = 1; k < 8; ++k) s = s + tr[k] * f.w8[k];
+    for (int k = 1; k < 8; ++k) s = s + tr[k] * corner_weight(f, k);
     return s;
 }
 
@@ -179,16 +232,11 @@ __device__ void fetch_row(const Ctx& c, V3 pos, V3 dir, Fetch& f) {
         ((long long)(int)i0f.z * p.dim[1] + (int)i0f.y) * p.dim[0] +
         (int)i0f.x;
     const float* row = c.corners + flat * p.row_w;
-    const float wx[2] = {1.0f - fr.x, fr.x};
-    const float wy[2] = {1.0f - fr.y, fr.y};
-    const float wz[2] = {1.0f - fr.z, fr.z};
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-        f.w8[k] = wx[k & 1] * wy[(k >> 1) & 1] * wz[(k >> 2) & 1];
+    f.fr = fr;
     f.row = row;
-    float d = row[0] * f.w8[0];
+    float d = row[0] * corner_weight(f, 0);
 #pragma unroll
-    for (int k = 1; k < 8; ++k) d = d + row[k] * f.w8[k];
+    for (int k = 1; k < 8; ++k) d = d + row[k] * corner_weight(f, k);
     f.density = inb ? d : 0.0f;
     const float t_box = row[8];
     const V3 cube_min = i0f - v3(jmax(row[9], 0.0f), jmax(row[10], 0.0f),
@@ -353,26 +401,11 @@ __device__ __forceinline__ void resume(const FusedParams& p, Walk& s) {
     s.phase = ahead ? P_SEEK : P_DONE;
 }
 
-__global__ void __launch_bounds__(128)
-fused_direct_kernel(const FusedParams p, const float* __restrict__ origin,
-                    const float* __restrict__ direction,
-                    const float* __restrict__ corners,
-                    const float* __restrict__ lights,
-                    const float* __restrict__ lut, float* __restrict__ L_out,
-                    float* __restrict__ alpha_out,
-                    float* __restrict__ cost_out,
-                    float* __restrict__ unfinished_out,
-                    float* __restrict__ depth_out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= p.B) return;
-    const unsigned long long ray = (unsigned long long)i;
-    const Ctx c{p, corners, lights, lut};
-    const V3 org = v3(origin + 3 * i);
-    Walk s;
+__device__ __forceinline__ void init_walk(Walk& s, V3 org, V3 dir) {
     s.pos = org;
-    s.dirn = v3(direction + 3 * i);
+    s.dirn = dir;
     s.anchor = org;
-    s.sdir = s.dirn;
+    s.sdir = dir;
     s.beta = v3(1.0f, 1.0f, 1.0f);
     s.L = v3(0.0f, 0.0f, 0.0f);
     s.contrib = v3(0.0f, 0.0f, 0.0f);
@@ -381,166 +414,402 @@ fused_direct_kernel(const FusedParams p, const float* __restrict__ origin,
     s.dist = s.t = s.skip = s.tbox = s.depth_aov = 0.0f;
     s.phase = P_SEEK;
     s.ascode = s.nshadow = s.depth_n = s.cost = 0;
+}
 
-    const Key key{p.key[0], p.key[1]};
+// One step of one ray's walk at step key ks: the body of the reference's
+// loop at Q = 1 for one lane.  `org` is the ray's origin (shared memory,
+// components THREADS apart); `hk_cached` holds the step's HG subkeys
+// (shared memory), or is null past the key cache.
+__device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
+                                          const float* org, Key ks,
+                                          const Key* hk_cached,
+                                          unsigned long long ray) {
+    const FusedParams& p = c.p;
+    if (s.phase == P_SEEK) seek(c, s, ks, ray);
+    if (s.phase == P_DONE) return;
     const V3 sun = v3(p.sun_dir);
-    // pre-loop seek: uniform(fold_in(key, 1 << 20), (B, 5))
-    seek(c, s, fold_in(key, 1u << 20), ray);
+    const bool marching = s.phase == P_MARCH;
+    const bool shadowing = !marching;  // P_SHADOW
+
+    // banded free flight: local bound inside the box, global rate past
+    // it; SHADOW jumps guaranteed-empty boxes
+    const float u0 = uniform_at(ks, ray * 5 + 0);
+    const float u1 = uniform_at(ks, ray * 5 + 1);
+    const float u4 = uniform_at(ks, ray * 5 + 4);
+    const float rate_inv = marching ? p.inv_rate_march : p.rate_inv_shadow;
+    const float e_glob = -log1pf(-u0) * rate_inv;
+    const float e_loc = -log1pf(-u4) / jmax(s.tbox * p.density_mult, 1e-12f);
+    const bool in_box = marching && (s.tbox > 0.0f) && (e_loc <= s.skip);
+    const float dt = marching ? (in_box ? e_loc : s.skip + e_glob)
+                              : ((s.tbox <= 0.0f ? s.skip : 0.0f) + e_glob);
+    const float t_new = s.t + dt;
+    const bool exited = t_new >= s.dist;
+    const V3 cursor = s.pos + s.dirn * t_new;
 
     Fetch f;
-    for (int step = 0; step < p.max_steps && s.phase != P_DONE; ++step) {
-        const Key ks = fold_in(key, (uint32_t)step);
-        if (s.phase == P_SEEK) seek(c, s, ks, ray);
-        if (s.phase == P_DONE) break;
-        const bool marching = s.phase == P_MARCH;
-        const bool shadowing = !marching;  // P_SHADOW
+    fetch_row(c, cursor, s.dirn, f);
+    const float t_old = s.tbox;
+    s.skip = exited ? 0.0f : f.s_box;
+    s.tbox = exited ? 0.0f : f.t_box;
+    if (!exited) s.t = t_new;
+    const bool sampled = !exited;
+    const bool covers = sampled && (f.t_box <= 0.0f) && (f.s_box > 0.0f) &&
+                        (t_new + f.s_box >= s.dist);
 
-        // banded free flight: local bound inside the box, global rate
-        // past it; SHADOW jumps guaranteed-empty boxes
-        const float u0 = uniform_at(ks, ray * 5 + 0);
-        const float u1 = uniform_at(ks, ray * 5 + 1);
-        const float u4 = uniform_at(ks, ray * 5 + 4);
-        const float rate_inv = marching ? p.inv_rate_march
-                                        : p.rate_inv_shadow;
-        const float e_glob = -log1pf(-u0) * rate_inv;
-        const float e_loc = -log1pf(-u4) / jmax(s.tbox * p.density_mult,
-                                                1e-12f);
-        const bool in_box = marching && (s.tbox > 0.0f) && (e_loc <= s.skip);
-        const float dt = marching
-                             ? (in_box ? e_loc : s.skip + e_glob)
-                             : ((s.tbox <= 0.0f ? s.skip : 0.0f) + e_glob);
-        const float t_new = s.t + dt;
-        const bool exited = t_new >= s.dist;
-        const V3 cursor = s.pos + s.dirn * t_new;
+    // MARCH: thin at the bound the event was drawn at; trapezoid alpha
+    // importance-corrected by sigma_max / bound
+    const float bound = in_box ? t_old : p.sigma_max;
+    const bool m_sampled = sampled && marching;
+    if (m_sampled) s.alpha = s.alpha + f.density * (p.sigma_max / bound);
+    const bool accept = m_sampled && (f.density / bound > u1);
 
-        fetch_row(c, cursor, s.dirn, f);
-        const float t_old = s.tbox;
-        s.skip = exited ? 0.0f : f.s_box;
-        s.tbox = exited ? 0.0f : f.t_box;
-        if (!exited) s.t = t_new;
-        const bool sampled = !exited;
-        const bool covers = sampled && (f.t_box <= 0.0f) &&
-                            (f.s_box > 0.0f) && (t_new + f.s_box >= s.dist);
+    // SHADOW: residual ratio factor
+    if (sampled && shadowing)
+        s.tr = s.tr * (1.0f - (f.density - p.sigma_c) / p.sigma_r);
+    const bool tr_dead = shadowing && (fabsf(s.tr) < EPS);
+    s.cost += 1;
 
-        // MARCH: thin at the bound the event was drawn at; trapezoid
-        // alpha importance-corrected by sigma_max / bound
-        const float bound = in_box ? t_old : p.sigma_max;
-        const bool m_sampled = sampled && marching;
-        if (m_sampled) s.alpha = s.alpha + f.density * (p.sigma_max / bound);
-        const bool accept = m_sampled && (f.density / bound > u1);
-
-        // SHADOW: residual ratio factor
-        if (sampled && shadowing)
-            s.tr = s.tr * (1.0f - (f.density - p.sigma_c) / p.sigma_r);
-        const bool tr_dead = shadowing && (fabsf(s.tr) < EPS);
-        s.cost += 1;
-
-        if (accept) {
-            const float li = jclamp(f.density / p.sigma_max * 255.0f /
-                                        p.emission_pivot,
-                                    0.0f, 255.0f);
-            const float* lrow = c.lut + 3 * (int)li;
-            const V3 coll = v3(p.albedo[0] * 1.0f * lrow[0] / p.ext[0] *
-                                   p.energy_inject,
-                               p.albedo[1] * 1.0f * lrow[1] / p.ext[1] *
-                                   p.energy_inject,
-                               p.albedo[2] * 1.0f * lrow[2] / p.ext[2] *
-                                   p.energy_inject);
-            s.beta = s.beta * coll;
-            const V3 hg_dir = phase_sample(p, s.dirn, fold_in(ks, 7u), ray);
-            s.anchor = cursor;
-            s.sdir = hg_dir;
-            if (s.depth_aov == 0.0f) s.depth_aov = length(cursor - org);
-            const V3 sun_contrib = v3(p.sun_cs) * phase_eval(p, dot(s.sdir, sun));
-            if (p.cached) {
-                // the whole NEE from the cached taus of this row
-                V3 nee = sun_contrib * cached_tr(p, tau_at(p, f, 0), cursor,
-                                                 sun);
-                for (int l = 0; l < p.n_lights; ++l) {
-                    V3 wi;
-                    const V3 pc = point_contrib(p, c.lights + 7 * l, cursor,
-                                                s.sdir, p.pt_w, wi);
-                    nee = nee + pc * cached_tr(p, tau_at(p, f, 1 + l),
-                                               cursor, wi);
-                }
-                s.L = s.L + nee * s.beta;
-                resume(p, s);
-            } else {
-                s.nshadow = p.n_pt_walks;
-                shadow_init(p, s.anchor, sun, s);
-                s.contrib = sun_contrib;
-                s.ascode = AS_SUN;
-                s.phase = P_SHADOW;
-            }
-            continue;
+    if (accept) {
+        const float li = jclamp(
+            f.density / p.sigma_max * 255.0f / p.emission_pivot, 0.0f,
+            255.0f);
+        const float* lrow = c.lut + 3 * (int)li;
+        const V3 coll =
+            v3(p.albedo[0] * 1.0f * lrow[0] / p.ext[0] * p.energy_inject,
+               p.albedo[1] * 1.0f * lrow[1] / p.ext[1] * p.energy_inject,
+               p.albedo[2] * 1.0f * lrow[2] / p.ext[2] * p.energy_inject);
+        s.beta = s.beta * coll;
+        Key hk[4];
+        if (hk_cached) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) hk[t] = hk_cached[t];
+        } else {
+            hg_keys(ks, p.use_double_hg, hk);
         }
-        if (marching) {
-            // primary walk exit without interaction: DONE unless the
-            // sphere lies ahead (QUIRKS #19: the box is never re-entered)
-            if (exited || covers) {
-                const V3 exit_pos = s.pos + s.dirn * s.t;
-                float ts;
-                const bool ahead = sphere_block(p, exit_pos, s.dirn, ts);
-                s.pos = exit_pos;
-                s.phase = ahead ? P_SEEK : P_DONE;
-            }
-            continue;
-        }
-        // SHADOW walk end
-        if (exited || tr_dead || covers) {
-            s.L = s.L + s.contrib * jclamp(s.tr, 0.0f, 1.0f) * s.beta;
-            if (s.nshadow > 0 && p.n_lights > 0) {
-                // chain into the next point-light walk, light from u[:, 2]
-                const float u2 = uniform_at(ks, ray * 5 + 2);
-                const int idx = min((int)(u2 * (float)p.n_lights),
-                                    p.n_lights - 1);
+        const V3 hg_dir = phase_sample(p, s.dirn, hk, ray);
+        s.anchor = cursor;
+        s.sdir = hg_dir;
+        if (s.depth_aov == 0.0f)
+            s.depth_aov =
+                length(cursor - v3(org[0], org[THREADS], org[2 * THREADS]));
+        const V3 sun_contrib =
+            v3(p.sun_cs) * phase_eval(p, dot(s.sdir, sun));
+        if (p.cached) {
+            // the whole NEE from the cached taus of this row
+            V3 nee =
+                sun_contrib * cached_tr(p, tau_at(p, f, 0), cursor, sun);
+            for (int l = 0; l < p.n_lights; ++l) {
                 V3 wi;
-                const V3 pc = point_contrib(p, c.lights + 7 * idx, s.anchor,
-                                            s.sdir, 1.0f, wi);
-                shadow_init(p, s.anchor, wi, s);
-                s.contrib = pc;
-                s.nshadow -= 1;
-                s.ascode = AS_PT;
-            } else if (s.ascode != AS_SPHERE) {
-                resume(p, s);
-            } else {
-                s.pos = s.anchor;
-                s.dirn = s.sdir;
-                s.phase = P_SEEK;
+                const V3 pc = point_contrib(p, c.lights + 7 * l, cursor,
+                                            s.sdir, p.pt_w, wi);
+                nee = nee + pc * cached_tr(p, tau_at(p, f, 1 + l), cursor,
+                                           wi);
             }
+            s.L = s.L + nee * s.beta;
+            resume(p, s);
+        } else {
+            s.nshadow = p.n_pt_walks;
+            shadow_init(p, s.anchor, sun, s);
+            s.contrib = sun_contrib;
+            s.ascode = AS_SUN;
+            s.phase = P_SHADOW;
+        }
+        return;
+    }
+    if (marching) {
+        // primary walk exit without interaction: DONE unless the sphere
+        // lies ahead (QUIRKS #19: the box is never re-entered)
+        if (exited || covers) {
+            const V3 exit_pos = s.pos + s.dirn * s.t;
+            float ts;
+            const bool ahead = sphere_block(p, exit_pos, s.dirn, ts);
+            s.pos = exit_pos;
+            s.phase = ahead ? P_SEEK : P_DONE;
+        }
+        return;
+    }
+    // SHADOW walk end
+    if (exited || tr_dead || covers) {
+        s.L = s.L + s.contrib * jclamp(s.tr, 0.0f, 1.0f) * s.beta;
+        if (s.nshadow > 0 && p.n_lights > 0) {
+            // chain into the next point-light walk, light from u[:, 2]
+            const float u2 = uniform_at(ks, ray * 5 + 2);
+            const int idx =
+                min((int)(u2 * (float)p.n_lights), p.n_lights - 1);
+            V3 wi;
+            const V3 pc = point_contrib(p, c.lights + 7 * idx, s.anchor,
+                                        s.sdir, 1.0f, wi);
+            shadow_init(p, s.anchor, wi, s);
+            s.contrib = pc;
+            s.nshadow -= 1;
+            s.ascode = AS_PT;
+        } else if (s.ascode != AS_SPHERE) {
+            resume(p, s);
+        } else {
+            s.pos = s.anchor;
+            s.dirn = s.sdir;
+            s.phase = P_SEEK;
         }
     }
+}
 
+// K1's outputs, one float buffer of 7 B: L (B, 3), alpha, cost,
+// unfinished, depth.
+struct Out {
+    float* base;
+    long long B;
+};
+
+__device__ __forceinline__ void write_out(const FusedParams& p,
+                                          const Walk& s, Out o,
+                                          long long i) {
     V3 L = s.L;
     if (p.env_constant)
         L = L + v3(p.sky) * s.beta;
     else
         L = L + v3(0.0f, 0.0f, 0.0f) * s.beta;  // 0 * beta, as the reference
-    L_out[3 * i + 0] = L.x;
-    L_out[3 * i + 1] = L.y;
-    L_out[3 * i + 2] = L.z;
-    alpha_out[i] = jmin(s.alpha, 1.0f);
-    cost_out[i] = (float)s.cost;
-    unfinished_out[i] = s.phase != P_DONE ? 1.0f : 0.0f;
-    depth_out[i] = s.depth_aov;
+    o.base[3 * i + 0] = L.x;
+    o.base[3 * i + 1] = L.y;
+    o.base[3 * i + 2] = L.z;
+    o.base[3 * o.B + i] = jmin(s.alpha, 1.0f);
+    o.base[4 * o.B + i] = (float)s.cost;
+    o.base[5 * o.B + i] = s.phase != P_DONE ? 1.0f : 0.0f;
+    o.base[6 * o.B + i] = s.depth_aov;
+}
+
+// The ray of schedule slot `slot`, or -1 for a slot outside the frame.
+// With tile_w = 0 slots are rays in index order; otherwise the rays are
+// a frame of frame_w columns and the slots walk it tile by tile
+// (tile_w x tile_h rays, tiles in row order), so rays taken together
+// are neighbours on the frame.
+__device__ __forceinline__ int slot_ray(const FusedParams& p,
+                                        unsigned slot) {
+    if (p.tile_w == 0) return slot < (unsigned)p.B ? (int)slot : -1;
+    const unsigned tw = p.tile_w, per = tw * p.tile_h;
+    const unsigned t = slot / per, j = slot - t * per;
+    const unsigned fw = p.frame_w, tiles_x = (fw + tw - 1) / tw;
+    const unsigned x = (t % tiles_x) * tw + j % tw;
+    const unsigned y = (t / tiles_x) * p.tile_h + j / tw;
+    const unsigned long long r = (unsigned long long)y * fw + x;
+    return (x < fw && r < (unsigned long long)p.B) ? (int)r : -1;
+}
+
+// The number of schedule slots: B, or whole tiles over the frame.
+long long slot_count(const FusedParams& p) {
+    if (p.tile_w == 0) return p.B;
+    const long long rows = (p.B + p.frame_w - 1) / p.frame_w;
+    const long long tiles_x = (p.frame_w + p.tile_w - 1) / p.tile_w;
+    const long long tiles_y = (rows + p.tile_h - 1) / p.tile_h;
+    return tiles_x * tiles_y * p.tile_w * p.tile_h;
+}
+
+// RAYS_IN_KERNEL: each ray from primary_ray(rp, index) (raygen.cuh), else
+// from the (B, 3) origin and direction buffers.
+template <bool RAYS_IN_KERNEL>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+fused_direct_kernel(const FusedParams p, const RaygenParams rp,
+                    const float* __restrict__ origin,
+                    const float* __restrict__ direction,
+                    const float* __restrict__ corners,
+                    const float* __restrict__ lights,
+                    const float* __restrict__ lut, const Out out,
+                    unsigned* __restrict__ next_ray, unsigned n_slots) {
+    // the launch's keys, once per block: [0] the pre-loop seek key
+    // fold_in(key, 1 << 20); then, for each step s < n_keys,
+    // fold_in(key, s) and its four HG subkeys
+    extern __shared__ Key skeys[];
+    const Key key{p.key[0], p.key[1]};
+    const int n_keys = max(0, min(p.max_steps, KEY_CACHE));
+    for (int j = threadIdx.x; j <= n_keys; j += blockDim.x) {
+        if (j == n_keys) {
+            skeys[0] = fold_in(key, SEEK_FOLD);
+        } else {
+            Key* e = skeys + 1 + KEYS_PER_STEP * j;
+            e[0] = fold_in(key, (uint32_t)j);
+            Key hk[4];
+            hg_keys(e[0], p.use_double_hg, hk);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) e[1 + t] = hk[t];
+        }
+    }
+    __syncthreads();
+
+    const Ctx c{p, corners, lights, lut};
+    const Key k_seek = skeys[0];
+    const int lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
+    // each lane's ray origin, read once per ray (the depth AOV)
+    __shared__ float s_org[3 * THREADS];
+    float* org = s_org + threadIdx.x;
+    Walk s;
+    int ray = 0, step = 0;
+    bool live = false;
+    // `dry` (warp-uniform) once the counter has passed the last slot
+    bool dry = false;
+    for (;;) {
+        // refill: while at least refill_min lanes are idle and slots
+        // remain, the idle lanes take the next slots in lane order; a ray
+        // that needs no step is written at once
+        while (!dry) {
+            const unsigned idle = __ballot_sync(FULL, !live);
+            const int n = __popc(idle);
+            if (n < p.refill_min) break;
+            const int leader = __ffs(idle) - 1;
+            unsigned base = 0u;
+            if (lane == leader) base = atomicAdd(next_ray, (unsigned)n);
+            base = __shfl_sync(FULL, base, leader);
+            dry = (unsigned long long)base + n >= n_slots;
+            const unsigned slot = base + __popc(idle & below);
+            const int r = slot < n_slots ? slot_ray(p, slot) : -1;
+            if (!live && r >= 0) {
+                ray = r;
+                V3 o, dir;
+                if (RAYS_IN_KERNEL) {
+                    primary_ray(rp, r, o, dir);
+                } else {
+                    o = v3(origin + 3 * (long long)r);
+                    dir = v3(direction + 3 * (long long)r);
+                }
+                org[0] = o.x;
+                org[THREADS] = o.y;
+                org[2 * THREADS] = o.z;
+                init_walk(s, o, dir);
+                // pre-loop seek: uniform(fold_in(key, 1 << 20), (B, 5))
+                seek(c, s, k_seek, (unsigned long long)r);
+                step = 0;
+                live = s.phase != P_DONE && p.max_steps > 0;
+                if (!live) write_out(p, s, out, r);
+            }
+        }
+        // the slots are gone or too few lanes are idle: step the live
+        // rays; a warp ends when the slots are gone and no lane is live
+        if (!__any_sync(FULL, live)) break;
+        if (live) {
+            const bool in_cache = step < n_keys;
+            const Key* e = skeys + 1 + KEYS_PER_STEP * step;
+            const Key ks = in_cache ? e[0] : fold_in(key, (uint32_t)step);
+            walk_step(c, s, org, ks, in_cache ? e + 1 : nullptr,
+                      (unsigned long long)ray);
+            ++step;
+            if (s.phase == P_DONE || step >= p.max_steps) {
+                write_out(p, s, out, ray);
+                live = false;
+            }
+        }
+    }
+}
+
+int key_smem_bytes(int max_steps) {
+    const int n = max_steps < 0 ? 0 : (max_steps < KEY_CACHE ? max_steps
+                                                              : KEY_CACHE);
+    return (1 + KEYS_PER_STEP * n) * (int)sizeof(Key);
+}
+
+// SMs and resident blocks per SM of one route, asked of the runtime once
+// per library load (again only for another device or key-cache size).
+template <bool RAYS_IN_KERNEL>
+cudaError_t occupancy(int smem, int& sms, int& per_sm) {
+    static int o_dev = -1, o_smem = -1, o_sms = 0, o_per_sm = 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev != o_dev || smem != o_smem) {
+        int n_sm = 0, n_blk = 0;
+        e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n_blk, fused_direct_kernel<RAYS_IN_KERNEL>, THREADS, smem);
+        if (e != cudaSuccess) return e;
+        if (n_sm <= 0 || n_blk <= 0) return cudaErrorInvalidConfiguration;
+        o_dev = dev, o_smem = smem, o_sms = n_sm, o_per_sm = n_blk;
+    }
+    sms = o_sms;
+    per_sm = o_per_sm;
+    return cudaSuccess;
+}
+
+template <bool RAYS_IN_KERNEL>
+int launch(const FusedParams& p, const RaygenParams& rp,
+           const float* origin, const float* direction,
+           const float* corners, const float* lights, const float* lut,
+           float* out, unsigned* next_ray, void* stream) {
+    if (p.B <= 0) return 0;
+    if (p.refill_min < 1 || p.refill_min > 32 ||
+        (p.tile_w != 0 && (p.tile_w < 0 || p.tile_h <= 0 || p.frame_w <= 0))
+        || slot_count(p) > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    const int smem = key_smem_bytes(p.max_steps);
+    int sms = 0, per_sm = 0;
+    cudaError_t e = occupancy<RAYS_IN_KERNEL>(smem, sms, per_sm);
+    if (e != cudaSuccess) return (int)e;
+    const long long need = ((long long)p.B + THREADS - 1) / THREADS;
+    const long long grid = (long long)sms * per_sm;
+    const int blocks = (int)(need < grid ? need : grid);
+    const cudaStream_t st = (cudaStream_t)stream;
+    e = cudaMemsetAsync(next_ray, 0, sizeof(unsigned), st);
+    if (e != cudaSuccess) return (int)e;
+    fused_direct_kernel<RAYS_IN_KERNEL><<<blocks, THREADS, smem, st>>>(
+        p, rp, origin, direction, corners, lights, lut, Out{out, p.B},
+        next_ray, (unsigned)slot_count(p));
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int vpt_fused_params_size() { return (int)sizeof(FusedParams); }
 
+// K1 on the rays in (B, 3) origin and direction buffers.  `out` holds
+// 7 B floats (L, alpha, cost, unfinished, depth); `next_ray` is the
+// 4-byte ray counter, zeroed here on the launch stream.
 extern "C" int vpt_fused_direct(const void* params, const float* origin,
                                 const float* direction, const float* corners,
                                 const float* lights, const float* lut,
-                                float* L, float* alpha, float* cost,
-                                float* unfinished, float* depth,
+                                float* out, unsigned* next_ray,
                                 void* stream) {
+    return launch<false>(*static_cast<const FusedParams*>(params),
+                         RaygenParams{}, origin, direction, corners, lights,
+                         lut, out, next_ray, stream);
+}
+
+// K1 on the primary rays of `raygen` (H * W = B), made in the lanes.
+extern "C" int vpt_fused_direct_primary(const void* params,
+                                        const void* raygen,
+                                        const float* corners,
+                                        const float* lights,
+                                        const float* lut, float* out,
+                                        unsigned* next_ray, void* stream) {
     const FusedParams& p = *static_cast<const FusedParams*>(params);
-    if (p.B <= 0) return 0;
-    const int threads = 128;
-    const int blocks = (p.B + threads - 1) / threads;
-    fused_direct_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        p, origin, direction, corners, lights, lut, L, alpha, cost,
-        unfinished, depth);
-    return (int)cudaGetLastError();
+    const RaygenParams& rp = *static_cast<const RaygenParams*>(raygen);
+    if ((long long)rp.H * rp.W != (long long)p.B)
+        return (int)cudaErrorInvalidValue;
+    return launch<true>(p, rp, nullptr, nullptr, corners, lights, lut, out,
+                        next_ray, stream);
+}
+
+// info[0..5] of one route at max_steps: SMs, resident blocks per SM,
+// threads per block, registers per thread, local (spill and stack)
+// bytes per thread, dynamic shared bytes per block.
+extern "C" int vpt_fused_launch_info(int rays_in_kernel, int max_steps,
+                                     int* info) {
+    const int smem = key_smem_bytes(max_steps);
+    int sms = 0, per_sm = 0;
+    cudaFuncAttributes a{};
+    cudaError_t e;
+    if (rays_in_kernel) {
+        e = occupancy<true>(smem, sms, per_sm);
+        if (e == cudaSuccess) e = cudaFuncGetAttributes(
+            &a, fused_direct_kernel<true>);
+    } else {
+        e = occupancy<false>(smem, sms, per_sm);
+        if (e == cudaSuccess) e = cudaFuncGetAttributes(
+            &a, fused_direct_kernel<false>);
+    }
+    if (e != cudaSuccess) return (int)e;
+    info[0] = sms;
+    info[1] = per_sm;
+    info[2] = THREADS;
+    info[3] = a.numRegs;
+    info[4] = (int)a.localSizeBytes;
+    info[5] = smem;
+    return 0;
 }

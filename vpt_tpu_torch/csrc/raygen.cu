@@ -1,4 +1,4 @@
-// K2 — primary ray generation, one thread per pixel.
+// K2 — primary ray generation, one thread per pixel, into two buffers.
 //
 // Replaces: vpt_tpu/render/renderer.py::_pixel_jitter (white noise) and
 // vpt_tpu/core/camera.py::Camera.get_rays.  Its plain PyTorch version
@@ -9,45 +9,26 @@
 // two lens) are a few hundred integer operations and stay below the
 // store time at 1080p.
 //
-// What the design does about it: the draws are computed in-thread from
-// their counters (jitter element (y*W + x)*2 + c, lens element
-// y*W + x), so nothing but the rays is read or written.  Fusing it into
-// K1's ray load, which saves the 24-byte round trip, is later work.
+// What the design does about it: the ray itself (raygen.cuh) reads
+// nothing but its parameters.  With cached shadows the renderer does
+// not launch this kernel: K1's in-kernel-ray route (fused_direct.cu)
+// calls the same primary_ray in each lane and moves no ray buffer.  With
+// tracked shadows, and in the parity checks, this kernel feeds K1's
+// buffer route.
 
-#include "vpt_common.cuh"
+#include "raygen.cuh"
 
 using namespace vpt;
 
 namespace {
-
-// Mirror of vpt_tpu_torch/render/renderer.py::_RaygenParams.
-struct RaygenParams {
-    int H, W;
-    unsigned k_jit[2], k_lens_r[2], k_lens_phi[2];
-    float origin[3], llc[3], horizontal[3], vertical[3], u[3], v[3];
-    float lens_radius;
-};
 
 __global__ void __launch_bounds__(256)
 primary_rays_kernel(const RaygenParams p, float* __restrict__ origin,
                     float* __restrict__ direction) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (long long)p.H * p.W) return;
-    const int y = (int)(i / p.W), x = (int)(i % p.W);
-    const unsigned long long n = (unsigned long long)i;
-    const Key kj{p.k_jit[0], p.k_jit[1]};
-    const float j0 = uniform_at(kj, 2 * n);
-    const float j1 = uniform_at(kj, 2 * n + 1);
-    const float s = ((float)x + j0) / (float)p.W;
-    const float t = ((float)y + j1) / (float)p.H;
-    const float r = sqrtf(uniform_at(Key{p.k_lens_r[0], p.k_lens_r[1]}, n));
-    const float phi =
-        TWO_PI_F * uniform_at(Key{p.k_lens_phi[0], p.k_lens_phi[1]}, n);
-    const float rd = p.lens_radius * r;
-    const V3 offset = v3(p.u) * (rd * cosf(phi)) + v3(p.v) * (rd * sinf(phi));
-    const V3 o = v3(p.origin) + offset;
-    const V3 d = normalize(v3(p.llc) + v3(p.horizontal) * s +
-                           v3(p.vertical) * t - o);
+    V3 o, d;
+    primary_ray(p, (int)i, o, d);
     origin[3 * i + 0] = o.x;
     origin[3 * i + 1] = o.y;
     origin[3 * i + 2] = o.z;

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from dataclasses import dataclass
@@ -24,7 +25,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "csrc")
 SOURCES = ("fused_direct.cu", "raygen.cu", "gather_rows.cu",
            "take_along.cu", "roll.cu")
-HEADERS = ("vpt_common.cuh",)
+HEADERS = ("vpt_common.cuh", "raygen.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -52,6 +53,7 @@ class Library:
 
 
 _LIBRARY: Library | None = None
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _nvcc() -> str:
@@ -80,7 +82,9 @@ def load_library() -> Library:
     dll = ctypes.CDLL(path)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn, args in (
-            ("vpt_fused_direct", [vp] * 12),
+            ("vpt_fused_direct", [vp] * 9),
+            ("vpt_fused_direct_primary", [vp] * 8),
+            ("vpt_fused_launch_info", [i32, i32, vp]),
             ("vpt_primary_rays", [vp] * 4),
             ("vpt_fused_params_size", []),
             ("vpt_raygen_params_size", []),
@@ -125,6 +129,41 @@ def _build(path: str) -> str:
             if os.path.exists(obj):
                 os.remove(obj)
     return "".join(logs)
+
+
+def ptxas_summary(log: str) -> dict:
+    """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
+    from an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream on ``device`` (torch's
+    raw getter where it has one: the Stream object costs microseconds a
+    call)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def check_struct(struct, size_fn) -> None:

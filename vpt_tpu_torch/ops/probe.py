@@ -30,7 +30,7 @@ KERNELS = (GATHER_ROWS, TAKE_ALONG, ROLL)
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return cuda.current_stream(t.device)
 
 
 def _route(name, *tensors) -> bool:

@@ -14,13 +14,17 @@ and one step advances every live ray by one step of its walk, with one
 corner-row fetch.  ``shadow_mode="cached"`` reads every NEE
 transmittance from the baked taus of that same row.
 
-``fused_direct`` launches kernel K1 (csrc/fused_direct.cu: one thread
-per ray, the walk state in registers) on CUDA tensors and runs
-``fused_direct_plain`` — the lane-masked loop written in torch — on CPU
-tensors.  Both replay the reference's threefry draws: the pre-loop seek
-uses ``uniform(fold_in(key, 1<<20), (B, 5))``, step ``s`` uses
-``uniform(fold_in(key, s), (B, 5))`` and HG sampling
-``fold_in(fold_in(key, s), 7)``.
+``fused_direct`` launches kernel K1 (csrc/fused_direct.cu: persistent
+warps, one ray per lane with the walk state in registers, idle lanes
+refilled with new rays) on CUDA tensors and runs ``fused_direct_plain``
+— the lane-masked loop written in torch — on CPU tensors.
+``_fused_direct_primary_cuda`` is K1's in-kernel-ray route: each lane
+makes its own primary ray with K2's code (csrc/raygen.cuh), so no ray
+buffer is written or read.  All replay the reference's threefry draws:
+the pre-loop seek uses ``uniform(fold_in(key, 1<<20), (B, 5))``, step
+``s`` of a ray uses ``uniform(fold_in(key, s), (B, 5))`` and HG
+sampling ``fold_in(fold_in(key, s), 7)``, so K1's schedule does not
+change its output.
 
 Not in this slice (NotImplementedError): the queue path
 (``rays_per_lane > 1``), emission, color, instanced scenes, HDRI and
@@ -57,6 +61,18 @@ FUSED_DIRECT = cuda.Kernel(
     name="fused_direct", route="cuda",
     source="vpt_tpu_torch/csrc/fused_direct.cu",
     replaces="vpt_tpu/render/fused.py:100")
+FUSED_DIRECT_PRIMARY = cuda.Kernel(
+    name="fused_direct_primary", route="cuda",
+    source="vpt_tpu_torch/csrc/fused_direct.cu",
+    replaces="vpt_tpu/render/fused.py:100")
+# K1's schedule per shadow mode, chosen by timing on the H100 (PERF.md):
+# a warp refills its idle lanes once at least refill_min (1..32) are
+# idle, each taking the next slot of the global counter, the slots
+# walking a frame in tiles of tile_w x tile_h rays (0 x 0: in ray order).
+SCHEDULE = {
+    "cached": dict(refill_min=24, tile_w=0, tile_h=0),
+    "tracked": dict(refill_min=32, tile_w=8, tile_h=4),
+}
 
 
 def _constants(scene, params, device):
@@ -405,13 +421,40 @@ def fused_direct_plain(scene, params, key, origin, direction):
             s["depth_aov"])
 
 
+def warp_efficiency(cost, warp: int = 32) -> float:
+    """Share of lane-steps that do work when rays run in launch order,
+    ``warp`` at a time, each group holding all its lanes until its
+    longest ray ends: sum(cost) / sum(warp * max cost of the group).  A
+    tail group shorter than ``warp`` still holds ``warp`` lanes.  1.0
+    when no ray takes a step."""
+    c = cost.reshape(-1).to(torch.float64)
+    pad = (-c.numel()) % warp
+    if pad:
+        c = torch.cat([c, c.new_zeros(pad)])
+    held = float(c.reshape(-1, warp).amax(1).sum()) * warp
+    return float(c.sum()) / held if held > 0 else 1.0
+
+
+def launch_info(rays_in_kernel: bool, max_steps: int) -> dict:
+    """K1's schedule on the current card for one route, from the CUDA
+    runtime: SMs, resident blocks per SM, threads per block, registers
+    and local bytes per thread, dynamic shared bytes per block.  The
+    grid is SMs x blocks per SM blocks (fewer for a small frame)."""
+    info = (ctypes.c_int * 6)()
+    cuda.check_status(cuda.load_library().dll.vpt_fused_launch_info(
+        int(rays_in_kernel), max_steps, info), "fused_direct launch info")
+    return dict(zip(("sms", "blocks_per_sm", "threads", "registers",
+                     "local_bytes", "shared_bytes"), info))
+
+
 class _FusedParams(ctypes.Structure):
     """Mirror of ``FusedParams`` in csrc/fused_direct.cu."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "B", "max_steps", "ray_depth", "n_lights", "n_pt_walks", "cached",
         "reference_falloff", "use_double_hg", "env_constant", "row_w",
-        "tau_off", "grid_off")] + [
+        "tau_off", "grid_off", "refill_min", "tile_w", "tile_h",
+        "frame_w")] + [
         ("dim", ctypes.c_int * 3), ("key", ctypes.c_uint * 2)] + [
         (n, ctypes.c_float) for n in (
             "sigma_max", "sigma_c", "sigma_r", "inv_rate_march",
@@ -433,12 +476,15 @@ def _f3(t):
 class FusedLaunch:
     """K1's launch arguments for one (scene, params), built once: a
     launch then reads nothing back from the card, so the host queues the
-    next sample while the card runs this one."""
+    next sample while the card runs this one.  ``next_ray`` is K1's ray
+    counter, zeroed by each launch on its stream: launches that share a
+    FusedLaunch must share a stream."""
 
     params: _FusedParams
     corners: torch.Tensor
     lights: torch.Tensor
     lut: torch.Tensor
+    next_ray: torch.Tensor
 
 
 def prepare_fused(scene, params) -> FusedLaunch:
@@ -474,6 +520,8 @@ def prepare_fused(scene, params) -> FusedLaunch:
     p.row_w = corners.shape[1]
     p.tau_off = unified_layout(scene.atlas)[2]
     p.grid_off = int(row[18])
+    for name, v in SCHEDULE[params.shadow_mode].items():
+        setattr(p, name, v)
     p.dim = (ctypes.c_int * 3)(*[int(v) for v in row[15:18].tolist()])
     for name in ("sigma_max", "sigma_c", "sigma_r", "inv_rate_march",
                  "rate_inv_shadow"):
@@ -498,13 +546,35 @@ def prepare_fused(scene, params) -> FusedLaunch:
     p.sph_enabled = int(bool(sph.enabled))
     if p.cached and p.row_w < p.tau_off + 8 * (1 + n_lights):
         raise ValueError("corner rows carry no shadow cache")
-    return FusedLaunch(p, corners, lights, lut)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+    return FusedLaunch(p, corners, lights, lut, next_ray)
+
+
+def _launch_args(launch: FusedLaunch, B: int, key, frame_width):
+    """This launch's parameter struct and its output buffer: 7 B floats
+    holding L (B, 3), alpha, cost, unfinished and depth, returned as
+    contiguous views.  Rays of no known frame (``frame_width`` None) are
+    scheduled in ray order."""
+    p = _FusedParams.from_buffer_copy(launch.params)
+    p.B = B
+    if frame_width is None:
+        p.tile_w = p.tile_h = 0
+    p.frame_w = frame_width or B
+    p.key[0], p.key[1] = int(key[0]), int(key[1])
+    out = torch.empty(7 * B, dtype=torch.float32,
+                      device=launch.corners.device)
+    views = (out[:3 * B].view(B, 3),) + tuple(
+        out[i * B:(i + 1) * B] for i in range(3, 7))
+    return p, out, views
 
 
 def _fused_direct_cuda(scene, params, key, origin, direction,
-                       launch: FusedLaunch | None = None):
-    """Launch K1 on the current stream (``launch`` from prepare_fused for
-    this scene and params, or None to prepare it here)."""
+                       launch: FusedLaunch | None = None, frame_width=None):
+    """Launch K1 on the rays in ``origin`` and ``direction`` on the
+    current stream (``launch`` from prepare_fused for this scene and
+    params, or None to prepare it here).  ``frame_width``: the rays are a
+    frame of that many columns, to be scheduled by tiles as the
+    in-kernel-ray route schedules them."""
     if launch is None:
         launch = prepare_fused(scene, params)
     dev = launch.corners.device
@@ -512,18 +582,32 @@ def _fused_direct_cuda(scene, params, key, origin, direction,
     cuda.check_cuda_tensor(origin, "origin", (B, 3), torch.float32, dev)
     cuda.check_cuda_tensor(direction, "direction", (B, 3), torch.float32,
                            dev)
-    p = _FusedParams.from_buffer_copy(launch.params)
-    p.B = B
-    p.key = (ctypes.c_uint * 2)(int(key[0]), int(key[1]))
-    L = torch.empty((B, 3), dtype=torch.float32, device=dev)
-    alpha, cost, unfinished, depth = (
-        torch.empty(B, dtype=torch.float32, device=dev) for _ in range(4))
+    p, out, views = _launch_args(launch, B, key, frame_width)
     rc = cuda.load_library().dll.vpt_fused_direct(
         ctypes.byref(p), origin.data_ptr(), direction.data_ptr(),
         launch.corners.data_ptr(), launch.lights.data_ptr(),
-        launch.lut.data_ptr(), L.data_ptr(), alpha.data_ptr(),
-        cost.data_ptr(), unfinished.data_ptr(), depth.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        launch.lut.data_ptr(), out.data_ptr(), launch.next_ray.data_ptr(),
+        cuda.current_stream(dev))
     cuda.check_status(rc, "fused_direct")
     FUSED_DIRECT.launches += 1
-    return L, alpha, cost, unfinished, depth
+    return views
+
+
+def _fused_direct_primary_cuda(scene, params, key, raygen,
+                               launch: FusedLaunch | None = None):
+    """Launch K1 on its in-kernel-ray route: each lane makes its primary
+    ray from ``raygen`` (render/renderer.py::_RaygenParams with the
+    sample's keys set; B = H * W rays in pixel order), so no ray buffer
+    exists.  Same outputs as fused_direct on K2's rays."""
+    if launch is None:
+        launch = prepare_fused(scene, params)
+    p, out, views = _launch_args(launch, raygen.H * raygen.W, key,
+                                 raygen.W)
+    rc = cuda.load_library().dll.vpt_fused_direct_primary(
+        ctypes.byref(p), ctypes.byref(raygen), launch.corners.data_ptr(),
+        launch.lights.data_ptr(), launch.lut.data_ptr(), out.data_ptr(),
+        launch.next_ray.data_ptr(),
+        cuda.current_stream(launch.corners.device))
+    cuda.check_status(rc, "fused_direct_primary")
+    FUSED_DIRECT_PRIMARY.launches += 1
+    return views

@@ -13,8 +13,14 @@ The keys: ``render_key(seed, it)``; jitter from ``fold_in(key, 17)``;
 the camera and trace keys from ``split(key)``; the single tile's key
 ``fold_in(trace_key, 1000)``.
 
-``primary_rays`` launches kernel K2 (csrc/raygen.cu) when the camera
-lies on a CUDA device and runs ``primary_rays_plain`` on the CPU.
+On a CUDA scene with cached shadows ``render_rays`` launches K1 on its
+in-kernel-ray route: each lane makes its primary ray with K2's code
+(csrc/raygen.cuh), so the sample writes and reads no ray buffer.  With
+tracked shadows it launches K2 (csrc/raygen.cu) and K1 on K2's ray
+buffers, which ran faster on the H100 than the in-kernel-ray route
+there (PERF.md).  ``primary_rays`` launches K2 for a CUDA camera and
+runs ``primary_rays_plain`` on the CPU; on the CPU ``render_rays``
+chains primary_rays and fused_direct.
 """
 
 from __future__ import annotations
@@ -28,11 +34,18 @@ import torch
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.ops import cuda
 from vpt_tpu_torch.render.film import Film, accumulate, to_display
-from vpt_tpu_torch.render.fused import FusedLaunch, fused_direct, prepare_fused
+from vpt_tpu_torch.render.fused import (FusedLaunch, _fused_direct_cuda,
+                                        _fused_direct_primary_cuda,
+                                        fused_direct, prepare_fused)
 from vpt_tpu_torch.render.params import RenderParams, check_slice
 
 JITTER_FOLD = 17
 TILE_FOLD = 1000
+
+# K1's ray source on a CUDA scene, per shadow mode, chosen by timing on
+# the H100 (PERF.md): rays made in K1's lanes for cached shadows; for
+# tracked shadows K2's buffers, with which K1 ran faster
+RAYS_IN_KERNEL = {"cached": True, "tracked": False}
 
 RAYGEN = cuda.Kernel(
     name="primary_rays", route="cuda", source="vpt_tpu_torch/csrc/raygen.cu",
@@ -61,7 +74,7 @@ def primary_rays_plain(camera, params, key):
 
 
 class _RaygenParams(ctypes.Structure):
-    """Mirror of ``RaygenParams`` in csrc/raygen.cu."""
+    """Mirror of ``RaygenParams`` in csrc/raygen.cuh."""
 
     _fields_ = ([("H", ctypes.c_int), ("W", ctypes.c_int)]
                 + [(n, ctypes.c_uint * 2) for n in ("k_jit", "k_lens_r",
@@ -92,24 +105,30 @@ def prepare_raygen(camera, params) -> _RaygenParams:
     return p
 
 
-def _primary_rays_cuda(camera, params, key, launch=None):
-    """Launch K2 on the current stream (``launch`` from prepare_raygen,
-    or None to prepare it here)."""
-    if launch is None:
-        launch = prepare_raygen(camera, params)
-    dev = camera.origin.device
+def _raygen_for_sample(launch: _RaygenParams, key) -> _RaygenParams:
+    """K2's parameters with the keys of sample ``key`` set."""
     p = _RaygenParams.from_buffer_copy(launch)
     k_lens, _ = rng.split(key)
     k_r, k_phi = rng.split(k_lens)
     for name, k in (("k_jit", rng.fold_in(key, JITTER_FOLD)),
                     ("k_lens_r", k_r), ("k_lens_phi", k_phi)):
         setattr(p, name, (ctypes.c_uint * 2)(*k))
+    return p
+
+
+def _primary_rays_cuda(camera, params, key, launch=None):
+    """Launch K2 on the current stream (``launch`` from prepare_raygen,
+    or None to prepare it here)."""
+    if launch is None:
+        launch = prepare_raygen(camera, params)
+    dev = camera.origin.device
+    p = _raygen_for_sample(launch, key)
     n = p.H * p.W
     origin = torch.empty((n, 3), dtype=torch.float32, device=dev)
     direction = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rc = cuda.load_library().dll.vpt_primary_rays(
         ctypes.byref(p), origin.data_ptr(), direction.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        cuda.current_stream(dev))
     cuda.check_status(rc, "primary_rays")
     RAYGEN.launches += 1
     return origin, direction
@@ -141,16 +160,47 @@ def prepare(scene, params) -> Launches | None:
                     prepare_fused(scene, params))
 
 
+def tile_key(key):
+    """The key of fused_direct's one tile for sample ``key``."""
+    return rng.fold_in(rng.split(key)[1], TILE_FOLD)
+
+
+def _trace_primary_cuda(scene, params, key, launches=None):
+    """One sample through K1's in-kernel-ray route (``launches`` from
+    prepare, or None to prepare them here): fused_direct's flat outputs
+    on the rays primary_rays would make, with no ray buffer."""
+    launches = launches or Launches(prepare_raygen(scene.camera, params),
+                                    prepare_fused(scene, params))
+    return _fused_direct_primary_cuda(
+        scene, params, tile_key(key),
+        _raygen_for_sample(launches.raygen, key), launches.fused)
+
+
+def _trace_buffers_cuda(scene, params, key, launches=None):
+    """One sample through K2 and K1's buffer route, the frame scheduled
+    as on the in-kernel-ray route: the same outputs, bit for bit."""
+    launches = launches or Launches(prepare_raygen(scene.camera, params),
+                                    prepare_fused(scene, params))
+    rays = _primary_rays_cuda(scene.camera, params, key, launches.raygen)
+    return _fused_direct_cuda(scene, params, tile_key(key), *rays,
+                              launches.fused, params.width)
+
+
 def render_rays(scene, params, key, launches: Launches | None = None):
     """One full-frame sample: (value (H,W,3), alpha (H,W), aux dict of
-    (H,W) AOVs cost/depth/trunc)."""
+    (H,W) AOVs cost/depth/trunc).  A CUDA scene runs K1 on the ray source
+    of RAYS_IN_KERNEL; a CPU scene the plain primary_rays and
+    fused_direct."""
     H, W = params.height, params.width
-    origin, direction = primary_rays(
-        scene.camera, params, key, launches and launches.raygen)
-    _, k_trace = rng.split(key)
-    L, alpha, cost, unfinished, depth = fused_direct(
-        scene, params, rng.fold_in(k_trace, TILE_FOLD), origin, direction,
-        launches and launches.fused)
+    if scene.camera.origin.device.type == "cuda":
+        trace = (_trace_primary_cuda if RAYS_IN_KERNEL[params.shadow_mode]
+                 else _trace_buffers_cuda)
+        L, alpha, cost, unfinished, depth = trace(scene, params, key,
+                                                  launches)
+    else:
+        origin, direction = primary_rays(scene.camera, params, key)
+        L, alpha, cost, unfinished, depth = fused_direct(
+            scene, params, tile_key(key), origin, direction)
     aux = dict(cost=cost, depth=depth, trunc=unfinished)
     return (L.reshape(H, W, 3), alpha.reshape(H, W),
             {k: v.reshape(H, W) for k, v in aux.items()})

@@ -1,0 +1,78 @@
+"""Wall milliseconds per sample of the main render path on the card.
+
+    python -m vpt_tpu_torch.tools.time_spp [--modes cached tracked]
+                                            [--spp 64] [--warmup 2]
+
+Builds chip_smoke.py's scene at 1920x1080 (the procedural 200^3 grid,
+one point light and the sun, shadow-baked on the card), then, for each
+shadow mode, steps a ProgressiveRenderer through --warmup samples and
+times --spp more by the host clock with one synchronize at the end.
+Prints one JSON line per mode (ms/spp, and over all the samples the
+mean walk steps per ray, the share of rays cut by the step cap and the
+image mean), then the nvidia-smi line.  It calls only
+the renderer's public entry points, so run by its path with another
+checkout of the package first on PYTHONPATH it times that checkout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import time
+
+import torch
+
+from vpt_tpu_torch.accel.shadow import attach_shadow_cache
+from vpt_tpu_torch.app import cli
+from vpt_tpu_torch.lights.lights import PointLights
+from vpt_tpu_torch.render.params import Environment, RenderParams
+from vpt_tpu_torch.render.renderer import ProgressiveRenderer
+from vpt_tpu_torch.scene.scene import build_scene
+from vpt_tpu_torch.volume.procedural import create_procedural_grid
+
+W, H = 1920, 1080
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--modes", nargs="+", default=["cached", "tracked"],
+                    choices=["cached", "tracked"])
+    ap.add_argument("--spp", type=int, default=64)
+    ap.add_argument("--warmup", type=int, default=2)
+    args = ap.parse_args(argv)
+    dev = torch.device("cuda", 0)
+    grid = create_procedural_grid(vmin=(-100.0,) * 3, vmax=(100.0,) * 3,
+                                  device=dev)
+    lights = PointLights.make([(0.0, 150.0, 150.0)], [[1.0, 1.0, 1.0]],
+                              [20000.0], device=dev)
+    scene = attach_shadow_cache(build_scene([grid], lights=lights,
+                                            device=dev), 150.0, 30.0)
+    scene = dataclasses.replace(scene,
+                                camera=cli.default_framing(scene, W, H))
+    for mode in args.modes:
+        p = RenderParams(width=W, height=H, seed=0, ray_depth=50,
+                         max_fused_steps=128, shadow_mode=mode,
+                         azimuth=150.0, elevation=30.0,
+                         environment_type=int(Environment.BLACK))
+        r = ProgressiveRenderer(scene, p)
+        r.step(args.warmup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.step(args.spp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = W * H * (args.warmup + args.spp)
+        print(json.dumps(dict(
+            mode=mode, spp=args.spp, ms_per_spp=dt * 1e3 / args.spp,
+            mean_iters_per_ray=float(r.film.cost.double().sum()) / n,
+            trunc_frac=float(r.film.trunc.double().sum()) / n,
+            image_mean=float(r.film.accum.double().mean()))), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()
