@@ -50,10 +50,14 @@ Phases, one JSON line each:
                never;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
-               P1-P3, each of which must launch; then each probe kernel
-               beside its plain version (max |diff| must be 0: integer-
-               index copies and in-order adds) and its library call, at
-               the tools' largest shapes; then the small-shape wrappers'
+               P1-P3, each of which must launch, and P2 in each of its
+               designs (shared-memory strips on both axes, the L2 route
+               past them); then each probe kernel beside its plain
+               version (max |diff| must be 0: integer-index copies and
+               in-order adds) and its library call, in turns (library,
+               kernel, kernel, library), at the tools' largest shapes:
+               P2 at iters 1 and at iters 64 in every design, P3 at
+               (8, 128) and (4096, 128); then the small-shape wrappers'
                host cost: device time (profiler) beside event time, and
                the wrapper's parts by the host clock.
 Then the nvidia-smi line, the kernels' JSON line (K1 on both routes; K2,
@@ -97,6 +101,12 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 # draws 4 uniforms, plus ~60 float operations of camera arithmetic.
 K1_OPS_PER_STEP, K2_OPS_PER_RAY = 6 * 80 + 200, 4 * 80 + 60
 K1_ROW_BYTES = 15 * 4  # the columns every step loads (taus not counted)
+# P2's operations per step of the reference loop (tools/probe_dyngather.py
+# :59-69): the gather, acc + r, int32(acc), two adds and the mod; the last
+# step's reindex is dead, so a chain of n steps needs 6 n - 4.
+P2_OPS_PER_STEP = 6
+L2_ROWS = 16384    # P2 at iters 64 on axis 0 past the shared-memory strip
+ROLL_ROWS = 4096   # P3's sweep point beside torch.roll
 ROUTES = ("rays_in_memory", "rays_in_kernel")  # K1's two ray sources
 # K1's refill rules timed in phase 6b: FusedParams overrides
 SCHEDULES = {
@@ -567,16 +577,22 @@ def main():
 
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
-        probe_gather
+        probe_gather, time_probes
 
     def to_stderr(text):
         print(text, file=sys.stderr, flush=True)
     for k in probe.KERNELS:
         k.launches = 0
+    for d in probe.DESIGNS:
+        probe.design_launches[d] = 0
     recs = {m.__name__.rsplit(".", 1)[1]: m.run(dev, out=to_stderr)
             for m in (probe_gather, probe_axis0, probe_dyngather)}
     probe_launches = {k.name: k.launches for k in probe.KERNELS}
-    emit("probes", launches=probe_launches, records=recs)
+    designs = dict(probe.design_launches)
+    emit("probes", launches=probe_launches, take_along_designs=designs,
+         records=recs)
+    if not all(designs.values()):
+        raise RuntimeError(f"probes: a P2 design never ran: {designs}")
     bad = [r["name"] for rs in recs.values() for r in rs
            if not r.get("ok", True)]
     if bad:
@@ -608,30 +624,64 @@ def main():
     i32 = torch.randint(0, n, (n, 128), generator=g, device=dev,
                         dtype=torch.int32)
     i64 = i32.to(torch.int64)
-    tk, got = cuda_ms(lambda: probe.take_along(x, i32, 0), 50)
-    tp, want = cuda_ms(lambda: probe.take_along_plain(x, i32, 0), 50)
     tl, _ = cuda_ms(lambda: torch.gather(x, 0, i64), 50)
-    t64, got64 = cuda_ms(lambda: probe.take_along(x, i32, 0, 64), 20)
-    tp64, want64 = cuda_ms(lambda: probe.take_along_plain(x, i32, 0, 64), 5)
-    errs["take_along"] = max_abs((got, got64), (want, want64))
-    timing.update(take_along=(tk, tp, tl))
+    tk, got = cuda_ms(lambda: probe.take_along(x, i32, 0), 50)
+    tk2, _ = cuda_ms(lambda: probe.take_along(x, i32, 0), 50)
+    tl2, _ = cuda_ms(lambda: torch.gather(x, 0, i64), 50)
+    tp, want = cuda_ms(lambda: probe.take_along_plain(x, i32, 0), 50)
+    errs["take_along"] = max_abs((got,), (want,))
+    timing.update(take_along=((tk + tk2) / 2, tp, (tl + tl2) / 2))
     touched = int(torch.unique(i64 * 128 + torch.arange(128, device=dev)
                                ).numel())
     bounds["take_along"] = bound((touched + 2 * x.numel()) * 4, x.numel())
     shapes["take_along"] = f"x ({n},128) f32, axis 0, iters 1"
+    # iters 64 (T5) in each design: the shapes' strips in shared memory
+    # on both axes, and axis 0 past the shared-memory strip (the L2 route)
+    iters64 = {}
+    for axis, rows in ((0, n), (1, n), (0, L2_ROWS)):
+        xs = torch.rand((rows, 128), generator=g, device=dev)
+        ix = torch.randint(0, xs.shape[axis], xs.shape, generator=g,
+                           device=dev, dtype=torch.int32)
+        design = probe.take_along_design(rows, 128, axis, 64, torch.int32,
+                                         *probe.device_limits(dev)).name
+        t64, got64 = cuda_ms(lambda: probe.take_along(xs, ix, axis, 64), 20)
+        tp64, want64 = cuda_ms(
+            lambda: probe.take_along_plain(xs, ix, axis, 64), 3)
+        iters64[f"axis{axis}_N{rows}"] = dict(
+            design=design, ms=t64, plain_ms=tp64,
+            max_abs=max_abs((got64,), (want64,)),
+            bound=bound(3 * xs.numel() * 4,
+                        xs.numel() * (P2_OPS_PER_STEP * 64 - 4)))
+        errs[f"take_along iters 64 axis {axis} N {rows} ({design})"] = \
+            iters64[f"axis{axis}_N{rows}"]["max_abs"]
+    del xs, ix, got64, want64
 
+    roll_pts = {}
+    for rows in (8, ROLL_ROWS):
+        xr = torch.arange(rows * 128, dtype=torch.float32,
+                          device=dev).reshape(rows, 128)
+        tl, _ = cuda_ms(lambda: torch.roll(xr, 3, 1), 50)
+        tk, got = cuda_ms(lambda: probe.roll(xr, 3, 1), 50)
+        tk2, _ = cuda_ms(lambda: probe.roll(xr, 3, 1), 50)
+        tl2, _ = cuda_ms(lambda: torch.roll(xr, 3, 1), 50)
+        want = probe.roll_plain(xr, 3, 1)
+        # the plain version is torch.roll, the library call too
+        roll_pts[rows] = dict(ms=(tk + tk2) / 2, library_ms=(tl + tl2) / 2,
+                              max_abs=max_abs((got,), (want,)),
+                              bound=bound(2 * xr.numel() * 4, 0))
+        errs[f"roll ({rows},128)"] = roll_pts[rows]["max_abs"]
     xr = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8,
                                                                         128)
-    tk, got = cuda_ms(lambda: probe.roll(xr, 3, 1), 50)
-    tp, want = cuda_ms(lambda: probe.roll_plain(xr, 3, 1), 50)
-    errs["roll"] = max_abs((got,), (want,))
-    timing.update(roll=(tk, tp, tp))  # the plain version is torch.roll
-    bounds["roll"] = bound(2 * xr.numel() * 4, 0)
+    errs["roll"] = roll_pts[8]["max_abs"]
+    timing.update(roll=(roll_pts[8]["ms"], roll_pts[8]["library_ms"],
+                        roll_pts[8]["library_ms"]))
+    bounds["roll"] = roll_pts[8]["bound"]
     shapes["roll"] = "x (8,128) f32, shift 3, axis 1"
     emit("probe_timing",
          ms={k: {"kernel": timing[k][0], "plain": timing[k][1],
                  "library": timing[k][2]} for k in shapes},
-         take_along_iters64_ms={"kernel": t64, "plain": tp64},
+         take_along_iters64=iters64,
+         roll_points={f"({r},128)": v for r, v in roll_pts.items()},
          max_abs=errs, shapes=shapes)
     for name, err in errs.items():
         if err != 0.0:
@@ -640,7 +690,7 @@ def main():
 
     # the small-shape wrappers' host cost: each call's device time (the
     # profiler) beside its event time, and the wrapper's parts by the
-    # host clock
+    # host clock (time_probes.host_parts)
     def device_us_per_call(fn, n=200):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as pr:
@@ -649,35 +699,14 @@ def main():
             torch.cuda.synchronize()
         return {k: v * 1e3 / n for k, v in device_ms(pr).items()}
 
-    def host_us(fn, n=2000):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        us = (time.perf_counter() - t0) * 1e6 / n
-        torch.cuda.synchronize()
-        return us
     calls = {"take_along": lambda: probe.take_along(x, i32, 0),
              "torch.gather": lambda: torch.gather(x, 0, i64),
              "roll": lambda: probe.roll(xr, 3, 1),
              "torch.roll": lambda: torch.roll(xr, 3, 1)}
-    dll, stream = cuda.load_library().dll, torch.cuda.current_stream(
-        dev).cuda_stream
-    out_r = torch.empty_like(xr)
-    parts = {"load_library": cuda.load_library,
-             "torch.cuda.current_stream": lambda: torch.cuda.current_stream(
-                 dev).cuda_stream,
-             "cuda.current_stream": lambda: cuda.current_stream(dev),
-             "check_cuda_tensor": lambda: cuda.check_cuda_tensor(
-                 xr, "x", dtype=torch.float32),
-             "empty_like": lambda: torch.empty_like(xr),
-             "dll.vpt_roll": lambda: dll.vpt_roll(
-                 xr.data_ptr(), out_r.data_ptr(), 8, 128, 1, 3, stream)}
     emit("host_cost",
          device_us={k: device_us_per_call(fn) for k, fn in calls.items()},
          event_us={k: cuda_ms(fn, 200)[0] * 1e3 for k, fn in calls.items()},
-         host_us={k: host_us(fn) for k, fn in {**calls, **parts}.items()})
+         host_us=time_probes.host_parts(dev, 2000))
     del x, i32, i64
     errs.update(fused_direct=k1_1080["cached"]["max_abs"],
                 fused_direct_primary=k1_1080[f"cached_{ROUTES[1]}"]["max_abs"],
@@ -714,8 +743,20 @@ def main():
         inside_launches=launches["fused_direct_primary"])
     by_name["gather_rows"]["also_replaces"] = "tools/probe_gather.py:135"
     by_name["take_along"].update(
-        also_replaces="tools/probe_dyngather.py:73", iters64_ms=t64,
-        iters64_plain_ms=tp64)
+        also_replaces="tools/probe_dyngather.py:73",
+        designs_launched=designs,
+        iters64={k: dict(design=v["design"], ms=v["ms"],
+                         plain_ms=v["plain_ms"], max_abs_err=v["max_abs"],
+                         bound_ms=v["bound"][0], bound_by=v["bound"][1])
+                 for k, v in iters64.items()})
+    by_name["take_along"]["max_abs_err"] = max(
+        v for k, v in errs.items() if k.startswith("take_along"))
+    by_name["roll"].update(
+        max_abs_err=max(v for k, v in errs.items() if k.startswith("roll")),
+        points={f"({r},128)": dict(ms=v["ms"], library_ms=v["library_ms"],
+                                   bound_ms=v["bound"][0],
+                                   bound_by=v["bound"][1])
+                for r, v in roll_pts.items()})
     for name, shape in shapes.items():
         by_name[name]["shape"] = shape
     print(smi, flush=True)

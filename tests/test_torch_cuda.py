@@ -22,6 +22,7 @@ from vpt_tpu_torch.accel.shadow import attach_shadow_cache
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.camera import Camera
 from vpt_tpu_torch.lights.lights import PointLights
+from vpt_tpu_torch.ops import probe
 from vpt_tpu_torch.render import film as tfilm
 from vpt_tpu_torch.render import fused, renderer
 from vpt_tpu_torch.render.params import RenderParams
@@ -241,10 +242,15 @@ def test_cli_renders_on_the_card(cuda_device, tmp_path, monkeypatch):
     assert np.isfinite(rad).all() and rad.mean() > 0
 
 
+def _same(a, b):
+    """Equal values, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
 @pytest.mark.cuda
 def test_probe_kernels_match_plain(cuda_device):
     """P1-P3 equal their plain versions exactly on the card."""
-    from vpt_tpu_torch.ops import probe
     g = torch.Generator().manual_seed(0)
     table = torch.rand((5000, 31), generator=g).to(cuda_device)
     idx = torch.randint(0, 5000, (7001,), generator=g,
@@ -265,6 +271,84 @@ def test_probe_kernels_match_plain(cuda_device):
     torch.cuda.synchronize()
 
 
+# (N, C, axis, the design take_along_design picks at iters > 1 and at
+# iters 1): each design on both axes where it applies, strips of 8 and
+# of 4 columns, C % 4 != 0, a last strip of 4 columns of 8, and shapes
+# whose strip does not fit (the L2 route)
+P2_SHAPES = [(512, 128, 0, "smem_cols", "global"),
+             (832, 128, 1, "smem_rows", "global"),
+             (4096, 128, 0, "smem_cols", "global"),
+             (4096, 128, 1, "smem_rows", "global"),
+             (8000, 68, 0, "smem_cols", "global"),
+             (301, 30, 0, "smem_cols", "global"),
+             (512, 132, 0, "smem_cols", "global"),
+             (67, 130, 1, "smem_rows", "global"),
+             (20000, 8, 0, "global", "global"),
+             (3, 60001, 1, "global", "global"),
+             (20001, 7, 0, "global", "global")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 5, 64])
+@pytest.mark.parametrize("shape", P2_SHAPES, ids=lambda s: "x".join(
+    map(str, s[:3])))
+def test_take_along_designs_match_plain(cuda_device, shape, iters):
+    """P2 equals take_along_plain exactly in every design on both axes,
+    with int32 indices in [-len, 0) (counted from the end) and outside
+    [-len, len) (NaN)."""
+    n, c, axis, design, design1 = shape
+    length = (n, c)[axis]
+    r = np.random.default_rng(iters)
+    x = torch.from_numpy(r.uniform(-1, 2, (n, c)).astype(np.float32))
+    i = r.integers(0, length, (n, c)).astype(np.int32)
+    bad = r.random((n, c)) < 0.01
+    i[bad] = r.choice([-1, -length, -length - 1, length, 2 ** 31 - 1,
+                       -2 ** 31], int(bad.sum()))
+    x, i = x.to(cuda_device), torch.from_numpy(i).to(cuda_device)
+    want = probe.take_along_design(n, c, axis, iters, torch.int32,
+                                   *probe.device_limits(cuda_device)).name
+    assert want == (design if iters > 1 else design1)
+    before = dict(probe.design_launches)
+    got = probe.take_along(x, i, axis, iters)
+    assert probe.design_launches[want] == before[want] + 1
+    exp = probe.take_along_plain(x, i, axis, iters)
+    assert torch.isnan(got).any() and _same(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_uint32_high_indices(cuda_device, axis):
+    """uint32 indices are read as int32 (iters 1): 2^32 - 1 is -1 and
+    reads the last row or column; 2^31 + 5 and len read NaN."""
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.uniform(size=(256, 132)).astype(np.float32))
+    length = x.shape[axis]
+    i = r.integers(0, length, x.shape).astype(np.uint32)
+    i[::7, ::3] = np.uint32(2 ** 31 + 5)
+    i[::11, 1::5] = np.uint32(2 ** 32 - 1)
+    i[::13, 2::5] = np.uint32(length)
+    x = x.to(cuda_device)
+    iu = torch.from_numpy(i).to(cuda_device)
+    got = probe.take_along(x, iu, axis)
+    assert _same(got, probe.take_along_plain(x, iu, axis))
+    bad = (i >= length) & (i < 2 ** 32 - length)
+    assert int(torch.isnan(got).sum()) == int(bad.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (4096, 128), (37, 131),
+                                   (5, 3)])
+@pytest.mark.parametrize("shift", [3, -5, 4, 0, 1000])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_roll_matches_plain(cuda_device, shape, shift, axis):
+    """P3 equals torch.roll exactly, shifts either way on both axes,
+    C % 4 == 0 (16-byte rows) and not."""
+    x = torch.arange(shape[0] * shape[1], dtype=torch.float32,
+                     device=cuda_device).reshape(shape)
+    assert torch.equal(probe.roll(x, shift, axis),
+                       probe.roll_plain(x, shift, axis))
+
+
 def _c_fields(source, struct):
     """Field names of a C struct in declaration order (arrays by name)."""
     text = open(os.path.join(CSRC, source)).read()
@@ -282,7 +366,8 @@ def _c_fields(source, struct):
 
 @pytest.mark.parametrize("source,struct,mirror", [
     ("fused_direct.cu", "FusedParams", fused._FusedParams),
-    ("raygen.cuh", "RaygenParams", renderer._RaygenParams)])
+    ("raygen.cuh", "RaygenParams", renderer._RaygenParams),
+    ("probe_launch.cuh", "ProbeLaunch", probe._ProbeLaunch)])
 def test_ctypes_mirrors_match_c_structs(source, struct, mirror):
     """The ctypes launch structs list the C structs' fields in order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]

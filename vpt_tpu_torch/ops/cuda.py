@@ -25,7 +25,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "csrc")
 SOURCES = ("fused_direct.cu", "raygen.cu", "gather_rows.cu",
            "take_along.cu", "roll.cu")
-HEADERS = ("vpt_common.cuh", "raygen.cuh")
+HEADERS = ("vpt_common.cuh", "raygen.cuh", "probe_launch.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -89,9 +89,11 @@ def load_library() -> Library:
             ("vpt_fused_params_size", []),
             ("vpt_raygen_params_size", []),
             ("vpt_gather_rows", [vp, vp, vp, i64, i32, i64, vp]),
-            ("vpt_take_along_i32", [vp, vp, vp, i32, i32, i32, i32, vp]),
-            ("vpt_take_along_u32", [vp, vp, vp, i32, i32, i32, i32, vp]),
-            ("vpt_roll", [vp, vp, i32, i32, i32, i32, vp])):
+            ("vpt_take_along_i32", [vp] * 5),
+            ("vpt_take_along_u32", [vp] * 5),
+            ("vpt_roll", [vp] * 4),
+            ("vpt_probe_launch_size", []),
+            ("vpt_device_limits", [i32, vp, vp])):
         getattr(dll, fn).restype = ctypes.c_int
         getattr(dll, fn).argtypes = args
     _LIBRARY = Library(dll, path, ptxas_log)

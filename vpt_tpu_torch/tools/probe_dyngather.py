@@ -8,8 +8,10 @@ take_along_axis(x, idx, axis); idx = (idx + int32(acc) + i) mod N
 (axis 0) or mod 128 (axis 1).  The reference timed it as an XLA loop
 and as one Pallas kernel; here as a plain torch loop ("torch") and as
 kernel P2 (csrc/take_along.cu, "P2", held exactly against the loop:
-"OK").  Then the same 64-step loop around the row gather P1 over the
-(106330, 10) table, B = 65536.
+"OK"), with the design that ran in brackets: the reference's N, whose
+strips P2 walks in shared memory, and N = 16384, past the strip that
+fits on axis 0 (the L2 route, "global").  Then the same 64-step loop
+around the row gather P1 over the (106330, 10) table, B = 65536.
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ import sys
 import torch
 
 from vpt_tpu_torch.core.device import DEFAULT_DEVICE
-from vpt_tpu_torch.ops.probe import gather_rows, take_along, \
-    take_along_plain
+from vpt_tpu_torch.ops.probe import device_limits, gather_rows, \
+    take_along, take_along_design, take_along_plain
 from vpt_tpu_torch.tools.common import randint, time_ms, uniform
 
 ITERS = 64
 NS = (512, 832, 4096)
+L2_N = 16384
 B, V = 65536, 106330
 
 
@@ -37,7 +40,7 @@ def _row_loop(tab, idx, iters):
     return acc
 
 
-def run(device, ns=NS, iters=ITERS, b=B, v=V, n=8, out=print):
+def run(device, ns=NS + (L2_N,), iters=ITERS, b=B, v=V, n=8, out=print):
     recs = []
 
     def line(name, ms, nel, s, ok=None):
@@ -59,8 +62,11 @@ def run(device, ns=NS, iters=ITERS, b=B, v=V, n=8, out=print):
             line(f"torch taa axis{axis} N={N}", ms, nel, float(want.sum()))
             ms, got = time_ms(lambda: take_along(x, idx, axis, iters),
                               device, n)
-            line(f"P2 taa axis{axis} N={N}", ms, nel, float(got.sum()),
-                 torch.equal(got, want))
+            design = "plain" if device.type != "cuda" else \
+                take_along_design(N, 128, axis, iters, idx.dtype,
+                                  *device_limits(device)).name
+            line(f"P2 taa axis{axis} N={N} [{design}]", ms, nel,
+                 float(got.sum()), torch.equal(got, want))
 
     tab = uniform((v, 10), 0, device)
     flat = randint(v, (b,), 3, device)
