@@ -6,17 +6,22 @@ NVIDIA GPU.
 
 Phases, one JSON line each:
   1. device  — the card's name and power limit, torch and CUDA versions;
-  2. build   — K1, K2 and the probe kernels P1-P3 (nvcc, csrc/*.cu, one
-               process per source) and K3 (Triton) from the sources in
-               this checkout; K1's registers and spills (ptxas) and its
-               schedule (SMs, resident blocks per SM) for both routes;
+  2. build   — K1-K3 and the probe kernels P1-P3 (nvcc, csrc/*.cu, one
+               process per source) from the sources in this checkout, and
+               K3's first launch; K1's registers and spills (ptxas) and
+               its schedule (SMs, resident blocks per SM) for both routes;
   3. scene   — the procedural 200^3 fBm grid (vpt render procedural),
                one point light and the sun, built and shadow-baked on the
                card;
   4. parity  — a quick early gate at 256x256, 2 spp: each kernel against
                its plain PyTorch version on the same inputs, to the
-               tolerances of phase 6, and K1's in-kernel-ray route
-               against its buffer route on K2's rays, bit for bit;
+               tolerances of phase 6 (K3 bit for bit, also at a size
+               whose pixel count is no multiple of 4, where
+               ProgressiveRenderer also renders 2 spp in both shadow
+               modes, each step's film held to accumulate_plain on
+               the same sample bit for bit), and K1's
+               in-kernel-ray route against its buffer route on K2's rays,
+               bit for bit;
   5. main    — 1920x1080 through ProgressiveRenderer: cached shadows,
                2 warm-up + 64 timed spp, then tracked shadows, 64 spp;
                with cached shadows K1's in-kernel-ray route and K3 must
@@ -26,7 +31,7 @@ Phases, one JSON line each:
                and not black;
   6. timing  — each kernel beside its plain version on the main path's
                1080p inputs, both timed and held together: K2 max |diff|
-               <= 1e-5, K3 on the rendered film <= 1e-6, K1 ray by ray
+               <= 1e-5, K3 on the rendered film bit for bit, K1 ray by ray
                in both shadow modes (>= 99% of rays agree: L within rtol
                1e-4 + atol 1e-6, alpha within 1e-5, cost and unfinished
                exact; image means within 0.5%), its buffer route against
@@ -56,16 +61,19 @@ Phases, one JSON line each:
                version (max |diff| must be 0: integer-index copies and
                in-order adds) and its library call, in turns (library,
                kernel, kernel, library), at the tools' largest shapes:
-               P2 at iters 1 and at iters 64 in every design, P3 at
-               (8, 128) and (4096, 128); then the small-shape wrappers'
-               host cost: device time (profiler) beside event time, and
-               the wrapper's parts by the host clock.
+               P1 at the corner table, and at widths 1, 10, 31 and 128 in
+               both index modes with every out-of-range kind planted
+               (equal, NaN where NaN); P2 at iters 1 and at iters 64 in
+               every design, P3 at (8, 128) and (4096, 128); then the
+               small-shape wrappers' host cost: device time (profiler)
+               beside event time, and the wrapper's parts by the host
+               clock.
 Then the nvidia-smi line, the kernels' JSON line (K1 on both routes; K2,
 its own launches beside those of K1's in-kernel-ray route, which runs
-its code; K3 at 1080p; P1-P3 at the probes' shapes; each with
-its bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over 67 TFLOP/s, the H100 SXM's published float32 rate), and
-the result line.
+its code; K3 at 1080p; P1-P3 at the probes' shapes, P1 with its sector
+floor; each with its bound: the larger of the bytes it must move over
+3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's published
+float32 rate), and the result line.
 Any failure raises, and the script exits non-zero without a result.
 Without a CUDA device it exits non-zero before doing anything.
 """
@@ -91,7 +99,8 @@ W, H = 1920, 1080
 WARMUP_SPP, TIMED_SPP, TRACKED_SPP, PROFILED_SPP = 2, 64, 64, 8
 PARITY_SIZE, PARITY_SPP = 256, 2
 MIN_SHARE, MAX_MEAN_REL = 0.99, 0.005
-K2_TOL, K3_TOL = 1e-5, 1e-6
+K2_TOL = 1e-5
+RAGGED = (37, 29)  # K3 at a pixel count that is no multiple of 4
 CLI_SPP = 16
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 # Operations per ray step of K1 and per ray of K2, counted from the
@@ -175,7 +184,7 @@ def same_bits(a, b):
                for x, y in zip(a, b))
 
 
-def check_parity(where, k1, k2_err, k3_err, routes_same):
+def check_parity(where, k1, k2_err, k3_same, routes_same):
     for mode, st in k1.items():
         if st["share"] < MIN_SHARE or st["mean_rel"] > MAX_MEAN_REL:
             raise RuntimeError(f"{where}: K1 disagrees with the plain "
@@ -187,9 +196,8 @@ def check_parity(where, k1, k2_err, k3_err, routes_same):
     if not k2_err <= K2_TOL:
         raise RuntimeError(f"{where}: K2 disagrees with the plain version: "
                            f"{k2_err}")
-    if not k3_err <= K3_TOL:
-        raise RuntimeError(f"{where}: K3 disagrees with the plain version: "
-                           f"{k3_err}")
+    if not k3_same:
+        raise RuntimeError(f"{where}: K3 differs from the plain version")
 
 
 def k1_registers(summary):
@@ -209,6 +217,19 @@ def device_ms(prof):
                 and "CUDA" in str(e.device_type):
             out[e.key] = out.get(e.key, 0.0) + us / 1e3
     return out
+
+
+def profiled_ms(fn, n):
+    """Device ms per call of fn() over n calls, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_ms(pr).values()) / n
 
 
 def main():
@@ -232,7 +253,7 @@ def main():
     from vpt_tpu_torch.render import fused, renderer
     from vpt_tpu_torch.render.params import Environment, RenderParams
     from vpt_tpu_torch.scene.scene import build_scene
-    from vpt_tpu_torch.tools.common import time_ms
+    from vpt_tpu_torch.tools.common import nan_equal, time_ms
     from vpt_tpu_torch.volume.procedural import create_procedural_grid
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
@@ -266,11 +287,11 @@ def main():
                         torch.zeros((4, 4, 3), device=dev), z, 0,
                         depth=z, cost=z, trunc=z)
     torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t0
+    t_k3 = time.perf_counter() - t0
     k1_ptxas = k1_registers(cuda.ptxas_summary(lib.ptxas_log))
     k1_launch = {route: fused.launch_info(route == "rays_in_kernel", 128)
                  for route in ROUTES}
-    emit("build", nvcc_s=t_nvcc, triton_s=t_triton, library=lib.path,
+    emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
          ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
 
     # ---- 3. scene ----------------------------------------------------
@@ -311,7 +332,7 @@ def main():
 
     # ---- 4. kernel vs plain at 256^2: a quick early gate ---------------
     s256 = framed(PARITY_SIZE, PARITY_SIZE)
-    k2_err = k3_err = 0.0
+    k2_err, k3_same = 0.0, True
     pairs = {"cached": [], "tracked": []}
     gen_pairs = {"cached": [], "tracked": []}
     routes_same = {"cached": True, "tracked": True}
@@ -332,28 +353,50 @@ def main():
                 (out_b, fused.fused_direct_plain(s256, pm, tkey, *rays)))
             gen_pairs[mode].append(
                 (out_g, fused.fused_direct_plain(s256, pm, tkey, *rays_p)))
-        # K3 on a random film state, with non-finite pixels injected
-        hw = (PARITY_SIZE, PARITY_SIZE)
-        f0 = film_mod.Film(*(torch.rand(s, generator=gen, device=dev)
-                             for s in (hw + (3,), hw, hw, hw, hw)))
-        val = torch.rand(hw + (3,), generator=gen, device=dev) * 4.0
-        val[::17, ::13, 1] = float("nan")
-        val[::19, ::11, 2] = float("inf")
-        a = torch.rand(hw, generator=gen, device=dev)
-        a[::23, ::7] = float("nan")
-        aux = [torch.rand(hw, generator=gen, device=dev) for _ in range(3)]
-        k3_err = max(k3_err, max_abs(
-            film_fields(film_mod._accumulate_triton(f0, val, a, it + 3,
-                                                    *aux)),
-            film_fields(film_mod.accumulate_plain(f0, val, a, it + 3, *aux))))
+        # K3 on a random film state, with non-finite pixels injected, at
+        # the parity size and at one whose pixel count is no multiple of 4
+        for hw in ((PARITY_SIZE, PARITY_SIZE), RAGGED):
+            f0 = film_mod.Film(*(torch.rand(s, generator=gen, device=dev)
+                                 for s in (hw + (3,), hw, hw, hw, hw)))
+            val = torch.rand(hw + (3,), generator=gen, device=dev) * 4.0
+            val[::17, ::13, 1] = float("nan")
+            val[::19, ::11, 2] = float("inf")
+            a = torch.rand(hw, generator=gen, device=dev)
+            a[::23, ::7] = float("nan")
+            aux = [torch.rand(hw, generator=gen, device=dev)
+                   for _ in range(3)]
+            k3_same &= same_bits(
+                film_fields(film_mod._accumulate_cuda(f0, val, a, it + 3,
+                                                      *aux)),
+                film_fields(film_mod.accumulate_plain(f0, val, a, it + 3,
+                                                      *aux)))
+    # the renderer itself at the ragged size, both shadow modes: K1's
+    # outputs (views into one buffer) go to K3 as they are, and each
+    # step's film must be accumulate_plain's on the same sample
+    rag_same = {}
+    for mode in ("cached", "tracked"):
+        pr = params(RAGGED[1], RAGGED[0], mode)
+        rr = renderer.ProgressiveRenderer(framed(RAGGED[1], RAGGED[0]), pr)
+        rag_same[mode] = True
+        for it in range(PARITY_SPP):
+            prev = rr.film
+            val, a, aux = renderer.render_rays(
+                rr.scene, pr, rng.render_key(SEED, it), rr.launches)
+            want = film_mod.accumulate_plain(prev, val, a, it,
+                                             aux["depth"], aux["cost"],
+                                             aux["trunc"])
+            rag_same[mode] &= same_bits(film_fields(rr.step()),
+                                        film_fields(want))
+    k3_same &= all(rag_same.values())
     k1_256 = {m: k1_agreement(pr) for m, pr in pairs.items()}
     k1_256.update({f"{m}_{ROUTES[1]}": k1_agreement(pr)
                    for m, pr in gen_pairs.items()})
     del pairs, gen_pairs
     emit("parity", size=PARITY_SIZE, spp=PARITY_SPP, k1=k1_256,
          k1_routes_bit_equal=routes_same, k2_max_abs=k2_err,
-         k3_max_abs=k3_err)
-    check_parity("256^2", k1_256, k2_err, k3_err, routes_same)
+         k3_bit_equal=k3_same, k3_ragged=RAGGED,
+         k3_renderer_ragged_bit_equal=rag_same)
+    check_parity("256^2", k1_256, k2_err, k3_same, routes_same)
 
     # ---- 5. the main path at 1080p -------------------------------------
     s1080 = framed(W, H)
@@ -459,21 +502,26 @@ def main():
     val, aux = L.reshape(H, W, 3), [x.reshape(H, W)
                                     for x in (depth, cost, unfinished)]
     alpha = alpha.reshape(H, W)
-    tk, fk = cuda_ms(lambda: film_mod._accumulate_triton(
-        f, val, alpha, r.iteration, *aux), 50)
+    # K3's events over back-to-back calls time its wrapper's host work
+    # where that outlasts the kernel: its ms is the profiler's device time
+    def k3():
+        return film_mod._accumulate_cuda(f, val, alpha, r.iteration, *aux)
+    k3_event, fk = cuda_ms(k3, 50)
     tp, fp = cuda_ms(lambda: film_mod.accumulate_plain(
         f, val, alpha, r.iteration, *aux), 50)
-    timing["film_accumulate"] = (tk, tp)
+    timing["film_accumulate"] = (profiled_ms(k3, 50), tp)
     k3_1080 = max_abs(film_fields(fk), film_fields(fp))
+    k3_same = same_bits(film_fields(fk), film_fields(fp))
     emit("timing", shapes=f"{W}x{H}",
          ms={k: {"kernel": v[0], "plain": v[1]} for k, v in timing.items()},
          k1=k1_1080, k1_routes_bit_equal=routes_same, k2_max_abs=k2_1080,
-         k3_max_abs=k3_1080, k1_launch_order_warp_efficiency=warp_eff,
+         k3_max_abs=k3_1080, k3_bit_equal=k3_same, k3_event_ms=k3_event,
+         k1_launch_order_warp_efficiency=warp_eff,
          k1_launch=k1_launch, k1_ptxas=k1_ptxas,
          k1_grid_blocks={r_: v["sms"] * v["blocks_per_sm"]
                          for r_, v in k1_launch.items()},
          k1_schedule=fused.SCHEDULE)
-    check_parity("1080p", k1_1080, k2_1080, k3_1080, routes_same)
+    check_parity("1080p", k1_1080, k2_1080, k3_same, routes_same)
 
     # ---- 6b. K1's live schedule choices at 1080p on both routes ---------
     def with_params(launch, **kw):
@@ -607,17 +655,44 @@ def main():
     table = torch.rand((rows_n, width), generator=g, device=dev)
     idx = torch.randint(0, rows_n, (W * H,), generator=g, device=dev,
                         dtype=torch.int32)
-    tk, got = cuda_ms(lambda: probe.gather_rows(table, idx), 20)
-    tp, want = cuda_ms(lambda: probe.gather_rows_plain(table, idx), 5)
     tl, _ = cuda_ms(lambda: torch.index_select(table, 0, idx), 20)
-    n_rows = int(torch.unique(idx).numel())
+    tk, got = cuda_ms(lambda: probe.gather_rows(table, idx), 20)
+    tk2, _ = cuda_ms(lambda: probe.gather_rows(table, idx), 20)
+    tl2, _ = cuda_ms(lambda: torch.index_select(table, 0, idx), 20)
+    tp, want = cuda_ms(lambda: probe.gather_rows_plain(table, idx), 5)
     errs = {"gather_rows": max_abs((got,), (want,))}
-    timing.update(gather_rows=(tk, tp, tl))
-    bounds["gather_rows"] = bound(
-        n_rows * width * 4 + idx.numel() * 4 + got.numel() * 4, 0)
+    timing.update(gather_rows=((tk + tk2) / 2, tp, (tl + tl2) / 2))
+    rows_used = torch.unique(idx).to(torch.int64)
+    io_bytes = idx.numel() * 4 + got.numel() * 4
+    bounds["gather_rows"] = bound(rows_used.numel() * width * 4 + io_bytes,
+                                  0)
+    # the sector floor: the whole 32-byte sectors the distinct rows touch
+    first = rows_used * (width * 4) // 32
+    last = (rows_used * (width * 4) + width * 4 - 1) // 32
+    span = torch.arange(int((last - first).max()) + 1, device=dev)
+    ids = first[:, None] + span
+    sectors = int(torch.unique(ids[ids <= last[:, None]]).numel())
+    sector_floor = bound(sectors * 32 + io_bytes, 0)[0]
     shapes = {"gather_rows": f"table ({rows_n},{width}) f32, "
                              f"{idx.numel()} random int32 rows"}
-    del table, got, want
+    del got, want, ids
+    # P1 exactly, NaN where NaN, in both index modes with every
+    # out-of-range kind planted: at the corner table, and at widths 1, 10,
+    # 31 and 128 with a batch that is no multiple of a block's rows
+    cases = [(table, probe_gather.planted(idx, rows_n), "corner")]
+    for w in (1, 10, 31, 128):
+        t = torch.rand((probe_gather.V, w), generator=g, device=dev)
+        i = torch.randint(0, probe_gather.V, (probe_gather.B + 5,),
+                          generator=g, device=dev, dtype=torch.int32)
+        cases.append((t, probe_gather.planted(i, probe_gather.V),
+                      f"width {w}"))
+    for t, i, label in cases:
+        for clip in (False, True):
+            same = nan_equal(probe.gather_rows(t, i, clip),
+                             probe.gather_rows_plain(t, i, clip))
+            errs[f"gather_rows {label} {'clip' if clip else 'fill'}"] = \
+                0.0 if same else float("inf")
+    del table, idx, cases, t, i
 
     n = probe_dyngather.NS[-1]
     x = torch.rand((n, 128), generator=g, device=dev)
@@ -691,20 +766,12 @@ def main():
     # the small-shape wrappers' host cost: each call's device time (the
     # profiler) beside its event time, and the wrapper's parts by the
     # host clock (time_probes.host_parts)
-    def device_us_per_call(fn, n=200):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as pr:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return {k: v * 1e3 / n for k, v in device_ms(pr).items()}
-
     calls = {"take_along": lambda: probe.take_along(x, i32, 0),
              "torch.gather": lambda: torch.gather(x, 0, i64),
              "roll": lambda: probe.roll(xr, 3, 1),
              "torch.roll": lambda: torch.roll(xr, 3, 1)}
     emit("host_cost",
-         device_us={k: device_us_per_call(fn) for k, fn in calls.items()},
+         device_us={k: profiled_ms(fn, 200) * 1e3 for k, fn in calls.items()},
          event_us={k: cuda_ms(fn, 200)[0] * 1e3 for k, fn in calls.items()},
          host_us=time_probes.host_parts(dev, 2000))
     del x, i32, i64
@@ -741,7 +808,12 @@ def main():
         also_replaces="vpt_tpu/core/camera.py:73",
         runs_inside="fused_direct_primary",
         inside_launches=launches["fused_direct_primary"])
-    by_name["gather_rows"]["also_replaces"] = "tools/probe_gather.py:135"
+    by_name["gather_rows"].update(
+        also_replaces="tools/probe_gather.py:135",
+        sector_floor_ms=sector_floor,
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("gather_rows")),
+        checked=sorted(k for k in errs if k.startswith("gather_rows ")))
     by_name["take_along"].update(
         also_replaces="tools/probe_dyngather.py:73",
         designs_launched=designs,

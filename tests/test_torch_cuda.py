@@ -138,25 +138,90 @@ def test_k1_drains_any_ray_count(cuda_device, mode, n):
     assert share >= 0.99 and rel <= 0.005, (share, rel)
 
 
-@pytest.mark.cuda
-def test_k3_matches_plain(cuda_device):
-    g = torch.Generator(device="cpu").manual_seed(0)
+def _k3_inputs(dev, hw, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
 
     def rand(*shape):
-        return torch.rand(shape, generator=g).to(cuda_device)
-    hw = (24, 20)
+        return torch.rand(shape, generator=g).to(dev)
     film = tfilm.Film(rand(*hw, 3), rand(*hw), rand(*hw), rand(*hw),
                       rand(*hw))
-    val = rand(*hw, 3)
-    val[::5, ::3, 1] = float("nan")
+    val = rand(*hw, 3) * 4.0
+    val.view(-1, 3)[::5, 1] = float("nan")
+    val.view(-1, 3)[1::7, 2] = float("inf")
+    val.view(-1, 3)[2::9, 0] = -float("inf")
     alpha = rand(*hw)
-    alpha[::3, ::4] = float("inf")
-    aux = [rand(*hw) for _ in range(3)]
-    f1 = tfilm._accumulate_triton(film, val, alpha, 4, *aux)
-    f2 = tfilm.accumulate_plain(film, val, alpha, 4, *aux)
+    alpha.view(-1)[::3] = float("inf")
+    alpha.view(-1)[1::4] = float("nan")
+    return film, val, alpha, [rand(*hw) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(24, 20), (7, 9), (1, 3), (1079, 1921)])
+@pytest.mark.parametrize("absent", [(), ("depth",), ("cost", "trunc"),
+                                    ("depth", "cost", "trunc")])
+def test_k3_matches_plain(cuda_device, hw, absent):
+    """K3 equals accumulate_plain bit for bit, H*W a multiple of 4 and not
+    (the scalar tail), with NaN and +-Inf planted in radiance and alpha,
+    and with depth, cost or trunc absent (carried over)."""
+    film, val, alpha, aux = _k3_inputs(cuda_device, hw)
+    kw = dict(zip(("depth", "cost", "trunc"), aux))
+    for name in absent:
+        kw[name] = None
+    before = tfilm.FILM_ACCUMULATE.launches
+    f1 = tfilm.accumulate(film, val, alpha, 4, **kw)
+    f2 = tfilm.accumulate_plain(film, val, alpha, 4, **kw)
+    assert tfilm.FILM_ACCUMULATE.launches == before + 1
     for name in ("accum", "alpha", "depth", "cost", "trunc"):
-        assert float((getattr(f1, name) - getattr(f2, name)).abs().max()) \
-            <= 1e-6
+        assert torch.equal(getattr(f1, name).view(torch.int32),
+                           getattr(f2, name).view(torch.int32)), name
+    for name in absent:
+        assert getattr(f1, name) is getattr(film, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["value", "film.alpha", "trunc"])
+def test_k3_refuses_misaligned_views(cuda_device, which):
+    """A tensor that does not start on a 16-byte boundary is refused, not
+    taken by another path."""
+    film, val, alpha, aux = _k3_inputs(cuda_device, (8, 8))
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda_device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    if which == "value":
+        val = shifted(val)
+    elif which == "film.alpha":
+        film = dataclasses.replace(film, alpha=shifted(film.alpha))
+    else:
+        aux[2] = shifted(aux[2])
+    with pytest.raises(ValueError, match="16-byte"):
+        tfilm.accumulate(film, val, alpha, 1, *aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+@pytest.mark.parametrize("wh", [(29, 37), (7, 6), (5, 1)])
+def test_renderer_feeds_k3_at_ragged_sizes(cuda_device, mode, wh):
+    """ProgressiveRenderer at a pixel count that is no multiple of 4 (odd,
+    and 2 mod 4): K1's output views reach K3 16-byte aligned, and each
+    step's film is accumulate_plain's on the same sample, bit for bit."""
+    s = _blob_scene(cuda_device)
+    p = RenderParams(width=wh[0], height=wh[1], shadow_mode=mode,
+                     environment_type=2, ray_depth=4)
+    r = renderer.ProgressiveRenderer(s, p)
+    for it in range(2):
+        prev = r.film
+        val, alpha, aux = renderer.render_rays(
+            s, p, rng.render_key(p.seed, it), r.launches)
+        want = tfilm.accumulate_plain(prev, val, alpha, it, aux["depth"],
+                                      aux["cost"], aux["trunc"])
+        got = r.step()
+        for name in ("accum", "alpha", "depth", "cost", "trunc"):
+            assert torch.equal(getattr(got, name).view(torch.int32),
+                               getattr(want, name).view(torch.int32)), name
+    assert float(r.film.cost.sum()) > 0.0
 
 
 @pytest.mark.cuda
@@ -271,6 +336,41 @@ def test_probe_kernels_match_plain(cuda_device):
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 10, 31, 128])
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "column_of_wider",
+                                    "misaligned"])
+def test_gather_rows_matches_plain(cuda_device, width, clip, layout):
+    """P1 equals gather_rows_plain exactly (NaN where NaN), both modes,
+    out-of-range indices planted (-1, -V, -V - 1, V, 100 V, 2^31 - 1,
+    -2^31), a batch that is no multiple of a block's rows, on a
+    contiguous table, on columns read in place from a wider one, and on a
+    table 4 bytes off a 16-byte boundary (scalar loads)."""
+    r = np.random.default_rng(width)
+    v, b = 5000, 7001
+    wide = torch.from_numpy(r.uniform(-1, 2, (v, width + 3)).astype(
+        np.float32)).to(cuda_device)
+    if layout == "contiguous":
+        table = wide[:, :width].contiguous()
+    elif layout == "column_of_wider":
+        table = wide[:, 1:1 + width] if width > 1 else wide[:, 1]
+    else:
+        flat = torch.empty(v * width + 1, device=cuda_device)
+        table = flat[1:].view(v, width)
+        table.copy_(wide[:, :width])
+    idx = r.integers(0, v, b)
+    edges = [-1, -v, -v - 1, v, 100 * v, 2 ** 31 - 1, -2 ** 31]
+    idx[r.choice(b, 70, replace=False)] = np.resize(edges, 70)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+    before = probe.GATHER_ROWS.launches
+    got = probe.gather_rows(table, idx, clip)
+    assert probe.GATHER_ROWS.launches == before + 1
+    want = probe.gather_rows_plain(table, idx, clip)
+    assert got.shape == want.shape and _same(got, want)
+    assert bool(torch.isnan(got).any()) != clip
+
+
 # (N, C, axis, the design take_along_design picks at iters > 1 and at
 # iters 1): each design on both axes where it applies, strips of 8 and
 # of 4 columns, C % 4 != 0, a last strip of 4 columns of 8, and shapes
@@ -359,15 +459,18 @@ def _c_fields(source, struct):
         decl = decl.strip()
         if not decl:
             continue
-        decl = re.sub(r"^(int|unsigned|float)\s+", "", decl)
-        names += [re.sub(r"\[\d+\]", "", n).strip() for n in decl.split(",")]
+        decl = re.sub(r"^(const\s+)?(int|unsigned|float)\s+", "", decl)
+        names += [re.sub(r"\[\d+\]|\*", "", n).strip()
+                  for n in decl.split(",")]
     return names
 
 
 @pytest.mark.parametrize("source,struct,mirror", [
     ("fused_direct.cu", "FusedParams", fused._FusedParams),
     ("raygen.cuh", "RaygenParams", renderer._RaygenParams),
-    ("probe_launch.cuh", "ProbeLaunch", probe._ProbeLaunch)])
+    ("probe_launch.cuh", "ProbeLaunch", probe._ProbeLaunch),
+    ("gather_rows.cu", "GatherLaunch", probe._GatherLaunch),
+    ("film_accumulate.cu", "FilmArgs", tfilm._FilmArgs)])
 def test_ctypes_mirrors_match_c_structs(source, struct, mirror):
     """The ctypes launch structs list the C structs' fields in order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]

@@ -95,6 +95,47 @@ def test_accumulate_plain_matches_jax():
     assert np.isfinite(got.accum.numpy()).all()
 
 
+@pytest.mark.parametrize("absent", [("depth",), ("cost",), ("trunc",),
+                                    ("depth", "cost", "trunc")])
+def test_accumulate_without_fields_matches_jax(absent):
+    """depth, cost and trunc may each be None, as in the reference: the
+    film's field is carried over, the rest accumulate."""
+    film, val, alpha, dep, cost, tr = _film_inputs("cpu", seed=3)
+    aux = {"depth": dep, "cost": cost, "trunc": tr}
+    for name in absent:
+        aux[name] = None
+    jf = jfilm.Film(*(jnp.asarray(getattr(film, n).numpy())
+                      for n in ("accum", "alpha", "depth", "cost", "trunc")))
+    want = jfilm.accumulate(jf, jnp.asarray(val.numpy()),
+                            jnp.asarray(alpha.numpy()), jnp.uint32(5),
+                            **{k: None if v is None else jnp.asarray(
+                                v.numpy()) for k, v in aux.items()})
+    got = tfilm.accumulate(film, val, alpha, 5, **aux)
+    for name in ("accum", "alpha", "depth", "cost", "trunc"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+    for name in absent:
+        assert getattr(got, name) is getattr(film, name)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 6, 7, 1073])
+def test_k1_output_views_start_16_byte_aligned(B):
+    """K1's outputs are views into one buffer; each starts on a 16-byte
+    boundary whatever the ray count, as K3 requires, and none overlaps
+    another."""
+    launch = fused.FusedLaunch(fused._FusedParams(), torch.zeros(1), None,
+                               None, None)
+    p, out, views = fused._launch_args(launch, B, (0, 0), None)
+    assert p.B == B
+    assert [tuple(v.shape) for v in views] == [(B, 3)] + [(B,)] * 4
+    starts = [v.data_ptr() - out.data_ptr() for v in views]
+    assert all(v.data_ptr() % 16 == 0 for v in views), starts
+    spans = sorted((a, a + v.numel() * 4) for a, v in zip(starts, views))
+    assert all(e <= b for (_, e), (b, _) in zip(spans, spans[1:]))
+    assert spans[-1][1] <= out.numel() * 4
+
+
 def test_film_save_load_round_trip(tmp_path):
     film = _film_inputs("cpu", seed=2)[0]
     path = str(tmp_path / "film.npz")
@@ -119,9 +160,9 @@ def test_kernel_paths_reject_cpu_tensors():
         renderer._primary_rays_cuda(s.camera, p, (0, 1))
     film, val, alpha, dep, cost, tr = _film_inputs("cpu")
     with pytest.raises(ValueError):
-        tfilm._accumulate_triton(film, val, alpha, 0, dep, cost, tr)
+        tfilm._accumulate_cuda(film, val, alpha, 0, dep, cost, tr)
     with pytest.raises(ValueError):
-        tfilm._accumulate_triton(film, val, alpha, 0, None, None, None)
+        tfilm._accumulate_cuda(film, val, alpha, 0, None, None, None)
 
 
 # One subprocess serves the two tests below: it imports every module of

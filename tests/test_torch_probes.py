@@ -90,6 +90,100 @@ def test_gather_rows_matches_pallas(table, kern):
                                                      idx))
 
 
+def _gather_edges(rows, n, seed):
+    """n in-range int32 indices with every out-of-range kind planted: -1,
+    -V, -V - 1, V, 100 V, 2^31 - 1 and -2^31 (V = rows)."""
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, rows, n).astype(np.int64)
+    edges = [-1, -rows, -rows - 1, rows, 100 * rows, 2 ** 31 - 1, -2 ** 31]
+    at = r.choice(n, 8 * len(edges), replace=False)
+    idx[at] = np.resize(edges, at.size)
+    return idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("kern,clip", [(k_take, False),
+                                       (k_take_along, False),
+                                       (k_index, True)])
+def test_gather_rows_out_of_range_matches_pallas(kern, clip):
+    """Out-of-range indices read what the Pallas bodies read in interpret
+    mode: jnp.take and take_along_axis count [-V, 0) from the end and
+    fill NaN beyond; k_index's t[idx] wraps the negatives, then clamps
+    (P1 with ``clip``)."""
+    r = np.random.default_rng(21)
+    tab = r.uniform(size=(1000, 10)).astype(np.float32)
+    idx = _gather_edges(1000, B, 22)
+    want = _call(kern, (B, 10), tab, idx)
+    assert np.isnan(want).any() != clip
+    got = probe.gather_rows(torch.from_numpy(tab), torch.from_numpy(idx),
+                            clip)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rows", [1, 16, 1000])
+@pytest.mark.parametrize("clip", [False, True])
+def test_gather_rows_plain_never_raises(rows, clip):
+    """Any int32 index reads a row or NaN, 1-D and 2-D tables alike:
+    [-V, V) by jnp.take's rule, beyond it NaN (fill) or the nearest end
+    row after the wrap (clip), as numpy computes it here."""
+    r = np.random.default_rng(rows)
+    idx = np.concatenate([r.integers(-2 ** 31, 2 ** 31, 3000),
+                          _gather_edges(rows, 64, rows)]).astype(np.int32)
+    tab = r.uniform(size=(rows, 3)).astype(np.float32)
+    j = idx.astype(np.int64)
+    j = np.where(j < 0, j + rows, j)
+    ok = (j >= 0) & (j < rows)
+    for t in (tab, tab[:, 1]):
+        got = probe.gather_rows_plain(torch.from_numpy(t),
+                                      torch.from_numpy(idx), clip).numpy()
+        if clip:
+            want = t[np.clip(j, 0, rows - 1)]
+        else:
+            want = np.where(ok.reshape((-1,) + (1,) * (t.ndim - 1)),
+                            t[np.where(ok, j, 0)], np.nan)
+        np.testing.assert_array_equal(got, want)
+    empty = probe.gather_rows_plain(torch.zeros((0, 3)),
+                                    torch.from_numpy(idx[:5]), clip)
+    assert empty.shape == (5, 3) and bool(torch.isnan(empty).all())
+
+
+@pytest.mark.parametrize("args,want", [
+    # (width, batch, row stride, byte offset) -> (vec, rows, threads, grid)
+    ((1, 65536), (1, 2048, 256, 32)),
+    ((10, 65536), (2, 409, 256, 161)),
+    ((31, 2073600), (1, 66, 256, 31419)),         # the corner table
+    ((128, 65536), (4, 64, 256, 1024)),
+    ((2, 100), (2, 2048, 256, 1)),
+    ((8, 5000), (4, 1024, 256, 5)),
+    ((1, 4096, 10), (1, 2048, 256, 2)),            # one column in place
+    ((10, 65536, 12), (2, 409, 256, 161)),
+    ((128, 65536, 128, 4), (1, 16, 256, 4096)),    # 4 bytes off 16
+    ((128, 65536, 128, 8), (2, 32, 256, 2048)),
+    ((128, 65536, 130), (2, 32, 256, 2048)),       # rows 8 bytes apart
+    ((128, 65536, 129), (1, 16, 256, 4096)),
+    ((4096, 7), (4, 2, 256, 4)),
+    ((9999, 3), (1, 1, 256, 3)),                   # a row past one pass
+    ((31, 0), (1, 66, 256, 0)),
+])
+def test_gather_rows_design(args, want):
+    """P1's launch: float4 where width, row stride and table address keep
+    rows 16-byte aligned, float2 where 8, else scalar; a block owns the
+    rows that give its 256 threads one pass of 8 loads each."""
+    d = probe.gather_rows_design(*args)
+    assert tuple(d) == want
+    width, batch = args[:2]
+    assert d.rows * d.grid >= batch > d.rows * (d.grid - 1) or not batch
+    assert d.rows <= probe.GATHER_MAX_ROWS
+    vectors = d.rows * width // d.vec
+    assert vectors <= d.threads * probe.GATHER_UNROLL or d.rows == 1
+
+
+@pytest.mark.parametrize("args", [(0, 10), (10, 2 ** 31), (10, 5, -1),
+                                  (10, 5, 2 ** 31)])
+def test_gather_rows_design_refuses(args):
+    with pytest.raises(ValueError):
+        probe.gather_rows_design(*args)
+
+
 def test_onedim_diverges_and_p1_gathers_the_column(table):
     """T4: as written, k_onedim's (B,) value does not fit its (B, 10)
     output and JAX refuses it; P1 at width 1 on the strided column

@@ -553,11 +553,12 @@ __device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
     }
 }
 
-// K1's outputs, one float buffer of 7 B: L (B, 3), alpha, cost,
-// unfinished, depth.
+// K1's outputs, one float buffer of 7 S, S = B rounded up to a multiple
+// of 4: L (B, 3) at 0, alpha at 3 S, cost at 4 S, unfinished at 5 S,
+// depth at 6 S, so that each field starts 16-byte aligned for K3.
 struct Out {
     float* base;
-    long long B;
+    long long S;
 };
 
 __device__ __forceinline__ void write_out(const FusedParams& p,
@@ -571,10 +572,10 @@ __device__ __forceinline__ void write_out(const FusedParams& p,
     o.base[3 * i + 0] = L.x;
     o.base[3 * i + 1] = L.y;
     o.base[3 * i + 2] = L.z;
-    o.base[3 * o.B + i] = jmin(s.alpha, 1.0f);
-    o.base[4 * o.B + i] = (float)s.cost;
-    o.base[5 * o.B + i] = s.phase != P_DONE ? 1.0f : 0.0f;
-    o.base[6 * o.B + i] = s.depth_aov;
+    o.base[3 * o.S + i] = jmin(s.alpha, 1.0f);
+    o.base[4 * o.S + i] = (float)s.cost;
+    o.base[5 * o.S + i] = s.phase != P_DONE ? 1.0f : 0.0f;
+    o.base[6 * o.S + i] = s.depth_aov;
 }
 
 // The ray of schedule slot `slot`, or -1 for a slot outside the frame.
@@ -748,9 +749,10 @@ int launch(const FusedParams& p, const RaygenParams& rp,
     const cudaStream_t st = (cudaStream_t)stream;
     e = cudaMemsetAsync(next_ray, 0, sizeof(unsigned), st);
     if (e != cudaSuccess) return (int)e;
+    const Out o{out, ((long long)p.B + 3) & ~3LL};
     fused_direct_kernel<RAYS_IN_KERNEL><<<blocks, THREADS, smem, st>>>(
-        p, rp, origin, direction, corners, lights, lut, Out{out, p.B},
-        next_ray, (unsigned)slot_count(p));
+        p, rp, origin, direction, corners, lights, lut, o, next_ray,
+        (unsigned)slot_count(p));
     return (int)cudaGetLastError();
 }
 
@@ -759,7 +761,7 @@ int launch(const FusedParams& p, const RaygenParams& rp,
 extern "C" int vpt_fused_params_size() { return (int)sizeof(FusedParams); }
 
 // K1 on the rays in (B, 3) origin and direction buffers.  `out` holds
-// 7 B floats (L, alpha, cost, unfinished, depth); `next_ray` is the
+// 7 S floats laid out as Out says; `next_ray` is the
 // 4-byte ray counter, zeroed here on the launch stream.
 extern "C" int vpt_fused_direct(const void* params, const float* origin,
                                 const float* direction, const float* corners,

@@ -23,8 +23,8 @@ from dataclasses import dataclass
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "csrc")
-SOURCES = ("fused_direct.cu", "raygen.cu", "gather_rows.cu",
-           "take_along.cu", "roll.cu")
+SOURCES = ("fused_direct.cu", "raygen.cu", "film_accumulate.cu",
+           "gather_rows.cu", "take_along.cu", "roll.cu")
 HEADERS = ("vpt_common.cuh", "raygen.cuh", "probe_launch.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -39,7 +39,7 @@ class Kernel:
     and nowhere else."""
 
     name: str
-    route: str       # "cuda" | "triton"
+    route: str       # "cuda"
     source: str      # path in the repo
     replaces: str    # file:line of the reference function
     launches: int = 0
@@ -80,7 +80,7 @@ def load_library() -> Library:
     if not os.path.exists(path):
         ptxas_log = _build(path)
     dll = ctypes.CDLL(path)
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, args in (
             ("vpt_fused_direct", [vp] * 9),
             ("vpt_fused_direct_primary", [vp] * 8),
@@ -88,7 +88,10 @@ def load_library() -> Library:
             ("vpt_primary_rays", [vp] * 4),
             ("vpt_fused_params_size", []),
             ("vpt_raygen_params_size", []),
-            ("vpt_gather_rows", [vp, vp, vp, i64, i32, i64, vp]),
+            ("vpt_film_accumulate", [vp, vp]),
+            ("vpt_film_args_size", []),
+            ("vpt_gather_rows", [vp] * 5),
+            ("vpt_gather_launch_size", []),
             ("vpt_take_along_i32", [vp] * 5),
             ("vpt_take_along_u32", [vp] * 5),
             ("vpt_roll", [vp] * 4),

@@ -68,6 +68,7 @@ def _fns() -> _Fns:
     if _FNS is None:
         dll = cuda.load_library().dll
         cuda.check_struct(_ProbeLaunch, dll.vpt_probe_launch_size)
+        cuda.check_struct(_GatherLaunch, dll.vpt_gather_launch_size)
         _FNS = _Fns(dll.vpt_gather_rows,
                     {torch.int32: dll.vpt_take_along_i32,
                      torch.uint32: dll.vpt_take_along_u32}, dll.vpt_roll,
@@ -127,34 +128,125 @@ def divider(d: int) -> tuple[int, int]:
 
 # ---- P1: row gather ---------------------------------------------------
 
-def gather_rows_plain(table, idx):
+def gather_rows_plain(table, idx, clip: bool = False):
     """out[b, :] = table[idx[b], :] for a 2-D table, or out[b] =
-    table[idx[b]] for a 1-D one."""
-    return table[idx.to(torch.int64)]
+    table[idx[b]] for a 1-D one, with any integer ``idx``.
+
+    Indices are read as the Pallas bodies read them: one in [-V, 0)
+    counts from the end (V = table rows); beyond [-V, V) a NaN row, as
+    jnp.take and jnp.take_along_axis fill (k_take, k_take_along), or with
+    ``clip`` the nearest row, as k_index's t[idx] clamps."""
+    n = table.shape[0]
+    if n == 0:
+        return torch.full(idx.shape + table.shape[1:], float("nan"),
+                          dtype=table.dtype, device=table.device)
+    j = idx.to(torch.int64)
+    j = torch.where(j < 0, j + n, j)
+    if clip:
+        return table[j.clamp(0, n - 1)]
+    ok = (j >= 0) & (j < n)
+    out = table[torch.where(ok, j, 0)]
+    return torch.where(ok.view(ok.shape + (1,) * (table.dim() - 1)), out,
+                       float("nan"))
 
 
-def gather_rows(table, idx):
-    """P1 on CUDA tensors, the plain version on CPU tensors.  ``table``
-    is (V, W) or (V,) float32 (a strided view, such as one column, is
-    made contiguous); ``idx`` is (B,) int32 with values in [0, V)."""
+class _GatherLaunch(ctypes.Structure):
+    """Mirror of csrc/gather_rows.cu::GatherLaunch."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "n_rows", "width", "row_stride", "batch", "clip", "vec", "rows",
+        "threads", "grid")] + [
+        (f, ctypes.c_uint) for f in ("rv_magic", "rv_shift")]
+
+
+# csrc/gather_rows.cu: threads a block, independent loads a thread before
+# its first store, and the most rows whose indices a block stages
+GATHER_THREADS, GATHER_UNROLL, GATHER_MAX_ROWS = 256, 8, 2048
+
+
+class GatherDesign(NamedTuple):
+    """How P1 runs at one shape (csrc/gather_rows.cu)."""
+    vec: int        # floats a load and a store: 4, 2 or 1
+    rows: int       # output rows a block owns, their indices staged once
+    threads: int    # per block
+    grid: int       # blocks
+
+
+def gather_rows_design(width: int, batch: int, row_stride: int | None = None,
+                       offset: int = 0) -> GatherDesign:
+    """P1's launch for ``batch`` rows of ``width`` floats from a table
+    whose rows lie ``row_stride`` floats apart (``width`` by default) and
+    which starts ``offset`` bytes past a 16-byte boundary.
+
+    Loads and stores move float4 where the width, the row stride and the
+    offset keep every row 16-byte aligned, float2 where 8-byte, else
+    single floats (a 31-float row starts only 4-byte aligned).  A block
+    owns as many rows as give each of its 256 threads one pass of 8
+    independent loads (at least 1 row, at most 2048)."""
+    stride = width if row_stride is None else row_stride
+    if width < 1 or not 0 <= stride <= NUMEL_MAX or width > NUMEL_MAX:
+        raise ValueError(f"gather_rows: width {width}, row stride {stride} "
+                         f"outside 32-bit offsets")
+    if not 0 <= batch <= NUMEL_MAX:
+        raise ValueError(f"gather_rows: batch {batch} outside 32 bits")
+    vec = next(v for v in (4, 2, 1) if width % v == 0 and stride % v == 0
+               and offset % (4 * v) == 0)
+    rows = max(1, min(GATHER_MAX_ROWS,
+                      GATHER_THREADS * GATHER_UNROLL * vec // width))
+    return GatherDesign(vec, rows, GATHER_THREADS, -(-batch // rows))
+
+
+_GATHER_LAUNCHES: dict = {}
+
+
+def _gather_launch(n_rows, width, stride, batch, offset, clip):
+    """A reference to P1's ctypes launch for one shape, computed once."""
+    key = (n_rows, width, stride, batch, offset, clip)
+    hit = _GATHER_LAUNCHES.get(key)
+    if hit is None:
+        if n_rows > NUMEL_MAX:
+            raise ValueError(f"gather_rows: {n_rows} rows; the kernel "
+                             f"resolves indices in 32 bits")
+        d = gather_rows_design(width, batch, stride, offset)
+        magic, shift = divider(width // d.vec)
+        launch = _GatherLaunch(n_rows, width, stride, batch, int(clip),
+                               d.vec, d.rows, d.threads, d.grid, magic,
+                               shift)
+        hit = _GATHER_LAUNCHES[key] = (launch, ctypes.byref(launch))
+    return hit[1]
+
+
+def gather_rows(table, idx, clip: bool = False):
+    """P1 on CUDA tensors, the plain version on CPU tensors: ``table``
+    (V, W) or (V,) float32, ``idx`` (B,) int32 read as gather_rows_plain
+    reads them (``clip`` as k_index).  A table whose columns are adjacent
+    (one column of a wider table too) is read in place; another is made
+    contiguous first."""
     if table.device.type == "cpu" and idx.device.type == "cpu":
-        return gather_rows_plain(table, idx)
-    if table.dim() not in (1, 2):
-        raise ValueError(f"gather_rows: table must be 1-D or 2-D, got "
-                         f"{tuple(table.shape)}")
-    table = table.contiguous()
+        return gather_rows_plain(table, idx, clip)
     dev = table.device
     if not (dev.type == "cuda" and idx.device == dev
             and table.dtype == torch.float32 and idx.dtype == torch.int32
-            and idx.dim() == 1 and idx.is_contiguous()):
+            and idx.dim() == 1 and idx.is_contiguous()
+            and table.dim() in (1, 2)):
+        if table.dim() not in (1, 2):
+            raise ValueError(f"gather_rows: table must be 1-D or 2-D, got "
+                             f"{tuple(table.shape)}")
         _refuse("gather_rows", (table, "table", None, torch.float32),
                 (idx, "idx", (idx.numel(),), torch.int32))
-    width = table.shape[1] if table.dim() == 2 else 1
-    out = torch.empty((idx.shape[0],) + table.shape[1:],
-                      dtype=torch.float32, device=dev)
+    if table.dim() == 2 and table.stride(1) != 1 and table.shape[1] > 1:
+        table = table.contiguous()
+    n_rows, width = table.shape[0], table.shape[1] if table.dim() == 2 else 1
+    batch = idx.shape[0]
+    out = torch.empty((batch,) + table.shape[1:], dtype=torch.float32,
+                      device=dev)
+    if not batch * width:
+        return out
+    tp = table.data_ptr()
+    ref = _gather_launch(n_rows, width, table.stride(0), batch, tp & 15,
+                         bool(clip))
     _launched((_FNS or _fns()).gather_rows(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0],
-        width, idx.shape[0], cuda.current_stream(dev)), GATHER_ROWS)
+        tp, idx.data_ptr(), out.data_ptr(), ref, cuda.current_stream(dev)),
+        GATHER_ROWS)
     return out
 
 

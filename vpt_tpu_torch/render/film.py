@@ -1,12 +1,14 @@
 """Progressive film (port of vpt_tpu/render/film.py).
 
-``accumulate`` launches kernel K3 (csrc/film_accumulate.py, Triton) on
-CUDA tensors and runs ``accumulate_plain`` on CPU tensors.
+``accumulate`` launches kernel K3 (csrc/film_accumulate.cu, in the
+ctypes library of ops/cuda.py) on CUDA tensors and runs
+``accumulate_plain`` on CPU tensors; the two agree bit for bit.
 ``to_display`` runs once per saved image and stays plain torch.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Optional
 
@@ -15,12 +17,11 @@ import torch
 
 from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.core.tonemap import aces_tonemap, gamma_encode
-from vpt_tpu_torch.csrc import film_accumulate as k3
 from vpt_tpu_torch.ops import cuda
 
 FILM_ACCUMULATE = cuda.Kernel(
-    name="film_accumulate", route="triton",
-    source="vpt_tpu_torch/csrc/film_accumulate.py",
+    name="film_accumulate", route="cuda",
+    source="vpt_tpu_torch/csrc/film_accumulate.cu",
     replaces="vpt_tpu/render/film.py:63")
 
 _FIELDS = ("accum", "alpha", "depth", "cost", "trunc")
@@ -55,20 +56,26 @@ def accumulate(film: Film, value, alpha, iteration,
                cost: Optional[torch.Tensor] = None,
                trunc: Optional[torch.Tensor] = None) -> Film:
     """One progressive step (render_kernel.cu:2278-2287).  CUDA tensors
-    launch K3 (which needs depth, cost and trunc); CPU tensors run the
-    plain version."""
+    launch K3; CPU tensors run the plain version.  ``depth``, ``cost``
+    and ``trunc`` may each be None: the film's field is carried over."""
     if value.device.type == "cpu":
         return accumulate_plain(film, value, alpha, iteration, depth, cost,
                                 trunc)
     if value.device.type != "cuda":
         raise ValueError(f"accumulate: unsupported device {value.device}")
-    return _accumulate_triton(film, value, alpha, iteration, depth, cost,
-                              trunc)
+    return _accumulate_cuda(film, value, alpha, iteration, depth, cost,
+                            trunc)
 
 
 def _inv(iteration):
     it = torch.tensor(float(iteration), dtype=torch.float32)
     return 1.0 / (it + 1.0)
+
+
+def _inv_f32(iteration) -> float:
+    """float(_inv(iteration)), computed without a tensor."""
+    return float(np.float32(1.0) / (np.float32(float(iteration))
+                                    + np.float32(1.0)))
 
 
 def accumulate_plain(film: Film, value, alpha, iteration, depth=None,
@@ -85,31 +92,76 @@ def accumulate_plain(film: Film, value, alpha, iteration, depth=None,
         trunc=film.trunc if trunc is None else film.trunc + trunc)
 
 
-def _accumulate_triton(film, value, alpha, iteration, depth, cost, trunc):
-    if depth is None or cost is None or trunc is None:
-        raise ValueError("the CUDA accumulate takes depth, cost and trunc")
-    H, W = alpha.shape
+class _FilmArgs(ctypes.Structure):
+    """Mirror of csrc/film_accumulate.cu::FilmArgs."""
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "acc", "alpha", "depth", "cost", "trunc", "v", "a", "d", "c", "t",
+        "o_acc", "o_alpha", "o_depth", "o_cost", "o_trunc")] + [
+        ("n", ctypes.c_int), ("fields", ctypes.c_int),
+        ("inv", ctypes.c_float)]
+
+
+_FN = None
+
+
+def _fn():
+    """The library's K3 entry point, bound once when it loads."""
+    global _FN
+    if _FN is None:
+        dll = cuda.load_library().dll
+        cuda.check_struct(_FilmArgs, dll.vpt_film_args_size)
+        _FN = dll.vpt_film_accumulate
+    return _FN
+
+
+def _accumulate_cuda(film, value, alpha, iteration, depth, cost, trunc):
+    """K3 on CUDA tensors: every tensor on value's device, float32,
+    contiguous and 16-byte aligned, value and film.accum (H, W, 3), the
+    rest (H, W); raises on anything else.  A field whose sample is None
+    is carried over: the kernel neither reads nor writes it."""
     dev = value.device
-    cuda.check_cuda_tensor(value, "value", (H, W, 3), torch.float32)
-    for name, t in (("alpha", alpha), ("depth", depth), ("cost", cost),
-                    ("trunc", trunc)):
-        cuda.check_cuda_tensor(t, name, (H, W), torch.float32, dev)
-    for name in _FIELDS:
-        shape = (H, W, 3) if name == "accum" else (H, W)
-        cuda.check_cuda_tensor(getattr(film, name), f"film.{name}", shape,
-                               torch.float32, dev)
-    out = {name: torch.empty_like(getattr(film, name)) for name in _FIELDS}
-    triton, film_accumulate = k3.kernel()
-    n = H * W
-    block = 1024
-    film_accumulate[(triton.cdiv(n, block),)](
-        film.accum, film.alpha, film.depth, film.cost, film.trunc,
-        value, alpha, depth, cost, trunc,
-        out["accum"], out["alpha"], out["depth"], out["cost"], out["trunc"],
-        float(_inv(iteration)), n, BLOCK=block, num_warps=4,
-        enable_fp_fusion=False)
+    if dev.type != "cuda" or alpha.dim() != 2:
+        raise ValueError(f"accumulate: value on {dev}, alpha "
+                         f"{tuple(alpha.shape)}; K3 takes CUDA tensors, "
+                         "alpha (H, W)")
+    hw = alpha.shape
+    samples = (depth, cost, trunc)
+    given = [t is not None for t in samples]
+    checks = [(film.accum, "film.accum", hw + (3,)),
+              (value, "value", hw + (3,)),
+              (film.alpha, "film.alpha", hw), (alpha, "alpha", hw)]
+    for name, t in zip(_FIELDS[2:], samples):
+        if t is not None:
+            checks += [(getattr(film, name), f"film.{name}", hw),
+                       (t, name, hw)]
+    for t, label, shape in checks:
+        if not (t.device == dev and t.dtype == torch.float32
+                and t.shape == shape and t.is_contiguous()
+                and not t.data_ptr() & 15):
+            cuda.check_cuda_tensor(t, f"accumulate: {label}", shape,
+                                   torch.float32, dev)
+            raise ValueError(f"accumulate: {label} is not 16-byte aligned")
+    n = hw[0] * hw[1]
+    if 3 * n > 2 ** 31 - 1:
+        raise ValueError(f"accumulate: {n} pixels; K3 indexes in 32 bits")
+    out = Film(torch.empty_like(film.accum), torch.empty_like(film.alpha),
+               *(torch.empty_like(f) if g else f
+                 for f, g in zip((film.depth, film.cost, film.trunc),
+                                 given)))
+    if not n:
+        return out
+    args = _FilmArgs(
+        *(t.data_ptr() for t in (film.accum, film.alpha, film.depth,
+                                 film.cost, film.trunc, value, alpha)),
+        *(t.data_ptr() if g else None for t, g in zip(samples, given)),
+        *(t.data_ptr() for t in (out.accum, out.alpha, out.depth, out.cost,
+                                 out.trunc)),
+        n, given[0] | given[1] << 1 | given[2] << 2, _inv_f32(iteration))
+    rc = (_FN or _fn())(ctypes.byref(args), cuda.current_stream(dev))
+    if rc:
+        cuda.check_status(rc, FILM_ACCUMULATE.name)
     FILM_ACCUMULATE.launches += 1
-    return Film(**out)
+    return out
 
 
 def to_display(film: Film, exposure_scale=1.0):

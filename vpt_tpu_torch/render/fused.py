@@ -551,20 +551,22 @@ def prepare_fused(scene, params) -> FusedLaunch:
 
 
 def _launch_args(launch: FusedLaunch, B: int, key, frame_width):
-    """This launch's parameter struct and its output buffer: 7 B floats
-    holding L (B, 3), alpha, cost, unfinished and depth, returned as
-    contiguous views.  Rays of no known frame (``frame_width`` None) are
-    scheduled in ray order."""
+    """This launch's parameter struct and its output buffer: 7 S floats,
+    S = B rounded up to a multiple of 4, holding L (B, 3) at 0 and alpha,
+    cost, unfinished and depth at 3 S .. 6 S, returned as contiguous
+    views that each start 16-byte aligned, as K3 takes them.  Rays of no
+    known frame (``frame_width`` None) are scheduled in ray order."""
     p = _FusedParams.from_buffer_copy(launch.params)
     p.B = B
     if frame_width is None:
         p.tile_w = p.tile_h = 0
     p.frame_w = frame_width or B
     p.key[0], p.key[1] = int(key[0]), int(key[1])
-    out = torch.empty(7 * B, dtype=torch.float32,
+    S = -(-B // 4) * 4
+    out = torch.empty(7 * S, dtype=torch.float32,
                       device=launch.corners.device)
     views = (out[:3 * B].view(B, 3),) + tuple(
-        out[i * B:(i + 1) * B] for i in range(3, 7))
+        out[i * S:i * S + B] for i in range(3, 7))
     return p, out, views
 
 

@@ -1,6 +1,6 @@
-"""Helpers shared by the probe tools: timing and the random inputs
-(made on the CPU from a seed, then moved, so a CPU and a CUDA run see
-the same numbers)."""
+"""Helpers shared by the probe tools: timing, a NaN-aware equality and
+the random inputs (made on the CPU from a seed, then moved, so a CPU and
+a CUDA run see the same numbers)."""
 
 from __future__ import annotations
 
@@ -28,6 +28,13 @@ def time_ms(fn, device, n=8):
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / n, out
+
+
+def nan_equal(a, b):
+    """True when two tensors hold equal values, NaN where the other has
+    NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
 def uniform(shape, seed, device):

@@ -11,10 +11,12 @@ formulations of the gather on the TPU.  Here every gather is kernel P1
 * one sweep point at the main path's corner table, 8 M rows x 31 f32,
   with one random index per 1080p ray: the measured random-row rate
   that sits beside K1's bound (ns/row, GB/s of row bytes);
-* the Pallas bodies k_take, k_index, k_take_along (the same function)
-  and k_onedim (column 0; as written its (B,) value does not fit its
-  (B, 10) output and JAX raises before compiling — here it is P1 at
-  width 1), each held exactly against the plain version: "OK".
+* the Pallas bodies k_take, k_take_along (the same function), k_index
+  (the same but for out-of-range indices, which it clamps: P1 with
+  ``clip``) and k_onedim (column 0; as written its (B,) value does not
+  fit its (B, 10) output and JAX raises before compiling — here it is P1
+  at width 1, on the column in place), each held exactly against the
+  plain version, with out-of-range indices planted: "OK".
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.ops.probe import gather_rows, gather_rows_plain
-from vpt_tpu_torch.tools.common import randint, time_ms, uniform
+from vpt_tpu_torch.tools.common import nan_equal, randint, time_ms, uniform
 
 B = 65536
 V = 106330
@@ -43,6 +45,14 @@ def _loop(table, idx, iters):
         acc = acc + gather_rows(table, idx).sum(-1)
         idx = (idx + 12345 + i) % v
     return acc
+
+
+def planted(idx, rows):
+    """``idx`` with each out-of-range kind in front: -1, -V, -V - 1, V,
+    100 V and 2^31 - 1 for a table of V = ``rows`` rows."""
+    edges = torch.tensor([-1, -rows, -rows - 1, rows, 100 * rows,
+                          2 ** 31 - 1], dtype=torch.int32, device=idx.device)
+    return torch.cat([edges, idx[edges.numel():]])
 
 
 def run(device, b=B, v=V, iters=ITERS, widths=WIDTHS, tables=TABLES,
@@ -78,13 +88,15 @@ def run(device, b=B, v=V, iters=ITERS, widths=WIDTHS, tables=TABLES,
                      row_gb_per_s=gbs, ok=ok))
     del ctab, cidx, got
 
-    for name, tab, idx in (("take", table, idx0), ("index", table, idx0),
-                           ("take_along", table, idx0),
-                           ("onedim", table[:, 0], idx0),
-                           ("onedim_small", table[:4096, 0], idx0 % 4096)):
-        got = gather_rows(tab, idx)
-        ok = torch.equal(got, gather_rows_plain(tab, idx))
-        first = [round(float(x), 4) for x in got.reshape(-1)[:2]]
+    idx1, small = planted(idx0, v), planted(idx0 % 4096, 4096)
+    for name, tab, idx, clip in (
+            ("take", table, idx1, False), ("index", table, idx1, True),
+            ("take_along", table, idx1, False),
+            ("onedim", table[:, 0], idx1, False),
+            ("onedim_small", table[:4096, 0], small, False)):
+        got = gather_rows(tab, idx, clip)
+        ok = nan_equal(got, gather_rows_plain(tab, idx, clip))
+        first = [round(float(x), 4) for x in got[-1].reshape(-1)[:2]]
         out(f"KERNEL {name}: {'OK' if ok else 'MISMATCH'}, {first}")
         recs.append(dict(name=f"KERNEL {name}", ok=ok))
     return recs

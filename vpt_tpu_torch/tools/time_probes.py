@@ -1,4 +1,5 @@
-"""Time the probe kernels P2 (take_along) and P3 (roll) on the card.
+"""Time the probe kernels P1 (gather_rows), P2 (take_along) and P3
+(roll) on the card.
 
     python -m vpt_tpu_torch.tools.time_probes [--calls 200]
 
@@ -7,14 +8,18 @@ microseconds per call (CUDA events over back-to-back calls) and host
 microseconds per call (the host clock over the same loop; both the
 median of 3 turns of library, kernel, kernel, library), beside the one
 PyTorch call that computes the same function where there is one
-(``torch.gather``, ``torch.roll``), and P2's design there.  Every
-kernel result is held exactly against its plain version first.  Cases:
-P2 at iters 1 on (4096, 128) axis 0, P2 at iters 64 on both axes at N =
-512, 832 and 4096, P3 at (8, 128) and (4096, 128) with shift 3 on axis
-1.  Prints one JSON line per case, then the host cost of each wrapper's
-parts (the host clock per call: the checks, the cached launch, the
-output's allocation, the stream, the ctypes call), then the kernels'
-registers and spills (ptxas), then the nvidia-smi line.  Run by its
+(``torch.index_select``, ``torch.gather``, ``torch.roll``), and P2's
+design there.  Every kernel result is held exactly against its plain
+version first.  Cases: P1 at the main path's corner table (8 M x 31
+f32, one random int32 row per 1080p ray; beside it P1 on the same
+indices sorted and a copy of its output's 257 MB) and at the probe loop's
+(106330, 10) table with B = 65536, P2 at iters 1 on (4096, 128) axis 0,
+P2 at iters 64 on both axes at N = 512, 832 and 4096, P3 at (8, 128)
+and (4096, 128) with shift 3 on axis 1.  Prints one JSON line per
+case, then the host cost of each wrapper's parts (the host clock per
+call: the checks, the cached launch, the output's allocation, the
+stream, the ctypes call), then the kernels' registers and spills
+(ptxas), then the nvidia-smi line.  Run by its
 path with another checkout of the package first on PYTHONPATH, it times
 that checkout's wrappers (one that has ``probe.take_along_design``).
 """
@@ -34,6 +39,11 @@ from vpt_tpu_torch.ops import cuda, probe
 from vpt_tpu_torch.tools.common import randint, uniform
 
 NS = (512, 832, 4096)
+# P1's cases: (rows, width, batch)
+CORNER = "gather_rows corner (8000000,31) B=2073600"
+GATHER_CASES = {
+    CORNER: (8_000_000, 31, 2_073_600),
+    "gather_rows loop (106330,10) B=65536": (106_330, 10, 65_536)}
 
 
 def device_us(fn, n):
@@ -154,6 +164,30 @@ def main(argv=None):
         print(json.dumps({"case": name, "design": design._asdict(),
                           **measure(fns, calls)}), flush=True)
 
+    for name, (v, w, b) in GATHER_CASES.items():
+        g = torch.Generator(device=dev).manual_seed(v)
+        table = torch.rand((v, w), generator=g, device=dev)
+        idx = torch.randint(0, v, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        if not torch.equal(probe.gather_rows(table, idx),
+                           probe.gather_rows_plain(table, idx)):
+            raise SystemExit(f"{name}: gather_rows differs from the plain "
+                             "version")
+        fns = {"torch.index_select": lambda: torch.index_select(table, 0,
+                                                                idx),
+               "gather_rows": lambda: probe.gather_rows(table, idx)}
+        if name == CORNER:
+            # what P1 costs with the same rows read in order, and a copy
+            # of its output's bytes: where random rows leave it
+            srt = torch.sort(idx).values
+            out = torch.empty((b, w), device=dev)
+            src = torch.rand((b, w), generator=g, device=dev)
+            fns.update({"gather_rows, sorted indices":
+                        lambda: probe.gather_rows(table, srt),
+                        "copy of the output's bytes":
+                        lambda: out.copy_(src)})
+        print(json.dumps({"case": name, **measure(fns, n)}), flush=True)
+        del table, idx, fns
     x = uniform((4096, 128), 0, dev)
     i32 = randint(4096, (4096, 128), 1, dev)
     i64 = i32.to(torch.int64)
@@ -181,7 +215,8 @@ def main(argv=None):
           flush=True)
     ptx = cuda.ptxas_summary(cuda.load_library().ptxas_log)
     print(json.dumps({"ptxas": {k: v for k, v in ptx.items()
-                                if "take_along" in k or "roll" in k}}))
+                                if "take_along" in k or "roll" in k
+                                or "gather_rows" in k}}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)

@@ -8,8 +8,10 @@ one point light and the sun, shadow-baked on the card), then, for each
 shadow mode, steps a ProgressiveRenderer through --warmup samples and
 times --spp more by the host clock with one synchronize at the end.
 Prints one JSON line per mode (ms/spp, and over all the samples the
-mean walk steps per ray, the share of rays cut by the step cap and the
-image mean), then the nvidia-smi line.  It calls only
+mean walk steps per ray, the share of rays cut by the step cap, the
+image mean and the SHA-256 of the film's five fields, which is equal for
+two checkouts whose films agree bit for bit), then the nvidia-smi
+line.  It calls only
 the renderer's public entry points, so run by its path with another
 checkout of the package first on PYTHONPATH it times that checkout.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import subprocess
 import time
@@ -33,6 +36,7 @@ from vpt_tpu_torch.scene.scene import build_scene
 from vpt_tpu_torch.volume.procedural import create_procedural_grid
 
 W, H = 1920, 1080
+FIELDS = ("accum", "alpha", "depth", "cost", "trunc")
 
 
 def main(argv=None):
@@ -68,7 +72,10 @@ def main(argv=None):
             mode=mode, spp=args.spp, ms_per_spp=dt * 1e3 / args.spp,
             mean_iters_per_ray=float(r.film.cost.double().sum()) / n,
             trunc_frac=float(r.film.trunc.double().sum()) / n,
-            image_mean=float(r.film.accum.double().mean()))), flush=True)
+            image_mean=float(r.film.accum.double().mean()),
+            film_sha256=hashlib.sha256(b"".join(
+                getattr(r.film, f).cpu().numpy().tobytes()
+                for f in FIELDS)).hexdigest())), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
