@@ -6,7 +6,7 @@ NVIDIA GPU.
 
 Phases, one JSON line each:
   1. device  — the card's name and power limit, torch and CUDA versions;
-  2. build   — K1-K3 and the probe kernels P1-P3 (nvcc, csrc/*.cu, one
+  2. build   — K1-K4 and the probe kernels P1-P3 (nvcc, csrc/*.cu, one
                process per source) from the sources in this checkout, and
                K3's first launch; K1's registers and spills (ptxas) and
                its schedule (SMs, resident blocks per SM) for both routes;
@@ -21,17 +21,30 @@ Phases, one JSON line each:
                modes, each step's film held to accumulate_plain on
                the same sample bit for bit), and K1's
                in-kernel-ray route against its buffer route on K2's rays,
-               bit for bit;
+               bit for bit; K3 on views that start 1-3 floats past a
+               16-byte boundary (its scalar route), bit for bit; K4 on
+               K1's (L, beta, direction) of a sky and an HDRI sample
+               against environment_radiance (max relative error <=
+               K4_RTOL), and K1 + K4 against the plain pipeline with each
+               environment in both shadow modes (the share rule);
   5. main    — 1920x1080 through ProgressiveRenderer: cached shadows,
                2 warm-up + 64 timed spp, then tracked shadows, 64 spp;
                with cached shadows K1's in-kernel-ray route and K3 must
                have launched, the standalone K2 and K1's buffer route
                never; with tracked shadows K2, K1's buffer route and K3,
-               the in-kernel-ray route never; the image must be finite
-               and not black;
+               the in-kernel-ray route never; K4 never (BLACK); the
+               image must be finite and not black;
+  5b. c1     — the step budget at queued sizes (render/params.py::
+               resolve_queue): tracked shadows at 512x512 and 1080p on
+               the new rule (Q = 16: 16 x 128 steps a ray) and on the
+               parent's (Q = 1, rays_per_lane=1): ms/spp, iterations per
+               ray, trunc_frac; and one 1080p tracked sample on both
+               rules from the same key, where every ray the parent's rule
+               did not cut must be bit for bit the same;
   6. timing  — each kernel beside its plain version on the main path's
-               1080p inputs, both timed and held together: K2 max |diff|
-               <= 1e-5, K3 on the rendered film bit for bit, K1 ray by ray
+               1080p inputs, both timed and held together: K2 exactly
+               (K2_TOL), K3 on the rendered film bit for bit, K1 (at the
+               frame's queue length, Q = 16) ray by ray
                in both shadow modes (>= 99% of rays agree: L within rtol
                1e-4 + atol 1e-6, alpha within 1e-5, cost and unfinished
                exact; image means within 0.5%), its buffer route against
@@ -39,6 +52,9 @@ Phases, one JSON line each:
                against the plain pipeline and, bit for bit, against the
                buffer route; the warp efficiency of the launch-order
                schedule from the cost AOV, at 32 and 128;
+  6a. env   — K4 at 1080p on K1's (L, beta, direction) of a sky and an
+               HDRI sample, timed beside environment_radiance and held to
+               it (max relative error <= K4_RTOL);
   6b. schedule — K1's live schedule choices at 1080p on both routes, each
                held to the default launch bit for bit: the refill rule
                and slot tiles (SCHEDULES), and corner rows padded to 32
@@ -53,6 +69,13 @@ Phases, one JSON line each:
                must be finite and not black, and K1's in-kernel-ray route
                and K3 must each launch 16 times, K2 and K1's buffer route
                never;
+  8b. default — `vpt-torch render procedural` as a user types it: no
+               --env-type (the simple sky), 1920x1080, 16 spp, in both
+               shadow modes: finite, not black, sky in the background
+               corners, K4 launched once a sample;
+  8c. hdri   — the script writes a 512x256 RGBE .hdr (the c3 golden's
+               gradient and hot texel) and renders `vpt-torch render
+               procedural that.hdr` at 1080p, 16 spp: K4 once a sample;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -70,10 +93,11 @@ Phases, one JSON line each:
                clock.
 Then the nvidia-smi line, the kernels' JSON line (K1 on both routes; K2,
 its own launches beside those of K1's in-kernel-ray route, which runs
-its code; K3 at 1080p; P1-P3 at the probes' shapes, P1 with its sector
-floor; each with its bound: the larger of the bytes it must move over
-3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's published
-float32 rate), and the result line.
+its code; K3 at 1080p; K4 at 1080p for the sky, with HDRI's numbers
+beside, its launches those of phases 8b and 8c; P1-P3 at the probes'
+shapes, P1 with its sector floor; each with its bound: the larger of
+the bytes it must move over 3.35 TB/s and its operations over 67
+TFLOP/s, the H100 SXM's published float32 rate), and the result line.
 Any failure raises, and the script exits non-zero without a result.
 Without a CUDA device it exits non-zero before doing anything.
 """
@@ -85,6 +109,7 @@ import dataclasses
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -99,7 +124,13 @@ W, H = 1920, 1080
 WARMUP_SPP, TIMED_SPP, TRACKED_SPP, PROFILED_SPP = 2, 64, 64, 8
 PARITY_SIZE, PARITY_SPP = 256, 2
 MIN_SHARE, MAX_MEAN_REL = 0.99, 0.005
-K2_TOL = 1e-5
+K2_TOL = 0.0       # K2 against primary_rays_plain on the card: exact
+K4_RTOL = 1e-5     # K4 against environment_radiance on the card
+OFFSETS = (1, 2, 3)  # K3 on views this many floats past 16 bytes
+ENV_SPP = 16       # the default command's and the HDRI render's spp
+HDR_H, HDR_W = 256, 512
+C1_SIZES = ((512, 512), (W, H))
+C1_SPP = 32
 RAGGED = (37, 29)  # K3 at a pixel count that is no multiple of 4
 CLI_SPP = 16
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
@@ -110,6 +141,14 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 # draws 4 uniforms, plus ~60 float operations of camera arithmetic.
 K1_OPS_PER_STEP, K2_OPS_PER_RAY = 6 * 80 + 200, 4 * 80 + 60
 K1_ROW_BYTES = 15 * 4  # the columns every step loads (taus not counted)
+# K4's operations per ray, counted from csrc/environment.cu (each
+# arithmetic operation, comparison and transcendental one): the sky's
+# head (two sphere tests of 25, the phases) 76, each of its 16 view
+# samples 297 (a sphere test toward the sun, 8 light samples of 27, the
+# three channels' extinction 27), the tail 30; HDRI's uv, taps and
+# bilinear blend 74.  Bytes: L read and written, beta and the direction
+# read, 48 a ray, and the map once.
+K4_SKY_OPS_PER_RAY, K4_HDRI_OPS_PER_RAY, K4_BYTES_PER_RAY = 4858, 74, 48
 # P2's operations per step of the reference loop (tools/probe_dyngather.py
 # :59-69): the gather, acc + r, int32(acc), two adds and the mod; the last
 # step's reindex is dead, so a chain of n steps needs 6 n - 4.
@@ -125,6 +164,18 @@ SCHEDULES = {
     "whole_warp": dict(refill_min=32, tile_w=0, tile_h=0),
     "tile8x4_whole_warp": dict(refill_min=32, tile_w=8, tile_h=4),
 }
+
+
+def c3_map(h, w):
+    """The c3_hdri_color golden's map (tests/golden_scenes.py:73-77) at
+    h x w: a vertical gradient with one hot texel."""
+    import numpy as np
+    ty = np.linspace(1.0, 0.0, h, dtype=np.float32)[:, None, None]
+    env = (np.array([0.3, 0.5, 1.0], np.float32) * ty
+           + np.array([0.9, 0.6, 0.3], np.float32) * (1.0 - ty))
+    env = np.broadcast_to(env, (h, w, 3)).copy()
+    env[h // 4, w // 3] = [40.0, 38.0, 30.0]
+    return env
 
 
 def emit(phase, **kw):
@@ -201,9 +252,14 @@ def check_parity(where, k1, k2_err, k3_same, routes_same):
 
 
 def k1_registers(summary):
-    """K1's ptxas lines by route (its template argument)."""
-    return {ROUTES[1] if "ILb1E" in n else ROUTES[0]: v
-            for n, v in summary.items() if "fused_direct_kernel" in n}
+    """K1's ptxas lines by variant (its template arguments): the route,
+    with "_env" for the deferred environment (HDRI, the sky)."""
+    out = {}
+    for n, v in summary.items():
+        m = re.search(r"fused_direct_kernelILb([01])ELb([01])E", n)
+        if m:
+            out[ROUTES[int(m.group(1))] + "_env" * int(m.group(2))] = v
+    return out
 
 
 def device_ms(prof):
@@ -250,10 +306,11 @@ def main():
     from vpt_tpu_torch.lights.lights import PointLights
     from vpt_tpu_torch.ops import cuda, probe
     from vpt_tpu_torch.render import film as film_mod
-    from vpt_tpu_torch.render import fused, renderer
+    from vpt_tpu_torch.render import fused, integrator, renderer
     from vpt_tpu_torch.render.params import Environment, RenderParams
-    from vpt_tpu_torch.scene.scene import build_scene
+    from vpt_tpu_torch.scene.scene import attach_env_map, build_scene
     from vpt_tpu_torch.tools.common import nan_equal, time_ms
+    from vpt_tpu_torch.utils.hdr import load_hdr, write_hdr
     from vpt_tpu_torch.volume.procedural import create_procedural_grid
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
@@ -264,10 +321,36 @@ def main():
         """(mean device ms of fn() over reps back-to-back calls after a
         warm-up call, the last result), by CUDA events."""
         return time_ms(fn, dev, reps)
+
+    def k4_inputs(scene_, p, tkey, o, d, frame_width=None, queue=1):
+        """K1 alone on the buffer route: its launch and the (L, beta,
+        direction) it hands K4."""
+        launch = fused.prepare_fused(scene_, p)
+        views = fused._launch_k1(launch, tkey, o, d, frame_width, queue)
+        return launch, views[0], views[5], views[6]
+
+    def k4_errors(scene_, p, launch, L, beta, dirn):
+        """K4 on a copy of L against L + environment_radiance * beta,
+        both on the card: max absolute and relative difference."""
+        got = integrator.add_environment(scene_, p, L.clone(), beta, dirn,
+                                         launch=launch.env)
+        want = L + integrator.environment_radiance(scene_, p, dirn,
+                                                   dirn) * beta
+        diff = (got - want).abs()
+        rel = diff / want.abs().clamp_min(1e-30)
+        return dict(max_abs=float(diff.max()), max_rel=float(rel.max()),
+                    finite=bool(torch.isfinite(got).all()))
+
+    def check_k4(where, errs_):
+        for name, e in errs_.items():
+            if not (e["finite"] and e["max_rel"] <= K4_RTOL):
+                raise RuntimeError(f"{where}: K4 ({name}) disagrees with "
+                                   f"environment_radiance: {e}")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = [fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY, renderer.RAYGEN,
-               film_mod.FILM_ACCUMULATE]
+               film_mod.FILM_ACCUMULATE, integrator.ENVIRONMENT]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -289,8 +372,9 @@ def main():
     torch.cuda.synchronize()
     t_k3 = time.perf_counter() - t0
     k1_ptxas = k1_registers(cuda.ptxas_summary(lib.ptxas_log))
-    k1_launch = {route: fused.launch_info(route == "rays_in_kernel", 128)
-                 for route in ROUTES}
+    k1_launch = {route + "_env" * defer: fused.launch_info(
+        route == "rays_in_kernel", 128, bool(defer))
+        for route in ROUTES for defer in (0, 1)}
     emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
          ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
 
@@ -388,6 +472,51 @@ def main():
             rag_same[mode] &= same_bits(film_fields(rr.step()),
                                         film_fields(want))
     k3_same &= all(rag_same.values())
+    # K3 on views that start 1-3 floats past a 16-byte boundary: its
+    # scalar route, at the parity size and at the ragged one
+    def offset_view(t, k):
+        flat = torch.empty(t.numel() + k, device=dev)
+        view = flat[k:].view(t.shape)
+        view.copy_(t)
+        return view
+    k3_offsets = {}
+    for hw in ((PARITY_SIZE, PARITY_SIZE), RAGGED):
+        f0 = film_mod.Film(*(torch.rand(s_, generator=gen, device=dev)
+                             for s_ in (hw + (3,), hw, hw, hw, hw)))
+        val = torch.rand(hw + (3,), generator=gen, device=dev) * 4.0
+        val[::17, ::13, 1] = float("nan")
+        a = torch.rand(hw, generator=gen, device=dev)
+        aux = [torch.rand(hw, generator=gen, device=dev) for _ in range(3)]
+        for k in OFFSETS:
+            fk = film_mod.Film(*(offset_view(t, k) for t in film_fields(f0)))
+            k3_args = (fk, offset_view(val, k), offset_view(a, k), 5,
+                       *(offset_view(t, k) for t in aux))
+            if film_mod.accumulate_design(
+                    t.data_ptr() for t in film_fields(fk)) != "scalar":
+                raise RuntimeError("K3: an offset view took the float4 route")
+            k3_offsets[f"{hw[0]}x{hw[1]}+{k}"] = same_bits(
+                film_fields(film_mod._accumulate_cuda(*k3_args)),
+                film_fields(film_mod.accumulate_plain(*k3_args)))
+    k3_same &= all(k3_offsets.values())
+    # K4 on K1's (L, beta, direction) of a sky and an HDRI sample, and K1
+    # + K4 against the plain pipeline with each environment
+    hdr_map = c3_map(HDR_H, HDR_W)
+    env_types = {"sky": Environment.ATMOSPHERE, "hdri": Environment.HDRI}
+    env256 = {"sky": s256, "hdri": attach_env_map(s256, hdr_map)}
+    key = rng.render_key(SEED, 0)
+    tkey = renderer.tile_key(key)
+    rays = renderer._primary_rays_cuda(s256.camera, params(
+        PARITY_SIZE, PARITY_SIZE, "cached"), key)
+    k4_256, k1_env = {}, {}
+    for env, se in env256.items():
+        for mode in ("cached", "tracked"):
+            pe = params(PARITY_SIZE, PARITY_SIZE, mode).replace(
+                environment_type=int(env_types[env]))
+            k4_256[f"{env}_{mode}"] = k4_errors(
+                se, pe, *k4_inputs(se, pe, tkey, *rays))
+            k1_env[f"{env}_{mode}"] = k1_agreement([(
+                fused._fused_direct_cuda(se, pe, tkey, *rays),
+                fused.fused_direct_plain(se, pe, tkey, *rays))])
     k1_256 = {m: k1_agreement(pr) for m, pr in pairs.items()}
     k1_256.update({f"{m}_{ROUTES[1]}": k1_agreement(pr)
                    for m, pr in gen_pairs.items()})
@@ -395,8 +524,12 @@ def main():
     emit("parity", size=PARITY_SIZE, spp=PARITY_SPP, k1=k1_256,
          k1_routes_bit_equal=routes_same, k2_max_abs=k2_err,
          k3_bit_equal=k3_same, k3_ragged=RAGGED,
-         k3_renderer_ragged_bit_equal=rag_same)
+         k3_renderer_ragged_bit_equal=rag_same,
+         k3_offset_views_bit_equal=k3_offsets, k4=k4_256, k4_rtol=K4_RTOL,
+         k1_k4_env=k1_env)
     check_parity("256^2", k1_256, k2_err, k3_same, routes_same)
+    check_parity("256^2 environments", k1_env, 0.0, True, {})
+    check_k4("256^2", k4_256)
 
     # ---- 5. the main path at 1080p -------------------------------------
     s1080 = framed(W, H)
@@ -459,6 +592,48 @@ def main():
         np.save(os.path.join(args.save, "chip_smoke_1080p_tracked.npy"),
                 rt.display_image())
 
+    # ---- 5b. C1: the step budget at queued sizes, tracked shadows -------
+    c1 = {}
+    for w, h in C1_SIZES:
+        sc = s1080 if (w, h) == (W, H) else framed(w, h)
+        for rule, rpl in (("new", 0), ("parent", 1)):
+            pr = params(w, h, "tracked").replace(rays_per_lane=rpl)
+            rr = renderer.ProgressiveRenderer(sc, pr)
+            rr.step(1)
+            rr.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rr.step(C1_SPP)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = w * h * C1_SPP
+            c1[f"{w}x{h}_{rule}"] = dict(
+                queue=renderer.frame_queue(pr),
+                ms_per_spp=dt * 1e3 / C1_SPP,
+                mean_iters_per_ray=float(rr.film.cost.double().sum()) / n,
+                trunc_frac=float(rr.film.trunc.double().sum()) / n,
+                image_mean=float(rr.film.accum.double().mean()))
+            del rr
+    # one 1080p tracked sample on both rules from the same key: a ray the
+    # parent's rule (Q = 1, 128 steps) did not cut is the same bits
+    ckey = rng.render_key(SEED, 1000)
+    new = renderer._trace_buffers_cuda(s1080, pt, ckey, rt.launches)
+    old = renderer._trace_buffers_cuda(
+        s1080, pt.replace(rays_per_lane=1), ckey, rt.launches)
+    kept = old[3] == 0.0
+    c1_same = all(torch.equal(a[kept].view(torch.int32),
+                              b[kept].view(torch.int32))
+                  for a, b in zip(new, old))
+    emit("c1", spp=C1_SPP, rules=c1, sample_rays=W * H,
+         sample_cut_parent=int((old[3] == 1.0).sum()),
+         sample_cut_new=int((new[3] == 1.0).sum()),
+         sample_uncut_bit_equal=c1_same)
+    if not c1_same:
+        raise RuntimeError("C1: a ray the parent's rule did not cut changed")
+    if renderer.frame_queue(pt) != 16:
+        raise RuntimeError("C1: 1080p does not resolve to Q = 16")
+    del new, old, kept
+
     # ---- 6. each kernel beside its plain version at 1080p --------------
     # kernels from prepared launches, so the events time the kernel; the
     # outputs of the timed calls are held against each other
@@ -472,14 +647,15 @@ def main():
     timing = {"primary_rays": (tk, tp)}
     k2_1080 = max_abs((o, d), rays_p)
     k1_1080, warp_eff, routes_same = {}, {}, {}
+    q1080 = renderer.frame_queue(pc)   # 16: the frame's step budget
     for mode, p, lts, reps in (("cached", pc, lc, 5),
                                ("tracked", pt, lt, 3)):
         tk, out_k = cuda_ms(lambda: fused._fused_direct_cuda(
-            s1080, p, tkey, o, d, lts.fused, W), reps)
+            s1080, p, tkey, o, d, lts.fused, W, q1080), reps)
         tg, out_g = cuda_ms(lambda: renderer._trace_primary_cuda(
             s1080, p, key, lts), reps)
         tp, out_p = cuda_ms(lambda: fused.fused_direct_plain(
-            s1080, p, tkey, o, d), 1)
+            s1080, p, tkey, o, d, q1080), 1)
         sfx = "" if mode == "cached" else "_tracked"
         timing["fused_direct" + sfx] = (tk, tp)
         # the plain pipeline: primary_rays_plain, then fused_direct_plain
@@ -487,7 +663,7 @@ def main():
             tg, timing["primary_rays"][1] + tp)
         k1_1080[mode] = k1_agreement([(out_k, out_p)])
         routes_same[mode] = same_bits(out_g, out_k)
-        out_pp = fused.fused_direct_plain(s1080, p, tkey, *rays_p)
+        out_pp = fused.fused_direct_plain(s1080, p, tkey, *rays_p, q1080)
         k1_1080[f"{mode}_{ROUTES[1]}"] = k1_agreement([(out_g, out_pp)])
         del out_g, out_pp
         # the launch-order schedule's lane use, from this spp's cost AOV
@@ -523,6 +699,36 @@ def main():
          k1_schedule=fused.SCHEDULE)
     check_parity("1080p", k1_1080, k2_1080, k3_same, routes_same)
 
+    # ---- 6a. K4 at 1080p on the path's (L, beta, direction) ---------------
+    k4_1080 = {}
+    for env in ("sky", "hdri"):
+        se = s1080 if env == "sky" else attach_env_map(s1080, hdr_map)
+        pe = pt.replace(environment_type=int(env_types[env]))
+        launch, L, beta, dirn = k4_inputs(se, pe, tkey, o, d, W,
+                                          renderer.frame_queue(pe))
+        e = k4_errors(se, pe, launch, L, beta, dirn)
+        Lw = L.clone()
+
+        def k4():
+            return integrator.add_environment(se, pe, Lw, beta, dirn,
+                                              launch=launch.env)
+        t_event, _ = cuda_ms(k4, 20)
+        tp, _ = cuda_ms(lambda: L + integrator.environment_radiance(
+            se, pe, dirn, dirn) * beta, 2)
+        ops = W * H * (K4_SKY_OPS_PER_RAY if env == "sky"
+                       else K4_HDRI_OPS_PER_RAY)
+        nbytes = W * H * K4_BYTES_PER_RAY + (hdr_map.nbytes if env == "hdri"
+                                             else 0)
+        k4_1080[env] = dict(ms=profiled_ms(k4, 20), event_ms=t_event,
+                            plain_ms=tp, bound=bound(nbytes, ops),
+                            beta_zero_rays=int((beta == 0).all(1).sum()), **e)
+        del launch, L, beta, dirn, Lw
+    emit("env", shapes=f"{W}x{H}", k4=k4_1080, k4_rtol=K4_RTOL,
+         ops_per_ray={"sky": K4_SKY_OPS_PER_RAY,
+                      "hdri": K4_HDRI_OPS_PER_RAY},
+         hdr_map=[HDR_H, HDR_W, 3])
+    check_k4("1080p", k4_1080)
+
     # ---- 6b. K1's live schedule choices at 1080p on both routes ---------
     def with_params(launch, **kw):
         q = type(launch.params).from_buffer_copy(launch.params)
@@ -532,13 +738,14 @@ def main():
     schedule = {}
     for mode, p, lts, reps in (("cached", pc, lc, 5),
                                ("tracked", pt, lt, 3)):
-        ref = fused._fused_direct_cuda(s1080, p, tkey, o, d, lts.fused)
+        ref = fused._fused_direct_cuda(s1080, p, tkey, o, d, lts.fused,
+                                       queue=q1080)
         schedule[mode] = {}
         for name, kw in SCHEDULES.items():
             fl = with_params(lts.fused, **kw)
             lv = dataclasses.replace(lts, fused=fl)
             tm, out_m = cuda_ms(lambda: fused._fused_direct_cuda(
-                s1080, p, tkey, o, d, fl, W), reps)
+                s1080, p, tkey, o, d, fl, W, q1080), reps)
             tg, out_g = cuda_ms(lambda: renderer._trace_primary_cuda(
                 s1080, p, key, lv), reps)
             if not (same_bits(out_m, ref) and same_bits(out_g, ref)):
@@ -549,7 +756,7 @@ def main():
         fl = dataclasses.replace(with_params(lts.fused, row_w=32),
                                  corners=padded)
         tm, out_m = cuda_ms(lambda: fused._fused_direct_cuda(
-            s1080, p, tkey, o, d, fl, W), reps)
+            s1080, p, tkey, o, d, fl, W, q1080), reps)
         if not same_bits(out_m, ref):
             raise RuntimeError(f"K1 on padded rows ({mode}) differs")
         schedule[mode]["rows_padded_to_32"] = {ROUTES[0]: tm}
@@ -622,6 +829,58 @@ def main():
     if cli_launches != want:
         raise RuntimeError(f"cli: launches {cli_launches}, expected {want}")
     del img, rad
+
+    # ---- 8b/8c. the default command (the simple sky) and an .hdr map ------
+    env_runs, k4_path_launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        hdr_path = os.path.join(tmp, "c3_sky.hdr")
+        write_hdr(hdr_path, hdr_map)
+        hdr_read = load_hdr(hdr_path)
+        # RGBE keeps 8 mantissa bits of the largest component
+        if not np.allclose(hdr_read, hdr_map, rtol=0, atol=40.0 / 128):
+            raise RuntimeError("the written .hdr does not read back")
+        for name, extra, mode in (
+                ("default_tracked", [], "tracked"),
+                ("default_cached", ["--shadow-mode", "cached"], "cached"),
+                ("hdri_tracked", [hdr_path], "tracked")):
+            for k in kernels:
+                k.launches = 0
+            st = {}
+            out = os.path.join(tmp, f"{name}.png")
+            t0 = time.perf_counter()
+            cli.main(["render", "procedural", *extra, "-o", out, "--spp",
+                      str(ENV_SPP), "--width", str(W), "--height", str(H),
+                      "--save-exr"], stats=st)
+            wall = time.perf_counter() - t0
+            got = {k.name: k.launches for k in kernels}
+            rad = read_exr_rgb(out[:-4] + ".exr")
+            corners = rad[[0, 0, -1, -1], [0, -1, 0, -1]]
+            env_runs[name] = dict(
+                launches=got, wall_s=wall,
+                ms_per_spp=st["render_s"] * 1e3 / max(st["spp"], 1),
+                exr_mean=float(rad.mean()),
+                exr_finite=bool(np.isfinite(rad).all()),
+                corners=corners.tolist(), **st)
+            k4_path_launches += got[integrator.ENVIRONMENT.name]
+            want = {k.name: 0 for k in kernels}
+            route = ({fused.FUSED_DIRECT_PRIMARY.name} if
+                     renderer.RAYS_IN_KERNEL[mode] else
+                     {fused.FUSED_DIRECT.name, renderer.RAYGEN.name})
+            want.update({n_: ENV_SPP for n_ in route | {
+                film_mod.FILM_ACCUMULATE.name, integrator.ENVIRONMENT.name}})
+            if got != want:
+                raise RuntimeError(f"{name}: launches {got}, expected {want}")
+            if not (np.isfinite(rad).all() and rad.mean() > 0.0
+                    and (corners > 0.0).all()):
+                raise RuntimeError(f"{name}: the image is not finite, black "
+                                   f"or without sky in its corners")
+            if name.startswith("default") and not (
+                    corners[:, 2] > corners[:, 0]).all():
+                raise RuntimeError(f"{name}: the corners are not sky blue")
+            del rad
+    emit("environments", spp=ENV_SPP, width=W, height=H, runs=env_runs,
+         hdr_map=[HDR_H, HDR_W, 3])
+    launches[integrator.ENVIRONMENT.name] = k4_path_launches
 
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
@@ -775,6 +1034,10 @@ def main():
          event_us={k: cuda_ms(fn, 200)[0] * 1e3 for k, fn in calls.items()},
          host_us=time_probes.host_parts(dev, 2000))
     del x, i32, i64
+    errs["environment"] = max(e["max_abs"] for e in (
+        *k4_256.values(), *k4_1080.values()))
+    timing["environment"] = (k4_1080["sky"]["ms"], k4_1080["sky"]["plain_ms"])
+    bounds["environment"] = k4_1080["sky"]["bound"]
     errs.update(fused_direct=k1_1080["cached"]["max_abs"],
                 fused_direct_primary=k1_1080[f"cached_{ROUTES[1]}"]["max_abs"],
                 primary_rays=k2_1080, film_accumulate=k3_1080)
@@ -829,6 +1092,20 @@ def main():
                                    bound_ms=v["bound"][0],
                                    bound_by=v["bound"][1])
                 for r, v in roll_pts.items()})
+    by_name["environment"].update(
+        shape=f"{W}x{H}, the simple sky (HDRI: a {HDR_W}x{HDR_H} map)",
+        also_replaces="vpt_tpu/sky/procedural.py:44, "
+                      "vpt_tpu/sky/envmap.py:36",
+        max_rel_err=max(e["max_rel"] for e in (*k4_256.values(),
+                                               *k4_1080.values())),
+        tolerance=f"max relative error <= {K4_RTOL}",
+        event_ms=k4_1080["sky"]["event_ms"],
+        hdri_ms=k4_1080["hdri"]["ms"],
+        hdri_plain_ms=k4_1080["hdri"]["plain_ms"],
+        hdri_bound_ms=k4_1080["hdri"]["bound"][0],
+        hdri_bound_by=k4_1080["hdri"]["bound"][1],
+        launches_by_path={n_: r_["launches"][integrator.ENVIRONMENT.name]
+                          for n_, r_ in env_runs.items()})
     for name, shape in shapes.items():
         by_name[name]["shape"] = shape
     print(smi, flush=True)

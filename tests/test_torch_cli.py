@@ -129,10 +129,11 @@ BLACK = ["--env-type", "black"]
 
 @pytest.mark.parametrize("argv", [
     ["render", "dragon.vdb", *BLACK], ["render", "cloud.ins", *BLACK],
-    ["render", "sky.hdr"], ["render", "procedural", "sky.hdr"],
-    ["render", "procedural"],  # the default environment is atmosphere
-    ["render", "procedural", "--env-type", "hdri"],
-    ["render", "procedural", "--env-type", "atmosphere"],
+    ["render", "sky.hdr", "--engine", "reference"],
+    ["render", "procedural", "sky.hdr", "--sharded"],
+    ["render", "procedural", "--atmosphere"],  # the Bruneton sky
+    ["render", "procedural", "--denoise", "nn"],
+    ["render", "procedural", "--aov", "occupancy"],
     ["render", "procedural", *BLACK, "--atmosphere"],
     ["render", "procedural", *BLACK, "--engine", "reference"],
     ["render", "procedural", *BLACK, "--engine", "march"],
@@ -152,3 +153,55 @@ def test_out_of_slice_exits(argv):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv + ["--cpu"])
     assert "not ported" in str(e.value) or "unsupported" in str(e.value)
+
+
+@pytest.fixture(scope="module")
+def env_renders(tmp_path_factory):
+    """The port's renders of the environments the reference resolves
+    (vpt_tpu/app/cli.py:395-398), 32x32, 1 spp, tracked shadows, on the
+    16^3 grid: {name: EXR radiance}."""
+    from vpt_tpu_torch.utils.hdr import write_hdr
+    d = tmp_path_factory.mktemp("cli_env")
+    grid = tproc.create_procedural_grid(vmin=(-8.0,) * 3, vmax=(8.0,) * 3,
+                                        scale=0.08, device="cpu")
+    sky = str(d / "sky.hdr")
+    ty = np.linspace(1.0, 0.0, 16, dtype=np.float32)[:, None, None]
+    write_hdr(sky, np.broadcast_to(
+        np.array([0.3, 0.5, 1.0], np.float32) * ty
+        + np.array([0.9, 0.6, 0.3], np.float32) * (1.0 - ty), (16, 32, 3)))
+    argvs = {"default": ["procedural"],
+             "atmosphere": ["procedural", "--env-type", "atmosphere"],
+             "hdri_no_map": ["procedural", "--env-type", "hdri"],
+             "black": ["procedural", "--env-type", "black"],
+             "env_map": ["procedural", sky],
+             "hdr_scene": [sky]}
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tproc, "default_procedural_grid", lambda *a, **k: grid)
+        for name, argv in argvs.items():
+            tcli.main(["render", *argv, "-o", str(d / f"{name}.png"),
+                       "--spp", "1"] + COMMON)
+            out[name] = _exr(d / name)
+    return out
+
+
+def test_default_environment_is_the_simple_sky(env_renders):
+    """With no --env-type the port renders the simple sky, as the
+    reference does: the background corners are lit, bluer than red."""
+    img = env_renders["default"]
+    assert np.isfinite(img).all() and img.shape == (32, 32, 3)
+    corners = img[[0, 0, -1, -1], [0, -1, 0, -1]]
+    assert (corners > 0).all() and (corners[:, 2] > corners[:, 0]).all()
+    np.testing.assert_array_equal(img, env_renders["atmosphere"])
+    assert img.mean() > env_renders["black"].mean()
+
+
+def test_hdri_renders_from_a_map_or_a_hdr_scene(env_renders):
+    """The positional map and a .hdr scene give the same image (the .hdr
+    scene is the procedural volume lit by its map); HDRI without a map is
+    black, bit for bit."""
+    img = env_renders["env_map"]
+    assert np.isfinite(img).all() and img.mean() > env_renders["black"].mean()
+    np.testing.assert_array_equal(img, env_renders["hdr_scene"])
+    np.testing.assert_array_equal(env_renders["hdri_no_map"],
+                                  env_renders["black"])

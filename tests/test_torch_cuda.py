@@ -25,6 +25,7 @@ from vpt_tpu_torch.lights.lights import PointLights
 from vpt_tpu_torch.ops import probe
 from vpt_tpu_torch.render import film as tfilm
 from vpt_tpu_torch.render import fused, renderer
+from vpt_tpu_torch.render.integrator import _EnvParams
 from vpt_tpu_torch.render.params import RenderParams
 from vpt_tpu_torch.scene.scene import build_scene
 from vpt_tpu_torch.volume.grid import HostGrid
@@ -178,26 +179,167 @@ def test_k3_matches_plain(cuda_device, hw, absent):
         assert getattr(f1, name) is getattr(film, name)
 
 
+def _offset_view(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` floats into a
+    fresh buffer (not 16-byte aligned for offsets 1-3)."""
+    flat = torch.empty(t.numel() + offset, device=t.device)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["value", "film.alpha", "trunc"])
 def test_k3_refuses_misaligned_views(cuda_device, which):
-    """A tensor that does not start on a 16-byte boundary is refused, not
-    taken by another path."""
+    """K3 takes any contiguous view (test_k3_takes_offset_views); a view
+    that is not contiguous is refused, not copied or taken by another
+    path."""
     film, val, alpha, aux = _k3_inputs(cuda_device, (8, 8))
-
-    def shifted(t):
-        flat = torch.empty(t.numel() + 1, device=cuda_device)
-        out = flat[1:].view(t.shape)
-        out.copy_(t)
-        return out
     if which == "value":
-        val = shifted(val)
+        val = val.transpose(0, 1)
     elif which == "film.alpha":
-        film = dataclasses.replace(film, alpha=shifted(film.alpha))
+        film = dataclasses.replace(film, alpha=film.alpha.t())
     else:
-        aux[2] = shifted(aux[2])
-    with pytest.raises(ValueError, match="16-byte"):
+        aux[2] = aux[2].t()
+    with pytest.raises(ValueError, match="contiguous"):
         tfilm.accumulate(film, val, alpha, 1, *aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("which", ["value", "film.accum", "alpha", "all"])
+@pytest.mark.parametrize("hw", [(8, 8), (7, 9)])
+def test_k3_takes_offset_views(cuda_device, offset, which, hw):
+    """Views starting 1-3 floats past a 16-byte boundary take K3's scalar
+    route, bit for bit accumulate_plain."""
+    film, val, alpha, aux = _k3_inputs(cuda_device, hw)
+    if which in ("value", "all"):
+        val = _offset_view(val, offset)
+    if which in ("film.accum", "all"):
+        film = dataclasses.replace(film, accum=_offset_view(film.accum,
+                                                            offset))
+    if which in ("alpha", "all"):
+        alpha = _offset_view(alpha, offset)
+        aux = [_offset_view(t, offset) for t in aux]
+    before = tfilm.FILM_ACCUMULATE.launches
+    got = tfilm.accumulate(film, val, alpha, 4, *aux)
+    want = tfilm.accumulate_plain(film, val, alpha, 4, *aux)
+    torch.cuda.synchronize()
+    assert tfilm.FILM_ACCUMULATE.launches == before + 1
+    for name in ("accum", "alpha", "depth", "cost", "trunc"):
+        assert torch.equal(getattr(got, name).view(torch.int32),
+                           getattr(want, name).view(torch.int32)), name
+
+
+def _c3_map():
+    ty = np.linspace(1.0, 0.0, 32, dtype=np.float32)[:, None, None]
+    env = (np.array([0.3, 0.5, 1.0], np.float32) * ty
+           + np.array([0.9, 0.6, 0.3], np.float32) * (1.0 - ty))
+    env = np.broadcast_to(env, (32, 64, 3)).copy()
+    env[8, 21] = [40.0, 38.0, 30.0]
+    return env
+
+
+def _env_scene(device, env):
+    from vpt_tpu_torch.scene.scene import attach_env_map
+    s = _blob_scene(device)
+    return attach_env_map(s, _c3_map()) if env == "hdri" else s
+
+
+ENV_TYPES = {"sky": 0, "hdri": 1}
+K4_RTOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", list(ENV_TYPES))
+def test_k4_matches_plain(cuda_device, env):
+    """K4 adds environment_radiance(dir) * beta to L, held against the
+    plain version on the card (the same libdevice functions: rtol 1e-5)
+    and on the CPU (the host's exp, pow, atan2 and acos)."""
+    from vpt_tpu_torch.render import integrator
+    s = _env_scene(cuda_device, env)
+    p = RenderParams(environment_type=ENV_TYPES[env], sky_mult=0.7,
+                     sky_color=(1.0, 0.9, 0.8))
+    g = torch.Generator().manual_seed(7)
+    n = 5003
+    d = torch.randn((n, 3), generator=g)
+    d = d / d.norm(dim=1, keepdim=True)
+    beta = torch.rand((n, 3), generator=g)
+    beta[::11] = 0.0
+    L = torch.rand((n, 3), generator=g)
+    before = integrator.ENVIRONMENT.launches
+    got = integrator.add_environment(s, p, L.to(cuda_device),
+                                     beta.to(cuda_device), d.to(cuda_device))
+    want = L.to(cuda_device) + integrator.environment_radiance(
+        s, p, d.to(cuda_device), d.to(cuda_device)) * beta.to(cuda_device)
+    torch.cuda.synchronize()
+    assert integrator.ENVIRONMENT.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got, want, rtol=K4_RTOL, atol=0.0)
+    cpu = dataclasses.replace(s, env_map=None if s.env_map is None
+                              else s.env_map.cpu())
+    host = L + integrator.environment_radiance(cpu, p, d, d) * beta
+    assert torch.allclose(got.cpu(), host, rtol=2e-3, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", list(ENV_TYPES))
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+def test_k1_k4_env_match_plain(cuda_device, env, mode):
+    """A sample with the simple sky or HDRI through the renderer on the
+    card (K1, then K4) against the plain pipeline, and K4 launched once a
+    sample."""
+    from vpt_tpu_torch.render import integrator
+    s = _env_scene(cuda_device, env)
+    p = RenderParams(width=48, height=40, shadow_mode=mode,
+                     environment_type=ENV_TYPES[env], ray_depth=8)
+    key = rng.render_key(0, 2)
+    before = integrator.ENVIRONMENT.launches
+    val, alpha, aux = renderer.render_rays(s, p, key)
+    torch.cuda.synchronize()
+    assert integrator.ENVIRONMENT.launches == before + 1
+    ref = fused.fused_direct_plain(
+        s, p, renderer.tile_key(key),
+        *renderer.primary_rays_plain(s.camera, p, key))
+    got = (val.reshape(-1, 3), alpha.reshape(-1), aux["cost"].reshape(-1),
+           aux["trunc"].reshape(-1))
+    share, rel = agreement([x.cpu().numpy() for x in got],
+                           [x.cpu().numpy() for x in ref])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
+    assert float(ref[0].mean()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+def test_k1_queued_budget_matches_plain(cuda_device, mode):
+    """K1 at Q = 16: a cut ray is the reference's unretired slot and a
+    finished ray the bits of a Q = 1 launch with a 16 times larger
+    budget, on both routes; the same as the plain version's rule."""
+    s = _env_scene(cuda_device, "sky")
+    kw = dict(width=48, height=40, shadow_mode=mode, environment_type=0,
+              ray_depth=8, density_mult=16.0)
+    p16, p1 = RenderParams(max_fused_steps=1, **kw), \
+        RenderParams(max_fused_steps=16, **kw)
+    key = rng.render_key(0, 4)
+    tkey = renderer.tile_key(key)
+    o, d = renderer._primary_rays_cuda(s.camera, p16, key)
+    q = fused._fused_direct_cuda(s, p16, tkey, o, d, queue=16)
+    one = fused._fused_direct_cuda(s, p1, tkey, o, d)
+    gen = fused._fused_direct_primary_cuda(
+        s, p16, tkey, renderer._raygen_for_sample(
+            renderer.prepare_raygen(s.camera, p16), key), queue=16)
+    ref = fused.fused_direct_plain(s, p16, tkey, o, d, queue=16)
+    torch.cuda.synchronize()
+    assert _same_bits(gen, q)
+    cut = q[3] == 1.0
+    assert 0 < int(cut.sum()) < cut.numel()
+    for a, b in zip(q, one):
+        assert torch.equal(a[~cut], b[~cut])
+    for x in (q[0], q[1], q[2], q[4]):
+        assert not bool(x[cut].any())
+    share, rel = agreement([x.cpu().numpy() for x in q],
+                           [x.cpu().numpy() for x in ref])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
 
 
 @pytest.mark.cuda
@@ -470,7 +612,8 @@ def _c_fields(source, struct):
     ("raygen.cuh", "RaygenParams", renderer._RaygenParams),
     ("probe_launch.cuh", "ProbeLaunch", probe._ProbeLaunch),
     ("gather_rows.cu", "GatherLaunch", probe._GatherLaunch),
-    ("film_accumulate.cu", "FilmArgs", tfilm._FilmArgs)])
+    ("film_accumulate.cu", "FilmArgs", tfilm._FilmArgs),
+    ("environment.cu", "EnvParams", _EnvParams)])
 def test_ctypes_mirrors_match_c_structs(source, struct, mirror):
     """The ctypes launch structs list the C structs' fields in order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]

@@ -5,12 +5,15 @@ Usage:
     python -m vpt_tpu_torch.app.cli render procedural --env-type constant
 
 The parser takes the reference's flags one for one (``build_parser``).
-``render`` runs what the port has: the ``procedural`` scene, the fused
-engine with the direct integrator at volume depth 1, BLACK or CONSTANT
-environments, tracked or cached shadows, checkpoint and resume (the
+``render`` runs what the port has: the ``procedural`` scene and a
+``.hdr`` scene (the procedural volume lit by the map), an optional
+``.hdr`` environment map (the positional ``env``), the fused engine with
+the direct integrator at volume depth 1, every environment type (the
+default is the simple sky, or HDRI when a map is given), tracked or
+cached shadows, checkpoint and resume (the
 reference's npz keys, so a checkpoint moves between the two), PNG and
 EXR output and the alpha/cost/depth AOVs.  Everything runs on the card
-(``cuda:0``) through kernels K1-K3 unless ``--cpu`` asks for the CPU.
+(``cuda:0``) through kernels K1-K4 unless ``--cpu`` asks for the CPU.
 Every other option, and the ``earth`` and ``view`` subcommands, exit
 with a message naming the ROADMAP item that ports it; nothing renders
 something else in its place.
@@ -34,9 +37,9 @@ def build_parser():
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("render", help="render a scene to an image")
     r.add_argument("scene", help=".vdb/.ins/.hdr path or 'procedural' "
-                   "(the port renders 'procedural')")
+                   "(the port renders 'procedural' and .hdr)")
     r.add_argument("env", nargs="?", default=None,
-                   help="optional .hdr environment map (not ported)")
+                   help="optional .hdr environment map")
     r.add_argument("-o", "--output", default="render/out.png",
                    help="output image (.png/.exr; .jpg is not ported)")
     r.add_argument("--spp", type=int, default=64)
@@ -51,8 +54,7 @@ def build_parser():
     r.add_argument("--env-type",
                    choices=["atmosphere", "hdri", "black", "constant"],
                    default=None,
-                   help="default: hdri if env given else atmosphere; the "
-                        "port renders black and constant")
+                   help="default: hdri if env given else atmosphere")
     r.add_argument("--camera", nargs=6, type=float, metavar="V",
                    default=None, help="lookfrom xyz lookat xyz")
     r.add_argument("--fov", type=float, default=30.0)
@@ -154,25 +156,18 @@ def _not_ported(what: str, item: str):
 
 def _check_render_slice(args) -> str:
     """Exit for every render option outside the port's slice; returns
-    the environment name."""
+    the environment name, resolved as the reference resolves it
+    (vpt_tpu/app/cli.py:395-398): --env-type, else hdri when a map is
+    given, else atmosphere (the simple sky)."""
     scene = args.scene
-    if scene != "procedural":
+    if scene != "procedural" and not scene.endswith(".hdr"):
         if scene.endswith(".vdb"):
             _not_ported("the .vdb scene", "ROADMAP A, the .vdb reader")
         if scene.endswith(".ins"):
             _not_ported("the .ins scene", "ROADMAP A.6, instanced scenes")
-        if scene.endswith(".hdr"):
-            _not_ported("the .hdr scene", "ROADMAP A.5, environments")
         raise SystemExit(f"unsupported scene file: {scene}")
-    if args.env:
-        _not_ported("an .hdr environment map", "ROADMAP A.5, environments")
-    env = args.env_type or "atmosphere"
-    if env == "atmosphere":
-        _not_ported("the atmosphere environment (the default without "
-                    "--env-type; pass --env-type black or constant)",
-                    "ROADMAP A.7, atmosphere")
-    if env == "hdri":
-        _not_ported("the hdri environment", "ROADMAP A.5, environments")
+    env = args.env_type or ("hdri" if (args.env or scene.endswith(".hdr"))
+                            else "atmosphere")
     for flag, on, item in (
             ("--atmosphere", args.atmosphere, "ROADMAP A.7, atmosphere"),
             (f"--engine {args.engine}", args.engine != "fused",
@@ -215,6 +210,22 @@ def default_framing(scene, width, height, fov=30.0, aperture=0.0):
                        device=scene.device)
 
 
+def _load_scene(args, lights, device):
+    """The scene of ``args.scene`` with ``args.env``'s map attached
+    (vpt_tpu/app/cli.py:174-216, the ported cases)."""
+    from vpt_tpu_torch.scene.scene import (attach_env_map, build_scene,
+                                           load_hdr_env_scene)
+    from vpt_tpu_torch.utils.hdr import load_hdr
+    from vpt_tpu_torch.volume import procedural
+    if args.scene.endswith(".hdr"):
+        return load_hdr_env_scene(args.scene, lights=lights, device=device)
+    scene = build_scene([procedural.default_procedural_grid(device=device)],
+                        lights=lights, device=device)
+    if args.env:
+        scene = attach_env_map(scene, load_hdr(args.env))
+    return scene
+
+
 def cmd_render(args, stats=None):
     """``vpt-torch render``; fills ``stats`` (a dict, when given) with
     the scene, bake and render seconds and Mrays/s."""
@@ -224,9 +235,7 @@ def cmd_render(args, stats=None):
     from vpt_tpu_torch.render.params import (Environment, Integrator,
                                              RenderParams)
     from vpt_tpu_torch.render.renderer import ProgressiveRenderer
-    from vpt_tpu_torch.scene.scene import build_scene
     from vpt_tpu_torch.utils.io import save_aov, save_image
-    from vpt_tpu_torch.volume import procedural
 
     env_name = _check_render_slice(args)
     stats = {} if stats is None else stats
@@ -239,8 +248,7 @@ def cmd_render(args, stats=None):
                                   device=device)
 
     t0 = time.time()
-    scene = build_scene([procedural.default_procedural_grid(device=device)],
-                        lights=lights, device=device)
+    scene = _load_scene(args, lights, device)
     stats["scene_s"] = time.time() - t0
     log(f"scene loaded in {stats['scene_s']:.1f}s on {device}")
 
@@ -253,7 +261,8 @@ def cmd_render(args, stats=None):
                               args.aperture)
     scene = dataclasses.replace(scene, camera=cam)
 
-    env_type = dict(black=Environment.BLACK,
+    env_type = dict(atmosphere=Environment.ATMOSPHERE, hdri=Environment.HDRI,
+                    black=Environment.BLACK,
                     constant=Environment.CONSTANT)[env_name]
     params = RenderParams(
         width=args.width, height=args.height, ray_depth=args.ray_depth,

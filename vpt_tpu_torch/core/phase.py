@@ -40,6 +40,12 @@ def double_henyey_greenstein(cos_theta, f, g1, g2, normalized=False):
             + (1.0 - f) * henyey_greenstein(cos_theta, g2, normalized))
 
 
+def isotropic():
+    """1 / (4 pi) (render_kernel.cu:271-275); the HDRI terminal term
+    scales the map by it (QUIRKS #8)."""
+    return INV_4_PI
+
+
 def sample_hg(wo, key, g, normalized: bool = False):
     """Direction around ``wo`` from the HG lobe; (new_dir, phase value)
     (render_kernel.cu:306-325).  Draws u1 from split(key)[0] and phi from

@@ -64,6 +64,15 @@ def spherical_direction(sin_theta, cos_theta, phi, x, y, z):
             + z * cos_theta[..., None])
 
 
+def true_div(a, s):
+    """``a / s`` for a Python number ``s``, rounded as one float32
+    division on every device.  On CUDA torch turns a division by a CPU
+    scalar into a product with its reciprocal, which may differ from the
+    quotient in the last bit; a 0-d tensor on ``a``'s device is divided
+    by, as the CPU, the reference and the kernels divide."""
+    return a / torch.tensor(s, dtype=a.dtype, device=a.device)
+
+
 def degree_to_cartesian(azimuth, elevation, device=None):
     """Sun direction from azimuth/elevation in degrees (y-up, azimuth in
     the xz plane from +x; render_kernel.cu:125-141).  float32, like the

@@ -1,0 +1,196 @@
+// K4 — the terminal environment: L[i] += env(dir[i]) * beta[i] for each
+// ray K1 retired, in place on K1's L field.
+//
+// Replaces: vpt_tpu/render/integrator.py::environment_radiance, applied
+// after the walk at vpt_tpu/render/fused.py:778-779 (and :755-767 for
+// queued rays), for the two environments that depend on the direction:
+// - HDRI: sky/envmap.py::sample_env_map (env_uv, then 4 bilinear taps,
+//   x wrapping, y clamped) on the raw (H, W, 3) map, times sky_color and
+//   isotropic();
+// - ATMOSPHERE without an attached atmosphere: sky/procedural.py::
+//   sample_sky, the 16 x 8 single-scattering march, times sky_color and
+//   sky_mult.
+// Its plain PyTorch version is vpt_tpu_torch/render/integrator.py::
+// environment_radiance (add_environment on a CPU tensor), whose
+// arithmetic this kernel repeats operation for operation: the same
+// float32 constants (from the wrapper), the same order of every sum and
+// product, true divisions, and, built with -fmad=false and without fast
+// math, the accurate expf/sqrtf/powf/atan2f/acosf.  Every ray is
+// evaluated, those with beta = 0 too, as the reference does (NaN * 0 is
+// NaN for a bad texel).
+//
+// What bounds it on the H100: for the sky, operations — about 4,500 a
+// ray (16 view samples, each with a light ray's sphere test and 8 light
+// samples; every sample a norm and two expf), against 48 bytes of L,
+// beta and dir moved; for HDRI, bytes — 48 a ray plus four 12-byte taps
+// that mostly hit the L2 (the map is read once: 1.5 MB at 512 x 256).
+//
+// What the design does about it: nothing yet; one thread a ray, the
+// state in registers, no shared memory.  A simple kernel that is right;
+// a faster sky (a baked direction table, as the reference's sky cache
+// does for the Bruneton model, or fewer transcendental operations) is
+// later work.
+
+#include "vpt_common.cuh"
+
+using namespace vpt;
+
+// Mirror of vpt_tpu_torch/render/integrator.py::_EnvParams.
+struct EnvParams {
+    int n, kind, map_h, map_w;
+    float sun[3], color[3];
+    float mult, u_scale, pi, earth_r, earth_r2, atm_r2, observer_y, hr, hm,
+        c_r, c_m, one_minus_g2, one_plus_g2, two_g, two_plus_g2;
+    float beta_r[3], beta_m[3], beta_m11[3];
+};
+
+namespace {
+
+constexpr int ENV_SKY = 0, ENV_HDRI = 1;
+constexpr int N_SAMPLES = 16, N_SAMPLES_LIGHT = 8;
+constexpr int THREADS = 256;
+
+// sky/procedural.py::_ray_sphere: the nearer and farther roots of a
+// unit-a quadratic (hit = disc >= 0)
+__device__ __forceinline__ bool ray_sphere(V3 orig, V3 dir, float r2,
+                                           float& lo, float& hi) {
+    const float b = 2.0f * dot(dir, orig);
+    const float c = dot(orig, orig) - r2;
+    const float disc = b * b - 4.0f * c;
+    const float sq = sqrtf(jmax(disc, 0.0f));
+    const float t0 = (-b - sq) / 2.0f;
+    const float t1 = (-b + sq) / 2.0f;
+    lo = jmin(t0, t1);
+    hi = jmax(t0, t1);
+    return disc >= 0.0f;
+}
+
+__device__ __forceinline__ float norm3(V3 a) { return sqrtf(dot(a, a)); }
+
+// sky/procedural.py::sample_sky for one direction, times intensity
+// (= sky_color); RED for a ray that misses the atmosphere
+__device__ V3 sample_sky(const EnvParams& p, V3 d) {
+    const V3 sun = v3(p.sun);
+    const V3 pos = v3(0.0f, p.observer_y, 0.0f);
+    float et0, et1, at0, at1;
+    const bool ehit = ray_sphere(pos, d, p.earth_r2, et0, et1);
+    float tmax = (ehit && et1 > 0.0f) ? jmax(et0, 0.0f) : 3.4e38f;
+    const bool ahit = ray_sphere(pos, d, p.atm_r2, at0, at1);
+    const bool miss = !ahit || at1 < 0.0f;
+    const float tmin = at0 > 0.0f ? jmax(at0, 0.0f) : 0.0f;
+    tmax = jmin(tmax, at1);
+
+    const float seg = (tmax - tmin) / (float)N_SAMPLES;
+    const float mu = dot(d, sun);
+    const float phase_r = p.c_r * (1.0f + mu * mu);
+    const float phase_m =
+        (p.c_m * (p.one_minus_g2 * (1.0f + mu * mu))) /
+        (p.two_plus_g2 * powf(p.one_plus_g2 - p.two_g * mu, 1.5f));
+
+    float sum_r[3] = {0.0f, 0.0f, 0.0f}, sum_m[3] = {0.0f, 0.0f, 0.0f};
+    float od_r = 0.0f, od_m = 0.0f;
+    for (int i = 0; i < N_SAMPLES; ++i) {
+        const float t_cur = tmin + seg * ((float)i + 0.5f);
+        const V3 sp = pos + d * t_cur;
+        const float height = norm3(sp) - p.earth_r;
+        const float hr = expf(-height / p.hr) * seg;
+        const float hm = expf(-height / p.hm) * seg;
+        od_r = od_r + hr;
+        od_m = od_m + hm;
+        // light march toward the sun
+        float l0, t1l;
+        ray_sphere(sp, sun, p.atm_r2, l0, t1l);
+        const float segl = t1l / (float)N_SAMPLES_LIGHT;
+        float odl_r = 0.0f, odl_m = 0.0f;
+        bool below = false;
+        for (int j = 0; j < N_SAMPLES_LIGHT; ++j) {
+            const float tl = segl * ((float)j + 0.5f);
+            const V3 spl = sp + sun * tl;
+            const float hl = norm3(spl) - p.earth_r;
+            below = below || hl < 0.0f;
+            if (!below) {
+                odl_r = odl_r + expf(-hl / p.hr) * segl;
+                odl_m = odl_m + expf(-hl / p.hm) * segl;
+            }
+        }
+        if (below) continue;   // the plain version adds 0 here
+        const float a_r = od_r + odl_r, a_m = od_m + odl_m;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            const float tau = p.beta_r[c] * a_r + p.beta_m11[c] * a_m;
+            const float atten = expf(-tau);
+            sum_r[c] = sum_r[c] + atten * hr;
+            sum_m[c] = sum_m[c] + atten * hm;
+        }
+    }
+    if (miss) return v3(1.0f, 0.0f, 0.0f);
+    V3 out;
+    float* o = &out.x;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+        o[c] = (sum_r[c] * p.beta_r[c] * phase_r +
+                sum_m[c] * p.beta_m[c] * phase_m) * p.color[c];
+    return out;
+}
+
+// sky/envmap.py::sample_env_map on the raw (H, W, 3) map
+__device__ V3 sample_env_map(const EnvParams& p,
+                             const float* __restrict__ map, V3 d) {
+    const int H = p.map_h, W = p.map_w;
+    const float u = atan2f(d.z, d.x) * p.u_scale + 0.5f;
+    const float v = acosf(jclamp(d.y, -1.0f, 1.0f)) / p.pi;
+    const float x = u * (float)W - 0.5f;
+    const float y = v * (float)H - 0.5f;
+    const float x0 = floorf(x);
+    const float y0 = jclamp(floorf(y), 0.0f, (float)(H - 1));
+    const float fx = x - x0, fy = y - y0;
+    int x0i = (int)x0 % W;
+    if (x0i < 0) x0i += W;
+    const int y0i = (int)y0;
+    const int x1i = x0i + 1 == W ? 0 : x0i + 1;
+    const int y1i = min(y0i + 1, H - 1);
+    const float* r0 = map + 3 * y0i * W;
+    const float* r1 = map + 3 * y1i * W;
+    const V3 v00 = v3(r0 + 3 * x0i), v01 = v3(r0 + 3 * x1i);
+    const V3 v10 = v3(r1 + 3 * x0i), v11 = v3(r1 + 3 * x1i);
+    const float gx = 1.0f - fx, gy = 1.0f - fy;
+    return (v00 * gx + v01 * fx) * gy + (v10 * gx + v11 * fx) * fy;
+}
+
+__global__ void __launch_bounds__(THREADS)
+environment_kernel(const EnvParams p, float* __restrict__ L,
+                   const float* __restrict__ beta,
+                   const float* __restrict__ dir,
+                   const float* __restrict__ map) {
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= p.n) return;
+    const V3 d = v3(dir + 3 * i);
+    const V3 li = p.kind == ENV_HDRI ? sample_env_map(p, map, d)
+                                     : sample_sky(p, d);
+    const V3 env = (li * v3(p.color)) * p.mult;
+    const V3 l = v3(L + 3 * i) + env * v3(beta + 3 * i);
+    L[3 * i + 0] = l.x;
+    L[3 * i + 1] = l.y;
+    L[3 * i + 2] = l.z;
+}
+
+}  // namespace
+
+extern "C" int vpt_env_params_size() { return (int)sizeof(EnvParams); }
+
+// K4 on n rays: L (n, 3) updated in place from beta and dir (n, 3); map
+// the raw (map_h, map_w, 3) float32 map for HDRI, else unused.
+extern "C" int vpt_environment(const void* params, float* L,
+                               const float* beta, const float* dir,
+                               const float* map, void* stream) {
+    const EnvParams& p = *static_cast<const EnvParams*>(params);
+    if (p.n <= 0) return 0;
+    if ((p.kind != ENV_SKY && p.kind != ENV_HDRI) ||
+        (p.kind == ENV_HDRI && (map == nullptr || p.map_h <= 0 ||
+                                p.map_w <= 0)))
+        return (int)cudaErrorInvalidValue;
+    const int blocks = (p.n + THREADS - 1) / THREADS;
+    environment_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        p, L, beta, dir, map);
+    return (int)cudaGetLastError();
+}

@@ -31,8 +31,11 @@
 // load takes the read-only path; streaming loads (__ldcs) on the once-read
 // sample measured slower.  The main path gives all fields: that case is
 // compiled without the per-field branches.  A scalar tail takes the last
-// H*W mod 4 pixels; the wrapper refuses pointers that are not 16-byte
-// aligned.
+// H*W mod 4 pixels.  A tensor that does not start on a 16-byte boundary
+// (a contiguous view into a larger buffer) takes the scalar route, one
+// pixel a thread in single-float accesses, the same arithmetic: the
+// wrapper picks the route from the pointers
+// (render/film.py::accumulate_design).
 
 #include <cuda_runtime.h>
 
@@ -41,7 +44,7 @@ struct FilmArgs {
     const float *acc, *alpha, *depth, *cost, *trunc;   // the film
     const float *v, *a, *d, *c, *t;                     // the sample
     float *o_acc, *o_alpha, *o_depth, *o_cost, *o_trunc;
-    int n, fields;
+    int n, fields, vec;   // vec: every pointer 16-byte aligned
     float inv;
 };
 
@@ -76,6 +79,34 @@ __device__ __forceinline__ void rgb(const float* v, const float* a,
 
 __device__ __forceinline__ float alpha_step(float f, float s, float inv) {
     return mean_step(f, finite(s) ? s : 1.0f, inv);
+}
+
+// pixel i in single floats: the scalar tail of the float4 route, and the
+// scalar route
+__device__ __forceinline__ void pixel(const FilmArgs& p, int i, float inv,
+                                      bool depth, bool cost, bool trunc) {
+    float v[3], a[3], o[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        v[k] = __ldg(p.v + 3 * i + k);
+        a[k] = __ldg(p.acc + 3 * i + k);
+    }
+    rgb(v, a, o, inv);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) p.o_acc[3 * i + k] = o[k];
+    p.o_alpha[i] = alpha_step(__ldg(p.alpha + i), __ldg(p.a + i), inv);
+    if (depth)
+        p.o_depth[i] = mean_step(__ldg(p.depth + i), __ldg(p.d + i), inv);
+    if (cost) p.o_cost[i] = __ldg(p.cost + i) + __ldg(p.c + i);
+    if (trunc) p.o_trunc[i] = __ldg(p.trunc + i) + __ldg(p.t + i);
+}
+
+// the scalar route: one pixel a thread
+__global__ void __launch_bounds__(256) film_accumulate_scalar(FilmArgs p) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= p.n) return;
+    pixel(p, i, p.inv, p.fields & FIELD_DEPTH, p.fields & FIELD_COST,
+          p.fields & FIELD_TRUNC);
 }
 
 template <bool ALL>   // all of depth, cost and trunc given
@@ -132,22 +163,8 @@ __global__ void __launch_bounds__(256) film_accumulate_kernel(FilmArgs p) {
     }
     if (g != groups) return;
     // the scalar tail: pixels 4 groups .. n - 1
-    for (int i = 4 * (int)groups; i < p.n; ++i) {
-        float v[3], a[3], o[3];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-            v[k] = __ldg(p.v + 3 * i + k);
-            a[k] = __ldg(p.acc + 3 * i + k);
-        }
-        rgb(v, a, o, inv);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) p.o_acc[3 * i + k] = o[k];
-        p.o_alpha[i] = alpha_step(__ldg(p.alpha + i), __ldg(p.a + i), inv);
-        if (depth)
-            p.o_depth[i] = mean_step(__ldg(p.depth + i), __ldg(p.d + i), inv);
-        if (cost) p.o_cost[i] = __ldg(p.cost + i) + __ldg(p.c + i);
-        if (trunc) p.o_trunc[i] = __ldg(p.trunc + i) + __ldg(p.t + i);
-    }
+    for (int i = 4 * (int)groups; i < p.n; ++i)
+        pixel(p, i, inv, depth, cost, trunc);
 }
 
 }  // namespace
@@ -156,8 +173,13 @@ extern "C" int vpt_film_accumulate(const FilmArgs* pp, void* stream) {
     const FilmArgs& p = *pp;
     if (p.n <= 0) return 0;
     const int threads = 256;
-    const int blocks = (p.n / 4 + 1 + threads - 1) / threads;
     const cudaStream_t s = (cudaStream_t)stream;
+    if (!p.vec) {
+        film_accumulate_scalar<<<(p.n + threads - 1) / threads, threads, 0,
+                                 s>>>(p);
+        return (int)cudaGetLastError();
+    }
+    const int blocks = (p.n / 4 + 1 + threads - 1) / threads;
     if (p.fields == (FIELD_DEPTH | FIELD_COST | FIELD_TRUNC))
         film_accumulate_kernel<true><<<blocks, threads, 0, s>>>(p);
     else

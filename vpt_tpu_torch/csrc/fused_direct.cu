@@ -37,6 +37,16 @@
 //   into shared memory, not by every step of every lane;
 // - on the in-kernel-ray route a lane generates its own primary ray, so
 //   the sample writes and reads no ray buffer.
+//
+// The step budget is max_steps steps per ray: max_fused_steps, or 16
+// times that where the reference queues 16 rays per lane
+// (render/params.py::resolve_queue); the keys of the first key_steps
+// steps (at most KEY_CACHE) are cached, later steps fold their key in
+// the lane.  With `queued` a ray still walking at the end is written as
+// the reference's unretired queue slot.  With `defer_env` (HDRI, the
+// simple sky) each ray's beta and direction go beside its outputs for
+// K4 (csrc/environment.cu), which adds the environment after this
+// kernel; BLACK and CONSTANT are added here.
 
 #include "raygen.cuh"
 
@@ -70,6 +80,7 @@ struct FusedParams {
         sph_center[3], sph_color[3];
     float inv_xf[12];
     int sph_enabled;
+    int key_steps, queued, defer_env;
 };
 
 struct Ctx {
@@ -555,20 +566,52 @@ __device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
 
 // K1's outputs, one float buffer of 7 S, S = B rounded up to a multiple
 // of 4: L (B, 3) at 0, alpha at 3 S, cost at 4 S, unfinished at 5 S,
-// depth at 6 S, so that each field starts 16-byte aligned for K3.
+// depth at 6 S, so that each field starts 16-byte aligned for K3; with
+// defer_env 13 S, beta (B, 3) at 7 S and the direction (B, 3) at 10 S.
 struct Out {
     float* base;
     long long S;
 };
 
+// DEFER (= p.defer_env): beta and the direction go to K4, which adds the
+// environment; else BLACK or CONSTANT is added here.  `dir0` is the
+// ray's primary direction (shared memory, components THREADS apart),
+// read with DEFER for a queued ray that is cut.
+template <bool DEFER>
 __device__ __forceinline__ void write_out(const FusedParams& p,
                                           const Walk& s, Out o,
-                                          long long i) {
+                                          long long i, const float* dir0) {
+    if (p.queued && s.phase != P_DONE) {
+        // a queued ray still walking: the reference's unretired slot, its
+        // environment term on beta 0 in its primary direction
+        const V3 zero = v3(0.0f, 0.0f, 0.0f);
+        V3 L = zero;
+        if (!DEFER)
+            L = L + (p.env_constant ? v3(p.sky) : zero) * zero;
+        o.base[3 * i + 0] = L.x;
+        o.base[3 * i + 1] = L.y;
+        o.base[3 * i + 2] = L.z;
+        o.base[3 * o.S + i] = 0.0f;
+        o.base[4 * o.S + i] = 0.0f;
+        o.base[5 * o.S + i] = 1.0f;
+        o.base[6 * o.S + i] = 0.0f;
+        if (DEFER) {
+            float* b = o.base + 7 * o.S + 3 * i;
+            float* w = o.base + 10 * o.S + 3 * i;
+            b[0] = b[1] = b[2] = 0.0f;
+            w[0] = dir0[0];
+            w[1] = dir0[THREADS];
+            w[2] = dir0[2 * THREADS];
+        }
+        return;
+    }
     V3 L = s.L;
-    if (p.env_constant)
-        L = L + v3(p.sky) * s.beta;
-    else
-        L = L + v3(0.0f, 0.0f, 0.0f) * s.beta;  // 0 * beta, as the reference
+    if (!DEFER) {
+        if (p.env_constant)
+            L = L + v3(p.sky) * s.beta;
+        else  // 0 * beta, as the reference
+            L = L + v3(0.0f, 0.0f, 0.0f) * s.beta;
+    }
     o.base[3 * i + 0] = L.x;
     o.base[3 * i + 1] = L.y;
     o.base[3 * i + 2] = L.z;
@@ -576,6 +619,16 @@ __device__ __forceinline__ void write_out(const FusedParams& p,
     o.base[4 * o.S + i] = (float)s.cost;
     o.base[5 * o.S + i] = s.phase != P_DONE ? 1.0f : 0.0f;
     o.base[6 * o.S + i] = s.depth_aov;
+    if (DEFER) {
+        float* b = o.base + 7 * o.S + 3 * i;
+        float* w = o.base + 10 * o.S + 3 * i;
+        b[0] = s.beta.x;
+        b[1] = s.beta.y;
+        b[2] = s.beta.z;
+        w[0] = s.dirn.x;
+        w[1] = s.dirn.y;
+        w[2] = s.dirn.z;
+    }
 }
 
 // The ray of schedule slot `slot`, or -1 for a slot outside the frame.
@@ -605,8 +658,14 @@ long long slot_count(const FusedParams& p) {
 }
 
 // RAYS_IN_KERNEL: each ray from primary_ray(rp, index) (raygen.cuh), else
-// from the (B, 3) origin and direction buffers.
-template <bool RAYS_IN_KERNEL>
+// from the (B, 3) origin and direction buffers.  DEFER = p.defer_env is
+// a template argument so that BLACK and CONSTANT compile without K4's
+// two extra outputs: with one shared write path the cached 1080p main
+// path measured 1.5% slower on the H100.  The queued cut's writes sit in
+// write_out's own branch; resetting the walk state in the loop instead
+// measured cached +1.6% and tracked -1.3% against this, and an
+// out-of-line writer +45% (PERF.md, Findings).
+template <bool RAYS_IN_KERNEL, bool DEFER>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     const float* __restrict__ origin,
@@ -620,7 +679,8 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
     // fold_in(key, s) and its four HG subkeys
     extern __shared__ Key skeys[];
     const Key key{p.key[0], p.key[1]};
-    const int n_keys = max(0, min(p.max_steps, KEY_CACHE));
+    const int n_keys =
+        max(0, min(min(p.key_steps, p.max_steps), KEY_CACHE));
     for (int j = threadIdx.x; j <= n_keys; j += blockDim.x) {
         if (j == n_keys) {
             skeys[0] = fold_in(key, SEEK_FOLD);
@@ -639,9 +699,15 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
     const Key k_seek = skeys[0];
     const int lane = threadIdx.x & 31;
     const unsigned below = (1u << lane) - 1u;
-    // each lane's ray origin, read once per ray (the depth AOV)
+    // each lane's ray origin, read once per ray (the depth AOV), and,
+    // where a cut ray hands K4 its primary direction, that direction
+    // (dynamic shared memory after the keys, only then)
     __shared__ float s_org[3 * THREADS];
     float* org = s_org + threadIdx.x;
+    const bool keep_dir = DEFER && p.queued;
+    float* dir0 =
+        reinterpret_cast<float*>(skeys + 1 + KEYS_PER_STEP * n_keys) +
+        threadIdx.x;
     Walk s;
     int ray = 0, step = 0;
     bool live = false;
@@ -674,12 +740,17 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                 org[0] = o.x;
                 org[THREADS] = o.y;
                 org[2 * THREADS] = o.z;
+                if (keep_dir) {
+                    dir0[0] = dir.x;
+                    dir0[THREADS] = dir.y;
+                    dir0[2 * THREADS] = dir.z;
+                }
                 init_walk(s, o, dir);
                 // pre-loop seek: uniform(fold_in(key, 1 << 20), (B, 5))
                 seek(c, s, k_seek, (unsigned long long)r);
                 step = 0;
                 live = s.phase != P_DONE && p.max_steps > 0;
-                if (!live) write_out(p, s, out, r);
+                if (!live) write_out<DEFER>(p, s, out, r, dir0);
             }
         }
         // the slots are gone or too few lanes are idle: step the live
@@ -693,22 +764,30 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                       (unsigned long long)ray);
             ++step;
             if (s.phase == P_DONE || step >= p.max_steps) {
-                write_out(p, s, out, ray);
+                write_out<DEFER>(p, s, out, ray, dir0);
                 live = false;
             }
         }
     }
 }
 
-int key_smem_bytes(int max_steps) {
-    const int n = max_steps < 0 ? 0 : (max_steps < KEY_CACHE ? max_steps
+int key_smem_bytes(int key_steps) {
+    const int n = key_steps < 0 ? 0 : (key_steps < KEY_CACHE ? key_steps
                                                               : KEY_CACHE);
     return (1 + KEYS_PER_STEP * n) * (int)sizeof(Key);
 }
 
-// SMs and resident blocks per SM of one route, asked of the runtime once
-// per library load (again only for another device or key-cache size).
-template <bool RAYS_IN_KERNEL>
+// The dynamic shared memory of a launch: the keys, and the primary
+// directions of a block's lanes where a queued ray hands K4 its own.
+int smem_bytes(const FusedParams& p) {
+    return key_smem_bytes(min(p.key_steps, p.max_steps)) +
+           (p.queued && p.defer_env ? 3 * THREADS * (int)sizeof(float) : 0);
+}
+
+// SMs and resident blocks per SM of one variant, asked of the runtime
+// once per library load (again only for another device or key-cache
+// size).
+template <bool RAYS_IN_KERNEL, bool DEFER>
 cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     static int o_dev = -1, o_smem = -1, o_sms = 0, o_per_sm = 0;
     int dev = 0;
@@ -719,7 +798,8 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
         e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n_blk, fused_direct_kernel<RAYS_IN_KERNEL>, THREADS, smem);
+                &n_blk, fused_direct_kernel<RAYS_IN_KERNEL, DEFER>, THREADS,
+                smem);
         if (e != cudaSuccess) return e;
         if (n_sm <= 0 || n_blk <= 0) return cudaErrorInvalidConfiguration;
         o_dev = dev, o_smem = smem, o_sms = n_sm, o_per_sm = n_blk;
@@ -729,8 +809,8 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     return cudaSuccess;
 }
 
-template <bool RAYS_IN_KERNEL>
-int launch(const FusedParams& p, const RaygenParams& rp,
+template <bool RAYS_IN_KERNEL, bool DEFER>
+int launch_variant(const FusedParams& p, const RaygenParams& rp,
            const float* origin, const float* direction,
            const float* corners, const float* lights, const float* lut,
            float* out, unsigned* next_ray, void* stream) {
@@ -739,9 +819,9 @@ int launch(const FusedParams& p, const RaygenParams& rp,
         (p.tile_w != 0 && (p.tile_w < 0 || p.tile_h <= 0 || p.frame_w <= 0))
         || slot_count(p) > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
-    const int smem = key_smem_bytes(p.max_steps);
+    const int smem = smem_bytes(p);
     int sms = 0, per_sm = 0;
-    cudaError_t e = occupancy<RAYS_IN_KERNEL>(smem, sms, per_sm);
+    cudaError_t e = occupancy<RAYS_IN_KERNEL, DEFER>(smem, sms, per_sm);
     if (e != cudaSuccess) return (int)e;
     const long long need = ((long long)p.B + THREADS - 1) / THREADS;
     const long long grid = (long long)sms * per_sm;
@@ -750,10 +830,35 @@ int launch(const FusedParams& p, const RaygenParams& rp,
     e = cudaMemsetAsync(next_ray, 0, sizeof(unsigned), st);
     if (e != cudaSuccess) return (int)e;
     const Out o{out, ((long long)p.B + 3) & ~3LL};
-    fused_direct_kernel<RAYS_IN_KERNEL><<<blocks, THREADS, smem, st>>>(
-        p, rp, origin, direction, corners, lights, lut, o, next_ray,
-        (unsigned)slot_count(p));
+    fused_direct_kernel<RAYS_IN_KERNEL, DEFER>
+        <<<blocks, THREADS, smem, st>>>(p, rp, origin, direction, corners,
+                                        lights, lut, o, next_ray,
+                                        (unsigned)slot_count(p));
     return (int)cudaGetLastError();
+}
+
+template <bool RAYS_IN_KERNEL>
+int launch(const FusedParams& p, const RaygenParams& rp,
+           const float* origin, const float* direction,
+           const float* corners, const float* lights, const float* lut,
+           float* out, unsigned* next_ray, void* stream) {
+    return p.defer_env
+               ? launch_variant<RAYS_IN_KERNEL, true>(
+                     p, rp, origin, direction, corners, lights, lut, out,
+                     next_ray, stream)
+               : launch_variant<RAYS_IN_KERNEL, false>(
+                     p, rp, origin, direction, corners, lights, lut, out,
+                     next_ray, stream);
+}
+
+template <bool RAYS_IN_KERNEL, bool DEFER>
+cudaError_t variant_info(int smem, int& sms, int& per_sm,
+                         cudaFuncAttributes& a) {
+    const cudaError_t e = occupancy<RAYS_IN_KERNEL, DEFER>(smem, sms, per_sm);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncGetAttributes(
+                     &a, fused_direct_kernel<RAYS_IN_KERNEL, DEFER>);
 }
 
 }  // namespace
@@ -788,24 +893,21 @@ extern "C" int vpt_fused_direct_primary(const void* params,
                         next_ray, stream);
 }
 
-// info[0..5] of one route at max_steps: SMs, resident blocks per SM,
-// threads per block, registers per thread, local (spill and stack)
-// bytes per thread, dynamic shared bytes per block.
-extern "C" int vpt_fused_launch_info(int rays_in_kernel, int max_steps,
-                                     int* info) {
-    const int smem = key_smem_bytes(max_steps);
+// info[0..5] of one variant (route, deferred environment) whose keys of
+// key_steps steps are cached, at Q = 1: SMs, resident blocks per SM,
+// threads per block, registers per thread, local (spill and stack) bytes
+// per thread, dynamic shared bytes per block.
+extern "C" int vpt_fused_launch_info(int rays_in_kernel, int defer_env,
+                                     int key_steps, int* info) {
+    const int smem = key_smem_bytes(key_steps);
     int sms = 0, per_sm = 0;
     cudaFuncAttributes a{};
-    cudaError_t e;
-    if (rays_in_kernel) {
-        e = occupancy<true>(smem, sms, per_sm);
-        if (e == cudaSuccess) e = cudaFuncGetAttributes(
-            &a, fused_direct_kernel<true>);
-    } else {
-        e = occupancy<false>(smem, sms, per_sm);
-        if (e == cudaSuccess) e = cudaFuncGetAttributes(
-            &a, fused_direct_kernel<false>);
-    }
+    const cudaError_t e =
+        rays_in_kernel
+            ? (defer_env ? variant_info<true, true>(smem, sms, per_sm, a)
+                         : variant_info<true, false>(smem, sms, per_sm, a))
+            : (defer_env ? variant_info<false, true>(smem, sms, per_sm, a)
+                         : variant_info<false, false>(smem, sms, per_sm, a));
     if (e != cudaSuccess) return (int)e;
     info[0] = sms;
     info[1] = per_sm;

@@ -24,7 +24,7 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "csrc")
 SOURCES = ("fused_direct.cu", "raygen.cu", "film_accumulate.cu",
-           "gather_rows.cu", "take_along.cu", "roll.cu")
+           "environment.cu", "gather_rows.cu", "take_along.cu", "roll.cu")
 HEADERS = ("vpt_common.cuh", "raygen.cuh", "probe_launch.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -84,12 +84,14 @@ def load_library() -> Library:
     for fn, args in (
             ("vpt_fused_direct", [vp] * 9),
             ("vpt_fused_direct_primary", [vp] * 8),
-            ("vpt_fused_launch_info", [i32, i32, vp]),
+            ("vpt_fused_launch_info", [i32, i32, i32, vp]),
             ("vpt_primary_rays", [vp] * 4),
             ("vpt_fused_params_size", []),
             ("vpt_raygen_params_size", []),
             ("vpt_film_accumulate", [vp, vp]),
             ("vpt_film_args_size", []),
+            ("vpt_environment", [vp] * 6),
+            ("vpt_env_params_size", []),
             ("vpt_gather_rows", [vp] * 5),
             ("vpt_gather_launch_size", []),
             ("vpt_take_along_i32", [vp] * 5),

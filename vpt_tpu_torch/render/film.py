@@ -2,7 +2,9 @@
 
 ``accumulate`` launches kernel K3 (csrc/film_accumulate.cu, in the
 ctypes library of ops/cuda.py) on CUDA tensors and runs
-``accumulate_plain`` on CPU tensors; the two agree bit for bit.
+``accumulate_plain`` on CPU tensors; the two agree bit for bit.  K3
+takes any contiguous float32 tensors: 16-byte accesses where every
+pointer allows them, single floats otherwise (``accumulate_design``).
 ``to_display`` runs once per saved image and stays plain torch.
 """
 
@@ -97,7 +99,7 @@ class _FilmArgs(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "acc", "alpha", "depth", "cost", "trunc", "v", "a", "d", "c", "t",
         "o_acc", "o_alpha", "o_depth", "o_cost", "o_trunc")] + [
-        ("n", ctypes.c_int), ("fields", ctypes.c_int),
+        ("n", ctypes.c_int), ("fields", ctypes.c_int), ("vec", ctypes.c_int),
         ("inv", ctypes.c_float)]
 
 
@@ -114,11 +116,18 @@ def _fn():
     return _FN
 
 
+def accumulate_design(pointers) -> str:
+    """K3's route for tensors starting at ``pointers`` (byte addresses):
+    "float4" (4 pixels a thread in 16-byte accesses) when every one is
+    16-byte aligned, else "scalar" (a pixel a thread)."""
+    return "float4" if all(not ptr & 15 for ptr in pointers) else "scalar"
+
+
 def _accumulate_cuda(film, value, alpha, iteration, depth, cost, trunc):
-    """K3 on CUDA tensors: every tensor on value's device, float32,
-    contiguous and 16-byte aligned, value and film.accum (H, W, 3), the
-    rest (H, W); raises on anything else.  A field whose sample is None
-    is carried over: the kernel neither reads nor writes it."""
+    """K3 on CUDA tensors: every tensor on value's device, float32 and
+    contiguous, value and film.accum (H, W, 3), the rest (H, W); raises
+    on anything else.  A field whose sample is None is carried over: the
+    kernel neither reads nor writes it."""
     dev = value.device
     if dev.type != "cuda" or alpha.dim() != 2:
         raise ValueError(f"accumulate: value on {dev}, alpha "
@@ -136,11 +145,9 @@ def _accumulate_cuda(film, value, alpha, iteration, depth, cost, trunc):
                        (t, name, hw)]
     for t, label, shape in checks:
         if not (t.device == dev and t.dtype == torch.float32
-                and t.shape == shape and t.is_contiguous()
-                and not t.data_ptr() & 15):
+                and t.shape == shape and t.is_contiguous()):
             cuda.check_cuda_tensor(t, f"accumulate: {label}", shape,
                                    torch.float32, dev)
-            raise ValueError(f"accumulate: {label} is not 16-byte aligned")
     n = hw[0] * hw[1]
     if 3 * n > 2 ** 31 - 1:
         raise ValueError(f"accumulate: {n} pixels; K3 indexes in 32 bits")
@@ -156,7 +163,9 @@ def _accumulate_cuda(film, value, alpha, iteration, depth, cost, trunc):
         *(t.data_ptr() if g else None for t, g in zip(samples, given)),
         *(t.data_ptr() for t in (out.accum, out.alpha, out.depth, out.cost,
                                  out.trunc)),
-        n, given[0] | given[1] << 1 | given[2] << 2, _inv_f32(iteration))
+        n, given[0] | given[1] << 1 | given[2] << 2, 0, _inv_f32(iteration))
+    args.vec = accumulate_design(
+        t.data_ptr() for t, _, _ in checks) == "float4"
     rc = (_FN or _fn())(ctypes.byref(args), cuda.current_stream(dev))
     if rc:
         cuda.check_status(rc, FILM_ACCUMULATE.name)

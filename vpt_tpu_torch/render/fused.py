@@ -26,9 +26,22 @@ the pre-loop seek uses ``uniform(fold_in(key, 1<<20), (B, 5))``, step
 sampling ``fold_in(fold_in(key, s), 7)``, so K1's schedule does not
 change its output.
 
+The terminal environment: K1 adds BLACK and CONSTANT itself when a ray
+retires; for HDRI with a map and the simple sky (ATMOSPHERE) it writes
+each ray's beta and direction beside its outputs and kernel K4
+(render/integrator.py::add_environment, csrc/environment.cu) adds
+env(direction) * beta to L after it, as the reference applies the
+environment after its loop.
+
+``queue`` (render/params.py::resolve_queue): at Q = 16 each ray may take
+max_fused_steps * 16 steps, and a ray still walking at the end is
+written as the reference's unretired queue slot: L, alpha, cost and
+depth 0, unfinished 1, and beta 0 with the ray's primary direction for
+the environment term.  Rays that finish are the same bits at any Q.
+
 Not in this slice (NotImplementedError): the queue path
-(``rays_per_lane > 1``), emission, color, instanced scenes, HDRI and
-ATMOSPHERE environments, ``volume_depth > 1``.
+(``rays_per_lane > 1``), emission, color, instanced scenes, the
+Bruneton atmosphere, ``volume_depth > 1``.
 """
 
 from __future__ import annotations
@@ -46,7 +59,10 @@ from vpt_tpu_torch.core.vecmath import (EPS, TWO_PI, aabb_contains,
                                         degree_to_cartesian, dot, length,
                                         normalize, reflect)
 from vpt_tpu_torch.ops import cuda
-from vpt_tpu_torch.render.integrator import environment_radiance
+from vpt_tpu_torch.render.integrator import (EnvLaunch, add_environment,
+                                             defers_environment,
+                                             environment_radiance,
+                                             prepare_environment)
 from vpt_tpu_torch.render.params import Environment, check_slice
 from vpt_tpu_torch.render.tracking import (_sphere_block, density_color_lut,
                                            unified_fetch_full, vec3_param)
@@ -108,24 +124,33 @@ def _check_scene(scene, params):
                 "attach_shadow_cache on this scene")
 
 
-def fused_direct(scene, params, key, origin, direction, launch=None):
+def fused_direct(scene, params, key, origin, direction, launch=None,
+                 queue: int = 1):
     """Trace one tile of rays.  Returns (L (B,3), alpha, cost,
     unfinished, depth), all float32: cost = loop steps spent walking,
-    unfinished = step-budget truncation flag.
+    unfinished = step-budget truncation flag.  ``queue``: 1, or the
+    reference's queue length from resolve_queue (the module's
+    docstring).
 
-    CUDA tensors launch kernel K1 (``launch``: an optional prepare_fused
+    CUDA tensors launch kernel K1, and K4 after it for an environment
+    that depends on the direction (``launch``: an optional prepare_fused
     result for this scene and params); CPU tensors run the plain
     version."""
     if origin.device.type == "cpu":
-        return fused_direct_plain(scene, params, key, origin, direction)
+        return fused_direct_plain(scene, params, key, origin, direction,
+                                  queue)
     if origin.device.type != "cuda":
         raise ValueError(f"fused_direct: unsupported device {origin.device}")
-    return _fused_direct_cuda(scene, params, key, origin, direction, launch)
+    return _fused_direct_cuda(scene, params, key, origin, direction, launch,
+                              queue=queue)
 
 
-def fused_direct_plain(scene, params, key, origin, direction):
+def fused_direct_plain(scene, params, key, origin, direction,
+                       queue: int = 1):
     """The lane-masked loop in torch, step for step the reference's
-    ``body`` at Q = 1 (vpt_tpu/render/fused.py:393-791)."""
+    ``body`` at Q = 1 (vpt_tpu/render/fused.py:393-791), run for
+    max_fused_steps * queue steps; at queue > 1 the rays still walking
+    are written as unretired queue slots (:745-767)."""
     _check_scene(scene, params)
     dev = origin.device
     B = origin.shape[0]
@@ -408,17 +433,24 @@ def fused_direct_plain(scene, params, key, origin, direction):
              ascode=zi, nshadow=zi, depth_n=zi, depth_aov=zf, cost=zi)
     k0 = rng.fold_in(key, SEEK_FOLD)
     seek_block(s, rng.uniform(k0, (B, 5), dev))
-    for step in range(params.max_fused_steps):
+    for step in range(params.max_fused_steps * queue):
         if not bool((s["phase"] != P_DONE).any()):
             break
         body(s, rng.fold_in(key, step))
 
-    L = s["L"] + environment_radiance(scene, params, s["env_pos"],
-                                      s["dirn"]) * s["beta"]
+    L, beta, dirn, env_pos = s["L"], s["beta"], s["dirn"], s["env_pos"]
     alpha = torch.clamp(s["alpha"], max=1.0)
-    unfinished = (s["phase"] != P_DONE).to(torch.float32)
-    return (L, alpha, s["cost"].to(torch.float32), unfinished,
-            s["depth_aov"])
+    cost, depth = s["cost"].to(torch.float32), s["depth_aov"]
+    cut = s["phase"] != P_DONE
+    if queue > 1:
+        # the reference's unretired slots: outputs 0, and the
+        # environment term on beta 0 in the slot's primary direction
+        L, beta = W(cut, 0.0, L), W(cut, 0.0, beta)
+        dirn, env_pos = W(cut, direction, dirn), W(cut, origin, env_pos)
+        alpha, cost, depth = (torch.where(cut, 0.0, x)
+                              for x in (alpha, cost, depth))
+    L = L + environment_radiance(scene, params, env_pos, dirn) * beta
+    return L, alpha, cost, cut.to(torch.float32), depth
 
 
 def warp_efficiency(cost, warp: int = 32) -> float:
@@ -435,14 +467,18 @@ def warp_efficiency(cost, warp: int = 32) -> float:
     return float(c.sum()) / held if held > 0 else 1.0
 
 
-def launch_info(rays_in_kernel: bool, max_steps: int) -> dict:
-    """K1's schedule on the current card for one route, from the CUDA
+def launch_info(rays_in_kernel: bool, max_fused_steps: int,
+                defer_env: bool = False) -> dict:
+    """K1's schedule on the current card for one route at
+    ``max_fused_steps`` (which sizes the key cache, whatever the queue),
+    for BLACK/CONSTANT or (``defer_env``) HDRI and the sky, from the CUDA
     runtime: SMs, resident blocks per SM, threads per block, registers
-    and local bytes per thread, dynamic shared bytes per block.  The
-    grid is SMs x blocks per SM blocks (fewer for a small frame)."""
+    and local bytes per thread, dynamic shared bytes per block.  The grid
+    is SMs x blocks per SM blocks (fewer for a small frame)."""
     info = (ctypes.c_int * 6)()
     cuda.check_status(cuda.load_library().dll.vpt_fused_launch_info(
-        int(rays_in_kernel), max_steps, info), "fused_direct launch info")
+        int(rays_in_kernel), int(defer_env), max_fused_steps, info),
+        "fused_direct launch info")
     return dict(zip(("sms", "blocks_per_sm", "threads", "registers",
                      "local_bytes", "shared_bytes"), info))
 
@@ -465,7 +501,9 @@ class _FusedParams(ctypes.Structure):
             "albedo", "ext", "sun_dir", "sun_cs", "sky", "root_min",
             "root_max", "walk_min", "walk_max", "gbmin", "gdim",
             "sph_center", "sph_color")] + [
-        ("inv_xf", ctypes.c_float * 12), ("sph_enabled", ctypes.c_int)]
+        ("inv_xf", ctypes.c_float * 12)] + [
+        (n, ctypes.c_int) for n in ("sph_enabled", "key_steps", "queued",
+                                    "defer_env")]
 
 
 def _f3(t):
@@ -485,6 +523,7 @@ class FusedLaunch:
     lights: torch.Tensor
     lut: torch.Tensor
     next_ray: torch.Tensor
+    env: EnvLaunch | None = None   # K4's, for a deferred environment
 
 
 def prepare_fused(scene, params) -> FusedLaunch:
@@ -508,7 +547,9 @@ def prepare_fused(scene, params) -> FusedLaunch:
     row = scene.instances.packed_rows[0].cpu()
     sph = scene.sphere
     p = _FusedParams()
-    p.max_steps = params.max_fused_steps
+    # the step budget is set per launch (_launch_args); the keys of the
+    # first max_fused_steps steps (at most K1's KEY_CACHE) are cached
+    p.max_steps = p.key_steps = params.max_fused_steps
     p.ray_depth = params.ray_depth
     p.n_lights = n_lights
     p.n_pt_walks = min(n_lights, 11)
@@ -517,6 +558,8 @@ def prepare_fused(scene, params) -> FusedLaunch:
     p.use_double_hg = int(params.use_double_hg)
     p.env_constant = int(params.environment_type
                          == int(Environment.CONSTANT))
+    defer = defers_environment(scene, params)
+    p.defer_env = int(defer)
     p.row_w = corners.shape[1]
     p.tau_off = unified_layout(scene.atlas)[2]
     p.grid_off = int(row[18])
@@ -547,44 +590,70 @@ def prepare_fused(scene, params) -> FusedLaunch:
     if p.cached and p.row_w < p.tau_off + 8 * (1 + n_lights):
         raise ValueError("corner rows carry no shadow cache")
     next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
-    return FusedLaunch(p, corners, lights, lut, next_ray)
+    env = prepare_environment(scene, params) if defer else None
+    return FusedLaunch(p, corners, lights, lut, next_ray, env)
 
 
-def _launch_args(launch: FusedLaunch, B: int, key, frame_width):
+def _launch_args(launch: FusedLaunch, B: int, key, frame_width, queue=1):
     """This launch's parameter struct and its output buffer: 7 S floats,
     S = B rounded up to a multiple of 4, holding L (B, 3) at 0 and alpha,
     cost, unfinished and depth at 3 S .. 6 S, returned as contiguous
-    views that each start 16-byte aligned, as K3 takes them.  Rays of no
-    known frame (``frame_width`` None) are scheduled in ray order."""
+    views that each start 16-byte aligned, as K3 takes them; with a
+    deferred environment 13 S, beta (B, 3) at 7 S and the direction
+    (B, 3) at 10 S, K4's inputs.  Rays of no known frame
+    (``frame_width`` None) are scheduled in ray order."""
     p = _FusedParams.from_buffer_copy(launch.params)
     p.B = B
+    p.max_steps = p.key_steps * queue
+    p.queued = int(queue > 1)
     if frame_width is None:
         p.tile_w = p.tile_h = 0
     p.frame_w = frame_width or B
     p.key[0], p.key[1] = int(key[0]), int(key[1])
     S = -(-B // 4) * 4
-    out = torch.empty(7 * S, dtype=torch.float32,
+    out = torch.empty((13 if p.defer_env else 7) * S, dtype=torch.float32,
                       device=launch.corners.device)
     views = (out[:3 * B].view(B, 3),) + tuple(
         out[i * S:i * S + B] for i in range(3, 7))
+    if p.defer_env:
+        views += tuple(out[i * S:i * S + 3 * B].view(B, 3) for i in (7, 10))
     return p, out, views
 
 
+def _finish(scene, params, launch: FusedLaunch, views):
+    """K1's five outputs, after K4 has added the environment for a
+    deferred one (in place on L)."""
+    if launch.env is not None:
+        L, _, _, _, _, beta, dirn = views
+        add_environment(scene, params, L, beta, dirn, launch=launch.env)
+    return views[:5]
+
+
 def _fused_direct_cuda(scene, params, key, origin, direction,
-                       launch: FusedLaunch | None = None, frame_width=None):
+                       launch: FusedLaunch | None = None, frame_width=None,
+                       queue: int = 1):
     """Launch K1 on the rays in ``origin`` and ``direction`` on the
-    current stream (``launch`` from prepare_fused for this scene and
-    params, or None to prepare it here).  ``frame_width``: the rays are a
-    frame of that many columns, to be scheduled by tiles as the
-    in-kernel-ray route schedules them."""
+    current stream, and K4 after it for a deferred environment
+    (``launch`` from prepare_fused for this scene and params, or None to
+    prepare it here).  ``frame_width``: the rays are a frame of that many
+    columns, to be scheduled by tiles as the in-kernel-ray route
+    schedules them.  ``queue`` as in fused_direct."""
     if launch is None:
         launch = prepare_fused(scene, params)
+    return _finish(scene, params, launch, _launch_k1(
+        launch, key, origin, direction, frame_width, queue))
+
+
+def _launch_k1(launch: FusedLaunch, key, origin, direction,
+               frame_width=None, queue: int = 1):
+    """K1 alone on the buffer route: its output views (_launch_args),
+    beta and the direction included for a deferred environment."""
     dev = launch.corners.device
     B = origin.shape[0]
     cuda.check_cuda_tensor(origin, "origin", (B, 3), torch.float32, dev)
     cuda.check_cuda_tensor(direction, "direction", (B, 3), torch.float32,
                            dev)
-    p, out, views = _launch_args(launch, B, key, frame_width)
+    p, out, views = _launch_args(launch, B, key, frame_width, queue)
     rc = cuda.load_library().dll.vpt_fused_direct(
         ctypes.byref(p), origin.data_ptr(), direction.data_ptr(),
         launch.corners.data_ptr(), launch.lights.data_ptr(),
@@ -596,15 +665,17 @@ def _fused_direct_cuda(scene, params, key, origin, direction,
 
 
 def _fused_direct_primary_cuda(scene, params, key, raygen,
-                               launch: FusedLaunch | None = None):
+                               launch: FusedLaunch | None = None,
+                               queue: int = 1):
     """Launch K1 on its in-kernel-ray route: each lane makes its primary
     ray from ``raygen`` (render/renderer.py::_RaygenParams with the
     sample's keys set; B = H * W rays in pixel order), so no ray buffer
-    exists.  Same outputs as fused_direct on K2's rays."""
+    exists; K4 after it for a deferred environment.  Same outputs as
+    fused_direct on K2's rays."""
     if launch is None:
         launch = prepare_fused(scene, params)
     p, out, views = _launch_args(launch, raygen.H * raygen.W, key,
-                                 raygen.W)
+                                 raygen.W, queue)
     rc = cuda.load_library().dll.vpt_fused_direct_primary(
         ctypes.byref(p), ctypes.byref(raygen), launch.corners.data_ptr(),
         launch.lights.data_ptr(), launch.lut.data_ptr(), out.data_ptr(),
@@ -612,4 +683,4 @@ def _fused_direct_primary_cuda(scene, params, key, raygen,
         cuda.current_stream(launch.corners.device))
     cuda.check_status(rc, "fused_direct_primary")
     FUSED_DIRECT_PRIMARY.launches += 1
-    return views
+    return _finish(scene, params, launch, views)

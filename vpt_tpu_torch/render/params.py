@@ -7,7 +7,8 @@ only shape the reference's TPU scheduling (``fused_tile``,
 ``rays_per_lane``, ``block_tiles``, ``seek_passes``, ``queue_tiled2d``,
 ``strat_schedule``, ``fused_loop_mode``) are kept for name parity; the
 port traces a frame as one tile of one ray per lane (see
-render/renderer.py).
+render/renderer.py).  ``rays_per_lane`` = 0 (AUTO) still decides the
+step budget: ``resolve_queue`` makes the reference's decision.
 """
 
 from __future__ import annotations
@@ -85,6 +86,33 @@ class RenderParams:
         return dataclasses.replace(self, **kw)
 
 
+# vpt_tpu/render/renderer.py:_AUTO_Q and _AUTO_TILE // 2: AUTO turns on
+# ray queues of 16 rays per lane for a fused DIRECT batch this large
+AUTO_QUEUE = 16
+AUTO_QUEUE_MIN_RAYS = 262144 // 2
+
+
+def resolve_queue(params: RenderParams, n_rays: int) -> int:
+    """The reference's queue length Q for a batch of ``n_rays`` rays
+    (vpt_tpu/render/renderer.py::_resolve_auto_queue, :100-113):
+    ``rays_per_lane`` 0 (AUTO) with the fused engine and the DIRECT
+    integrator at n_rays >= 131072 gives 16, anything else 1.
+
+    The port builds no queues.  Q = 16 means two things to
+    fused_direct: each ray gets max_fused_steps * 16 steps (the most a
+    lane of the reference has for its 16 rays), and a ray still walking
+    at the end is written as the reference writes an unretired queue
+    slot (L, alpha, cost and depth 0, unfinished 1, no environment)."""
+    if params.rays_per_lane > 1:
+        raise NotImplementedError("ray queues (rays_per_lane > 1) are a "
+                                  "TPU scheduling device, not ported")
+    if (params.rays_per_lane == 0 and params.engine == "fused"
+            and params.integrator == int(Integrator.DIRECT)
+            and n_rays >= AUTO_QUEUE_MIN_RAYS):
+        return AUTO_QUEUE
+    return 1
+
+
 def check_slice(params: RenderParams) -> None:
     """Raise NotImplementedError for every option the port does not
     render yet — never render something else in its place."""
@@ -93,11 +121,7 @@ def check_slice(params: RenderParams) -> None:
                                   "'fused' is ported")
     if params.integrator != int(Integrator.DIRECT):
         raise NotImplementedError("only the DIRECT integrator is ported")
-    if params.environment_type not in (int(Environment.BLACK),
-                                       int(Environment.CONSTANT)):
-        raise NotImplementedError(
-            f"environment {Environment(params.environment_type).name}: "
-            "only BLACK and CONSTANT are ported")
+    Environment(params.environment_type)   # ValueError when unknown
     if params.volume_depth != 1:
         raise NotImplementedError("volume_depth > 1 is not ported")
     if params.jitter != "white":

@@ -7,15 +7,20 @@ reference's ray queues, cost-ordered blocks, tiled2d deal and
 stratification are TPU scheduling devices and are not ported.  So the
 port matches the reference draw for draw whenever the reference itself
 runs one Q = 1 tile (H*W <= fused_tile and below its auto-queue
-threshold of 131072 rays), as at test sizes.
+threshold of 131072 rays), as at test sizes.  At and above that
+threshold the reference's queues still set the step budget:
+``render_rays`` passes resolve_queue's Q to fused_direct (16 rays per
+lane: 16 x max_fused_steps steps a ray, a ray still walking at the end
+written as an unretired queue slot).
 
 The keys: ``render_key(seed, it)``; jitter from ``fold_in(key, 17)``;
 the camera and trace keys from ``split(key)``; the single tile's key
 ``fold_in(trace_key, 1000)``.
 
-On a CUDA scene with cached shadows ``render_rays`` launches K1 on its
-in-kernel-ray route: each lane makes its primary ray with K2's code
-(csrc/raygen.cuh), so the sample writes and reads no ray buffer.  With
+On a CUDA scene with cached shadows ``render_rays`` launches K1 (and K4
+after it for HDRI or the simple sky) on its in-kernel-ray route: each
+lane makes its primary ray with K2's code (csrc/raygen.cuh), so the
+sample writes and reads no ray buffer.  With
 tracked shadows it launches K2 (csrc/raygen.cu) and K1 on K2's ray
 buffers, which ran faster on the H100 than the in-kernel-ray route
 there (PERF.md).  ``primary_rays`` launches K2 for a CUDA camera and
@@ -32,12 +37,14 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.core import rng
+from vpt_tpu_torch.core.vecmath import true_div
 from vpt_tpu_torch.ops import cuda
 from vpt_tpu_torch.render.film import Film, accumulate, to_display
 from vpt_tpu_torch.render.fused import (FusedLaunch, _fused_direct_cuda,
                                         _fused_direct_primary_cuda,
                                         fused_direct, prepare_fused)
-from vpt_tpu_torch.render.params import RenderParams, check_slice
+from vpt_tpu_torch.render.params import (RenderParams, check_slice,
+                                         resolve_queue)
 
 JITTER_FOLD = 17
 TILE_FOLD = 1000
@@ -67,8 +74,9 @@ def primary_rays_plain(camera, params, key):
     jit = _pixel_jitter(params, rng.fold_in(key, JITTER_FOLD), H, W, dev)
     xs = torch.arange(W, dtype=torch.float32, device=dev).expand(H, W)
     ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
-    u = ((xs + jit[..., 0]) / W).reshape(-1)
-    v = ((ys + jit[..., 1]) / H).reshape(-1)
+    # true divisions on every device, as K2 divides (csrc/raygen.cuh)
+    u = true_div(xs + jit[..., 0], W).reshape(-1)
+    v = true_div(ys + jit[..., 1], H).reshape(-1)
     k_lens, _ = rng.split(key)
     return camera.get_rays(u, v, k_lens)
 
@@ -165,6 +173,11 @@ def tile_key(key):
     return rng.fold_in(rng.split(key)[1], TILE_FOLD)
 
 
+def frame_queue(params) -> int:
+    """The queue length of one full-frame sample (resolve_queue)."""
+    return resolve_queue(params, params.width * params.height)
+
+
 def _trace_primary_cuda(scene, params, key, launches=None):
     """One sample through K1's in-kernel-ray route (``launches`` from
     prepare, or None to prepare them here): fused_direct's flat outputs
@@ -173,7 +186,8 @@ def _trace_primary_cuda(scene, params, key, launches=None):
                                     prepare_fused(scene, params))
     return _fused_direct_primary_cuda(
         scene, params, tile_key(key),
-        _raygen_for_sample(launches.raygen, key), launches.fused)
+        _raygen_for_sample(launches.raygen, key), launches.fused,
+        frame_queue(params))
 
 
 def _trace_buffers_cuda(scene, params, key, launches=None):
@@ -182,15 +196,17 @@ def _trace_buffers_cuda(scene, params, key, launches=None):
     launches = launches or Launches(prepare_raygen(scene.camera, params),
                                     prepare_fused(scene, params))
     rays = _primary_rays_cuda(scene.camera, params, key, launches.raygen)
-    return _fused_direct_cuda(scene, params, tile_key(key), *rays,
-                              launches.fused, params.width)
+    return _fused_direct_cuda(
+        scene, params, tile_key(key), *rays, launches.fused, params.width,
+        frame_queue(params))
 
 
 def render_rays(scene, params, key, launches: Launches | None = None):
     """One full-frame sample: (value (H,W,3), alpha (H,W), aux dict of
     (H,W) AOVs cost/depth/trunc).  A CUDA scene runs K1 on the ray source
-    of RAYS_IN_KERNEL; a CPU scene the plain primary_rays and
-    fused_direct."""
+    of RAYS_IN_KERNEL (and K4 after it for HDRI or the simple sky); a CPU
+    scene the plain primary_rays and fused_direct.  The step budget is
+    the frame's queue length (frame_queue)."""
     H, W = params.height, params.width
     if scene.camera.origin.device.type == "cuda":
         trace = (_trace_primary_cuda if RAYS_IN_KERNEL[params.shadow_mode]
@@ -200,7 +216,8 @@ def render_rays(scene, params, key, launches: Launches | None = None):
     else:
         origin, direction = primary_rays(scene.camera, params, key)
         L, alpha, cost, unfinished, depth = fused_direct(
-            scene, params, tile_key(key), origin, direction)
+            scene, params, tile_key(key), origin, direction,
+            queue=frame_queue(params))
     aux = dict(cost=cost, depth=depth, trunc=unfinished)
     return (L.reshape(H, W, 3), alpha.reshape(H, W),
             {k: v.reshape(H, W) for k, v in aux.items()})

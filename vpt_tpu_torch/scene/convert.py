@@ -5,6 +5,10 @@ over as numpy arrays keyed by their dotted field path, e.g.
 ``"atlas.density_corners"`` or ``"camera.origin"`` — into the port's
 ``Scene`` on ``device``.  With it both packages render the identical
 tables.  ``scene_to_arrays`` is its inverse for the port's own scenes.
+An ``env_map`` leaf may be the reference's (H, W, 12) corner-packed rows
+or the port's raw (H, W, 3) map: its first 3 channels are the raw map
+either way.  The environment CDF is not carried: the fused engine never
+reads it.
 """
 
 from __future__ import annotations
@@ -49,12 +53,20 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
             raise NotImplementedError(f"the {ch} channel is not ported yet")
     if int(arrays.get("atlas.octant_cols", 0)):
         raise NotImplementedError("octant-box columns are not ported")
+    if any(k.startswith(("atmosphere.", "sky_cache")) for k in arrays):
+        raise NotImplementedError("the Bruneton atmosphere is not ported "
+                                  "yet (ROADMAP A.7)")
     parts = {}
     for group, cls in _GROUPS.items():
         parts[group] = cls(**{
             f.name: _tensor(arrays[f"{group}.{f.name}"], device)
             for f in dataclasses.fields(cls)})
     parts.update({k: _tensor(arrays[k], device) for k in _TOP})
+    if "env_map" in arrays:
+        # the reference's corner-packed rows: [..., 0:3] is the raw map
+        parts["env_map"] = _tensor(
+            np.ascontiguousarray(np.asarray(arrays["env_map"])[..., 0:3]),
+            device)
     return Scene(**parts)
 
 
@@ -67,4 +79,6 @@ def scene_to_arrays(scene: Scene) -> dict:
             out[f"{group}.{f.name}"] = getattr(obj, f.name).cpu().numpy()
     for k in _TOP:
         out[k] = getattr(scene, k).cpu().numpy()
+    if scene.env_map is not None:
+        out["env_map"] = scene.env_map.cpu().numpy()
     return out

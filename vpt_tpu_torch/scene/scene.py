@@ -9,7 +9,9 @@ fallback when its EXR assets are absent.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,6 +53,9 @@ class Scene:
     camera: Camera
     emission_lut: torch.Tensor       # (256, 3)
     density_color_lut: torch.Tensor  # (256, 3)
+    # the raw (H, W, 3) equirect radiance map of an HDRI environment;
+    # the reference keeps corner-packed rows whose [..., 0:3] is this map
+    env_map: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -137,3 +142,28 @@ def build_scene(host_grids: list[HostGrid], camera: Camera | None = None,
         camera=camera.to(device),
         emission_lut=torch.as_tensor(luts[0], **f32),
         density_color_lut=torch.as_tensor(luts[1], **f32))
+
+
+def attach_env_map(scene: Scene, env_map) -> Scene:
+    """Attach an equirect HDR environment, (H, W, 3), on the scene's
+    device (create_environment, main.cpp:945-978).  The reference also
+    builds the map's importance CDF here; only its sky NEE
+    (``estimate_sky``, reference and volumetric engines) reads it, so
+    the port builds none until those engines come (ROADMAP A.8)."""
+    env = torch.as_tensor(np.asarray(env_map, np.float32),
+                          device=scene.device)
+    if env.dim() != 3 or env.shape[2] != 3:
+        raise ValueError(f"env_map: shape {tuple(env.shape)}, expected "
+                         "(H, W, 3)")
+    return dataclasses.replace(scene, env_map=env.contiguous())
+
+
+def load_hdr_env_scene(hdr_path: str, **kw) -> Scene:
+    """A scene from a `.hdr` file alone: the default procedural volume
+    lit by the map (vpt_tpu/scene/scene.py:349-355; main.cpp:1276-1297).
+    ``kw`` goes to build_scene."""
+    from vpt_tpu_torch.utils.hdr import load_hdr
+    from vpt_tpu_torch.volume.procedural import default_procedural_grid
+    device = kw.get("device", DEFAULT_DEVICE)
+    scene = build_scene([default_procedural_grid(device=device)], **kw)
+    return attach_env_map(scene, load_hdr(hdr_path))

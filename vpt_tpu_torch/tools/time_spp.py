@@ -2,6 +2,7 @@
 
     python -m vpt_tpu_torch.tools.time_spp [--modes cached tracked]
                                             [--spp 64] [--warmup 2]
+                                            [--rays-per-lane 0]
 
 Builds chip_smoke.py's scene at 1920x1080 (the procedural 200^3 grid,
 one point light and the sun, shadow-baked on the card), then, for each
@@ -11,7 +12,9 @@ Prints one JSON line per mode (ms/spp, and over all the samples the
 mean walk steps per ray, the share of rays cut by the step cap, the
 image mean and the SHA-256 of the film's five fields, which is equal for
 two checkouts whose films agree bit for bit), then the nvidia-smi
-line.  It calls only
+line.  ``--rays-per-lane 1`` renders on the step budget of the queue
+length 1 (128 steps a ray) where the default 0 resolves the 1080p frame
+to 16 (render/params.py::resolve_queue).  It calls only
 the renderer's public entry points, so run by its path with another
 checkout of the package first on PYTHONPATH it times that checkout.
 """
@@ -45,6 +48,7 @@ def main(argv=None):
                     choices=["cached", "tracked"])
     ap.add_argument("--spp", type=int, default=64)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--rays-per-lane", type=int, default=0, choices=[0, 1])
     args = ap.parse_args(argv)
     dev = torch.device("cuda", 0)
     grid = create_procedural_grid(vmin=(-100.0,) * 3, vmax=(100.0,) * 3,
@@ -59,7 +63,8 @@ def main(argv=None):
         p = RenderParams(width=W, height=H, seed=0, ray_depth=50,
                          max_fused_steps=128, shadow_mode=mode,
                          azimuth=150.0, elevation=30.0,
-                         environment_type=int(Environment.BLACK))
+                         environment_type=int(Environment.BLACK),
+                         rays_per_lane=args.rays_per_lane)
         r = ProgressiveRenderer(scene, p)
         r.step(args.warmup)
         torch.cuda.synchronize()
@@ -69,7 +74,8 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         n = W * H * (args.warmup + args.spp)
         print(json.dumps(dict(
-            mode=mode, spp=args.spp, ms_per_spp=dt * 1e3 / args.spp,
+            mode=mode, rays_per_lane=args.rays_per_lane, spp=args.spp,
+            ms_per_spp=dt * 1e3 / args.spp,
             mean_iters_per_ray=float(r.film.cost.double().sum()) / n,
             trunc_frac=float(r.film.trunc.double().sum()) / n,
             image_mean=float(r.film.accum.double().mean()),
