@@ -10,12 +10,22 @@ Phases, one JSON line each:
                process per source) from the sources in this checkout, and
                K3's first launch; K1's registers and spills (ptxas) and
                its schedule (SMs, resident blocks per SM) for both routes;
+  2b. divide — K4's division by the sky's constants HR and HM
+               (csrc/vpt_common.cuh::div_known2, with RN(1/d) from
+               sky_constants) against IEEE float32 division over all 2^32
+               patterns of x on the card (environment.cu::
+               vpt_div_known_sweep): 0 mismatches for each divisor;
   3. scene   — the procedural 200^3 fBm grid (vpt render procedural),
                one point light and the sun, built and shadow-baked on the
                card;
   4. parity  — a quick early gate at 256x256, 2 spp: each kernel against
                its plain PyTorch version on the same inputs, to the
-               tolerances of phase 6 (K3 bit for bit, also at a size
+               tolerances of phase 6 (K2 bit for bit at aperture 0,
+               where it skips the lens draws, at aperture 0.5 and with a
+               -0.0 origin component, where it takes them, and
+               lens_draws_needed must say which; K1's in-kernel-ray route
+               bit for bit its buffer route at aperture 0.5 too; K3 bit
+               for bit, also at a size
                whose pixel count is no multiple of 4, where
                ProgressiveRenderer also renders 2 spp in both shadow
                modes, each step's film held to accumulate_plain on
@@ -43,25 +53,30 @@ Phases, one JSON line each:
                did not cut must be bit for bit the same;
   6. timing  — each kernel beside its plain version on the main path's
                1080p inputs, both timed and held together: K2 exactly
-               (K2_TOL), K3 on the rendered film bit for bit, K1 (at the
+               (K2_TOL) and bit for bit in the three lens settings of
+               phase 4, timed at apertures 0 and 0.5, K3 on the rendered
+               film bit for bit, K1 (at the
                frame's queue length, Q = 16) ray by ray
                in both shadow modes (>= 99% of rays agree: L within rtol
                1e-4 + atol 1e-6, alpha within 1e-5, cost and unfinished
                exact; image means within 0.5%), its buffer route against
                fused_direct_plain on K2's rays and its in-kernel-ray route
                against the plain pipeline and, bit for bit, against the
-               buffer route; the warp efficiency of the launch-order
+               buffer route (also at aperture 0.5); the warp efficiency
+               of the launch-order
                schedule from the cost AOV, at 32 and 128;
   6a. env   — K4 at 1080p on K1's (L, beta, direction) of a sky and an
                HDRI sample, timed beside environment_radiance and held to
-               it (max relative error <= K4_RTOL);
+               it (max relative error <= K4_RTOL; max_abs reported);
   6b. schedule — K1's live schedule choices at 1080p on both routes, each
                held to the default launch bit for bit: the refill rule
                and slot tiles (SCHEDULES), and corner rows padded to 32
                floats (one aligned 128-byte line per row);
   7. profile — torch.profiler over 8 cached spp at 1080p: each kernel's
-               device time and the device's idle share of that run's
-               wall time (the profiler's own host cost included);
+               device time (a wrapper's kernels: their mean launch times
+               the launches its own count made) and the device's idle
+               share of that run's wall time (the profiler's own host
+               cost included);
   8. cli     — `vpt-torch render procedural` (vpt_tpu_torch.app.cli.main)
                at 1920x1080, black environment, cached shadows, the
                light of phase 3, 16 spp, --save-exr, into a temporary
@@ -93,11 +108,13 @@ Phases, one JSON line each:
                clock.
 Then the nvidia-smi line, the kernels' JSON line (K1 on both routes; K2,
 its own launches beside those of K1's in-kernel-ray route, which runs
-its code; K3 at 1080p; K4 at 1080p for the sky, with HDRI's numbers
-beside, its launches those of phases 8b and 8c; P1-P3 at the probes'
-shapes, P1 with its sector floor; each with its bound: the larger of
-the bytes it must move over 3.35 TB/s and its operations over 67
-TFLOP/s, the H100 SXM's published float32 rate), and the result line.
+its code, and its time at aperture 0.5; K3 at 1080p; K4 at 1080p for the
+sky, with HDRI's numbers beside, its launches those of phases 8b and
+8c; P1-P3 at the probes' shapes, P1 with its sector floor; each with its
+design and its bound: the larger of the bytes it must move over 3.35
+TB/s and its operations over 67 TFLOP/s, the H100 SXM's published
+float32 rate, integer operations of K2 at half that rate, the INT32
+pipe's), and the result line.
 Any failure raises, and the script exits non-zero without a result.
 Without a CUDA device it exits non-zero before doing anything.
 """
@@ -134,12 +151,20 @@ C1_SPP = 32
 RAGGED = (37, 29)  # K3 at a pixel count that is no multiple of 4
 CLI_SPP = 16
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
-# Operations per ray step of K1 and per ray of K2, counted from the
-# sources: a threefry-2x32 is 80 integer operations (20 rounds of add,
-# rotate, xor, plus 6 key injections); K1 draws 5 uniforms and one step
-# key per step, plus ~200 float operations of fetch, flight and NEE; K2
-# draws 4 uniforms, plus ~60 float operations of camera arithmetic.
-K1_OPS_PER_STEP, K2_OPS_PER_RAY = 6 * 80 + 200, 4 * 80 + 60
+# Operations per ray step of K1, counted from the source: a threefry-2x32
+# is 80 integer operations (20 rounds of add, rotate, xor, plus 6 key
+# injections); K1 draws 5 uniforms and one step key per step, plus ~200
+# float operations of fetch, flight and NEE.
+K1_OPS_PER_STEP = 6 * 80 + 200
+# K2's operations per pixel, counted from csrc/raygen.cuh, without and
+# with the lens draws: each draw 75 integer operations (the threefry's
+# 72, then xor, shift and or) and one float; the pixel's x and y and the
+# jitter counters 5 integer; the film coordinates 6 float, the direction
+# and its normalisation 25; the lens 19 float.  Integer operations run
+# on the INT32 pipe at half the float32 rate, so they count twice.
+K2_INT_OPS = {False: 2 * 75 + 5, True: 4 * 75 + 5}
+K2_FLOAT_OPS = {False: 2 + 6 + 25, True: 4 + 6 + 25 + 19}
+K2_APERTURE = 0.5  # the aperture of K2's lens-drawing checks
 K1_ROW_BYTES = 15 * 4  # the columns every step loads (taus not counted)
 # K4's operations per ray, counted from csrc/environment.cu (each
 # arithmetic operation, comparison and transcendental one): the sky's
@@ -166,18 +191,6 @@ SCHEDULES = {
 }
 
 
-def c3_map(h, w):
-    """The c3_hdri_color golden's map (tests/golden_scenes.py:73-77) at
-    h x w: a vertical gradient with one hot texel."""
-    import numpy as np
-    ty = np.linspace(1.0, 0.0, h, dtype=np.float32)[:, None, None]
-    env = (np.array([0.3, 0.5, 1.0], np.float32) * ty
-           + np.array([0.9, 0.6, 0.3], np.float32) * (1.0 - ty))
-    env = np.broadcast_to(env, (h, w, 3)).copy()
-    env[h // 4, w // 3] = [40.0, 38.0, 30.0]
-    return env
-
-
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -187,6 +200,26 @@ def smi_line():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def k2_ops(lens):
+    """K2's operations per pixel in float32-rate units (an integer
+    operation counts twice: the INT32 pipe runs at half the rate)."""
+    return K2_FLOAT_OPS[lens] + 2 * K2_INT_OPS[lens]
+
+
+def lens_cameras(cam):
+    """K2's three lens settings on camera ``cam`` (aperture 0): aperture
+    0, where the lens draws are skipped; aperture K2_APERTURE, and a -0.0
+    origin component, where they are taken (lens_draws_needed)."""
+    import torch
+    o = cam.origin.clone()
+    o[0] = -0.0
+    return {"aperture_0": (cam, False),
+            f"aperture_{K2_APERTURE}": (dataclasses.replace(
+                cam, lens_radius=torch.tensor(K2_APERTURE / 2.0,
+                                              device=o.device)), True),
+            "origin_minus_0": (dataclasses.replace(cam, origin=o), True)}
 
 
 def bound(n_bytes, n_ops):
@@ -251,6 +284,18 @@ def check_parity(where, k1, k2_err, k3_same, routes_same):
         raise RuntimeError(f"{where}: K3 differs from the plain version")
 
 
+def check_lens(where, k2_lens, routes_lens):
+    for name, st in k2_lens.items():
+        if not (st["bit_equal"] and st["max_abs"] <= K2_TOL):
+            raise RuntimeError(f"{where}: K2 ({name}) differs from "
+                               f"primary_rays_plain: {st}")
+    for mode, same in routes_lens.items():
+        if not same:
+            raise RuntimeError(f"{where}: K1's in-kernel-ray route differs "
+                               f"from its buffer route at aperture "
+                               f"{K2_APERTURE} ({mode})")
+
+
 def k1_registers(summary):
     """K1's ptxas lines by variant (its template arguments): the route,
     with "_env" for the deferred environment (HDRI, the sky)."""
@@ -260,32 +305,6 @@ def k1_registers(summary):
         if m:
             out[ROUTES[int(m.group(1))] + "_env" * int(m.group(2))] = v
     return out
-
-
-def device_ms(prof):
-    """{kernel name: device ms} from a torch.profiler run; empty when
-    the profiler saw no device time."""
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0 and getattr(e, "device_type", None) is not None \
-                and "CUDA" in str(e.device_type):
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3
-    return out
-
-
-def profiled_ms(fn, n):
-    """Device ms per call of fn() over n calls, by torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as pr:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_ms(pr).values()) / n
 
 
 def main():
@@ -309,7 +328,8 @@ def main():
     from vpt_tpu_torch.render import fused, integrator, renderer
     from vpt_tpu_torch.render.params import Environment, RenderParams
     from vpt_tpu_torch.scene.scene import attach_env_map, build_scene
-    from vpt_tpu_torch.tools.common import nan_equal, time_ms
+    from vpt_tpu_torch.tools.common import (c3_map, device_times, nan_equal,
+                                            profiled_ms, time_ms)
     from vpt_tpu_torch.utils.hdr import load_hdr, write_hdr
     from vpt_tpu_torch.volume.procedural import create_procedural_grid
 
@@ -377,6 +397,27 @@ def main():
         for route in ROUTES for defer in (0, 1)}
     emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
          ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
+
+    # ---- 2b. K4's division by HR and HM, over every float32 -------------
+    from vpt_tpu_torch.sky.procedural import sky_constants
+    consts = sky_constants()
+    divide = {}
+    for d_name in ("hr", "hm"):
+        t0 = time.perf_counter()
+        bad, first = integrator.div_known_sweep(
+            consts[d_name], consts[d_name + "_inv"], 0, 2 ** 32, dev)
+        divide[d_name] = dict(d=consts[d_name], y=consts[d_name + "_inv"],
+                              mismatches=bad, first_mismatch=first,
+                              seconds=time.perf_counter() - t0)
+    emit("divide", patterns=2 ** 32,
+         covers="every float32 x: |x| >= 2^-100 and +-Inf by the "
+                "three-operation path, zero, smaller |x| and NaN by IEEE "
+                "division; a mismatch is a bit difference where not both "
+                "are NaN", divisors=divide)
+    for d_name, v in divide.items():
+        if v["mismatches"] != 0:
+            raise RuntimeError(f"div_known2 differs from IEEE division by "
+                               f"{d_name}: {v}")
 
     # ---- 3. scene ----------------------------------------------------
     stage = {}
@@ -498,6 +539,26 @@ def main():
                 film_fields(film_mod._accumulate_cuda(*k3_args)),
                 film_fields(film_mod.accumulate_plain(*k3_args)))
     k3_same &= all(k3_offsets.values())
+    # K2 in its three lens settings, bit for bit, and K1's in-kernel-ray
+    # route against its buffer route where the lens draws are taken
+    key = rng.render_key(SEED, 0)
+    k2_lens, routes_lens = {}, {}
+    for name, (cam, need) in lens_cameras(s256.camera).items():
+        p = params(PARITY_SIZE, PARITY_SIZE, "cached")
+        got = renderer._primary_rays_cuda(cam, p, key)
+        want = renderer.primary_rays_plain(cam, p, key)
+        k2_lens[name] = dict(lens_draws=renderer.lens_draws_needed(cam),
+                             max_abs=max_abs(got, want),
+                             bit_equal=same_bits(got, want))
+        if k2_lens[name]["lens_draws"] != need:
+            raise RuntimeError(f"lens_draws_needed is wrong for {name}")
+    s_lens = dataclasses.replace(
+        s256, camera=lens_cameras(s256.camera)[f"aperture_{K2_APERTURE}"][0])
+    for mode in ("cached", "tracked"):
+        pm = params(PARITY_SIZE, PARITY_SIZE, mode)
+        routes_lens[mode] = same_bits(
+            renderer._trace_primary_cuda(s_lens, pm, key),
+            renderer._trace_buffers_cuda(s_lens, pm, key))
     # K4 on K1's (L, beta, direction) of a sky and an HDRI sample, and K1
     # + K4 against the plain pipeline with each environment
     hdr_map = c3_map(HDR_H, HDR_W)
@@ -526,8 +587,10 @@ def main():
          k3_bit_equal=k3_same, k3_ragged=RAGGED,
          k3_renderer_ragged_bit_equal=rag_same,
          k3_offset_views_bit_equal=k3_offsets, k4=k4_256, k4_rtol=K4_RTOL,
-         k1_k4_env=k1_env)
+         k1_k4_env=k1_env, k2_lens=k2_lens,
+         k1_routes_bit_equal_lens=routes_lens)
     check_parity("256^2", k1_256, k2_err, k3_same, routes_same)
+    check_lens("256^2", k2_lens, routes_lens)
     check_parity("256^2 environments", k1_env, 0.0, True, {})
     check_k4("256^2", k4_256)
 
@@ -640,12 +703,39 @@ def main():
     key = rng.render_key(SEED, r.iteration)
     tkey = renderer.tile_key(key)
     lc, lt = r.launches, rt.launches
-    tk, (o, d) = cuda_ms(lambda: renderer._primary_rays_cuda(
+    # K2's events over back-to-back calls time its wrapper's host work:
+    # its ms is the profiler's device time
+    k2_event, (o, d) = cuda_ms(lambda: renderer._primary_rays_cuda(
         s1080.camera, pc, key, lc.raygen), 20)
     tp, rays_p = cuda_ms(lambda: renderer.primary_rays_plain(
         s1080.camera, pc, key), 5)
-    timing = {"primary_rays": (tk, tp)}
+    timing = {"primary_rays": (profiled_ms(lambda: renderer._primary_rays_cuda(
+        s1080.camera, pc, key, lc.raygen), 20), tp)}
     k2_1080 = max_abs((o, d), rays_p)
+    # K2 in its three lens settings at 1080p, each timed and held to the
+    # plain version bit for bit; K1's two routes at aperture 0.5
+    k2_lens_1080, routes_lens_1080 = {}, {}
+    for name, (cam, need) in lens_cameras(s1080.camera).items():
+        lr = renderer.prepare_raygen(cam, pc)
+        t_lens, got = cuda_ms(lambda: renderer._primary_rays_cuda(
+            cam, pc, key, lr), 20)
+        want = renderer.primary_rays_plain(cam, pc, key)
+        k2_lens_1080[name] = dict(
+            lens_draws=bool(lr.lens_draws), event_ms=t_lens,
+            ms=profiled_ms(lambda: renderer._primary_rays_cuda(
+                cam, pc, key, lr), 20),
+            bound=bound(W * H * 24, W * H * k2_ops(need)),
+            max_abs=max_abs(got, want), bit_equal=same_bits(got, want))
+        if k2_lens_1080[name]["lens_draws"] != need:
+            raise RuntimeError(f"1080p: K2 took the wrong variant ({name})")
+        del got, want
+    s_lens = dataclasses.replace(
+        s1080, camera=lens_cameras(s1080.camera)[f"aperture_{K2_APERTURE}"][0])
+    for mode, p in (("cached", pc), ("tracked", pt)):
+        routes_lens_1080[mode] = same_bits(
+            renderer._trace_primary_cuda(s_lens, p, key),
+            renderer._trace_buffers_cuda(s_lens, p, key))
+    del s_lens
     k1_1080, warp_eff, routes_same = {}, {}, {}
     q1080 = renderer.frame_queue(pc)   # 16: the frame's step budget
     for mode, p, lts, reps in (("cached", pc, lc, 5),
@@ -691,13 +781,16 @@ def main():
     emit("timing", shapes=f"{W}x{H}",
          ms={k: {"kernel": v[0], "plain": v[1]} for k, v in timing.items()},
          k1=k1_1080, k1_routes_bit_equal=routes_same, k2_max_abs=k2_1080,
+         k2_event_ms=k2_event,
          k3_max_abs=k3_1080, k3_bit_equal=k3_same, k3_event_ms=k3_event,
          k1_launch_order_warp_efficiency=warp_eff,
          k1_launch=k1_launch, k1_ptxas=k1_ptxas,
          k1_grid_blocks={r_: v["sms"] * v["blocks_per_sm"]
                          for r_, v in k1_launch.items()},
-         k1_schedule=fused.SCHEDULE)
+         k1_schedule=fused.SCHEDULE, k2_lens=k2_lens_1080,
+         k1_routes_bit_equal_lens=routes_lens_1080)
     check_parity("1080p", k1_1080, k2_1080, k3_same, routes_same)
+    check_lens("1080p", k2_lens_1080, routes_lens_1080)
 
     # ---- 6a. K4 at 1080p on the path's (L, beta, direction) ---------------
     k4_1080 = {}
@@ -765,6 +858,14 @@ def main():
 
     # ---- 7. profile: device time and idle share over 8 cached spp ------
     from torch.profiler import ProfilerActivity, profile
+    # the wrappers' kernels by the device functions' names
+    wrapped = {"fused_direct_kernel": (fused.FUSED_DIRECT,
+                                       fused.FUSED_DIRECT_PRIMARY),
+               "primary_rays_kernel": (renderer.RAYGEN,),
+               "film_accumulate_": (film_mod.FILM_ACCUMULATE,),
+               "environment_kernel": (integrator.ENVIRONMENT,)}
+    for k in kernels:
+        k.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -772,12 +873,24 @@ def main():
         r.step(PROFILED_SPP)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms = device_ms(prof)
+    made = {f: sum(k.launches for k in ks) for f, ks in wrapped.items()}
+    # a wrapper's kernels: their mean launch (the profiler may miss one
+    # at the edge of its window) times the launches its count made; a
+    # kernel of no wrapper (K1's counter memset): the launches seen
+    groups = {}
+    for name, (ms, n) in device_times(prof).items():
+        g = next((f for f in wrapped if f in name), name)
+        g_ms, g_n = groups.get(g, (0.0, 0))
+        groups[g] = (g_ms + ms, g_n + n)
+    dev_ms = {g: (ms / n * made[g] if g in made else ms) / PROFILED_SPP
+              for g, (ms, n) in groups.items()}
     busy = sum(dev_ms.values())
     emit("profile", spp=PROFILED_SPP, wall_ms_per_spp=wall_ms / PROFILED_SPP,
-         device_ms_per_spp={k: v / PROFILED_SPP for k, v in dev_ms.items()},
-         device_busy_ms_per_spp=busy / PROFILED_SPP if dev_ms else None,
-         idle_share=1.0 - busy / wall_ms if dev_ms else None)
+         device_ms_per_spp=dev_ms,
+         launches_seen={g: n for g, (_, n) in groups.items()},
+         launches_made={g: made[g] for g in groups if g in made},
+         device_busy_ms_per_spp=busy if dev_ms else None,
+         idle_share=1.0 - busy * PROFILED_SPP / wall_ms if dev_ms else None)
 
     # the bounds of K1-K3 at 1080p, from this run's data
     n_rays = W * H
@@ -792,8 +905,8 @@ def main():
         # K2's operations added
         "fused_direct_primary": bound(
             n_rays * 28 + rows * K1_ROW_BYTES,
-            steps * K1_OPS_PER_STEP + n_rays * K2_OPS_PER_RAY),
-        "primary_rays": bound(n_rays * 24, n_rays * K2_OPS_PER_RAY),
+            steps * K1_OPS_PER_STEP + n_rays * k2_ops(False)),
+        "primary_rays": bound(n_rays * 24, n_rays * k2_ops(False)),
         # 7 film fields and value/alpha/depth/cost/trunc in, 7 fields out
         "film_accumulate": bound(n_rays * (7 + 7 + 7) * 4, n_rays * 20)}
 
@@ -1067,10 +1180,21 @@ def main():
         tracked_ms=timing["fused_direct_primary_tracked"][0],
         tracked_plain_ms=timing["fused_direct_primary_tracked"][1])
     # K2's ray also runs inside K1's in-kernel-ray route, once per launch
+    lens_name = f"aperture_{K2_APERTURE}"
     by_name["primary_rays"].update(
         also_replaces="vpt_tpu/core/camera.py:73",
+        design="one thread a pixel; the lens draws skipped at aperture 0 "
+               "(lens_draws_needed, a kernel variant each way); 32-bit "
+               "draw counters; origins and directions staged in shared "
+               "memory and stored as contiguous 16-byte words",
         runs_inside="fused_direct_primary",
-        inside_launches=launches["fused_direct_primary"])
+        inside_launches=launches["fused_direct_primary"],
+        event_ms=k2_event,
+        lens_ms=k2_lens_1080[lens_name]["ms"],
+        lens_bound_ms=k2_lens_1080[lens_name]["bound"][0],
+        lens_bound_by=k2_lens_1080[lens_name]["bound"][1],
+        lens_bit_equal={n_: v["bit_equal"] for n_, v in
+                        k2_lens_1080.items()})
     by_name["gather_rows"].update(
         also_replaces="tools/probe_gather.py:135",
         sector_floor_ms=sector_floor,
@@ -1094,6 +1218,16 @@ def main():
                 for r, v in roll_pts.items()})
     by_name["environment"].update(
         shape=f"{W}x{H}, the simple sky (HDRI: a {HDR_W}x{HDR_H} map)",
+        design="one thread a ray, a kernel for each environment; the sky "
+               "divides by HR and HM with div_known2 (a correctly rounded "
+               "reciprocal product and one FMA correction, no MUFU), "
+               "proved over all 2^32 inputs in phase 2b",
+        sky_max_abs={k: v["max_abs"] for k, v in k4_256.items()
+                     if k.startswith("sky")} | {
+                         "1080p": k4_1080["sky"]["max_abs"]},
+        hdri_max_abs={k: v["max_abs"] for k, v in k4_256.items()
+                      if k.startswith("hdri")} | {
+                          "1080p": k4_1080["hdri"]["max_abs"]},
         also_replaces="vpt_tpu/sky/procedural.py:44, "
                       "vpt_tpu/sky/envmap.py:36",
         max_rel_err=max(e["max_rel"] for e in (*k4_256.values(),

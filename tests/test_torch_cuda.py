@@ -284,6 +284,103 @@ def test_k4_matches_plain(cuda_device, env):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("env", list(ENV_TYPES))
+@pytest.mark.parametrize("n", [1, 255, 5003])
+def test_k4_kernels_equal_plain_bit_for_bit(cuda_device, env, n):
+    """K4's sky and HDRI kernels (one template instance each) against
+    environment_radiance on the card, bit for bit (the sky divides by HR
+    and HM with div_known2, which is IEEE division), on directions that
+    include the horizon, the poles and the sun."""
+    from vpt_tpu_torch.core.vecmath import degree_to_cartesian
+    from vpt_tpu_torch.render import integrator
+    s = _env_scene(cuda_device, env)
+    p = RenderParams(environment_type=ENV_TYPES[env], sky_mult=0.7,
+                     sky_color=(1.0, 0.9, 0.8))
+    g = torch.Generator().manual_seed(n)
+    d = torch.randn((n, 3), generator=g)
+    d[:, 1] = d[:, 1] * 0.05 if n > 1 else d[:, 1]
+    fixed = torch.tensor([[0.0, 1.0, 0.0], [0.0, -1.0, 0.0],
+                          [1.0, 0.0, 0.0]])
+    d[:min(n, 3)] = fixed[:min(n, 3)]
+    if n > 3:
+        d[3] = degree_to_cartesian(p.azimuth, p.elevation, "cpu")
+    d = (d / d.norm(dim=1, keepdim=True)).to(cuda_device)
+    beta = torch.rand((n, 3), generator=g).to(cuda_device)
+    L = torch.rand((n, 3), generator=g).to(cuda_device)
+    got = integrator.add_environment(s, p, L.clone(), beta, d)
+    want = L + integrator.environment_radiance(s, p, d, d) * beta
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hr", "hm"])
+@pytest.mark.parametrize("lo", [0x3F800000, 0x0D800000 - 2 ** 19, 0x0,
+                                0x80000000, 0x7F800000 - 2 ** 19,
+                                0xFF800000 - 2 ** 19])
+def test_div_known_sweep_on_the_card(cuda_device, name, lo):
+    """The sweep kernel finds no mismatch between div_known2 and IEEE
+    division in 2^20 patterns at each edge of div_known2's paths, and with
+    a reciprocal 0.1% off it counts what the CPU emulation counts."""
+    from vpt_tpu_torch.render import integrator
+    from vpt_tpu_torch.sky.procedural import sky_constants
+    c = sky_constants()
+    d, y = c[name], c[name + "_inv"]
+    hi = lo + 2 ** 20
+    assert integrator.div_known_sweep(d, y, lo, hi, cuda_device) == (0, None)
+    off = float(np.float32(y * 1.001))
+    got = integrator.div_known_sweep(d, off, lo, hi, cuda_device)
+    assert got == integrator.div_known_sweep(d, off, lo, hi, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", ["aperture_0", "aperture_0.5",
+                                     "origin_minus_0"])
+@pytest.mark.parametrize("wh", [(48, 40), (37, 7), (256, 3)])
+def test_k2_lens_settings_equal_plain_bit_for_bit(cuda_device, setting, wh):
+    """K2 against primary_rays_plain bit for bit where it skips the lens
+    draws (aperture 0) and where it takes them (aperture 0.5, and a -0.0
+    origin component, whose sum with a +0.0 offset is +0.0), at frame
+    sizes whose pixel count is and is not a multiple of K2's block."""
+    s = _blob_scene(cuda_device)
+    cam = s.camera
+    if setting == "aperture_0.5":
+        cam = dataclasses.replace(cam, lens_radius=torch.tensor(
+            0.25, device=cuda_device))
+    elif setting == "origin_minus_0":
+        o = cam.origin.clone()
+        o[0] = -0.0
+        cam = dataclasses.replace(cam, origin=o)
+    assert renderer.lens_draws_needed(cam) == (setting != "aperture_0")
+    p = RenderParams(width=wh[0], height=wh[1])
+    key = rng.render_key(0, 3)
+    got = renderer._primary_rays_cuda(cam, p, key)
+    want = renderer.primary_rays_plain(cam, p, key)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+def test_k1_routes_agree_with_the_lens_drawn(cuda_device, mode):
+    """K1's in-kernel-ray route (each lane makes its ray with K2's code,
+    taking the lens draws at aperture 0.5) against K2 and K1's buffer
+    route, bit for bit."""
+    s = _blob_scene(cuda_device)
+    s = dataclasses.replace(s, camera=dataclasses.replace(
+        s.camera, lens_radius=torch.tensor(0.25, device=cuda_device)))
+    p = RenderParams(width=48, height=40, shadow_mode=mode,
+                     environment_type=2, ray_depth=8)
+    key = rng.render_key(0, 4)
+    a = renderer._trace_primary_cuda(s, p, key)
+    b = renderer._trace_buffers_cuda(s, p, key)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", list(ENV_TYPES))
 @pytest.mark.parametrize("mode", ["cached", "tracked"])
 def test_k1_k4_env_match_plain(cuda_device, env, mode):
     """A sample with the simple sky or HDRI through the renderer on the

@@ -14,22 +14,36 @@
 // environment_radiance (add_environment on a CPU tensor), whose
 // arithmetic this kernel repeats operation for operation: the same
 // float32 constants (from the wrapper), the same order of every sum and
-// product, true divisions, and, built with -fmad=false and without fast
-// math, the accurate expf/sqrtf/powf/atan2f/acosf.  Every ray is
-// evaluated, those with beta = 0 too, as the reference does (NaN * 0 is
-// NaN for a bad texel).
+// product, true divisions (by HR and HM as div_known2, which is IEEE
+// division), and, built with -fmad=false and without fast math, the
+// accurate expf/sqrtf/powf/atan2f/acosf.  Every ray is evaluated, those
+// with beta = 0 too, as the reference does (NaN * 0 is NaN for a bad
+// texel).
 //
-// What bounds it on the H100: for the sky, operations — about 4,500 a
-// ray (16 view samples, each with a light ray's sphere test and 8 light
-// samples; every sample a norm and two expf), against 48 bytes of L,
-// beta and dir moved; for HDRI, bytes — 48 a ray plus four 12-byte taps
-// that mostly hit the L2 (the map is read once: 1.5 MB at 512 x 256).
+// What bounds it on the H100: for the sky, instruction issue first and
+// the MUFU (special-function) unit second.  The march is 16 view samples,
+// each with a sphere test toward the sun and 8 light samples; every
+// sample is a norm (an IEEE sqrtf), two divisions by the constants HR and
+// HM and two accurate expf.  Counted from the SASS
+// (tools/sass_count.py), a ray issues about 11,800 instructions (13,400
+// with IEEE divisions) against 4,858 operations in the source (0.150 ms
+// at 1080p at 67 TFLOP/s), and 500 MUFU operations (336 EX2, 162 RSQ, 2
+// RCP; 793 with the divisions' reciprocals): at one instruction a clock
+// on each of 4 schedulers of 132 SMs at 1.98 GHz the issue takes 0.73
+// ms at 1080p, the MUFU at 16 a clock an SM 0.25 ms.  Its 48 bytes a ray
+// take 0.030 ms.  For HDRI, bytes: 48 a ray plus four 12-byte taps that
+// mostly hit the L2 (the map is read once: 1.5 MB at 512 x 256).
 //
-// What the design does about it: nothing yet; one thread a ray, the
-// state in registers, no shared memory.  A simple kernel that is right;
-// a faster sky (a baked direction table, as the reference's sky cache
-// does for the Bruneton model, or fewer transcendental operations) is
-// later work.
+// What the design does about it: one thread a ray, the state in
+// registers; a kernel for each environment (a template on the kind), so
+// the sky carries no HDRI code.  The sky divides by HR and HM with
+// div_known2 (vpt_common.cuh): a product with the host's RN(1/d) and one
+// FMA correction, correctly rounded, under one compare for both
+// divisors, where IEEE division costs a MUFU reciprocal, its refinement
+// and a range check each.  The transcendentals and the norms stay the
+// plain version's, which keeps every bit; their slow paths are out of
+// line.  128 threads a block instead of 256 measured the same (0.8375
+// against 0.836 ms) and was dropped.
 
 #include "vpt_common.cuh"
 
@@ -40,7 +54,8 @@ struct EnvParams {
     int n, kind, map_h, map_w;
     float sun[3], color[3];
     float mult, u_scale, pi, earth_r, earth_r2, atm_r2, observer_y, hr, hm,
-        c_r, c_m, one_minus_g2, one_plus_g2, two_g, two_plus_g2;
+        hr_inv, hm_inv, c_r, c_m, one_minus_g2, one_plus_g2, two_g,
+        two_plus_g2;
     float beta_r[3], beta_m[3], beta_m11[3];
 };
 
@@ -93,8 +108,10 @@ __device__ V3 sample_sky(const EnvParams& p, V3 d) {
         const float t_cur = tmin + seg * ((float)i + 0.5f);
         const V3 sp = pos + d * t_cur;
         const float height = norm3(sp) - p.earth_r;
-        const float hr = expf(-height / p.hr) * seg;
-        const float hm = expf(-height / p.hm) * seg;
+        float er, em;
+        div_known2(-height, p.hr, p.hr_inv, p.hm, p.hm_inv, er, em);
+        const float hr = expf(er) * seg;
+        const float hm = expf(em) * seg;
         od_r = od_r + hr;
         od_m = od_m + hm;
         // light march toward the sun
@@ -109,8 +126,9 @@ __device__ V3 sample_sky(const EnvParams& p, V3 d) {
             const float hl = norm3(spl) - p.earth_r;
             below = below || hl < 0.0f;
             if (!below) {
-                odl_r = odl_r + expf(-hl / p.hr) * segl;
-                odl_m = odl_m + expf(-hl / p.hm) * segl;
+                div_known2(-hl, p.hr, p.hr_inv, p.hm, p.hm_inv, er, em);
+                odl_r = odl_r + expf(er) * segl;
+                odl_m = odl_m + expf(em) * segl;
             }
         }
         if (below) continue;   // the plain version adds 0 here
@@ -157,6 +175,10 @@ __device__ V3 sample_env_map(const EnvParams& p,
     return (v00 * gx + v01 * fx) * gy + (v10 * gx + v11 * fx) * fy;
 }
 
+// One thread a ray; KIND picks the environment at compile time, so the
+// sky's kernel carries no HDRI code and HDRI's launch is not sized by the
+// sky's registers.
+template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 environment_kernel(const EnvParams p, float* __restrict__ L,
                    const float* __restrict__ beta,
@@ -165,13 +187,51 @@ environment_kernel(const EnvParams p, float* __restrict__ L,
     const int i = blockIdx.x * THREADS + threadIdx.x;
     if (i >= p.n) return;
     const V3 d = v3(dir + 3 * i);
-    const V3 li = p.kind == ENV_HDRI ? sample_env_map(p, map, d)
-                                     : sample_sky(p, d);
+    const V3 li = KIND == ENV_HDRI ? sample_env_map(p, map, d)
+                                   : sample_sky(p, d);
     const V3 env = (li * v3(p.color)) * p.mult;
     const V3 l = v3(L + 3 * i) + env * v3(beta + 3 * i);
     L[3 * i + 0] = l.x;
     L[3 * i + 1] = l.y;
     L[3 * i + 2] = l.z;
+}
+
+// div_known2 with d and y twice against __fdiv_rn(x, d) for every 32-bit
+// pattern x in [lo, hi): out[0] += the patterns where one of the two
+// results differs from it in a bit and the two are not both NaN, out[1]
+// = min(out[1], the first such pattern).
+__global__ void __launch_bounds__(256)
+div_known_sweep_kernel(float d, float y, unsigned long long lo,
+                       unsigned long long hi,
+                       unsigned long long* __restrict__ out) {
+    unsigned long long bad = 0ull, first = ~0ull;
+    const unsigned long long stride =
+        (unsigned long long)gridDim.x * blockDim.x;
+    for (unsigned long long b = lo + (unsigned long long)blockIdx.x *
+                                         blockDim.x + threadIdx.x;
+         b < hi; b += stride) {
+        const float x = __uint_as_float((uint32_t)b);
+        const float want = __fdiv_rn(x, d);
+        float got[2];
+        div_known2(x, d, y, d, y, got[0], got[1]);
+        bool differs = false;
+        for (int k = 0; k < 2; ++k)
+            differs |= __float_as_uint(got[k]) != __float_as_uint(want) &&
+                        !(got[k] != got[k] && want != want);
+        if (differs) {
+            ++bad;
+            first = first < b ? first : b;
+        }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        bad += __shfl_down_sync(0xffffffffu, bad, o);
+        const unsigned long long f = __shfl_down_sync(0xffffffffu, first, o);
+        first = first < f ? first : f;
+    }
+    if ((threadIdx.x & 31) == 0 && bad > 0) {
+        atomicAdd(out, bad);
+        atomicMin(out + 1, first);
+    }
 }
 
 }  // namespace
@@ -190,7 +250,33 @@ extern "C" int vpt_environment(const void* params, float* L,
                                 p.map_w <= 0)))
         return (int)cudaErrorInvalidValue;
     const int blocks = (p.n + THREADS - 1) / THREADS;
-    environment_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        p, L, beta, dir, map);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (p.kind == ENV_SKY)
+        environment_kernel<ENV_SKY><<<blocks, THREADS, 0, st>>>(p, L, beta,
+                                                                dir, map);
+    else
+        environment_kernel<ENV_HDRI><<<blocks, THREADS, 0, st>>>(p, L, beta,
+                                                                 dir, map);
+    return (int)cudaGetLastError();
+}
+
+// The check of div_known2 (a test entry point, not on the render path):
+// out[0] gets the count of mismatching patterns in [lo, hi) (hi <=
+// 2^32), out[1] the first of them; the caller sets out to {0, ~0}.
+extern "C" int vpt_div_known_sweep(float d, float y, unsigned long long lo,
+                                   unsigned long long hi,
+                                   unsigned long long* out, void* stream) {
+    if (hi > (1ull << 32) || lo > hi) return (int)cudaErrorInvalidValue;
+    if (lo == hi) return 0;
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const unsigned long long need = (hi - lo + 255) / 256;
+    const unsigned long long most = (unsigned long long)sms * 16;
+    const int blocks = (int)(need < most ? need : most);
+    div_known_sweep_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        d, y, lo, hi, out);
     return (int)cudaGetLastError();
 }

@@ -657,8 +657,12 @@ long long slot_count(const FusedParams& p) {
     return tiles_x * tiles_y * p.tile_w * p.tile_h;
 }
 
-// RAYS_IN_KERNEL: each ray from primary_ray(rp, index) (raygen.cuh), else
-// from the (B, 3) origin and direction buffers.  DEFER = p.defer_env is
+// RAYS_IN_KERNEL: each ray from primary_ray(rp, index, true) (raygen.cuh),
+// else from the (B, 3) origin and direction buffers.  The lens draws are
+// taken at every aperture here: skipping them at aperture 0, as K2 does,
+// measured the cached 1080p main path 8-9% slower on the H100 (at run
+// time on a lens flag and as a compile-time constant alike;
+// PERF.md, Findings).  DEFER = p.defer_env is
 // a template argument so that BLACK and CONSTANT compile without K4's
 // two extra outputs: with one shared write path the cached 1080p main
 // path measured 1.5% slower on the H100.  The queued cut's writes sit in
@@ -732,7 +736,7 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                 ray = r;
                 V3 o, dir;
                 if (RAYS_IN_KERNEL) {
-                    primary_ray(rp, r, o, dir);
+                    primary_ray(rp, r, true, o, dir);
                 } else {
                     o = v3(origin + 3 * (long long)r);
                     dir = v3(direction + 3 * (long long)r);

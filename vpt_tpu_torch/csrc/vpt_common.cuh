@@ -65,7 +65,53 @@ __device__ __forceinline__ float uniform_at(Key k, unsigned long long i) {
     return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// uniform_at for an element index below 2^32, whose high counter word is
+// 0: the same bits, without the 64-bit index arithmetic.
+__device__ __forceinline__ float uniform_at32(Key k, uint32_t i) {
+    uint32_t x0 = 0u, x1 = i;
+    threefry2x32(k.k0, k.k1, x0, x1);
+    const uint32_t bits = x0 ^ x1;
+    return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
 // ------------------------------------------------------------ scalars --
+
+// x / d1 and x / d2, each rounded once to float32, for divisors known in
+// advance and y = RN(1/d) from the host: Markstein's division with an
+// FMA (Muller et al., Handbook of Floating-Point Arithmetic): q0 =
+// RN(x y), the remainder r = x - q0 d is exact, and RN(q0 + r y) = RN(x
+// / d) wherever the quotient is normal.  fminf maps the NaN remainder of
+// an infinite x to a finite one, so x = +-Inf gives +-Inf.  Below
+// DIV_KNOWN_MIN (zero, and x whose quotient may be subnormal, where an
+// exact tie between two subnormals can round the wrong way) and for NaN
+// it is IEEE division, out of line.  The common path is one compare for
+// both divisors, then three FMA-pipe operations and a min each, and no
+// MUFU, against IEEE division's reciprocal, refinement and range check.
+// vpt_div_known_sweep (environment.cu) holds it to __fdiv_rn over all
+// 2^32 patterns of x; chip_smoke.py does so for the sky's two divisors.
+constexpr float DIV_KNOWN_MIN = 7.8886090522101181e-31f;   // 2^-100
+
+static __device__ __noinline__ float div_ieee(float x, float d) {
+    return __fdiv_rn(x, d);
+}
+
+__device__ __forceinline__ float div_known_path(float x, float d, float y) {
+    const float q0 = __fmul_rn(x, y);
+    const float r = fminf(__fmaf_rn(-q0, d, x), 3.402823466e38f);
+    return __fmaf_rn(r, y, q0);
+}
+
+__device__ __forceinline__ void div_known2(float x, float d1, float y1,
+                                           float d2, float y2, float& q1,
+                                           float& q2) {
+    if (fabsf(x) >= DIV_KNOWN_MIN) {
+        q1 = div_known_path(x, d1, y1);
+        q2 = div_known_path(x, d2, y2);
+    } else {
+        q1 = div_ieee(x, d1);
+        q2 = div_ieee(x, d2);
+    }
+}
 
 __device__ __forceinline__ float jmax(float a, float b) {
     if (a != a) return a;

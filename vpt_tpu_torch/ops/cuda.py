@@ -85,13 +85,16 @@ def load_library() -> Library:
             ("vpt_fused_direct", [vp] * 9),
             ("vpt_fused_direct_primary", [vp] * 8),
             ("vpt_fused_launch_info", [i32, i32, i32, vp]),
-            ("vpt_primary_rays", [vp] * 4),
+            ("vpt_primary_rays", [vp, ctypes.c_int, vp, vp, vp]),
             ("vpt_fused_params_size", []),
             ("vpt_raygen_params_size", []),
             ("vpt_film_accumulate", [vp, vp]),
             ("vpt_film_args_size", []),
             ("vpt_environment", [vp] * 6),
             ("vpt_env_params_size", []),
+            ("vpt_div_known_sweep", [ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_ulonglong, ctypes.c_ulonglong,
+                                     vp, vp]),
             ("vpt_gather_rows", [vp] * 5),
             ("vpt_gather_launch_size", []),
             ("vpt_take_along_i32", [vp] * 5),

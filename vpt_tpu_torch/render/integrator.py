@@ -73,8 +73,8 @@ class _EnvParams(ctypes.Structure):
         + [(n, ctypes.c_float * 3) for n in ("sun", "color")] \
         + [(n, ctypes.c_float) for n in (
             "mult", "u_scale", "pi", "earth_r", "earth_r2", "atm_r2",
-            "observer_y", "hr", "hm", "c_r", "c_m", "one_minus_g2", "one_plus_g2", "two_g",
-            "two_plus_g2")] \
+            "observer_y", "hr", "hm", "hr_inv", "hm_inv", "c_r", "c_m",
+            "one_minus_g2", "one_plus_g2", "two_g", "two_plus_g2")] \
         + [(n, ctypes.c_float * 3) for n in ("beta_r", "beta_m",
                                              "beta_m11")]
 
@@ -158,3 +158,45 @@ def add_environment(scene, params, L, beta, dirn,
     cuda.check_status(rc, ENVIRONMENT.name)
     ENVIRONMENT.launches += 1
     return L
+
+
+def div_known_sweep(d: float, y: float, lo: int = 0, hi: int = 2 ** 32,
+                    device="cuda", chunk: int = 2 ** 22):
+    """Hold csrc/vpt_common.cuh::div_known2 (d and y as both divisors and
+    both reciprocals) to IEEE float32 division x / d for every 32-bit
+    pattern x in [lo, hi): (the number of patterns whose results differ
+    in a bit and are not both NaN, the first of them or None).  On a CUDA device the sweep kernel
+    (environment.cu::vpt_div_known_sweep) computes both on the card; on
+    the CPU ``sky.procedural.div_known_plain`` against numpy's float32
+    division, ``chunk`` patterns at a time.  A test of K4's divisions,
+    not on the render path."""
+    import numpy as np
+    from vpt_tpu_torch.sky.procedural import div_known_plain
+    if not 0 <= lo <= hi <= 2 ** 32:
+        raise ValueError(f"div_known_sweep: [{lo}, {hi}) is not within "
+                         "[0, 2^32)")
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        bad, first = 0, None
+        d32 = np.float32(d)
+        for a in range(lo, hi, chunk):
+            bits = np.arange(a, min(a + chunk, hi), dtype=np.uint64)
+            x = bits.astype(np.uint32).view(np.float32)
+            got = div_known_plain(x, d, y)
+            with np.errstate(all="ignore"):
+                want = x / d32
+            diff = (got.view(np.uint32) != want.view(np.uint32)) & ~(
+                np.isnan(got) & np.isnan(want))
+            if diff.any():
+                bad += int(diff.sum())
+                if first is None:
+                    first = int(bits[np.argmax(diff)])
+        return bad, first
+    if dev.type != "cuda":
+        raise ValueError(f"div_known_sweep: unsupported device {dev}")
+    out = torch.tensor([0, -1], dtype=torch.int64, device=dev)
+    rc = cuda.load_library().dll.vpt_div_known_sweep(
+        float(d), float(y), lo, hi, out.data_ptr(), cuda.current_stream(dev))
+    cuda.check_status(rc, "div_known_sweep")
+    bad, first = out.cpu().tolist()
+    return bad, (None if bad == 0 else first)

@@ -31,6 +31,7 @@ chains primary_rays and fused_direct.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -81,8 +82,25 @@ def primary_rays_plain(camera, params, key):
     return camera.get_rays(u, v, k_lens)
 
 
+def lens_draws_needed(camera) -> bool:
+    """False exactly when the lens draws cannot change a bit of a primary
+    ray, so K2 (csrc/raygen.cu) skips them: ``lens_radius`` is
+    +-0, the lens frame u, v is finite (each offset component is then
+    +-0) and the origin is finite with no component -0.0 (origin + (+-0)
+    is then origin in round-to-nearest; -0.0 + +0.0 is +0.0).  The plain
+    version draws at every aperture, as the reference does."""
+    if float(camera.lens_radius) != 0.0:
+        return True
+    frame = camera.u.tolist() + camera.v.tolist()
+    origin = camera.origin.tolist()
+    return (not all(math.isfinite(c) for c in frame + origin)
+            or any(c == 0.0 and math.copysign(1.0, c) < 0 for c in origin))
+
+
 class _RaygenParams(ctypes.Structure):
-    """Mirror of ``RaygenParams`` in csrc/raygen.cuh."""
+    """Mirror of ``RaygenParams`` in csrc/raygen.cuh.  ``prepare_raygen``
+    also sets ``lens_draws`` (lens_draws_needed's answer), a Python
+    attribute beside the fields, which K2's launch passes on."""
 
     _fields_ = ([("H", ctypes.c_int), ("W", ctypes.c_int)]
                 + [(n, ctypes.c_uint * 2) for n in ("k_jit", "k_lens_r",
@@ -94,7 +112,7 @@ class _RaygenParams(ctypes.Structure):
 
 def prepare_raygen(camera, params) -> _RaygenParams:
     """K2's parameter struct for one camera and frame size (syncs once;
-    the keys are set per launch)."""
+    the keys are set per launch), with lens_draws_needed's answer."""
     if camera.origin.device.type != "cuda":
         raise ValueError("primary_rays: the kernel takes a CUDA camera")
     if params.jitter != "white":
@@ -110,6 +128,7 @@ def prepare_raygen(camera, params) -> _RaygenParams:
                     ("v", camera.v)):
         setattr(p, name, (ctypes.c_float * 3)(*t.cpu().tolist()))
     p.lens_radius = float(camera.lens_radius)
+    p.lens_draws = lens_draws_needed(camera)
     return p
 
 
@@ -135,8 +154,8 @@ def _primary_rays_cuda(camera, params, key, launch=None):
     origin = torch.empty((n, 3), dtype=torch.float32, device=dev)
     direction = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rc = cuda.load_library().dll.vpt_primary_rays(
-        ctypes.byref(p), origin.data_ptr(), direction.data_ptr(),
-        cuda.current_stream(dev))
+        ctypes.byref(p), int(launch.lens_draws), origin.data_ptr(),
+        direction.data_ptr(), cuda.current_stream(dev))
     cuda.check_status(rc, "primary_rays")
     RAYGEN.launches += 1
     return origin, direction

@@ -7,7 +7,10 @@ operation: the same 16 x 8 march, the same constants (Python doubles
 rounded to float32 where they meet a tensor, as in the reference), norms
 written out as sqrt((x*x + y*y) + z*z), and divisions by a constant made
 as float32 divisions on every device (``true_div``).  ``sky_constants``
-gives K4 those float32 values.
+gives K4 those float32 values, and the reciprocals RN(1/HR) and RN(1/HM)
+with which K4 divides by HR and HM, correctly rounded, in three
+operations (csrc/vpt_common.cuh::div_known2; ``div_known_plain`` is
+its exact emulation in numpy, one divisor at a time).
 """
 
 from __future__ import annotations
@@ -44,12 +47,56 @@ def sky_constants() -> dict:
         earth_r=_f32(EARTH_R), earth_r2=_f32(EARTH_R * EARTH_R),
         atm_r2=_f32(ATMOSPHERE_R * ATMOSPHERE_R), observer_y=_f32(OBSERVER_Y),
         hr=_f32(HR), hm=_f32(HM),
+        hr_inv=float(np.float32(1.0) / np.float32(HR)),
+        hm_inv=float(np.float32(1.0) / np.float32(HM)),
         c_r=_f32(3.0 / (16.0 * math.pi)), c_m=_f32(3.0 / (8.0 * math.pi)),
         one_minus_g2=_f32(1.0 - g * g), one_plus_g2=_f32(1.0 + g * g),
         two_g=_f32(2.0 * g), two_plus_g2=_f32(2.0 + g * g),
         beta_r=[float(v) for v in BETA_R],
         beta_m=[float(v) for v in BETA_M],
         beta_m11=[float(v) for v in BETA_M * 1.1])
+
+
+# csrc/vpt_common.cuh::DIV_KNOWN_MIN: below it (and for zero and NaN)
+# div_known2 is IEEE division
+DIV_KNOWN_MIN = 2.0 ** -100
+
+
+def _rn32_sum(a, b):
+    """RN32(a + b) for float64 arrays holding exact values: the float64
+    sum and its error (TwoSum), rounded once to float32, an exact tie
+    broken by the sign of the error."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    out = s.astype(np.float32)
+    lo = out.astype(np.float64)
+    up = np.nextafter(out, np.float32(np.inf)).astype(np.float64)
+    dn = np.nextafter(out, np.float32(-np.inf)).astype(np.float64)
+    to_up = (s == (lo + up) / 2) & (err > 0)
+    to_dn = (s == (lo + dn) / 2) & (err < 0)
+    out[to_up] = np.nextafter(out[to_up], np.float32(np.inf))
+    out[to_dn] = np.nextafter(out[to_dn], np.float32(-np.inf))
+    return out
+
+
+def div_known_plain(x, d, y):
+    """csrc/vpt_common.cuh::div_known2's quotient by one divisor d on a
+    float32 array, exactly: q0 = RN32(x y), r = RN32(x - q0 d) (an FMA:
+    one rounding of the exact value), RN32(r y + q0), with r = min(r,
+    FLT_MAX) and IEEE division where |x| < DIV_KNOWN_MIN or x is NaN.  Every product is exact in
+    float64 and the last sum is rounded by ``_rn32_sum``."""
+    x = np.asarray(x, np.float32)
+    d64, y64 = np.float64(np.float32(d)), np.float64(np.float32(y))
+    with np.errstate(all="ignore"):
+        x64 = x.astype(np.float64)
+        q0 = (x64 * y64).astype(np.float32)
+        r = (x64 - q0.astype(np.float64) * d64).astype(np.float32)
+        r = np.fmin(r, np.float32(np.finfo(np.float32).max))
+        out = _rn32_sum(r.astype(np.float64) * y64, q0.astype(np.float64))
+        slow = ~(np.abs(x) >= np.float32(DIV_KNOWN_MIN))
+        out[slow] = x[slow] / np.float32(d)
+    return out
 
 
 def _dot(a, b):

@@ -45,3 +45,46 @@ def uniform(shape, seed, device):
 def randint(high, shape, seed, device, dtype=torch.int32):
     g = torch.Generator().manual_seed(seed)
     return torch.randint(0, high, shape, generator=g).to(dtype).to(device)
+
+
+def device_times(prof):
+    """{kernel name: (device ms, launches seen)} from a torch.profiler
+    run; empty when the profiler saw no device time.  The profiler may
+    miss a launch at the edge of its window, so a kernel's mean time is
+    its ms over the launches seen."""
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and getattr(e, "device_type", None) is not None \
+                and "CUDA" in str(e.device_type):
+            ms, n = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + us / 1e3, n + e.count)
+    return out
+
+
+def profiled_ms(fn, n, name=""):
+    """Device ms per call of fn() over n calls, by torch.profiler: the
+    mean time of each kernel whose name holds ``name`` (every kernel by
+    default), summed over those kernels, each launched once a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms / k for key, (ms, k) in device_times(pr).items()
+               if name in key)
+
+
+def c3_map(h, w):
+    """The c3_hdri_color golden's environment map at h x w: a vertical
+    gradient with one hot texel (float32, (h, w, 3))."""
+    import numpy as np
+    ty = np.linspace(1.0, 0.0, h, dtype=np.float32)[:, None, None]
+    env = (np.array([0.3, 0.5, 1.0], np.float32) * ty
+           + np.array([0.9, 0.6, 0.3], np.float32) * (1.0 - ty))
+    env = np.broadcast_to(env, (h, w, 3)).copy()
+    env[h // 4, w // 3] = [40.0, 38.0, 30.0]
+    return env

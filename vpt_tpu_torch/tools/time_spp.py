@@ -3,6 +3,7 @@
     python -m vpt_tpu_torch.tools.time_spp [--modes cached tracked]
                                             [--spp 64] [--warmup 2]
                                             [--rays-per-lane 0]
+                                            [--default-command]
 
 Builds chip_smoke.py's scene at 1920x1080 (the procedural 200^3 grid,
 one point light and the sun, shadow-baked on the card), then, for each
@@ -14,9 +15,14 @@ image mean and the SHA-256 of the film's five fields, which is equal for
 two checkouts whose films agree bit for bit), then the nvidia-smi
 line.  ``--rays-per-lane 1`` renders on the step budget of the queue
 length 1 (128 steps a ray) where the default 0 resolves the 1080p frame
-to 16 (render/params.py::resolve_queue).  It calls only
-the renderer's public entry points, so run by its path with another
-checkout of the package first on PYTHONPATH it times that checkout.
+to 16 (render/params.py::resolve_queue).  ``--default-command`` times
+instead `vpt-torch render procedural` as a user types it (the simple
+sky, the sun and no point light) at 1920x1080 with --spp samples in each
+mode, through the CLI's entry point in this process: its ``render_s``
+per sample (the renderer's set-up and the display image included) and
+the SHA-256 of the PNG it writes.  It calls only the renderer's and the
+CLI's public entry points, so run by its path with another checkout of
+the package first on PYTHONPATH it times that checkout.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -49,7 +57,10 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=64)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--rays-per-lane", type=int, default=0, choices=[0, 1])
+    ap.add_argument("--default-command", action="store_true")
     args = ap.parse_args(argv)
+    if args.default_command:
+        return default_command(args.modes, args.spp)
     dev = torch.device("cuda", 0)
     grid = create_procedural_grid(vmin=(-100.0,) * 3, vmax=(100.0,) * 3,
                                   device=dev)
@@ -82,6 +93,29 @@ def main(argv=None):
             film_sha256=hashlib.sha256(b"".join(
                 getattr(r.film, f).cpu().numpy().tobytes()
                 for f in FIELDS)).hexdigest())), flush=True)
+    print_smi()
+
+
+def default_command(modes, spp):
+    """`vpt-torch render procedural --spp spp` at W x H in each mode."""
+    for mode in modes:
+        st = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "default.png")
+            cli.main(["render", "procedural", "-o", out, "--spp", str(spp),
+                      "--width", str(W), "--height", str(H),
+                      "--shadow-mode", mode], stats=st)
+            with open(out, "rb") as f:
+                sha = hashlib.sha256(f.read()).hexdigest()
+        print(json.dumps(dict(
+            command="vpt-torch render procedural", mode=mode, spp=st["spp"],
+            ms_per_spp=st["render_s"] * 1e3 / st["spp"],
+            scene_s=st["scene_s"], bake_s=st["bake_s"],
+            png_sha256=sha)), flush=True)
+    print_smi()
+
+
+def print_smi():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
