@@ -91,6 +91,22 @@ Phases, one JSON line each:
   8c. hdri   — the script writes a 512x256 RGBE .hdr (the c3 golden's
                gradient and hot texel) and renders `vpt-torch render
                procedural that.hdr` at 1080p, 16 spp: K4 once a sample;
+  8d. emission — K1's EXT variant (emission, color, volume_depth > 1) on
+               the reference bench's config 2 (the 64^3 puff with
+               emission 0.9 density, BLACK, emission_scale 2, cached and
+               tracked) and config 3 (the puff with color, its HDRI map,
+               aperture 0.25, tracked) at 512x512, the 200^3 grid with
+               emission 0.9 density at 1080p (cached and tracked, 64 timed
+               spp) and the main path's scene at volume_depth 2 (256x256,
+               both modes, beside volume_depth 1 there, which is not
+               counted), every scene with the ramp emission LUT
+               (scene/assets.py::ramp_lut): ms/spp, iterations per ray,
+               trunc_frac, each render's launches (the EXT variant and K3
+               once a sample, K4 for config 3), finite and not black;
+               config 2 with the sun off and no light not black; K1
+               against fused_direct_plain at 256x256 on each scene by
+               phase 6's rule, the routes bit for bit; the EXT variant
+               timed beside the plain loop on config 2 and at 1080p;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -106,7 +122,8 @@ Phases, one JSON line each:
                small-shape wrappers' host cost: device time (profiler)
                beside event time, and the wrapper's parts by the host
                clock.
-Then the nvidia-smi line, the kernels' JSON line (K1 on both routes; K2,
+Then the nvidia-smi line, the kernels' JSON line (K1 on both routes, and
+its EXT variant at 1080p on the emissive grid with config 2 beside; K2,
 its own launches beside those of K1's in-kernel-ray route, which runs
 its code, and its time at aperture 0.5; K3 at 1080p; K4 at 1080p for the
 sky, with HDRI's numbers beside, its launches those of phases 8b and
@@ -166,6 +183,12 @@ K2_INT_OPS = {False: 2 * 75 + 5, True: 4 * 75 + 5}
 K2_FLOAT_OPS = {False: 2 + 6 + 25, True: 4 + 6 + 25 + 19}
 K2_APERTURE = 0.5  # the aperture of K2's lens-drawing checks
 K1_ROW_BYTES = 15 * 4  # the columns every step loads (taus not counted)
+# K1's EXT variant on an emissive scene: the 8 emission columns too
+K1_EMIT_ROW_BYTES = (15 + 8) * 4
+EMIT_SIZE, EMIT_SPP, VD_SPP = 512, 32, 16   # configs 2 and 3; volume_depth 2
+EMIT_CAMERA = (0.0, 1.0, 9.0)   # the bench's aim_camera offset
+C3_APERTURE = 0.25
+EMIT_OF_DENSITY = 0.9   # the 200^3 grid's emission, as the bench's blob
 # K4's operations per ray, counted from csrc/environment.cu (each
 # arithmetic operation, comparison and transcendental one): the sky's
 # head (two sphere tests of 25, the phases) 76, each of its 16 view
@@ -296,14 +319,20 @@ def check_lens(where, k2_lens, routes_lens):
                                f"{K2_APERTURE} ({mode})")
 
 
+def k1_variant(route, defer, ext):
+    """K1's variant name: the route, "_env" for the deferred environment
+    (HDRI, the sky), "_ext" for emission, color or volume_depth > 1."""
+    return route + "_env" * int(defer) + "_ext" * int(ext)
+
+
 def k1_registers(summary):
-    """K1's ptxas lines by variant (its template arguments): the route,
-    with "_env" for the deferred environment (HDRI, the sky)."""
+    """K1's ptxas lines by variant (its template arguments)."""
     out = {}
     for n, v in summary.items():
-        m = re.search(r"fused_direct_kernelILb([01])ELb([01])E", n)
+        m = re.search(r"fused_direct_kernelILb([01])ELb([01])ELb([01])E", n)
         if m:
-            out[ROUTES[int(m.group(1))] + "_env" * int(m.group(2))] = v
+            out[k1_variant(ROUTES[int(m.group(1))], m.group(2) == "1",
+                           m.group(3) == "1")] = v
     return out
 
 
@@ -370,7 +399,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = [fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY, renderer.RAYGEN,
-               film_mod.FILM_ACCUMULATE, integrator.ENVIRONMENT]
+               film_mod.FILM_ACCUMULATE, integrator.ENVIRONMENT,
+               fused.FUSED_DIRECT_EXT]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -392,11 +422,19 @@ def main():
     torch.cuda.synchronize()
     t_k3 = time.perf_counter() - t0
     k1_ptxas = k1_registers(cuda.ptxas_summary(lib.ptxas_log))
-    k1_launch = {route + "_env" * defer: fused.launch_info(
-        route == "rays_in_kernel", 128, bool(defer))
-        for route in ROUTES for defer in (0, 1)}
+    k1_launch = {k1_variant(route, defer, ext): fused.launch_info(
+        route == "rays_in_kernel", 128, bool(defer), bool(ext))
+        for route in ROUTES for defer in (0, 1) for ext in (0, 1)}
     emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
          ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
+    # the density-only variants as before: 5 blocks per SM, no spills
+    # (ptxas reports only when this run built the library)
+    for name, info in k1_launch.items():
+        v = k1_ptxas.get(name, {})
+        if "_ext" not in name and (info["blocks_per_sm"] != 5
+                                   or v.get("spill_stores")
+                                   or v.get("spill_loads")):
+            raise RuntimeError(f"K1 {name}: {v}, {info}")
 
     # ---- 2b. K4's division by HR and HM, over every float32 -------------
     from vpt_tpu_torch.sky.procedural import sky_constants
@@ -995,6 +1033,167 @@ def main():
          hdr_map=[HDR_H, HDR_W, 3])
     launches[integrator.ENVIRONMENT.name] = k4_path_launches
 
+    # ---- 8d. emission, color and volume_depth 2 (K1's EXT variant) -------
+    from vpt_tpu_torch.core.camera import Camera
+    from vpt_tpu_torch.scene.assets import ramp_lut
+    from vpt_tpu_torch.tools.common import bench_blob, bench_env_map
+    lut = ramp_lut()
+
+    def aimed(s_, aperture=0.0):
+        """The bench's aim_camera: 9 in front of the root box's centre and
+        1 above it, vfov 40, square."""
+        c = (s_.root_pmin + s_.root_pmax).cpu().numpy() / 2
+        return dataclasses.replace(s_, camera=Camera.make(
+            c + np.array(EMIT_CAMERA), c, vfov=40.0, aspect=1.0,
+            aperture=aperture, device=dev))
+
+    t0 = time.perf_counter()
+    c2 = aimed(build_scene([bench_blob(emission=True)], emission_lut=lut,
+                           device=dev))
+    c2_cached = attach_shadow_cache(c2, AZIMUTH, ELEVATION)
+    c3 = attach_env_map(aimed(build_scene(
+        [bench_blob(color=True)], emission_lut=lut, device=dev),
+        aperture=C3_APERTURE), bench_env_map())
+    big = build_scene([dataclasses.replace(
+        grid, emission_zyx=(EMIT_OF_DENSITY * grid.density_zyx).astype(
+            np.float32))], lights=lights, emission_lut=lut, device=dev)
+    big = attach_shadow_cache(big, AZIMUTH, ELEVATION)
+    torch.cuda.synchronize()
+    emit_build_s = time.perf_counter() - t0
+    c2_kw = dict(emission_scale=2.0, emission_pivot=1.0)
+    hdri = dict(environment_type=int(Environment.HDRI))
+    # (scene, params, warm-up spp, timed spp, the route's kernels and K4)
+    runs = {
+        "config2_cached": (c2_cached, params(EMIT_SIZE, EMIT_SIZE, "cached")
+                           .replace(**c2_kw), 2, EMIT_SPP),
+        "config2_tracked": (c2, params(EMIT_SIZE, EMIT_SIZE, "tracked")
+                            .replace(**c2_kw), 2, EMIT_SPP),
+        "config3_tracked": (c3, params(EMIT_SIZE, EMIT_SIZE, "tracked")
+                            .replace(**hdri), 2, EMIT_SPP),
+        "emissive200_cached": (
+            dataclasses.replace(big, camera=cli.default_framing(big, W, H)),
+            params(W, H, "cached").replace(emission_scale=2.0), 2,
+            TIMED_SPP),
+        "emissive200_tracked": (
+            dataclasses.replace(big, camera=cli.default_framing(big, W, H)),
+            params(W, H, "tracked").replace(emission_scale=2.0), 0,
+            TRACKED_SPP),
+        "vd2_cached": (s256, params(PARITY_SIZE, PARITY_SIZE, "cached")
+                       .replace(volume_depth=2), 2, VD_SPP),
+        "vd2_tracked": (s256, params(PARITY_SIZE, PARITY_SIZE, "tracked")
+                        .replace(volume_depth=2), 2, VD_SPP)}
+    def timed_render(sc, pe, warm, spp):
+        """A renderer on (sc, pe) after warm + spp samples, and the
+        summary of its film: ms/spp over the timed spp, iterations per
+        ray, trunc_frac, the image mean, whether it is finite."""
+        rr = renderer.ProgressiveRenderer(sc, pe)
+        rr.step(warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rr.step(spp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = pe.width * pe.height * (warm + spp)
+        f = rr.film
+        return rr, dict(
+            size=[pe.width, pe.height], spp=spp, ms_per_spp=dt * 1e3 / spp,
+            mean_iters_per_ray=float(f.cost.double().sum()) / n,
+            trunc_frac=float(f.trunc.double().sum()) / n,
+            image_mean=float(f.accum.double().mean()),
+            finite=bool(torch.isfinite(f.accum).all()))
+
+    emit_runs, ext_launches = {}, 0
+    for name, (sc, pe, warm, spp) in runs.items():
+        for k in kernels:
+            k.launches = 0
+        rr, emit_runs[name] = timed_render(sc, pe, warm, spp)
+        got = {k.name: k.launches for k in kernels}
+        emit_runs[name]["launches"] = got
+        ext_launches += got[fused.FUSED_DIRECT_EXT.name]
+        mode = pe.shadow_mode
+        route = ({fused.FUSED_DIRECT_PRIMARY.name} if
+                 renderer.RAYS_IN_KERNEL[mode] else
+                 {fused.FUSED_DIRECT.name, renderer.RAYGEN.name})
+        on = route | {fused.FUSED_DIRECT_EXT.name,
+                      film_mod.FILM_ACCUMULATE.name}
+        if pe.environment_type == int(Environment.HDRI):
+            on.add(integrator.ENVIRONMENT.name)
+        want = {k.name: (warm + spp if k.name in on else 0)
+                for k in kernels}
+        if got != want:
+            raise RuntimeError(f"emission {name}: launches {got}, expected "
+                               f"{want}")
+        if not (emit_runs[name]["finite"]
+                and emit_runs[name]["image_mean"] > 0.0):
+            raise RuntimeError(f"emission {name}: not finite, or black")
+        if args.save and name.startswith(("config", "emissive200")):
+            np.save(os.path.join(args.save, f"chip_smoke_{name}.npy"),
+                    rr.display_image())
+        del rr
+    # volume_depth 1 on the same 256^2 scene: vd2's baseline
+    vd1 = {mode: timed_render(s256, params(PARITY_SIZE, PARITY_SIZE, mode),
+                              2, VD_SPP)[1] for mode in ("cached", "tracked")}
+    # config 2 with the sun off and no light: its emission alone lights it
+    dark = renderer.ProgressiveRenderer(c2, runs["config2_tracked"][1]
+                                        .replace(sun_mult=0.0))
+    dark_mean = float(dark.step(4).accum.double().mean())
+    del dark
+    # K1 against fused_direct_plain at 256^2 on each render's scene, by
+    # phase 6's rule; the in-kernel-ray route bit for bit the buffer route
+    emit_k1, emit_routes = {}, {}
+    key = rng.render_key(SEED, 0)
+    tkey = renderer.tile_key(key)
+    for name, (sc, pe, _, _) in runs.items():
+        p256 = pe.replace(width=PARITY_SIZE, height=PARITY_SIZE)
+        if name.startswith("emissive200"):
+            sc = dataclasses.replace(sc, camera=cli.default_framing(
+                sc, PARITY_SIZE, PARITY_SIZE))
+        rays = renderer._primary_rays_cuda(sc.camera, p256, key)
+        out_k = fused._fused_direct_cuda(sc, p256, tkey, *rays)
+        emit_k1[name] = k1_agreement([(out_k, fused.fused_direct_plain(
+            sc, p256, tkey, *rays))])
+        emit_routes[name] = same_bits(
+            renderer._trace_primary_cuda(sc, p256, key), out_k)
+    # K1's EXT variant timed beside the plain loop on the cached config 2
+    # (512^2) and the cached 200^3 emissive grid (1080p), at the frame's
+    # queue length; the timed outputs held together by the share rule
+    ext_time = {}
+    for name in ("config2_cached", "emissive200_cached"):
+        sc, pe, _, _ = runs[name]
+        lt = renderer.prepare(sc, pe)
+        o, d = renderer._primary_rays_cuda(sc.camera, pe, key, lt.raygen)
+        q = renderer.frame_queue(pe)
+        tk, out_k = cuda_ms(lambda: fused._fused_direct_cuda(
+            sc, pe, tkey, o, d, lt.fused, pe.width, q), 3)
+        tp, out_p = cuda_ms(lambda: fused.fused_direct_plain(
+            sc, pe, tkey, o, d, q), 1)
+        steps = float(out_k[2].double().sum())
+        rows = min(steps, sc.atlas.density_corners.shape[0])
+        ext_time[name] = dict(
+            size=[pe.width, pe.height], ms=tk, plain_ms=tp,
+            # rays in and out, each row's 15 density and 8 emission
+            # columns once, and the operations of every step
+            bound=bound(o.shape[0] * (24 + 28) + rows * K1_EMIT_ROW_BYTES,
+                        steps * K1_OPS_PER_STEP),
+            steps=steps, **k1_agreement([(out_k, out_p)]))
+        del o, d, out_k, out_p, lt
+    emit("emission", lut="scene/assets.py::ramp_lut", build_s=emit_build_s,
+         runs=emit_runs, vd1_baseline=vd1, emission_alone_mean=dark_mean,
+         k1=emit_k1,
+         k1_routes_bit_equal=emit_routes, k1_ext_timed=ext_time,
+         k1_ext_launches=ext_launches,
+         cuts="float32 rows and no octant boxes (the bench: bfloat16 rows, "
+              "octant_boxes=True; ROADMAP A.10)")
+    check_parity("emission 256^2", emit_k1, 0.0, True, emit_routes)
+    check_parity("emission timed", ext_time, 0.0, True, {})
+    if not dark_mean > 0.0:
+        raise RuntimeError("config 2 with emission alone is black")
+    launches[fused.FUSED_DIRECT_EXT.name] = ext_launches
+    at_size = ext_time["emissive200_cached"]
+    timing["fused_direct_ext"] = (at_size["ms"], at_size["plain_ms"])
+    bounds["fused_direct_ext"] = at_size["bound"]
+    del c2, c2_cached, c3, big, runs
+
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
         probe_gather, time_probes
@@ -1151,7 +1350,8 @@ def main():
         *k4_256.values(), *k4_1080.values()))
     timing["environment"] = (k4_1080["sky"]["ms"], k4_1080["sky"]["plain_ms"])
     bounds["environment"] = k4_1080["sky"]["bound"]
-    errs.update(fused_direct=k1_1080["cached"]["max_abs"],
+    errs.update(fused_direct_ext=at_size["max_abs"],
+                fused_direct=k1_1080["cached"]["max_abs"],
                 fused_direct_primary=k1_1080[f"cached_{ROUTES[1]}"]["max_abs"],
                 primary_rays=k2_1080, film_accumulate=k3_1080)
     line = {"kernels": [dict(
@@ -1179,6 +1379,24 @@ def main():
         routes_bit_equal=routes_same,
         tracked_ms=timing["fused_direct_primary_tracked"][0],
         tracked_plain_ms=timing["fused_direct_primary_tracked"][1])
+    cfg2 = ext_time["config2_cached"]
+    by_name["fused_direct_ext"].update(
+        also_replaces="vpt_tpu/render/tracking.py:245 (_emission_lut)",
+        shape=f"{W}x{H}, the 200^3 grid with emission "
+              f"{EMIT_OF_DENSITY} x density, cached, the frame's queue",
+        design="K1's EXT template variant on either route: the EMIT walk "
+               "(the emission LUT read from global memory beside the "
+               "density color LUT), Cd from the row's 24 color columns, "
+               "volume_depth > 1; density-only scenes run the variants "
+               "without it",
+        agree_share=at_size["share"], steps=at_size["steps"],
+        config2_512=dict(ms=cfg2["ms"], plain_ms=cfg2["plain_ms"],
+                         bound_ms=cfg2["bound"][0],
+                         bound_by=cfg2["bound"][1],
+                         agree_share=cfg2["share"],
+                         max_abs_err=cfg2["max_abs"], steps=cfg2["steps"]),
+        ptxas={k: v for k, v in k1_ptxas.items() if "_ext" in k},
+        launch={k: v for k, v in k1_launch.items() if "_ext" in k})
     # K2's ray also runs inside K1's in-kernel-ray route, once per launch
     lens_name = f"aperture_{K2_APERTURE}"
     by_name["primary_rays"].update(

@@ -30,7 +30,12 @@ COMMON = ["--width", "32", "--height", "32", "--ray-depth", "3", "--cpu",
 # angular point-light bake takes seconds even on a small grid
 CASES = {"tracked_constant": ["--env-type", "constant", "--light", "0", "12",
                               "12", "1", "1", "1", "200"],
-         "cached_black": ["--env-type", "black", "--shadow-mode", "cached"]}
+         "cached_black": ["--env-type", "black", "--shadow-mode", "cached"],
+         # volume_depth 2 and the depth-of-field overlay, with a lens whose
+         # focus band cuts through the volume
+         "vd2_dof": ["--env-type", "black", "--shadow-mode", "cached",
+                     "--volume-depth", "2", "--aov", "dof", "--aperture",
+                     "0.5"]}
 
 
 @pytest.fixture(scope="module")
@@ -65,6 +70,7 @@ def renders(tmp_path_factory):
         render(tcli, "port_resumed", "--spp", "4", *cb, "--resume",
                str(d / "port_cached_black.ckpt.npz"))
         render(tcli, "port_whole", "--spp", "4", *cb)
+    out["grid"] = grid
     return out
 
 
@@ -83,6 +89,36 @@ def test_render_matches_reference(renders, case):
     assert np.abs(pg - pw).max() <= 1
     np.testing.assert_array_equal(
         read_png(f"{renders[f'port_{case}']}.png"), pg)
+
+
+def test_volume_depth_and_dof_overlay(renders):
+    """`--volume-depth 2 --aov dof`: the port's overlay PNG is dof_overlay
+    of its own film (from the checkpoint) exactly, agrees with the
+    reference's on >= 99% of pixels within 1 of 255, and shows both
+    sides of the focus band."""
+    import torch
+
+    from vpt_tpu_torch.render.film import dof_overlay, load_film
+    stem = renders["port_vd2_dof"]
+    got = read_png(f"{stem}_dof.png")
+    want = np.asarray(Image.open(f"{renders['jax_vd2_dof']}_dof.png"),
+                      np.int32)
+    assert got.shape == want.shape == (32, 32, 3)
+    assert np.mean(np.abs(got.astype(np.int32) - want).max(-1) <= 1) >= 0.99
+    film, spp = load_film(f"{stem}.ckpt.npz", device="cpu")
+    assert spp == 2
+    args = tcli.build_parser().parse_args(
+        ["render", "procedural", "-o", "x.png", "--aperture", "0.5",
+         *COMMON])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tproc, "default_procedural_grid",
+                   lambda *a, **k: renders["grid"])
+        scene = tcli._load_scene(args, None, torch.device("cpu"))
+    cam = tcli.default_framing(scene, 32, 32, args.fov, args.aperture)
+    np.testing.assert_array_equal(got, dof_overlay(film, cam).numpy()[::-1])
+    tint = got.astype(np.int32)
+    assert (tint[..., 2] > tint[..., 1]).any()   # nearer than the band
+    assert (tint[..., 1] > tint[..., 2]).any()   # inside it
 
 
 def test_kill_and_resume_is_bit_identical(renders):
@@ -138,12 +174,12 @@ BLACK = ["--env-type", "black"]
     ["render", "procedural", *BLACK, "--engine", "reference"],
     ["render", "procedural", *BLACK, "--engine", "march"],
     ["render", "procedural", *BLACK, "--integrator", "volumetric"],
-    ["render", "procedural", *BLACK, "--volume-depth", "2"],
+    ["render", "procedural", "--aov", "bvh"],
     ["render", "procedural", *BLACK, "--denoise", "atrous"],
     ["render", "procedural", *BLACK, "--sharded"],
     ["render", "procedural", *BLACK, "--inst-shards", "2"],
     ["render", "procedural", *BLACK, "--union", "auto"],
-    ["render", "procedural", *BLACK, "--aov", "dof"],
+    ["render", "sky.hdr", "--integrator", "volumetric"],
     ["render", "procedural", *BLACK, "--aov", "bvh"],
     ["render", "procedural", *BLACK, "-o", "x.jpg"],
     ["earth"], ["view", "procedural"]])

@@ -27,6 +27,7 @@ from vpt_tpu_torch.render import film as tfilm
 from vpt_tpu_torch.render import fused, renderer
 from vpt_tpu_torch.render.integrator import _EnvParams
 from vpt_tpu_torch.render.params import RenderParams
+from vpt_tpu_torch.scene.assets import ramp_lut
 from vpt_tpu_torch.scene.scene import build_scene
 from vpt_tpu_torch.volume.grid import HostGrid
 
@@ -34,11 +35,16 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "vpt_tpu_torch", "csrc")
 
 
-def _blob_scene(device, n=16):
+def _blob_scene(device, n=16, emission=False, color=False):
+    """A 16^3 blob with one point light, shadow-baked; with an emission
+    channel (and the ramp LUT) and a color channel where asked."""
     z, y, x = np.mgrid[:n, :n, :n].astype(np.float32)
     r = np.sqrt((x - n / 2) ** 2 + (y - n / 2) ** 2 + (z - n / 2) ** 2)
     dens = np.clip(1.0 - r / (n / 2.4), 0.0, 1.0).astype(np.float32)
-    g = HostGrid(density_zyx=dens, emission_zyx=None, color_zyx=None,
+    em = (0.7 * dens).astype(np.float32) if emission else None
+    col = (np.stack([dens, 0.6 * dens, 0.25 + 0 * dens], -1).astype(
+        np.float32) if color else None)
+    g = HostGrid(density_zyx=dens, emission_zyx=em, color_zyx=col,
                  bbox_min=np.zeros(3, np.int32),
                  dim=np.array([n, n, n], np.int32),
                  transform=np.diag([0.2, 0.2, 0.2, 1.0]), voxel_size=0.2,
@@ -46,7 +52,7 @@ def _blob_scene(device, n=16):
     s = build_scene([g], lights=PointLights.make([[2.0, 3.0, 4.0]],
                                                  [[1, 1, 1]], [30.0],
                                                  device=device),
-                    device=device)
+                    emission_lut=ramp_lut(), device=device)
     lo, hi = s.root_pmin.cpu().numpy(), s.root_pmax.cpu().numpy()
     c, d = (lo + hi) / 2, float(np.linalg.norm(hi - lo)) * 1.2
     s = dataclasses.replace(s, camera=Camera.make(
@@ -406,6 +412,52 @@ def test_k1_k4_env_match_plain(cuda_device, env, mode):
     assert float(ref[0].mean()) > 0.0
 
 
+# K1's EXT variant: (emission, color, volume_depth, environment type)
+EXT_CASES = {"emission": (True, False, 1, 2), "color": (False, True, 1, 2),
+             "both_vd2": (True, True, 2, 2), "vd3": (False, False, 3, 2),
+             "color_hdri": (False, True, 1, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EXT_CASES))
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+def test_k1_ext_variant_matches_plain(cuda_device, mode, case):
+    """K1's EXT variant (the EMIT walk with the emission LUT, Cd,
+    volume_depth > 1) on both routes against the plain loop by the share
+    rule, the in-kernel-ray route bit for bit the buffer route; EXT counted
+    once a launch, and never for a density-only scene at depth 1."""
+    from vpt_tpu_torch.scene.scene import attach_env_map
+    em, col, vd, env = EXT_CASES[case]
+    s = _blob_scene(cuda_device, emission=em, color=col)
+    if env == 1:
+        s = attach_env_map(s, _c3_map())
+    p = RenderParams(width=48, height=40, shadow_mode=mode,
+                     environment_type=env, ray_depth=8, volume_depth=vd,
+                     emission_scale=1.5)
+    key = rng.render_key(0, 5)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    tkey = renderer.tile_key(key)
+    before = fused.FUSED_DIRECT_EXT.launches
+    buf = fused._fused_direct_cuda(s, p, tkey, o, d)
+    gen = renderer._trace_primary_cuda(s, p, key)
+    torch.cuda.synchronize()
+    assert fused.FUSED_DIRECT_EXT.launches == before + 2
+    assert _same_bits(gen, buf)
+    ref = fused.fused_direct_plain(s, p, tkey, o, d)
+    share, rel = agreement([x.cpu().numpy() for x in buf],
+                           [x.cpu().numpy() for x in ref])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
+    assert float(ref[0].mean()) > 0.0
+    if em:
+        dark = p.replace(sun_mult=0.0)
+        lit = fused._fused_direct_cuda(s, dark, tkey, o, d)[0]
+        assert float(lit.mean()) > 0.0    # emission alone lights it
+    plain = _blob_scene(cuda_device)
+    before = fused.FUSED_DIRECT_EXT.launches
+    fused._fused_direct_cuda(plain, p.replace(volume_depth=1), tkey, o, d)
+    assert fused.FUSED_DIRECT_EXT.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["cached", "tracked"])
 def test_k1_queued_budget_matches_plain(cuda_device, mode):
@@ -706,6 +758,7 @@ def _c_fields(source, struct):
 
 @pytest.mark.parametrize("source,struct,mirror", [
     ("fused_direct.cu", "FusedParams", fused._FusedParams),
+    ("fused_direct.cu", "ExtParams", fused._ExtParams),
     ("raygen.cuh", "RaygenParams", renderer._RaygenParams),
     ("probe_launch.cuh", "ProbeLaunch", probe._ProbeLaunch),
     ("gather_rows.cu", "GatherLaunch", probe._GatherLaunch),

@@ -118,8 +118,8 @@ def test_out_of_slice_options_raise(scenes):
     o = torch.zeros((4, 3))
     d = torch.ones((4, 3)) / np.sqrt(3.0)
     for kw in (dict(use_majorant=False), dict(integrator=1),
-               dict(volume_depth=2), dict(rays_per_lane=4),
-               dict(engine="reference"), dict(jitter="bluenoise")):
+               dict(rays_per_lane=4), dict(engine="reference"),
+               dict(jitter="bluenoise")):
         with pytest.raises(NotImplementedError):
             t_fused.fused_direct(ts, TParams(**kw), (0, 1), o, d)
 

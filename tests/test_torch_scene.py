@@ -163,12 +163,13 @@ def test_scene_from_arrays_round_trip(built):
 
 
 def test_out_of_slice_scenes_raise(grids):
+    """What the port still refuses: two grids, and the reference's octant
+    columns and bfloat16 rows (ROADMAP A.6, A.10)."""
     g = grids["blob24"][0]
     with pytest.raises(NotImplementedError):
         tbuild([g, g], device="cpu")
-    emissive = _blob(emission=True)
-    with pytest.raises(NotImplementedError):
-        tbuild([emissive], device="cpu")
-    arrays = jax_scene_arrays(jbuild([emissive]))
-    with pytest.raises(NotImplementedError):
-        scene_from_arrays(arrays, device="cpu")
+    small = _blob(n=8, emission=True, color=True)
+    for kw in (dict(octant_boxes=True), dict(corner_dtype="bfloat16")):
+        arrays = jax_scene_arrays(jbuild([small], **kw))
+        with pytest.raises(NotImplementedError):
+            scene_from_arrays(arrays, device="cpu")

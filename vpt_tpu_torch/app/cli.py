@@ -174,8 +174,6 @@ def _check_render_slice(args) -> str:
              "ROADMAP A.8, the other engines and integrators"),
             ("--integrator volumetric", args.integrator != "direct",
              "ROADMAP A.8, the other engines and integrators"),
-            (f"--volume-depth {args.volume_depth}", args.volume_depth != 1,
-             "ROADMAP A.2, main path render"),
             (f"--denoise {args.denoise}", args.denoise != "none",
              "ROADMAP A.9, denoisers"),
             ("--sharded", args.sharded, "ROADMAP A.11, multi-GPU"),
@@ -183,7 +181,6 @@ def _check_render_slice(args) -> str:
              "ROADMAP A.11, multi-GPU"),
             (f"--union {args.union}", args.union != "off",
              "ROADMAP A.6, instanced scenes"),
-            ("--aov dof", args.aov == "dof", "ROADMAP A.2, the film"),
             (f"--aov {args.aov}", args.aov in ("occupancy", "bvh"),
              "ROADMAP A.8, render/debugviz.py")):
         if on:
@@ -235,7 +232,7 @@ def cmd_render(args, stats=None):
     from vpt_tpu_torch.render.params import (Environment, Integrator,
                                              RenderParams)
     from vpt_tpu_torch.render.renderer import ProgressiveRenderer
-    from vpt_tpu_torch.utils.io import save_aov, save_image
+    from vpt_tpu_torch.utils.io import save_aov, save_image, write_png
 
     env_name = _check_render_slice(args)
     stats = {} if stats is None else stats
@@ -318,7 +315,11 @@ def cmd_render(args, stats=None):
 
     save_image(args.output, img, accum=film.accum.cpu().numpy()[::-1],
                save_exr=args.save_exr)
-    if args.aov != "none":
+    if args.aov == "dof":
+        viz = film_mod.dof_overlay(film, scene.camera, params.exposure_scale)
+        write_png(f"{os.path.splitext(args.output)[0]}_dof.png",
+                  viz.cpu().numpy()[::-1])
+    elif args.aov != "none":
         save_aov(args.output, args.aov,
                  getattr(film, args.aov).cpu().numpy()[::-1])
     log(f"wrote {args.output}")

@@ -18,8 +18,9 @@
 // - the 23-entry walk state lives in registers for the whole walk, so a
 //   step costs one row load and no other memory traffic; the row loads
 //   only the columns the step needs (15, plus the taus on accepted
-//   events in cached mode); the draws are computed in the lane from
-//   their counters, never loaded;
+//   events in cached mode; in the EXT variant the 8 emission columns on
+//   EMIT steps and the 24 color columns on accepted events); the draws
+//   are computed in the lane from their counters, never loaded;
 // - persistent warps: the grid is SMs x resident blocks per SM (asked of
 //   the runtime once per library load).  When at least refill_min lanes
 //   of a warp are idle, one lane takes as many slots as lanes are idle
@@ -38,6 +39,14 @@
 // - on the in-kernel-ray route a lane generates its own primary ray, so
 //   the sample writes and reads no ray buffer.
 //
+// EXT (a template argument): scenes with an emission or a color channel,
+// or volume_depth > 1.  The emission walk (EMIT) follows a medium event
+// along its scattered direction and adds the emission LUT's row of each
+// sample (unscaled by beta, QUIRKS #5/#21); Cd scales the collision
+// weight; an event before the walk's volume_depth-th scatters and
+// restarts MARCH with no NEE.  Density-only scenes at volume_depth 1 run
+// the variants without EXT, which compile none of that code.
+//
 // The step budget is max_steps steps per ray: max_fused_steps, or 16
 // times that where the reference queues 16 rays per lane
 // (render/params.py::resolve_queue); the keys of the first key_steps
@@ -54,7 +63,7 @@ using namespace vpt;
 
 namespace {
 
-constexpr int P_SEEK = 0, P_MARCH = 1, P_SHADOW = 2, P_DONE = 4;
+constexpr int P_SEEK = 0, P_MARCH = 1, P_SHADOW = 2, P_EMIT = 3, P_DONE = 4;
 constexpr int AS_SUN = 0, AS_PT = 1, AS_SPHERE = 2;
 constexpr uint32_t SEEK_FOLD = 1u << 20, HG_FOLD = 7u;
 constexpr unsigned FULL = 0xffffffffu;
@@ -83,11 +92,30 @@ struct FusedParams {
     int key_steps, queued, defer_env;
 };
 
+// What only the EXT variant reads: the emission and color columns (-1:
+// absent), the walk's volume_depth, and the emission walk's constants.
+// A kernel argument of its own, after the others, so that the
+// density-only variants take their arguments where they did before EXT
+// (appended to FusedParams they moved RaygenParams to an 8-byte boundary,
+// which changed the in-kernel-ray route's SASS).  Mirror of
+// vpt_tpu_torch/render/fused.py::_ExtParams.
+struct ExtParams {
+    int em_off, col_off, volume_depth;
+    float emission_scale, rate_inv_emit;
+};
+
+// The variant a launch needs: EXT for emission, color or volume_depth > 1.
+inline bool extended(const ExtParams& x) {
+    return x.em_off >= 0 || x.col_off >= 0 || x.volume_depth > 1;
+}
+
 struct Ctx {
     const FusedParams& p;
+    const ExtParams& x;
     const float* __restrict__ corners;
     const float* __restrict__ lights;  // (L, 7): pos, color, power
-    const float* __restrict__ lut;     // (256, 3)
+    // (512, 3): the density color LUT, then the emission LUT
+    const float* __restrict__ lut;
 };
 
 __device__ __forceinline__ void aabb_intersect(const float* bmin,
@@ -195,6 +223,7 @@ __device__ V3 phase_sample(const FusedParams& p, V3 dir, const Key (&hk)[4],
 
 struct Fetch {
     float density, s_box, t_box;
+    bool inb;          // the point lies in the grid
     const float* row;  // the corner row, for the taus of an accepted event
     V3 fr;  // the point's fractions in its cell, for the 8 weights
 };
@@ -207,6 +236,17 @@ __device__ __forceinline__ float corner_weight(const Fetch& f, int k) {
     return wx * wy * wz;
 }
 
+// The trilinear sum of the 8 taps at f.row + off, left to right (taps
+// `stride` apart: 1, or 3 for a color channel).
+__device__ __forceinline__ float taps_at(const Fetch& f, int off,
+                                         int stride = 1) {
+    const float* tr = f.row + off;
+    float s = tr[0] * corner_weight(f, 0);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) s = s + tr[k * stride] * corner_weight(f, k);
+    return s;
+}
+
 // Trilinear tau of channel ch (0 = sun, 1 + l = point light l).
 __device__ __forceinline__ float tau_at(const FusedParams& p, const Fetch& f,
                                         int ch) {
@@ -215,6 +255,18 @@ __device__ __forceinline__ float tau_at(const FusedParams& p, const Fetch& f,
 #pragma unroll
     for (int k = 1; k < 8; ++k) s = s + tr[k] * corner_weight(f, k);
     return s;
+}
+
+// tracking._emission_lut of this row's emission: the LUT row at the
+// truncated index (QUIRKS #15) x emission_scale, 0 outside the grid.
+__device__ __forceinline__ V3 emission_at(const Ctx& c, const Fetch& f) {
+    if (!f.inb) return v3(0.0f, 0.0f, 0.0f);
+    const float li =
+        jclamp(taps_at(f, c.x.em_off) * 255.0f / c.p.emission_pivot, 0.0f,
+               255.0f);
+    const float* e = c.lut + 768 + 3 * (int)li;
+    const float k = c.x.emission_scale;
+    return v3(e[0] * k, e[1] * k, e[2] * k);
 }
 
 // render/tracking.py::_unified_fetch_single (banded, full): one corner
@@ -245,6 +297,7 @@ __device__ void fetch_row(const Ctx& c, V3 pos, V3 dir, Fetch& f) {
     const float* row = c.corners + flat * p.row_w;
     f.fr = fr;
     f.row = row;
+    f.inb = inb;
     float d = row[0] * corner_weight(f, 0);
 #pragma unroll
     for (int k = 1; k < 8; ++k) d = d + row[k] * corner_weight(f, k);
@@ -278,7 +331,23 @@ struct Walk {
     V3 pos, dirn, anchor, sdir, beta, L, contrib;
     float alpha, tr, dist, t, skip, tbox, depth_aov;
     int phase, ascode, nshadow, depth_n, cost;
+    int vd;  // EXT: the medium events of this walk so far
 };
+
+// fused._march_init's walk length: the walk box's exit along dir from
+// pos, or the sphere's hit where it comes first.  (seek() keeps its own
+// copy, and tau_at its own loop beside taps_at: calling these helpers
+// there changed the density-only variants' SASS.)
+__device__ __forceinline__ float march_dist(const FusedParams& p, V3 pos,
+                                            V3 dir) {
+    bool hw;
+    float t_in, t_out;
+    aabb_intersect(p.walk_min, p.walk_max, pos, dir, hw, t_in, t_out);
+    const float t_box = hw ? jmax(t_out, 0.0f) : 0.0f;
+    float t_sph;
+    const bool sph_hit = sphere_block(p, pos, dir, t_sph);
+    return (sph_hit && t_sph < t_box) ? t_sph : t_box;
+}
 
 // fused._shadow_init: push outside starts to the root box, sphere hit
 // -> black (QUIRKS #7), control-variate T_c premultiplied.
@@ -337,6 +406,7 @@ __device__ __forceinline__ V3 point_contrib(const FusedParams& p,
 }
 
 // fused.seek_block for one SEEK ray.
+template <bool EXT>
 __device__ void seek(const Ctx& c, Walk& s, Key ks,
                      unsigned long long ray) {
     const FusedParams& p = c.p;
@@ -373,6 +443,7 @@ __device__ void seek(const Ctx& c, Walk& s, Key ks,
         s.skip = skip0;
         s.tbox = 0.0f;
         s.phase = P_MARCH;
+        if (EXT) s.vd = 0;
         return;
     }
     // sphere shading (render_kernel.cu:1807-1834), then its sun walk
@@ -412,6 +483,25 @@ __device__ __forceinline__ void resume(const FusedParams& p, Walk& s) {
     s.phase = ahead ? P_SEEK : P_DONE;
 }
 
+// The end of a medium event's light estimates: the emission walk from the
+// event along its scattered direction, on an emissive scene; else resume.
+template <bool EXT>
+__device__ __forceinline__ void after_event(const Ctx& c, Walk& s) {
+    const FusedParams& p = c.p;
+    if (!(EXT && c.x.em_off >= 0)) {
+        resume(p, s);
+        return;
+    }
+    bool hit;
+    float tmin, tmax;
+    aabb_intersect(p.walk_min, p.walk_max, s.anchor, s.sdir, hit, tmin, tmax);
+    s.pos = s.anchor;
+    s.dirn = s.sdir;
+    s.dist = jmax(tmax, 0.0f);
+    s.t = s.skip = s.tbox = 0.0f;
+    s.phase = P_EMIT;
+}
+
 __device__ __forceinline__ void init_walk(Walk& s, V3 org, V3 dir) {
     s.pos = org;
     s.dirn = dir;
@@ -424,30 +514,35 @@ __device__ __forceinline__ void init_walk(Walk& s, V3 org, V3 dir) {
     s.tr = 1.0f;
     s.dist = s.t = s.skip = s.tbox = s.depth_aov = 0.0f;
     s.phase = P_SEEK;
-    s.ascode = s.nshadow = s.depth_n = s.cost = 0;
+    s.ascode = s.nshadow = s.depth_n = s.cost = s.vd = 0;
 }
 
 // One step of one ray's walk at step key ks: the body of the reference's
 // loop at Q = 1 for one lane.  `org` is the ray's origin (shared memory,
 // components THREADS apart); `hk_cached` holds the step's HG subkeys
 // (shared memory), or is null past the key cache.
+template <bool EXT>
 __device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
                                           const float* org, Key ks,
                                           const Key* hk_cached,
                                           unsigned long long ray) {
     const FusedParams& p = c.p;
-    if (s.phase == P_SEEK) seek(c, s, ks, ray);
+    if (s.phase == P_SEEK) seek<EXT>(c, s, ks, ray);
     if (s.phase == P_DONE) return;
     const V3 sun = v3(p.sun_dir);
     const bool marching = s.phase == P_MARCH;
-    const bool shadowing = !marching;  // P_SHADOW
+    const bool emitting = EXT && s.phase == P_EMIT;
+    const bool shadowing = !marching && !emitting;  // P_SHADOW
 
     // banded free flight: local bound inside the box, global rate past
-    // it; SHADOW jumps guaranteed-empty boxes
+    // it; SHADOW and EMIT jump guaranteed-empty boxes (the zero band is
+    // emission-free too: volume/grid.py::_corner_pack)
     const float u0 = uniform_at(ks, ray * 5 + 0);
     const float u1 = uniform_at(ks, ray * 5 + 1);
     const float u4 = uniform_at(ks, ray * 5 + 4);
-    const float rate_inv = marching ? p.inv_rate_march : p.rate_inv_shadow;
+    const float rate_inv =
+        marching ? p.inv_rate_march
+                 : (emitting ? c.x.rate_inv_emit : p.rate_inv_shadow);
     const float e_glob = -log1pf(-u0) * rate_inv;
     const float e_loc = -log1pf(-u4) / jmax(s.tbox * p.density_mult, 1e-12f);
     const bool in_box = marching && (s.tbox > 0.0f) && (e_loc <= s.skip);
@@ -480,15 +575,28 @@ __device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
     const bool tr_dead = shadowing && (fabsf(s.tr) < EPS);
     s.cost += 1;
 
+    if (emitting) {
+        if (sampled) s.L = s.L + emission_at(c, f);
+        // the walk's end: out of the box, or an empty box covers the rest
+        if (exited || covers) resume(p, s);
+        return;
+    }
     if (accept) {
         const float li = jclamp(
             f.density / p.sigma_max * 255.0f / p.emission_pivot, 0.0f,
             255.0f);
         const float* lrow = c.lut + 3 * (int)li;
+        // Cd, the row's trilinear color (an accepted event lies in the
+        // grid); white without a color channel
+        V3 cd = v3(1.0f, 1.0f, 1.0f);
+        if (EXT && c.x.col_off >= 0)
+            cd = v3(taps_at(f, c.x.col_off, 3),
+                    taps_at(f, c.x.col_off + 1, 3),
+                    taps_at(f, c.x.col_off + 2, 3));
         const V3 coll =
-            v3(p.albedo[0] * 1.0f * lrow[0] / p.ext[0] * p.energy_inject,
-               p.albedo[1] * 1.0f * lrow[1] / p.ext[1] * p.energy_inject,
-               p.albedo[2] * 1.0f * lrow[2] / p.ext[2] * p.energy_inject);
+            v3(p.albedo[0] * cd.x * lrow[0] / p.ext[0] * p.energy_inject,
+               p.albedo[1] * cd.y * lrow[1] / p.ext[1] * p.energy_inject,
+               p.albedo[2] * cd.z * lrow[2] / p.ext[2] * p.energy_inject);
         s.beta = s.beta * coll;
         Key hk[4];
         if (hk_cached) {
@@ -503,6 +611,16 @@ __device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
         if (s.depth_aov == 0.0f)
             s.depth_aov =
                 length(cursor - v3(org[0], org[THREADS], org[2 * THREADS]));
+        if (EXT && s.vd < c.x.volume_depth - 1) {
+            // an event before the walk's last: scatter and march on from
+            // the collision, with no NEE
+            s.dist = march_dist(p, cursor, hg_dir);
+            s.pos = cursor;
+            s.dirn = hg_dir;
+            s.t = s.skip = s.tbox = 0.0f;
+            s.vd += 1;
+            return;
+        }
         const V3 sun_contrib =
             v3(p.sun_cs) * phase_eval(p, dot(s.sdir, sun));
         if (p.cached) {
@@ -517,7 +635,7 @@ __device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
                                            wi);
             }
             s.L = s.L + nee * s.beta;
-            resume(p, s);
+            after_event<EXT>(c, s);
         } else {
             s.nshadow = p.n_pt_walks;
             shadow_init(p, s.anchor, sun, s);
@@ -555,7 +673,7 @@ __device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
             s.nshadow -= 1;
             s.ascode = AS_PT;
         } else if (s.ascode != AS_SPHERE) {
-            resume(p, s);
+            after_event<EXT>(c, s);
         } else {
             s.pos = s.anchor;
             s.dirn = s.sdir;
@@ -669,7 +787,7 @@ long long slot_count(const FusedParams& p) {
 // write_out's own branch; resetting the walk state in the loop instead
 // measured cached +1.6% and tracked -1.3% against this, and an
 // out-of-line writer +45% (PERF.md, Findings).
-template <bool RAYS_IN_KERNEL, bool DEFER>
+template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     const float* __restrict__ origin,
@@ -677,7 +795,8 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     const float* __restrict__ corners,
                     const float* __restrict__ lights,
                     const float* __restrict__ lut, const Out out,
-                    unsigned* __restrict__ next_ray, unsigned n_slots) {
+                    unsigned* __restrict__ next_ray, unsigned n_slots,
+                    const ExtParams x) {
     // the launch's keys, once per block: [0] the pre-loop seek key
     // fold_in(key, 1 << 20); then, for each step s < n_keys,
     // fold_in(key, s) and its four HG subkeys
@@ -699,7 +818,7 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
     }
     __syncthreads();
 
-    const Ctx c{p, corners, lights, lut};
+    const Ctx c{p, x, corners, lights, lut};
     const Key k_seek = skeys[0];
     const int lane = threadIdx.x & 31;
     const unsigned below = (1u << lane) - 1u;
@@ -751,7 +870,7 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                 }
                 init_walk(s, o, dir);
                 // pre-loop seek: uniform(fold_in(key, 1 << 20), (B, 5))
-                seek(c, s, k_seek, (unsigned long long)r);
+                seek<EXT>(c, s, k_seek, (unsigned long long)r);
                 step = 0;
                 live = s.phase != P_DONE && p.max_steps > 0;
                 if (!live) write_out<DEFER>(p, s, out, r, dir0);
@@ -764,8 +883,8 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
             const bool in_cache = step < n_keys;
             const Key* e = skeys + 1 + KEYS_PER_STEP * step;
             const Key ks = in_cache ? e[0] : fold_in(key, (uint32_t)step);
-            walk_step(c, s, org, ks, in_cache ? e + 1 : nullptr,
-                      (unsigned long long)ray);
+            walk_step<EXT>(c, s, org, ks, in_cache ? e + 1 : nullptr,
+                           (unsigned long long)ray);
             ++step;
             if (s.phase == P_DONE || step >= p.max_steps) {
                 write_out<DEFER>(p, s, out, ray, dir0);
@@ -791,7 +910,7 @@ int smem_bytes(const FusedParams& p) {
 // SMs and resident blocks per SM of one variant, asked of the runtime
 // once per library load (again only for another device or key-cache
 // size).
-template <bool RAYS_IN_KERNEL, bool DEFER>
+template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT>
 cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     static int o_dev = -1, o_smem = -1, o_sms = 0, o_per_sm = 0;
     int dev = 0;
@@ -802,8 +921,8 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
         e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n_blk, fused_direct_kernel<RAYS_IN_KERNEL, DEFER>, THREADS,
-                smem);
+                &n_blk, fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT>,
+                THREADS, smem);
         if (e != cudaSuccess) return e;
         if (n_sm <= 0 || n_blk <= 0) return cudaErrorInvalidConfiguration;
         o_dev = dev, o_smem = smem, o_sms = n_sm, o_per_sm = n_blk;
@@ -813,11 +932,12 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     return cudaSuccess;
 }
 
-template <bool RAYS_IN_KERNEL, bool DEFER>
-int launch_variant(const FusedParams& p, const RaygenParams& rp,
-           const float* origin, const float* direction,
-           const float* corners, const float* lights, const float* lut,
-           float* out, unsigned* next_ray, void* stream) {
+template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT>
+int launch_variant(const FusedParams& p, const ExtParams& x,
+                   const RaygenParams& rp, const float* origin,
+                   const float* direction, const float* corners,
+                   const float* lights, const float* lut, float* out,
+                   unsigned* next_ray, void* stream) {
     if (p.B <= 0) return 0;
     if (p.refill_min < 1 || p.refill_min > 32 ||
         (p.tile_w != 0 && (p.tile_w < 0 || p.tile_h <= 0 || p.frame_w <= 0))
@@ -825,7 +945,7 @@ int launch_variant(const FusedParams& p, const RaygenParams& rp,
         return (int)cudaErrorInvalidValue;
     const int smem = smem_bytes(p);
     int sms = 0, per_sm = 0;
-    cudaError_t e = occupancy<RAYS_IN_KERNEL, DEFER>(smem, sms, per_sm);
+    cudaError_t e = occupancy<RAYS_IN_KERNEL, DEFER, EXT>(smem, sms, per_sm);
     if (e != cudaSuccess) return (int)e;
     const long long need = ((long long)p.B + THREADS - 1) / THREADS;
     const long long grid = (long long)sms * per_sm;
@@ -834,56 +954,83 @@ int launch_variant(const FusedParams& p, const RaygenParams& rp,
     e = cudaMemsetAsync(next_ray, 0, sizeof(unsigned), st);
     if (e != cudaSuccess) return (int)e;
     const Out o{out, ((long long)p.B + 3) & ~3LL};
-    fused_direct_kernel<RAYS_IN_KERNEL, DEFER>
+    fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT>
         <<<blocks, THREADS, smem, st>>>(p, rp, origin, direction, corners,
                                         lights, lut, o, next_ray,
-                                        (unsigned)slot_count(p));
+                                        (unsigned)slot_count(p), x);
     return (int)cudaGetLastError();
 }
 
+template <bool RAYS_IN_KERNEL, bool DEFER>
+int launch_defer(const FusedParams& p, const ExtParams& x,
+                 const RaygenParams& rp, const float* origin,
+                 const float* direction, const float* corners,
+                 const float* lights, const float* lut, float* out,
+                 unsigned* next_ray, void* stream) {
+    return extended(x) ? launch_variant<RAYS_IN_KERNEL, DEFER, true>(
+                             p, x, rp, origin, direction, corners, lights,
+                             lut, out, next_ray, stream)
+                       : launch_variant<RAYS_IN_KERNEL, DEFER, false>(
+                             p, x, rp, origin, direction, corners, lights,
+                             lut, out, next_ray, stream);
+}
+
 template <bool RAYS_IN_KERNEL>
-int launch(const FusedParams& p, const RaygenParams& rp,
+int launch(const FusedParams& p, const ExtParams& x, const RaygenParams& rp,
            const float* origin, const float* direction,
            const float* corners, const float* lights, const float* lut,
            float* out, unsigned* next_ray, void* stream) {
     return p.defer_env
-               ? launch_variant<RAYS_IN_KERNEL, true>(
-                     p, rp, origin, direction, corners, lights, lut, out,
+               ? launch_defer<RAYS_IN_KERNEL, true>(
+                     p, x, rp, origin, direction, corners, lights, lut, out,
                      next_ray, stream)
-               : launch_variant<RAYS_IN_KERNEL, false>(
-                     p, rp, origin, direction, corners, lights, lut, out,
+               : launch_defer<RAYS_IN_KERNEL, false>(
+                     p, x, rp, origin, direction, corners, lights, lut, out,
                      next_ray, stream);
 }
 
-template <bool RAYS_IN_KERNEL, bool DEFER>
+template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT>
 cudaError_t variant_info(int smem, int& sms, int& per_sm,
                          cudaFuncAttributes& a) {
-    const cudaError_t e = occupancy<RAYS_IN_KERNEL, DEFER>(smem, sms, per_sm);
+    const cudaError_t e =
+        occupancy<RAYS_IN_KERNEL, DEFER, EXT>(smem, sms, per_sm);
     return e != cudaSuccess
                ? e
                : cudaFuncGetAttributes(
-                     &a, fused_direct_kernel<RAYS_IN_KERNEL, DEFER>);
+                     &a, fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT>);
+}
+
+template <bool RAYS_IN_KERNEL, bool DEFER>
+cudaError_t variant_info(bool ext, int smem, int& sms, int& per_sm,
+                         cudaFuncAttributes& a) {
+    return ext ? variant_info<RAYS_IN_KERNEL, DEFER, true>(smem, sms, per_sm,
+                                                           a)
+               : variant_info<RAYS_IN_KERNEL, DEFER, false>(smem, sms,
+                                                            per_sm, a);
 }
 
 }  // namespace
 
 extern "C" int vpt_fused_params_size() { return (int)sizeof(FusedParams); }
+extern "C" int vpt_fused_ext_size() { return (int)sizeof(ExtParams); }
 
 // K1 on the rays in (B, 3) origin and direction buffers.  `out` holds
 // 7 S floats laid out as Out says; `next_ray` is the
-// 4-byte ray counter, zeroed here on the launch stream.
-extern "C" int vpt_fused_direct(const void* params, const float* origin,
-                                const float* direction, const float* corners,
-                                const float* lights, const float* lut,
-                                float* out, unsigned* next_ray,
-                                void* stream) {
+// 4-byte ray counter, zeroed here on the launch stream; `lut` the density
+// color LUT, then the emission LUT, (512, 3).
+extern "C" int vpt_fused_direct(const void* params, const void* ext,
+                                const float* origin, const float* direction,
+                                const float* corners, const float* lights,
+                                const float* lut, float* out,
+                                unsigned* next_ray, void* stream) {
     return launch<false>(*static_cast<const FusedParams*>(params),
-                         RaygenParams{}, origin, direction, corners, lights,
-                         lut, out, next_ray, stream);
+                         *static_cast<const ExtParams*>(ext), RaygenParams{},
+                         origin, direction, corners, lights, lut, out,
+                         next_ray, stream);
 }
 
 // K1 on the primary rays of `raygen` (H * W = B), made in the lanes.
-extern "C" int vpt_fused_direct_primary(const void* params,
+extern "C" int vpt_fused_direct_primary(const void* params, const void* ext,
                                         const void* raygen,
                                         const float* corners,
                                         const float* lights,
@@ -893,25 +1040,27 @@ extern "C" int vpt_fused_direct_primary(const void* params,
     const RaygenParams& rp = *static_cast<const RaygenParams*>(raygen);
     if ((long long)rp.H * rp.W != (long long)p.B)
         return (int)cudaErrorInvalidValue;
-    return launch<true>(p, rp, nullptr, nullptr, corners, lights, lut, out,
-                        next_ray, stream);
+    return launch<true>(p, *static_cast<const ExtParams*>(ext), rp, nullptr,
+                        nullptr, corners, lights, lut, out, next_ray, stream);
 }
 
-// info[0..5] of one variant (route, deferred environment) whose keys of
-// key_steps steps are cached, at Q = 1: SMs, resident blocks per SM,
+// info[0..5] of one variant (route, deferred environment, EXT) whose keys
+// of key_steps steps are cached, at Q = 1: SMs, resident blocks per SM,
 // threads per block, registers per thread, local (spill and stack) bytes
 // per thread, dynamic shared bytes per block.
 extern "C" int vpt_fused_launch_info(int rays_in_kernel, int defer_env,
-                                     int key_steps, int* info) {
+                                     int ext, int key_steps, int* info) {
     const int smem = key_smem_bytes(key_steps);
     int sms = 0, per_sm = 0;
     cudaFuncAttributes a{};
+    const bool x = ext != 0;
     const cudaError_t e =
         rays_in_kernel
-            ? (defer_env ? variant_info<true, true>(smem, sms, per_sm, a)
-                         : variant_info<true, false>(smem, sms, per_sm, a))
-            : (defer_env ? variant_info<false, true>(smem, sms, per_sm, a)
-                         : variant_info<false, false>(smem, sms, per_sm, a));
+            ? (defer_env ? variant_info<true, true>(x, smem, sms, per_sm, a)
+                         : variant_info<true, false>(x, smem, sms, per_sm, a))
+            : (defer_env
+                   ? variant_info<false, true>(x, smem, sms, per_sm, a)
+                   : variant_info<false, false>(x, smem, sms, per_sm, a));
     if (e != cudaSuccess) return (int)e;
     info[0] = sms;
     info[1] = per_sm;

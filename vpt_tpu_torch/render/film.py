@@ -179,6 +179,25 @@ def to_display(film: Film, exposure_scale=1.0):
     return (gamma_encode(val) * 255.0).to(torch.uint8)
 
 
+def dof_overlay(film: Film, camera, exposure_scale=1.0):
+    """Depth-of-field view, uint8 RGB (vpt_tpu/render/film.py:87-103,
+    render_kernel.cu:2266-2275): the display value lerped halfway to
+    blue before the focus band, green inside it and red beyond it; the
+    band's half-width is 1 / lens_radius."""
+    base = gamma_encode(aces_tonemap(film.accum, exposure_scale))
+    aof = torch.clamp(1.0 / torch.clamp(camera.lens_radius, min=1e-12),
+                      0.0, 3.4e38)
+    lo = camera.focus_dist - aof
+    hi = camera.focus_dist + aof
+    d = film.depth[..., None]
+    red, green, blue = torch.eye(3, dtype=torch.float32,
+                                 device=base.device)
+    out = torch.where(d > hi, (base + red) * 0.5, base)
+    out = torch.where(d < lo, (base + blue) * 0.5, out)
+    out = torch.where((d >= lo) & (d <= hi), (base + green) * 0.5, out)
+    return (torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
 def save_film(path: str, film: Film, iteration: int):
     """Checkpoint the progressive state (npz, the reference's keys)."""
     np.savez_compressed(path, **{k: getattr(film, k).cpu().numpy()

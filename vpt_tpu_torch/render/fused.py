@@ -8,6 +8,8 @@ Every ray is in one phase of the walk it is running:
     MARCH  — banded delta tracking of the primary walk
     SHADOW — residual-ratio transmittance (sun NEE, point-light NEE and
              the sphere's sun shading) — tracked shadows only
+    EMIT   — the rate-weighted emission walk from a medium event along
+             its scattered direction, on scenes with an emission channel
     DONE   — terminal (environment applied after the loop)
 
 and one step advances every live ray by one step of its walk, with one
@@ -39,15 +41,17 @@ written as the reference's unretired queue slot: L, alpha, cost and
 depth 0, unfinished 1, and beta 0 with the ray's primary direction for
 the environment term.  Rays that finish are the same bits at any Q.
 
+``volume_depth`` > 1: every medium event but the last of a walk scatters
+(HG) and restarts MARCH from the collision, with no NEE.
+
 Not in this slice (NotImplementedError): the queue path
-(``rays_per_lane > 1``), emission, color, instanced scenes, the
-Bruneton atmosphere, ``volume_depth > 1``.
+(``rays_per_lane > 1``), instanced scenes, the Bruneton atmosphere.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -64,7 +68,8 @@ from vpt_tpu_torch.render.integrator import (EnvLaunch, add_environment,
                                              environment_radiance,
                                              prepare_environment)
 from vpt_tpu_torch.render.params import Environment, check_slice
-from vpt_tpu_torch.render.tracking import (_sphere_block, density_color_lut,
+from vpt_tpu_torch.render.tracking import (_emission_lut, _sphere_block,
+                                           density_color_lut,
                                            unified_fetch_full, vec3_param)
 from vpt_tpu_torch.volume.grid import unified_layout
 
@@ -79,6 +84,13 @@ FUSED_DIRECT = cuda.Kernel(
     replaces="vpt_tpu/render/fused.py:100")
 FUSED_DIRECT_PRIMARY = cuda.Kernel(
     name="fused_direct_primary", route="cuda",
+    source="vpt_tpu_torch/csrc/fused_direct.cu",
+    replaces="vpt_tpu/render/fused.py:100")
+# K1's EXT variant, on either route (counted beside the route's own
+# counter): emission, color or volume_depth > 1; with it the emission LUT
+# (vpt_tpu/render/tracking.py:245) and Cd are read in the kernel
+FUSED_DIRECT_EXT = cuda.Kernel(
+    name="fused_direct_ext", route="cuda",
     source="vpt_tpu_torch/csrc/fused_direct.cu",
     replaces="vpt_tpu/render/fused.py:100")
 # K1's schedule per shadow mode, chosen by timing on the H100 (PERF.md):
@@ -97,12 +109,15 @@ def _constants(scene, params, device):
     sigma_max = scene.max_extinction.to(device)
     sigma_c = scene.min_extinction.to(device)
     sigma_r = torch.clamp(sigma_max - sigma_c, min=1e-12)
+    ext = vec3_param(params.extinction, device)
     return dict(
         sigma_max=sigma_max, sigma_c=sigma_c, sigma_r=sigma_r,
         inv_rate_march=1.0 / torch.clamp(sigma_max * params.density_mult,
                                          min=1e-12),
         rate_inv_shadow=torch.tensor(params.tr_depth, **f32) / sigma_r,
-        ext=vec3_param(params.extinction, device),
+        rate_inv_emit=torch.tensor(params.tr_depth, **f32) / torch.clamp(
+            sigma_max * ext[0], min=1e-12),
+        ext=ext,
         albedo=vec3_param(params.albedo, device),
         sun_dir=degree_to_cartesian(params.azimuth, params.elevation,
                                     device),
@@ -162,6 +177,8 @@ def fused_direct_plain(scene, params, key, origin, direction,
     n_pt_walks = min(n_lights, 11)  # QUIRKS #3 budget
     root_min, root_max = scene.root_pmin, scene.root_pmax
     walk_min, walk_max = scene.instances.pmin[0], scene.instances.pmax[0]
+    emissive = scene.atlas.has_emission
+    vdepth = params.volume_depth
 
     def W(m, new, old):
         if old.dim() == 2:
@@ -246,6 +263,7 @@ def fused_direct_plain(scene, params, key, origin, direction,
             s[f] = W(go_march, 0.0, s[f])
         s["skip"] = W(go_march, m_skip, s["skip"])
         s["phase"] = W(go_march, P_MARCH, s["phase"])
+        s["vd"] = W(go_march, 0, s["vd"])
         s["depth_n"] = s["depth_n"] + go_march.to(torch.int32)
 
         sp_hit_pos = pos + dirn * t2[..., None]
@@ -274,17 +292,22 @@ def fused_direct_plain(scene, params, key, origin, direction,
         seek_block(s, u)
         marching = s["phase"] == P_MARCH
         shadowing = s["phase"] == P_SHADOW
-        walking = marching | shadowing
+        emitting = s["phase"] == P_EMIT
+        walking = marching | shadowing | emitting
+        # SHADOW and EMIT jump guaranteed-empty boxes: the zero band is
+        # emission-free too (volume/grid.py::_corner_pack's emit_zyx)
+        can_jump = shadowing | emitting
         skip, tbox, t, dist = s["skip"], s["tbox"], s["t"], s["dist"]
 
         rate_inv = torch.where(marching, k["inv_rate_march"],
-                               k["rate_inv_shadow"])
+                               torch.where(shadowing, k["rate_inv_shadow"],
+                                           k["rate_inv_emit"]))
         e_glob = -torch.log1p(-u[:, 0]) * rate_inv
         e_loc = -torch.log1p(-u[:, 4]) / torch.clamp(
             tbox * params.density_mult, min=1e-12)
         in_box = marching & (tbox > 0.0) & (e_loc <= skip)
         dt = torch.where(marching, torch.where(in_box, e_loc, skip + e_glob),
-                         torch.where(shadowing,
+                         torch.where(can_jump,
                                      torch.where(tbox <= 0.0, skip, 0.0)
                                      + e_glob, e_glob))
         t_new = torch.where(walking, t + dt, t)
@@ -309,16 +332,25 @@ def fused_direct_plain(scene, params, key, origin, direction,
         s["alpha"] = s["alpha"] + torch.where(
             m_sampled, density * (sigma_max / bound), 0.0)
         accept = m_sampled & (density / bound > u[:, 1])
-        nee_now = accept
+        # volume_depth > 1: only the walk's last medium event estimates
+        # the lights and the emission; the others scatter and march on
+        nee_now = accept & (s["vd"] >= vdepth - 1) if vdepth > 1 else accept
 
         s_sampled = sampled & shadowing
         factor = 1.0 - (density - sigma_c) / sigma_r
         s["tr"] = torch.where(s_sampled, s["tr"] * factor, s["tr"])
         tr_dead = shadowing & (torch.abs(s["tr"]) < EPS)
+        if emissive:
+            # L += emission, unscaled by beta (QUIRKS #5/#21)
+            em = _emission_lut(scene, params, fr.emission_raw,
+                               fr.emission_valid)
+            s["L"] = s["L"] + torch.where((sampled & emitting)[..., None],
+                                         em, 0.0)
         s["cost"] = s["cost"] + walking.to(torch.int32)
 
         lut = density_color_lut(scene, params, density)
-        coll_val = (k["albedo"] * 1.0 * lut / k["ext"]
+        cd = fr.color if fr.color is not None else 1.0
+        coll_val = (k["albedo"] * cd * lut / k["ext"]
                     * params.energy_inject)
         s["beta"] = W(accept, s["beta"] * coll_val, s["beta"])
         hg_dir, _ = phase_sample(params, s["dirn"],
@@ -365,6 +397,18 @@ def fused_direct_plain(scene, params, key, origin, direction,
             s["ascode"] = W(nee_now, AS_SUN, s["ascode"])
             s["phase"] = W(nee_now, P_SHADOW, s["phase"])
 
+        if vdepth > 1:
+            # an event before the last: restart the primary walk from the
+            # collision along the scattered direction
+            more = accept & ~nee_now
+            vm_dist, _ = march_init(cursor, hg_dir)
+            s["pos"] = W(more, cursor, s["pos"])
+            s["dirn"] = W(more, hg_dir, s["dirn"])
+            s["dist"] = W(more, vm_dist, s["dist"])
+            for f in ("t", "skip", "tbox"):
+                s[f] = W(more, 0.0, s[f])
+            s["vd"] = W(more, s["vd"] + 1, s["vd"])
+
         # primary walk exit without interaction: DONE unless the sphere
         # lies ahead (QUIRKS #19: the box is never re-entered)
         m_exit = (exited | (covers & ~accept)) & marching
@@ -407,9 +451,10 @@ def fused_direct_plain(scene, params, key, origin, direction,
             s["nshadow"] = W(start_pt, s["nshadow"] - 1, s["nshadow"])
             s["ascode"] = W(start_pt, AS_PT, s["ascode"])
 
-        # all shadow walks done -> resume the path from the collision
-        # point, classified here (the scattered segment can only end at
-        # the sphere or the environment)
+        # all shadow walks done -> the emission walk from the collision
+        # point along the scattered direction, on an emissive scene; else
+        # resume the path, classified here (the scattered segment can
+        # only end at the sphere or the environment)
         resume = walks_done & (s["ascode"] != AS_SPHERE)
         if cached:
             resume = resume | nee_now
@@ -417,11 +462,26 @@ def fused_direct_plain(scene, params, key, origin, direction,
         sph_res, _ = _sphere_block(scene, anchor, sdir)
         s["pos"] = W(resume, anchor, s["pos"])
         s["dirn"] = W(resume, sdir, s["dirn"])
-        s["phase"] = W(resume, torch.where(sph_res, P_SEEK, P_DONE),
-                       s["phase"])
+        if emissive:
+            _, _, e_dist = aabb_intersect(walk_min, walk_max, anchor, sdir)
+            s["dist"] = W(resume, torch.clamp(e_dist, min=0.0), s["dist"])
+            for f in ("t", "skip", "tbox"):
+                s[f] = W(resume, 0.0, s[f])
+            s["phase"] = W(resume, P_EMIT, s["phase"])
+        else:
+            s["phase"] = W(resume, torch.where(sph_res, P_SEEK, P_DONE),
+                           s["phase"])
         s["pos"] = W(resume_seek, anchor, s["pos"])
         s["dirn"] = W(resume_seek, sdir, s["dirn"])
         s["phase"] = W(resume_seek, P_SEEK, s["phase"])
+
+        # EMIT walk end: out of the box, or in an empty box that covers
+        # the rest of the walk
+        e_end = emitting & (exited | covers)
+        s["pos"] = W(e_end, anchor, s["pos"])
+        s["dirn"] = W(e_end, sdir, s["dirn"])
+        s["phase"] = W(e_end, torch.where(sph_res, P_SEEK, P_DONE),
+                       s["phase"])
 
     zf = torch.zeros(B, dtype=torch.float32, device=dev)
     zi = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -430,7 +490,8 @@ def fused_direct_plain(scene, params, key, origin, direction,
              L=torch.zeros_like(origin), alpha=zf, tr=torch.ones_like(zf),
              contrib=torch.zeros_like(origin), dist=zf, t=zf, skip=zf,
              tbox=zf, phase=torch.full((B,), P_SEEK, dtype=torch.int32, device=dev),
-             ascode=zi, nshadow=zi, depth_n=zi, depth_aov=zf, cost=zi)
+             ascode=zi, nshadow=zi, depth_n=zi, depth_aov=zf, cost=zi,
+             vd=zi)
     k0 = rng.fold_in(key, SEEK_FOLD)
     seek_block(s, rng.uniform(k0, (B, 5), dev))
     for step in range(params.max_fused_steps * queue):
@@ -468,17 +529,18 @@ def warp_efficiency(cost, warp: int = 32) -> float:
 
 
 def launch_info(rays_in_kernel: bool, max_fused_steps: int,
-                defer_env: bool = False) -> dict:
+                defer_env: bool = False, ext: bool = False) -> dict:
     """K1's schedule on the current card for one route at
     ``max_fused_steps`` (which sizes the key cache, whatever the queue),
-    for BLACK/CONSTANT or (``defer_env``) HDRI and the sky, from the CUDA
+    for BLACK/CONSTANT or (``defer_env``) HDRI and the sky, density-only
+    or (``ext``) emission, color or volume_depth > 1, from the CUDA
     runtime: SMs, resident blocks per SM, threads per block, registers
     and local bytes per thread, dynamic shared bytes per block.  The grid
     is SMs x blocks per SM blocks (fewer for a small frame)."""
     info = (ctypes.c_int * 6)()
     cuda.check_status(cuda.load_library().dll.vpt_fused_launch_info(
-        int(rays_in_kernel), int(defer_env), max_fused_steps, info),
-        "fused_direct launch info")
+        int(rays_in_kernel), int(defer_env), int(ext), max_fused_steps,
+        info), "fused_direct launch info")
     return dict(zip(("sms", "blocks_per_sm", "threads", "registers",
                      "local_bytes", "shared_bytes"), info))
 
@@ -506,6 +568,15 @@ class _FusedParams(ctypes.Structure):
                                     "defer_env")]
 
 
+class _ExtParams(ctypes.Structure):
+    """Mirror of ``ExtParams`` in csrc/fused_direct.cu: what only K1's EXT
+    variant reads."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "em_off", "col_off", "volume_depth")] + [
+        (n, ctypes.c_float) for n in ("emission_scale", "rate_inv_emit")]
+
+
 def _f3(t):
     return (ctypes.c_float * 3)(*t.detach().cpu().reshape(3).tolist())
 
@@ -521,9 +592,12 @@ class FusedLaunch:
     params: _FusedParams
     corners: torch.Tensor
     lights: torch.Tensor
-    lut: torch.Tensor
+    lut: torch.Tensor        # (512, 3): density color LUT, emission LUT
     next_ray: torch.Tensor
     env: EnvLaunch | None = None   # K4's, for a deferred environment
+    # the EXT variant's arguments; by default a density-only scene's
+    ext: _ExtParams = field(
+        default_factory=lambda: _ExtParams(-1, -1, 1, 0.0, 0.0))
 
 
 def prepare_fused(scene, params) -> FusedLaunch:
@@ -532,9 +606,10 @@ def prepare_fused(scene, params) -> FusedLaunch:
     dev = scene.device
     corners = scene.atlas.density_corners
     cuda.check_cuda_tensor(corners, "density_corners", dtype=torch.float32)
-    lut = scene.density_color_lut
-    cuda.check_cuda_tensor(lut, "density_color_lut", (256, 3),
-                           torch.float32, dev)
+    for name in ("density_color_lut", "emission_lut"):
+        cuda.check_cuda_tensor(getattr(scene, name), name, (256, 3),
+                               torch.float32, dev)
+    lut = torch.cat([scene.density_color_lut, scene.emission_lut])
     n_lights = scene.lights.count
     lights = torch.cat([scene.lights.pos, scene.lights.color,
                         scene.lights.power[:, None]], dim=1)
@@ -542,6 +617,7 @@ def prepare_fused(scene, params) -> FusedLaunch:
     lights = lights.to(device=dev, dtype=torch.float32).contiguous()
     cuda.check_struct(_FusedParams,
                       cuda.load_library().dll.vpt_fused_params_size)
+    cuda.check_struct(_ExtParams, cuda.load_library().dll.vpt_fused_ext_size)
 
     k = _constants(scene, params, dev)
     row = scene.instances.packed_rows[0].cpu()
@@ -561,7 +637,11 @@ def prepare_fused(scene, params) -> FusedLaunch:
     defer = defers_environment(scene, params)
     p.defer_env = int(defer)
     p.row_w = corners.shape[1]
-    p.tau_off = unified_layout(scene.atlas)[2]
+    x = _ExtParams()
+    x.em_off, x.col_off, p.tau_off = unified_layout(scene.atlas)
+    x.volume_depth = params.volume_depth
+    x.emission_scale = params.emission_scale
+    x.rate_inv_emit = float(k["rate_inv_emit"])
     p.grid_off = int(row[18])
     for name, v in SCHEDULE[params.shadow_mode].items():
         setattr(p, name, v)
@@ -591,7 +671,12 @@ def prepare_fused(scene, params) -> FusedLaunch:
         raise ValueError("corner rows carry no shadow cache")
     next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
     env = prepare_environment(scene, params) if defer else None
-    return FusedLaunch(p, corners, lights, lut, next_ray, env)
+    return FusedLaunch(p, corners, lights, lut, next_ray, env, x)
+
+
+def extended(x: _ExtParams) -> bool:
+    """K1's EXT variant runs the launch (fused_direct.cu::extended)."""
+    return x.em_off >= 0 or x.col_off >= 0 or x.volume_depth > 1
 
 
 def _launch_args(launch: FusedLaunch, B: int, key, frame_width, queue=1):
@@ -655,12 +740,13 @@ def _launch_k1(launch: FusedLaunch, key, origin, direction,
                            dev)
     p, out, views = _launch_args(launch, B, key, frame_width, queue)
     rc = cuda.load_library().dll.vpt_fused_direct(
-        ctypes.byref(p), origin.data_ptr(), direction.data_ptr(),
-        launch.corners.data_ptr(), launch.lights.data_ptr(),
-        launch.lut.data_ptr(), out.data_ptr(), launch.next_ray.data_ptr(),
-        cuda.current_stream(dev))
+        ctypes.byref(p), ctypes.byref(launch.ext), origin.data_ptr(),
+        direction.data_ptr(), launch.corners.data_ptr(),
+        launch.lights.data_ptr(), launch.lut.data_ptr(), out.data_ptr(),
+        launch.next_ray.data_ptr(), cuda.current_stream(dev))
     cuda.check_status(rc, "fused_direct")
     FUSED_DIRECT.launches += 1
+    FUSED_DIRECT_EXT.launches += extended(launch.ext)
     return views
 
 
@@ -677,10 +763,11 @@ def _fused_direct_primary_cuda(scene, params, key, raygen,
     p, out, views = _launch_args(launch, raygen.H * raygen.W, key,
                                  raygen.W, queue)
     rc = cuda.load_library().dll.vpt_fused_direct_primary(
-        ctypes.byref(p), ctypes.byref(raygen), launch.corners.data_ptr(),
-        launch.lights.data_ptr(), launch.lut.data_ptr(), out.data_ptr(),
-        launch.next_ray.data_ptr(),
+        ctypes.byref(p), ctypes.byref(launch.ext), ctypes.byref(raygen),
+        launch.corners.data_ptr(), launch.lights.data_ptr(),
+        launch.lut.data_ptr(), out.data_ptr(), launch.next_ray.data_ptr(),
         cuda.current_stream(launch.corners.device))
     cuda.check_status(rc, "fused_direct_primary")
     FUSED_DIRECT_PRIMARY.launches += 1
+    FUSED_DIRECT_EXT.launches += extended(launch.ext)
     return _finish(scene, params, launch, views)

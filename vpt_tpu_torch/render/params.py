@@ -122,8 +122,6 @@ def check_slice(params: RenderParams) -> None:
     if params.integrator != int(Integrator.DIRECT):
         raise NotImplementedError("only the DIRECT integrator is ported")
     Environment(params.environment_type)   # ValueError when unknown
-    if params.volume_depth != 1:
-        raise NotImplementedError("volume_depth > 1 is not ported")
     if params.jitter != "white":
         raise NotImplementedError(f"jitter {params.jitter!r}: only "
                                   "'white' is ported")

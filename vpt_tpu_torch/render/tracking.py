@@ -2,11 +2,12 @@
 vpt_tpu/render/tracking.py:64-71, 306-313, 379-572).
 
 Single-instance scenes only: one corner-row load serves the trilinear
-density, the banded bound T_box with its box-exit distance, and the
-cached shadow taus.  The reference's ``optimization_barrier``s steer
-XLA's TPU scheduling and have no counterpart here; its one-hot LUT
-matmul is an indexed load.  The CUDA kernel K1 (csrc/fused_direct.cu)
-inlines the same arithmetic in ``fetch_row``.
+density, the banded bound T_box with its box-exit distance, the emission
+and color channels, and the cached shadow taus.  The reference's
+``optimization_barrier``s steer XLA's TPU scheduling and have no
+counterpart here; its one-hot LUT matmuls (``density_color_lut``,
+``_emission_lut``) are indexed loads.  The CUDA kernel K1
+(csrc/fused_direct.cu) inlines the same arithmetic in ``fetch_row``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ class FetchResult(NamedTuple):
     s_box: torch.Tensor
     t_box: torch.Tensor
     tau: Optional[torch.Tensor] = None   # (..., 1+L) optical depths
+    emission_raw: Optional[torch.Tensor] = None   # pre-LUT emission
+    emission_valid: Optional[torch.Tensor] = None
+    color: Optional[torch.Tensor] = None  # (..., 3) Cd, 0 outside the grid
 
 
 def vec3_param(x, device=None):
@@ -61,6 +65,16 @@ def density_color_lut(scene, params, density):
     return scene.density_color_lut[idx]
 
 
+def _emission_lut(scene, params, raw, valid):
+    """Emission channel -> blackbody LUT row x emission_scale, 0 where
+    not ``valid`` (vpt_tpu/render/tracking.py:245-258; QUIRKS #15: the
+    index truncates); an indexed load."""
+    idx = torch.clamp(raw * 255.0 / params.emission_pivot, 0.0,
+                      255.0).to(torch.int64)
+    rgb = scene.emission_lut[idx]
+    return torch.where(valid[..., None], rgb * params.emission_scale, 0.0)
+
+
 def _sphere_block(scene, pos, direction):
     """(hit, t) of the reference sphere; a miss when it is disabled."""
     sph = scene.sphere
@@ -79,10 +93,10 @@ def _unified_fetch_single(scene, params, pos, direction,
     its bound (0 = empty); out-of-grid positions report an empty box
     reaching to the grid entry (1e30 when the ray misses the grid).
     banded=False: (density, skip_dt[, tau]), skip_dt > 0 only in
-    guaranteed-empty regions.  full=True returns a FetchResult."""
-    if scene.atlas.octant_cols or scene.atlas.has_emission \
-            or scene.atlas.has_color:
-        raise NotImplementedError("octant/emission/color columns")
+    guaranteed-empty regions.  full=True returns a FetchResult, with the
+    emission and color channels where the grid has them."""
+    if scene.atlas.octant_cols:
+        raise NotImplementedError("octant-box columns are not ported")
     if not params.use_majorant:
         raise NotImplementedError("use_majorant=False is not ported")
     inv = scene.instances.inv_xform[0]
@@ -107,9 +121,9 @@ def _unified_fetch_single(scene, params, pos, direction,
     w8 = _trilerp_weights(frac)
     density = torch.where(inb, _wsum8(rows[..., :8], w8), 0.0)
 
+    em_off, col_off, tau_off = unified_layout(scene.atlas)
     tau = None
     if with_tau:
-        tau_off = unified_layout(scene.atlas)[2]
         n_ch = (rows.shape[-1] - tau_off) // 8
         if n_ch < 1:
             raise ValueError("shadow_mode='cached' but the scene has no "
@@ -140,7 +154,17 @@ def _unified_fetch_single(scene, params, pos, direction,
                             torch.clamp(t_entry, min=0.0))
         t_out = torch.where(inb, t_box, 0.0)
         if full:
-            return FetchResult(density, s_box, t_out, tau)
+            emission_raw = emission_valid = color = None
+            if em_off >= 0:
+                emission_raw = _wsum8(rows[..., em_off:em_off + 8], w8)
+                emission_valid = inb
+            if col_off >= 0:
+                crows = rows[..., col_off:col_off + 24].reshape(
+                    rows.shape[:-1] + (8, 3))
+                color = _wsum8(crows.transpose(-1, -2), w8[..., None, :])
+                color = torch.where(inb[..., None], color, 0.0)
+            return FetchResult(density, s_box, t_out, tau, emission_raw,
+                               emission_valid, color)
         return ((density, s_box, t_out, tau) if with_tau
                 else (density, s_box, t_out))
     skip_in = torch.where(t_exit > 0.0, t_exit + 1e-3, 0.0)

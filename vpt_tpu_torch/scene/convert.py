@@ -44,13 +44,13 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
     """Port Scene from ``{dotted leaf name: numpy array}``.
 
     Raises NotImplementedError for what this slice does not render:
-    instanced scenes, emission or color channels, octant-box columns."""
+    instanced scenes, octant-box columns, bfloat16 corner rows, the
+    Bruneton atmosphere."""
     if np.asarray(arrays["instances.grid_id"]).shape[0] != 1:
         raise NotImplementedError("instanced scenes are not ported yet")
-    for ch in ("emission", "color"):
-        if f"atlas.{ch}" in arrays and \
-                np.asarray(arrays[f"atlas.{ch}"]).shape[0] > 1:
-            raise NotImplementedError(f"the {ch} channel is not ported yet")
+    if np.asarray(arrays["atlas.density_corners"]).dtype != np.float32:
+        raise NotImplementedError("corner rows other than float32 are not "
+                                  "ported (ROADMAP A.10)")
     if int(arrays.get("atlas.octant_cols", 0)):
         raise NotImplementedError("octant-box columns are not ported")
     if any(k.startswith(("atmosphere.", "sky_cache")) for k in arrays):

@@ -3,8 +3,9 @@ vpt_tpu/scene/scene.py:117-274).
 
 The reference's majorant grid is not built: the single-instance
 full-fetch path never reads it (vpt_tpu/render/fused.py:182,
-tracking.py:120-122).  The LUTs default to white, the reference's own
-fallback when its EXR assets are absent.
+tracking.py:120-122).  The LUTs not given are loaded from the EXR assets
+as the reference loads them (scene/assets.py), white where none is
+found.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 from vpt_tpu_torch.core.camera import Camera
 from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.lights.lights import PointLights
+from vpt_tpu_torch.scene.assets import (load_blackbody_lut,
+                                        load_density_color_lut)
 from vpt_tpu_torch.scene.geometry import Sphere
 from vpt_tpu_torch.volume.grid import HostGrid, VolumeAtlas, build_atlas
 
@@ -80,8 +83,8 @@ def _pack_instance_rows(atlas: VolumeAtlas, inv_xform: np.ndarray):
     rows[0, 12:15] = atlas.bmin[0].cpu().numpy()
     rows[0, 15:18] = atlas.dim[0].cpu().numpy().astype(np.float32)
     rows[0, 18] = float(atlas.offset[0])
-    rows[0, 19] = -1.0
-    rows[0, 20] = -1.0
+    rows[0, 19] = float(atlas.emission_offset[0])
+    rows[0, 20] = float(atlas.color_offset[0])
     rows[0, 21] = float(atlas.max_density[0])
     return rows
 
@@ -118,8 +121,12 @@ def build_scene(host_grids: list[HostGrid], camera: Camera | None = None,
     f32 = dict(dtype=torch.float32, device=device)
     if camera is None:
         camera = default_camera(root_pmin, root_pmax, device=device)
-    luts = [np.ones((256, 3), np.float32) if lut is None else lut
-            for lut in (emission_lut, density_color_lut)]
+    luts = []
+    for lut, load in ((emission_lut, load_blackbody_lut),
+                      (density_color_lut, load_density_color_lut)):
+        if lut is None:
+            lut = load()
+        luts.append(np.ones((256, 3), np.float32) if lut is None else lut)
     inv32 = inv.astype(np.float32)
     return Scene(
         atlas=atlas,

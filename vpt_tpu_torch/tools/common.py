@@ -1,6 +1,7 @@
-"""Helpers shared by the probe tools: timing, a NaN-aware equality and
-the random inputs (made on the CPU from a seed, then moved, so a CPU and
-a CUDA run see the same numbers)."""
+"""Helpers shared by the tools and chip_smoke.py: timing, a NaN-aware
+equality, the random inputs (made on the CPU from a seed, then moved, so
+a CPU and a CUDA run see the same numbers), and the reference bench's
+config 2 and 3 volume and map (numpy, copied from bench.py)."""
 
 from __future__ import annotations
 
@@ -87,4 +88,41 @@ def c3_map(h, w):
            + np.array([0.9, 0.6, 0.3], np.float32) * (1.0 - ty))
     env = np.broadcast_to(env, (h, w, 3)).copy()
     env[h // 4, w // 3] = [40.0, 38.0, 30.0]
+    return env
+
+
+def bench_blob(n=64, emission=False, color=False):
+    """The reference bench's compact turbulent puff at n^3 (bench.py:
+    367-389, its config 2 and 3 volume): a HostGrid with emission =
+    0.9 density and color (0.9 d, 0.4 + 0.3 d, 0.2) where asked, voxels
+    of 0.1."""
+    import numpy as np
+
+    from vpt_tpu_torch.volume.grid import HostGrid
+    z, y, x = np.mgrid[:n, :n, :n].astype(np.float32)
+    r = np.sqrt((x - n / 2) ** 2 + (y - n / 2) ** 2 + (z - n / 2) ** 2)
+    base = np.clip(1.0 - r / (n / 3.2), 0.0, 1.0)
+    ang = np.sin(x * 0.4) * np.sin(y * 0.35) * np.sin(z * 0.3)
+    dens = np.clip(base * (0.5 + 0.8 * ang), 0.0, 1.0).astype(np.float32)
+    em = (dens * 0.9).astype(np.float32) if emission else None
+    col = None
+    if color:
+        col = np.stack([0.9 * dens, 0.4 + 0.3 * dens,
+                        0.2 * np.ones_like(dens)], -1).astype(np.float32)
+    return HostGrid(
+        density_zyx=dens, emission_zyx=em, color_zyx=col,
+        bbox_min=np.zeros(3, np.int32), dim=np.array([n, n, n], np.int32),
+        transform=np.diag([0.1, 0.1, 0.1, 1.0]), voxel_size=0.1,
+        max_density=float(dens.max()), min_density=1e-6)
+
+
+def bench_env_map(h=128, w=256):
+    """The reference bench's config 3 environment (bench.py:608-613): a
+    vertical gradient with a bright "sun" texel, float32 (h, w, 3)."""
+    import numpy as np
+    ty = np.linspace(1.0, 0.0, h, dtype=np.float32)[:, None, None]
+    env = (np.array([0.35, 0.55, 1.0], np.float32) * ty
+           + np.array([0.9, 0.6, 0.3], np.float32) * (1 - ty))
+    env = np.broadcast_to(env, (h, w, 3)).copy()
+    env[h // 4, w // 3] = [60.0, 55.0, 45.0]
     return env

@@ -21,12 +21,15 @@ out, and so are the basic blocks that call them (with a lone branch
 back after the call): those run only on the slow paths.  Every other
 instruction counts, so ``per_thread`` is that of a thread that runs
 every instruction outside those slow paths (``per_thread_all`` counts
-the calling blocks too).
+the calling blocks too).  ``text_sha256`` hashes the function's
+instructions (address, opcode and operands): two builds whose code is the
+same give the same hash.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -205,8 +208,11 @@ def main(argv=None):
             if not any(k in name for k in args.kernel):
                 continue
             t = next((v for k, v in trips.items() if k in name), [])
+            sha = hashlib.sha256("\n".join(
+                f"{a:x} {op} {r}" for a, op, r in insns).encode()).hexdigest()
             print(json.dumps({"source": path, "kernel": name,
-                              **count(insns, labels, t)}), flush=True)
+                              **count(insns, labels, t),
+                              "text_sha256": sha}), flush=True)
     return 0
 
 

@@ -4,20 +4,23 @@ vpt_tpu/volume/grid.py, the single-grid float32 subset).
 A trilinear fetch reads ONE row of the corner table: the 2x2x2
 neighbourhood of the base voxel (tap order c = x + 2y + 4z), then the
 acceleration channels T_box (col 8) and the empty-box extents
-(cols 9:15), then the shadow-cache taus that accel/shadow.py appends.
+(cols 9:15), then the grid's emission taps (8 columns) and color taps
+(24: corner-major, channel-minor) where it has those channels, then the
+shadow-cache taus that accel/shadow.py appends (``unified_layout``).
 
 The packers run on the host in numpy, like the reference's.  The
 empty-box growth, the slow part at production size, is the greedy sweep
 of native/vdb_codec.cpp (``grow_empty_boxes``) vectorised in torch on
 the scene's device; how long it took is logged.
 
-Not in this slice: emission and color channels, bf16 corner rows
-(they need ml_dtypes) and octant boxes (``build_scene`` resolves
+Not in this slice: bf16 corner rows (they need ml_dtypes) and octant
+boxes (``build_scene`` resolves
 ``octant_boxes="auto"`` to False in the reference).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from dataclasses import dataclass
@@ -52,23 +55,37 @@ class VolumeAtlas:
     """Device tensors of the one grid of a single-instance scene."""
 
     density: torch.Tensor          # (V,) f32 raw voxels (the bakes read it)
-    density_corners: torch.Tensor  # (V, 15 [+ 8 (1+L) taus]) f32
+    # (V, 15 [+ 8 emission] [+ 24 color] [+ 8 (1+L) taus]) f32
+    density_corners: torch.Tensor
     offset: torch.Tensor           # (1,) int32
+    emission_offset: torch.Tensor  # (1,) int32: 0, or -1 without emission
+    color_offset: torch.Tensor     # (1,) int32: 0, or -1 without color
     dim: torch.Tensor              # (1, 3) int32 nx, ny, nz
     bmin: torch.Tensor             # (1, 3) f32
     max_density: torch.Tensor      # (1,) f32
     min_density: torch.Tensor      # (1,) f32
     voxel_size: torch.Tensor       # (1,) f32
 
-    has_emission = False
-    has_color = False
     octant_cols = 0
+
+    @functools.cached_property
+    def has_emission(self) -> bool:
+        return int(self.emission_offset[0]) >= 0
+
+    @functools.cached_property
+    def has_color(self) -> bool:
+        return int(self.color_offset[0]) >= 0
 
 
 def unified_layout(atlas) -> tuple[int, int, int]:
     """(emission_off, color_off, tau_off) in the corner row; -1 when a
-    channel is absent.  This slice carries no emission or color."""
-    return -1, -1, 15 + atlas.octant_cols
+    channel is absent (vpt_tpu/volume/grid.py:562-573)."""
+    off = 15 + atlas.octant_cols
+    em = off if atlas.has_emission else -1
+    off += 8 if atlas.has_emission else 0
+    col = off if atlas.has_color else -1
+    off += 24 if atlas.has_color else 0
+    return em, col, off
 
 
 def _corner_taps(d, shift_index):
@@ -172,24 +189,37 @@ def _empty_box_extents(occ: np.ndarray, where: np.ndarray | None = None,
     return out
 
 
+def _max3(d_zyx: np.ndarray) -> np.ndarray:
+    """Max over each voxel's 3^3 neighbourhood: it bounds every trilinear
+    sample whose base voxel is that one (roll wrap only over-estimates,
+    which is safe)."""
+    maj = d_zyx.copy()
+    for axis in (0, 1, 2):
+        m = np.maximum(maj, np.roll(maj, 1, axis=axis))
+        maj = np.maximum(m, np.roll(maj, -1, axis=axis))
+    return maj
+
+
 def _corner_pack(d_zyx: np.ndarray, band_divisors: tuple | None = None,
-                 device=DEFAULT_DEVICE) -> np.ndarray:
+                 device=DEFAULT_DEVICE,
+                 emit_zyx: np.ndarray | None = None) -> np.ndarray:
     """(nz,ny,nx) -> (V, 15) rows: 8 edge-clamped taps, T_box (a density
     bound for every trilinear sample whose base voxel lies in the box;
     banded at BAND_DIVISORS x the grid max, 0 = empty) and the box's
-    extents (vpt_tpu/volume/grid.py:474-559, without octant boxes and
-    emission)."""
+    extents (vpt_tpu/volume/grid.py:474-559, without octant boxes).
+
+    ``emit_zyx``: the emission channel, whose 3^3 majorant joins the
+    occupancy of the zero band, so that an empty box is emission-free
+    too and the EMIT walk may jump it; boxes only shrink, so MARCH and
+    SHADOW stay exact (vpt_tpu/volume/grid.py:511-526, :548-550)."""
     nz, ny, nx = d_zyx.shape
     out = np.empty((15, nz, ny, nx), np.float32)
     for c, tap in enumerate(_corner_taps(
             d_zyx, lambda n, o: np.minimum(np.arange(n) + o, n - 1))):
         out[c] = tap
-    # local majorant: max over the 3^3 neighbourhood (roll wrap only
-    # over-estimates, which is safe)
-    maj = d_zyx.copy()
-    for axis in (0, 1, 2):
-        m = np.maximum(maj, np.roll(maj, 1, axis=axis))
-        maj = np.maximum(m, np.roll(maj, -1, axis=axis))
+    maj = _max3(d_zyx)
+    extra_occ = (None if emit_zyx is None
+                 else _max3(np.asarray(emit_zyx, np.float32)) > 0.0)
     gmax = float(maj.max())
     bands = [gmax * f for f in (band_divisors or BAND_DIVISORS)]
     band_idx = np.zeros(maj.shape, np.int8)
@@ -201,7 +231,10 @@ def _corner_pack(d_zyx: np.ndarray, band_divisors: tuple | None = None,
         sel = band_idx == b
         if not sel.any():
             continue
-        eb = _empty_box_extents(maj > t, where=sel, device=device)
+        occ = maj > t
+        if t <= 0.0 and extra_occ is not None:
+            occ = occ | extra_occ
+        eb = _empty_box_extents(occ, where=sel, device=device)
         ext[:, sel] = eb[:, sel]
         t_box[sel] = t
     out[8] = t_box
@@ -212,20 +245,34 @@ def _corner_pack(d_zyx: np.ndarray, band_divisors: tuple | None = None,
 def build_atlas(host_grids: list[HostGrid], band_divisors=None,
                 device=DEFAULT_DEVICE) -> VolumeAtlas:
     """Pack the one grid of a single-instance scene into device tensors
-    (float32 corner rows)."""
+    (float32 corner rows; the emission and color taps after the 15
+    density columns, vpt_tpu/volume/grid.py:652-671)."""
     if len(host_grids) != 1:
         raise NotImplementedError("the port packs single-grid scenes only")
     g = host_grids[0]
-    if g.emission_zyx is not None or g.color_zyx is not None:
-        raise NotImplementedError("emission and color channels are not "
-                                  "ported yet")
-    corners = _corner_pack(np.asarray(g.density_zyx, np.float32),
-                           band_divisors, device=device)
+    parts = [_corner_pack(np.asarray(g.density_zyx, np.float32),
+                          band_divisors, device=device,
+                          emit_zyx=g.emission_zyx)]
+    if g.emission_zyx is not None:
+        parts.append(_corner_pack_plain(torch.as_tensor(
+            np.asarray(g.emission_zyx, np.float32))).numpy())
+    if g.color_zyx is not None:
+        col = torch.as_tensor(np.asarray(g.color_zyx, np.float32))
+        parts.append(torch.stack([_corner_pack_plain(col[..., ch])
+                                  for ch in range(3)], -1).reshape(-1, 24)
+                     .numpy())
+    corners = np.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
     f32 = dict(dtype=torch.float32, device=device)
+
+    def channel_offset(present):
+        return torch.tensor([0 if present else -1], dtype=torch.int32,
+                            device=device)
     return VolumeAtlas(
         density=torch.tensor(g.density_zyx.reshape(-1), **f32),
         density_corners=torch.as_tensor(corners, **f32),
         offset=torch.zeros(1, dtype=torch.int32, device=device),
+        emission_offset=channel_offset(g.emission_zyx is not None),
+        color_offset=channel_offset(g.color_zyx is not None),
         dim=torch.as_tensor(np.asarray(g.dim, np.int32)[None],
                             device=device),
         bmin=torch.as_tensor(np.asarray(g.bbox_min, np.float32)[None],
