@@ -107,6 +107,22 @@ Phases, one JSON line each:
                against fused_direct_plain at 256x256 on each scene by
                phase 6's rule, the routes bit for bit; the EXT variant
                timed beside the plain loop on config 2 and at 1080p;
+  8e. instanced — K1's CELLS variant on the reference bench's config 5:
+               1024 instances of the 24^3 puff (cloud_xforms, seed 7)
+               with cell lists at R 64, CONSTANT, the bench's camera,
+               built on the card (seconds per stage: splat, octant
+               columns, cell lists; K; the cell rows' bytes) and
+               shadow-baked (attach_shadow_cache at the default world
+               resolution); K1 against fused_direct_plain at 256x256 in
+               both modes by phase 6's rule (the bit-for-bit share and max
+               |dL| printed), the routes bit for bit; 32 spp at 512x512
+               and 1920x1080 in both modes: ms/spp, Mrays/s, iterations
+               per ray, trunc_frac, launches (CELLS and K3 once a
+               sample), finite and not black; the CELLS variant timed
+               beside the plain loop at 512x512; and the c5 golden's
+               scene (27 instances of the 12^3 blob), built by the port
+               on the card, K1 against the plain loop there too, with its
+               golden render's mean beside the golden's;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -122,8 +138,9 @@ Phases, one JSON line each:
                small-shape wrappers' host cost: device time (profiler)
                beside event time, and the wrapper's parts by the host
                clock.
-Then the nvidia-smi line, the kernels' JSON line (K1 on both routes, and
-its EXT variant at 1080p on the emissive grid with config 2 beside; K2,
+Then the nvidia-smi line, the kernels' JSON line (K1 on both routes, its
+EXT variant at 1080p on the emissive grid with config 2 beside, and its
+CELLS variant on config 5 at 512x512, tracked with cached beside; K2,
 its own launches beside those of K1's in-kernel-ray route, which runs
 its code, and its time at aperture 0.5; K3 at 1080p; K4 at 1080p for the
 sky, with HDRI's numbers beside, its launches those of phases 8b and
@@ -189,6 +206,9 @@ EMIT_SIZE, EMIT_SPP, VD_SPP = 512, 32, 16   # configs 2 and 3; volume_depth 2
 EMIT_CAMERA = (0.0, 1.0, 9.0)   # the bench's aim_camera offset
 C3_APERTURE = 0.25
 EMIT_OF_DENSITY = 0.9   # the 200^3 grid's emission, as the bench's blob
+# config 5 of the reference bench: 1024 instances of the 24^3 puff
+C5_INSTANCES, C5_BLOB_N, C5_SPP = 1024, 24, 32
+C5_SIZES = ((512, 512), (W, H))
 # K4's operations per ray, counted from csrc/environment.cu (each
 # arithmetic operation, comparison and transcendental one): the sky's
 # head (two sphere tests of 25, the phases) 76, each of its 16 view
@@ -319,20 +339,27 @@ def check_lens(where, k2_lens, routes_lens):
                                f"{K2_APERTURE} ({mode})")
 
 
-def k1_variant(route, defer, ext):
+def k1_variant(route, defer, ext, cells=False):
     """K1's variant name: the route, "_env" for the deferred environment
-    (HDRI, the sky), "_ext" for emission, color or volume_depth > 1."""
-    return route + "_env" * int(defer) + "_ext" * int(ext)
+    (HDRI, the sky), "_ext" for emission, color or volume_depth > 1,
+    "_cells" for an instanced scene."""
+    return (route + "_env" * int(defer) + "_ext" * int(ext)
+            + "_cells" * int(cells))
+
+
+# K1's variants: (deferred environment, EXT, CELLS) on either route
+K1_VARIANTS = [(d, e, c) for d in (0, 1) for e, c in ((0, 0), (1, 0), (0, 1))]
 
 
 def k1_registers(summary):
     """K1's ptxas lines by variant (its template arguments)."""
     out = {}
     for n, v in summary.items():
-        m = re.search(r"fused_direct_kernelILb([01])ELb([01])ELb([01])E", n)
+        m = re.search(r"fused_direct_kernelILb([01])ELb([01])ELb([01])E"
+                      r"Lb([01])E", n)
         if m:
             out[k1_variant(ROUTES[int(m.group(1))], m.group(2) == "1",
-                           m.group(3) == "1")] = v
+                           m.group(3) == "1", m.group(4) == "1")] = v
     return out
 
 
@@ -400,7 +427,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     kernels = [fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY, renderer.RAYGEN,
                film_mod.FILM_ACCUMULATE, integrator.ENVIRONMENT,
-               fused.FUSED_DIRECT_EXT]
+               fused.FUSED_DIRECT_EXT, fused.FUSED_DIRECT_CELLS]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -422,16 +449,18 @@ def main():
     torch.cuda.synchronize()
     t_k3 = time.perf_counter() - t0
     k1_ptxas = k1_registers(cuda.ptxas_summary(lib.ptxas_log))
-    k1_launch = {k1_variant(route, defer, ext): fused.launch_info(
-        route == "rays_in_kernel", 128, bool(defer), bool(ext))
-        for route in ROUTES for defer in (0, 1) for ext in (0, 1)}
+    k1_launch = {k1_variant(route, defer, ext, cells): fused.launch_info(
+        route == "rays_in_kernel", 128, bool(defer), bool(ext), bool(cells))
+        for route in ROUTES for defer, ext, cells in K1_VARIANTS}
     emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
          ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
     # the density-only variants as before: 5 blocks per SM, no spills
-    # (ptxas reports only when this run built the library)
+    # (ptxas reports only when this run built the library); EXT's and
+    # CELLS's are reported
     for name, info in k1_launch.items():
         v = k1_ptxas.get(name, {})
-        if "_ext" not in name and (info["blocks_per_sm"] != 5
+        if not name.endswith(("_ext", "_cells")) and (
+                info["blocks_per_sm"] != 5
                                    or v.get("spill_stores")
                                    or v.get("spill_loads")):
             raise RuntimeError(f"K1 {name}: {v}, {info}")
@@ -1194,6 +1223,168 @@ def main():
     bounds["fused_direct_ext"] = at_size["bound"]
     del c2, c2_cached, c3, big, runs
 
+    # ---- 8e. instanced: config 5's cloudscape through K1's CELLS variant
+    from vpt_tpu_torch.tools.common import (aim_cloud, cloud_xforms,
+                                            golden_blob, golden_c5_instances,
+                                            golden_camera)
+    c5_ids, c5_xf = cloud_xforms(C5_INSTANCES)
+    c5_build = {}
+    t0 = time.perf_counter()
+    c5 = build_scene([bench_blob(n=C5_BLOB_N)], instance_grid_ids=c5_ids,
+                     instance_xforms=c5_xf, device=dev, timings=c5_build)
+    torch.cuda.synchronize()
+    c5_build["build_scene_s"] = time.perf_counter() - t0
+    c5 = aim_cloud(c5)
+    c5_res = c5.majorant.resolution
+    t0 = time.perf_counter()
+    c5_cached = attach_shadow_cache(c5, AZIMUTH, ELEVATION)
+    torch.cuda.synchronize()
+    c5_build["shadow_bake_s"] = time.perf_counter() - t0
+    c5_k = c5.majorant.cell_instances.shape[1]
+    c5_scenes = {"tracked": c5, "cached": c5_cached}
+    c5_row_bytes = {m: sc.majorant.cell_rows.numel() * 4
+                    for m, sc in c5_scenes.items()}
+
+    def c5_params(w, h, mode):
+        """The bench's config 5 parameters: CONSTANT, ray_depth 50."""
+        return params(w, h, mode).replace(
+            environment_type=int(Environment.CONSTANT))
+
+    def bit_share(out_k, out_p):
+        """Share of rays whose five outputs are the same bits."""
+        same = (out_k[0].view(torch.int32) == out_p[0].view(torch.int32)
+                ).all(-1)
+        for a_, b_ in zip(out_k[1:], out_p[1:]):
+            same &= a_.view(torch.int32) == b_.view(torch.int32)
+        return float(same.double().mean())
+
+    def cells_parity(scenes_, size, p_of):
+        """K1 (buffer route) against fused_direct_plain on K2's rays at
+        size^2 by phase 6's rule, with the bit-for-bit share; the
+        in-kernel-ray route bit for bit the buffer route."""
+        par, routes = {}, {}
+        key = rng.render_key(SEED, 0)
+        tkey = renderer.tile_key(key)
+        for mode, sc in scenes_.items():
+            pe = p_of(size, size, mode)
+            rays = renderer._primary_rays_cuda(sc.camera, pe, key)
+            out_k = fused._fused_direct_cuda(sc, pe, tkey, *rays)
+            out_p = fused.fused_direct_plain(sc, pe, tkey, *rays)
+            par[mode] = dict(**k1_agreement([(out_k, out_p)]),
+                             bit_share=bit_share(out_k, out_p))
+            routes[mode] = same_bits(
+                renderer._trace_primary_cuda(sc, pe, key), out_k)
+        return par, routes
+
+    c5_par, c5_routes = cells_parity(c5_scenes, PARITY_SIZE, c5_params)
+    check_parity("instanced 256^2", c5_par, 0.0, True, c5_routes)
+    # the timed renders: 32 spp after 2 at the bench's 512^2 and at 1080p
+    c5_runs, cells_launches = {}, 0
+    for (w, h) in C5_SIZES:
+        for mode, sc in c5_scenes.items():
+            name = f"{w}x{h}_{mode}"
+            sc = dataclasses.replace(sc, camera=aim_cloud(sc, w / h).camera)
+            for k in kernels:
+                k.launches = 0
+            rr, c5_runs[name] = timed_render(sc, c5_params(w, h, mode), 2,
+                                             C5_SPP)
+            got = {k.name: k.launches for k in kernels}
+            c5_runs[name]["launches"] = got
+            c5_runs[name]["mrays_per_s"] = (
+                w * h / (c5_runs[name]["ms_per_spp"] * 1e-3) / 1e6)
+            cells_launches += got[fused.FUSED_DIRECT_CELLS.name]
+            route = ({fused.FUSED_DIRECT_PRIMARY.name} if
+                     renderer.RAYS_IN_KERNEL[mode] else
+                     {fused.FUSED_DIRECT.name, renderer.RAYGEN.name})
+            on = route | {fused.FUSED_DIRECT_CELLS.name,
+                          film_mod.FILM_ACCUMULATE.name}
+            want = {k.name: (2 + C5_SPP if k.name in on else 0)
+                    for k in kernels}
+            if got != want:
+                raise RuntimeError(f"instanced {name}: launches {got}, "
+                                   f"expected {want}")
+            if not (c5_runs[name]["finite"]
+                    and c5_runs[name]["image_mean"] > 0.0):
+                raise RuntimeError(f"instanced {name}: not finite, or black")
+            if args.save:
+                np.save(os.path.join(args.save, f"chip_smoke_c5_{name}.npy"),
+                        rr.display_image())
+            del rr
+    # K1's CELLS variant timed beside the plain loop at 512^2, the
+    # frame's queue length, both modes; the timed outputs held together
+    cells_time = {}
+    key = rng.render_key(SEED, 0)
+    tkey = renderer.tile_key(key)
+    for mode, sc in c5_scenes.items():
+        pe = c5_params(C5_SIZES[0][0], C5_SIZES[0][1], mode)
+        lt = renderer.prepare(sc, pe)
+        o, d = renderer._primary_rays_cuda(sc.camera, pe, key, lt.raygen)
+        q = renderer.frame_queue(pe)
+        tk, out_k = cuda_ms(lambda: fused._fused_direct_cuda(
+            sc, pe, tkey, o, d, lt.fused, pe.width, q), 3)
+        tp, out_p = cuda_ms(lambda: fused.fused_direct_plain(
+            sc, pe, tkey, o, d, q), 1)
+        steps = float(out_k[2].double().sum())
+        rows_w = sc.majorant.cell_rows.shape[1]
+        n_cells = sc.majorant.cell_rows.shape[0]
+        table_bytes = (sc.instances.packed_rows.numel()
+                       + sc.atlas.density_corners.numel()) * 4
+        cells_time[mode] = dict(
+            size=[pe.width, pe.height], queue=q, ms=tk, plain_ms=tp,
+            # rays in and out, each cell row visited once (at most every
+            # row), the instance rows and corner table once, and K1's
+            # operations of every step (the slots' not counted)
+            bound=bound(o.shape[0] * (24 + 28)
+                        + min(steps, n_cells) * rows_w * 4 + table_bytes,
+                        steps * K1_OPS_PER_STEP),
+            # the traffic as a step issues it: the cell row's 7 box and K
+            # id columns, and 19 + 8 floats per slot (all K counted)
+            step_bytes_ms=steps * (7 + c5_k + c5_k * (19 + 8)) * 4
+            / HBM_BYTES_PER_S * 1e3,
+            steps=steps, **k1_agreement([(out_k, out_p)]),
+            bit_share=bit_share(out_k, out_p))
+        del o, d, out_k, out_p, lt
+    check_parity("instanced timed", cells_time, 0.0, True, {})
+    # the c5 golden's scene (27 instances of the 12^3 blob, R 64), built by
+    # the port on the card: K1 against the plain loop at 256^2 in both
+    # modes, and its golden render (32^2, 8 spp) beside the golden's mean
+    gl_ids, gl_xf = golden_c5_instances()
+    gl = golden_camera(build_scene([golden_blob()], instance_grid_ids=gl_ids,
+                                   instance_xforms=gl_xf, device=dev))
+    gl_scenes = {"tracked": gl,
+                 "cached": attach_shadow_cache(gl, AZIMUTH, ELEVATION)}
+
+    def gl_params(w, h, mode):
+        return RenderParams(width=w, height=h, ray_depth=4, max_track_steps=64,
+                            max_fused_steps=256, shadow_mode=mode,
+                            environment_type=int(Environment.CONSTANT))
+    gl_par, gl_routes = cells_parity(gl_scenes, PARITY_SIZE, gl_params)
+    check_parity("instanced golden", gl_par, 0.0, True, gl_routes)
+    golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "golden", "c5_instanced__fused.npz")
+    gl_img = renderer.ProgressiveRenderer(gl, gl_params(32, 32, "tracked")
+                                          ).render(8).accum
+    gl_want = float(np.load(golden_path)["accum"].mean())
+    gl_render = dict(mean=float(gl_img.double().mean()), golden_mean=gl_want,
+                     finite=bool(torch.isfinite(gl_img).all()),
+                     k=gl.majorant.cell_instances.shape[1])
+    if not (gl_render["finite"] and gl_render["mean"] > 0.0):
+        raise RuntimeError(f"instanced golden render: {gl_render}")
+    emit("instanced", instances=C5_INSTANCES, blob=C5_BLOB_N,
+         resolution=c5_res, k=c5_k,
+         cell_row_bytes=c5_row_bytes, build=c5_build,
+         k1_cells=c5_par, k1_routes_bit_equal=c5_routes, runs=c5_runs,
+         k1_cells_timed=cells_time, k1_cells_launches=cells_launches,
+         golden=dict(k1=gl_par, routes_bit_equal=gl_routes,
+                     render=gl_render),
+         ptxas={k: v for k, v in k1_ptxas.items() if "_cells" in k},
+         launch={k: v for k, v in k1_launch.items() if "_cells" in k})
+    launches[fused.FUSED_DIRECT_CELLS.name] = cells_launches
+    at_c5 = cells_time["tracked"]
+    timing["fused_direct_cells"] = (at_c5["ms"], at_c5["plain_ms"])
+    bounds["fused_direct_cells"] = at_c5["bound"]
+    del c5, c5_cached, c5_scenes, gl, gl_scenes
+
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
         probe_gather, time_probes
@@ -1350,7 +1541,8 @@ def main():
         *k4_256.values(), *k4_1080.values()))
     timing["environment"] = (k4_1080["sky"]["ms"], k4_1080["sky"]["plain_ms"])
     bounds["environment"] = k4_1080["sky"]["bound"]
-    errs.update(fused_direct_ext=at_size["max_abs"],
+    errs.update(fused_direct_cells=at_c5["max_abs"],
+                fused_direct_ext=at_size["max_abs"],
                 fused_direct=k1_1080["cached"]["max_abs"],
                 fused_direct_primary=k1_1080[f"cached_{ROUTES[1]}"]["max_abs"],
                 primary_rays=k2_1080, film_accumulate=k3_1080)
@@ -1397,6 +1589,28 @@ def main():
                          max_abs_err=cfg2["max_abs"], steps=cfg2["steps"]),
         ptxas={k: v for k, v in k1_ptxas.items() if "_ext" in k},
         launch={k: v for k, v in k1_launch.items() if "_ext" in k})
+    by_name["fused_direct_cells"].update(
+        also_replaces="vpt_tpu/render/tracking.py:150 (_cells_banded_fetch)",
+        shape=f"512x512, config 5: {C5_INSTANCES} instances of the "
+              f"{C5_BLOB_N}^3 puff, R {c5_res}, K {c5_k}, tracked, the "
+              "frame's queue",
+        design="K1's CELLS template variant on either route: one cell row "
+               "(T_box, box extents, 3 of the 72 octant columns on an "
+               "empty cell, K ids, the folded taus), then per listed "
+               "instance its row through the read-only path and its 8 "
+               "corner taps; arguments in a struct of their own",
+        agree_share=at_c5["share"], bit_share=at_c5["bit_share"],
+        steps=at_c5["steps"], step_bytes_ms=at_c5["step_bytes_ms"],
+        cached=dict(ms=cells_time["cached"]["ms"],
+                    plain_ms=cells_time["cached"]["plain_ms"],
+                    bound_ms=cells_time["cached"]["bound"][0],
+                    bound_by=cells_time["cached"]["bound"][1],
+                    agree_share=cells_time["cached"]["share"],
+                    bit_share=cells_time["cached"]["bit_share"],
+                    max_abs_err=cells_time["cached"]["max_abs"],
+                    steps=cells_time["cached"]["steps"]),
+        ptxas={k: v for k, v in k1_ptxas.items() if "_cells" in k},
+        launch={k: v for k, v in k1_launch.items() if "_cells" in k})
     # K2's ray also runs inside K1's in-kernel-ray route, once per launch
     lens_name = f"aperture_{K2_APERTURE}"
     by_name["primary_rays"].update(

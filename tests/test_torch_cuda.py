@@ -740,6 +740,67 @@ def test_roll_matches_plain(cuda_device, shape, shift, axis):
                        probe.roll_plain(x, shift, axis))
 
 
+def _c5_scene(device, resolution=16):
+    """The c5 golden's 27 instances of the 12^3 blob (K = 3 at R 16),
+    built by the port on ``device``, framed as the golden frames it."""
+    from vpt_tpu_torch.tools import common
+    ids, xforms = common.golden_c5_instances()
+    return common.golden_camera(build_scene(
+        [common.golden_blob()], instance_grid_ids=ids, instance_xforms=xforms,
+        majorant_resolution=resolution, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["buffers", "in_kernel"])
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+def test_k1_cells_variant_matches_plain(cuda_device, mode, route):
+    """K1's CELLS variant on an instanced scene with K = 3 agrees with
+    fused_direct_plain (the share rule), on both routes, and launches
+    the CELLS variant once."""
+    s = _c5_scene(cuda_device)
+    assert s.majorant.cell_instances.shape[1] == 3
+    if mode == "cached":
+        s = attach_shadow_cache(s, 150.0, 30.0, world_resolution=32)
+    p = RenderParams(width=64, height=48, shadow_mode=mode,
+                     environment_type=3, ray_depth=4, max_fused_steps=256)
+    key = rng.render_key(0, 5)
+    tkey = renderer.tile_key(key)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    before = fused.FUSED_DIRECT_CELLS.launches
+    out = (fused._fused_direct_cuda(s, p, tkey, o, d) if route == "buffers"
+           else renderer._trace_primary_cuda(s, p, key))
+    assert fused.FUSED_DIRECT_CELLS.launches == before + 1
+    ref = fused.fused_direct_plain(s, p, tkey, o, d)
+    torch.cuda.synchronize()
+    share, rel = agreement([x.cpu().numpy() for x in out],
+                           [x.cpu().numpy() for x in ref])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
+    assert float(ref[2].mean()) > 1.0 and float(ref[0].mean()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resolution", [16, 64])
+def test_instanced_build_on_the_card_equals_cpu(cuda_device, resolution):
+    """build_scene with N instances on the card (box and octant growth in
+    torch there) gives the tables of the same call on the CPU exactly, and
+    so does the shadow bake within float rounding."""
+    import dataclasses as dc
+    got, want = _c5_scene(cuda_device, resolution), _c5_scene("cpu",
+                                                              resolution)
+    for f in dc.fields(want.majorant):
+        assert torch.equal(getattr(got.majorant, f.name).cpu(),
+                           getattr(want.majorant, f.name)), f.name
+    assert torch.equal(got.instances.packed_rows.cpu(),
+                       want.instances.packed_rows)
+    assert torch.equal(got.atlas.density_corners.cpu(),
+                       want.atlas.density_corners)
+    tg = attach_shadow_cache(got, 150.0, 30.0, world_resolution=32)
+    tw = attach_shadow_cache(want, 150.0, 30.0, world_resolution=32)
+    np.testing.assert_allclose(tg.majorant.cell_rows.cpu().numpy(),
+                               tw.majorant.cell_rows.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 def _c_fields(source, struct):
     """Field names of a C struct in declaration order (arrays by name)."""
     text = open(os.path.join(CSRC, source)).read()
@@ -759,6 +820,7 @@ def _c_fields(source, struct):
 @pytest.mark.parametrize("source,struct,mirror", [
     ("fused_direct.cu", "FusedParams", fused._FusedParams),
     ("fused_direct.cu", "ExtParams", fused._ExtParams),
+    ("fused_direct.cu", "CellParams", fused._CellParams),
     ("raygen.cuh", "RaygenParams", renderer._RaygenParams),
     ("probe_launch.cuh", "ProbeLaunch", probe._ProbeLaunch),
     ("gather_rows.cu", "GatherLaunch", probe._GatherLaunch),

@@ -1,8 +1,11 @@
-"""Precomputed light optical depths ("taus"), baked into the corner rows
-(port of the single-instance path of vpt_tpu/accel/shadow.py:36-399).
+"""Precomputed light optical depths ("taus"), baked into the rows a walk
+step reads (port of vpt_tpu/accel/shadow.py:36-541).
 
 A medium event reads its NEE transmittances from the same row fetch
-that produced the collision density.  The bakes run in torch on the
+that produced the collision density: the corner rows of a single
+instance, or, on an instanced scene with cell lists, the majorant cell
+rows, whose (R+1)^3 corner lattice takes taus swept on a world grid of
+the summed instance density (``_fold_cell_taus``).  The bakes run in torch on the
 scene's device: at 200^3 the directional sweep is ~700 eight-tap
 passes over 8 M voxels and the point-light resample ~48 M trilinear
 samples, which the reference ran in numpy on the host.  float64 is
@@ -244,8 +247,128 @@ def _upsample_tau(field, shape, s: float):
     return _trilinear_index(field, ipos)
 
 
+def _union_density_from_scene(scene, resolution: int):
+    """The scene's summed instance density resampled onto a world grid
+    over the root box, in instance order, on the scene's device
+    (vpt_tpu/accel/shadow.py:402-451).  Returns (density (nz, ny, nx),
+    cell (float), root_pmin (3,) float64)."""
+    atlas = scene.atlas
+    dev = scene.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    root_pmin = scene.root_pmin.cpu().double().numpy()
+    extent = scene.root_pmax.cpu().double().numpy() - root_pmin
+    cell = float(extent.max()) / int(resolution)
+    dim = np.maximum(np.ceil(extent / cell).astype(np.int64), 1)
+    nx, ny, nz = (int(v) for v in dim)
+    dens = torch.zeros((nz, ny, nx), dtype=torch.float32, device=dev)
+    offs = atlas.offset.cpu().numpy()
+    dims = atlas.dim.cpu().numpy()
+    bmins = atlas.bmin.cpu().double().numpy()
+    gids = scene.instances.grid_id.cpu().numpy()
+    invs = scene.instances.inv_xform.to(torch.float64)
+    pmins = scene.instances.pmin.cpu().double().numpy()
+    pmaxs = scene.instances.pmax.cpu().double().numpy()
+    vols = {}
+    for i in range(scene.instances.count):
+        g = int(gids[i])
+        if g not in vols:
+            gx, gy, gz = (int(v) for v in dims[g])
+            vols[g] = atlas.density[int(offs[g]):int(offs[g]) + gx * gy * gz] \
+                .reshape(gz, gy, gx)
+        lo = np.clip(np.floor((pmins[i] - root_pmin) / cell).astype(np.int64)
+                     - 1, 0, dim - 1)
+        hi = np.clip(np.ceil((pmaxs[i] - root_pmin) / cell).astype(np.int64)
+                     + 1, 0, dim - 1)
+        zz, yy, xx = torch.meshgrid(
+            *(torch.arange(int(lo[a]), int(hi[a]) + 1, **f64)
+              for a in (2, 1, 0)), indexing="ij")
+        wpos = (torch.stack([xx, yy, zz], dim=-1) + 0.5) * cell \
+            + torch.as_tensor(root_pmin, **f64)
+        ipos = (wpos.reshape(-1, 3) @ invs[i, :3, :3] + invs[i, 3, :3]
+                - torch.as_tensor(bmins[g] + 0.5, **f64))
+        d = _trilinear_index(vols[g], ipos.reshape(zz.shape + (3,)))
+        dens[lo[2]:hi[2] + 1, lo[1]:hi[1] + 1, lo[0]:hi[0] + 1] += d
+    return dens, cell, root_pmin
+
+
+def _fold_cell_taus(scene, tau_fields, cell_t: float, root_t):
+    """Append 8 (1 + L) tau corner columns to MajorantGrid.cell_rows:
+    each node field (voxel centres at root_t + (i + 0.5) cell_t) sampled
+    at the cell grid's (R+1)^3 corner lattice and packed per cell in tap
+    order c = x + 2y + 4z (vpt_tpu/accel/shadow.py:502-533).  A prior
+    bake's columns are replaced."""
+    major = scene.majorant
+    R = major.resolution
+    dev = scene.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    root_pmin = scene.root_pmin.cpu().double().numpy()
+    cs = (scene.root_pmax.cpu().double().numpy() - root_pmin) / R
+    ax = [torch.arange(R + 1, **f64) * float(cs[a]) + float(root_pmin[a])
+          for a in range(3)]
+    gz, gy, gx = torch.meshgrid(ax[2], ax[1], ax[0], indexing="ij")
+    fidx = (torch.stack([gx, gy, gz], dim=-1)
+            - torch.as_tensor(np.asarray(root_t, np.float64), **f64)) \
+        / cell_t - 0.5
+    packs = []
+    for field in tau_fields:
+        nodes = _trilinear_index(field, fidx)
+        packs.append(torch.stack(
+            [nodes[c >> 2:(c >> 2) + R, (c >> 1) & 1:((c >> 1) & 1) + R,
+                   c & 1:(c & 1) + R].reshape(-1) for c in range(8)], dim=1))
+    base = major.packed.shape[-1] + major.cell_instances.shape[-1]
+    rows = torch.cat([major.cell_rows[:, :base]] + packs, dim=1).contiguous()
+    return dataclasses.replace(
+        scene, majorant=dataclasses.replace(major, cell_rows=rows),
+        world_tau=None)
+
+
+def _attach_world_shadow_cache(scene, azimuth, elevation, step_vox,
+                               resolution):
+    """attach_shadow_cache on an instanced scene with cell lists: sweep
+    the sun and point-light taus over the union density on a
+    ``resolution`` world grid and fold them into the cell rows
+    (vpt_tpu/accel/shadow.py:454-499)."""
+    from vpt_tpu_torch.render.tracking import _use_cells
+    if not _use_cells(scene):
+        raise NotImplementedError("the world tau grid of instanced scenes "
+                                  "without cell lists is not ported yet "
+                                  "(ROADMAP A.6)")
+    dens, cell, root_pmin = _union_density_from_scene(scene, resolution)
+    sun_dir = degree_to_cartesian(azimuth, elevation).double().numpy()
+    tau_fields = [directional_tau_nodes(dens, sun_dir, cell,
+                                        step_vox=step_vox)]
+    xf = np.diag([cell, cell, cell, 1.0])
+    xf[3, :3] = root_pmin
+    for lp in scene.lights.pos.cpu().double().numpy():
+        tau_fields.append(point_tau_nodes(dens, xf, np.zeros(3), lp))
+    return _fold_cell_taus(scene, tau_fields, cell, root_pmin)
+
+
+def cell_tau_fetch(scene, pos):
+    """(..., 1 + L) cached optical depths from the tau columns of the
+    cell rows at world ``pos`` (the walk reads them from the row it
+    fetched, render/tracking.py::_cells_banded_fetch)."""
+    from vpt_tpu_torch.render.tracking import (_cell_coords, _cell_taus,
+                                               cell_layout)
+    _, rel, ci, flat = _cell_coords(scene, pos)
+    ids_off, k, n_ch = cell_layout(scene)
+    return _cell_taus(scene.majorant.cell_rows[flat], rel, ci, ids_off + k,
+                      n_ch)
+
+
+def cached_light_channels(scene) -> int:
+    """Point-light channels of a scene's shadow cache, from the rows a
+    walk step reads (-1: no cache)."""
+    if scene.majorant is not None and scene.majorant.cell_rows is not None:
+        from vpt_tpu_torch.render.tracking import cell_layout
+        n_ch = cell_layout(scene)[2]
+        return n_ch - 1 if n_ch else -1
+    return n_cached_lights(scene.atlas)
+
+
 def attach_shadow_cache(scene, azimuth: float, elevation: float,
                         step_vox: float = 0.5,
+                        world_resolution: int = 192,
                         tau_downsample: int | None = None):
     """Bake sun + point-light optical depths into the corner rows: the
     table becomes (V, 15 + 8 (1 + L)).  Render with
@@ -254,14 +377,15 @@ def attach_shadow_cache(scene, azimuth: float, elevation: float,
     ``tau_downsample`` None = auto: 1 below 32 M voxels; at and above,
     the bake runs on a 2x pooled proxy with 240x480 angular cells and
     2-voxel radial steps (the layout of the reference's point-light
-    bias fix)."""
-    if scene.instances.count != 1:
-        raise NotImplementedError("the world-space shadow cache of "
-                                  "instanced scenes is not ported")
+    bias fix).  An instanced scene bakes on a ``world_resolution`` grid
+    over its root box into its cell rows instead."""
     n_lights = int(scene.lights.count)
     if n_lights > MAX_CACHED_LIGHTS:
         raise ValueError(f"shadow cache supports <= {MAX_CACHED_LIGHTS} "
                          f"point lights (scene has {n_lights})")
+    if scene.instances.count != 1:
+        return _attach_world_shadow_cache(scene, azimuth, elevation,
+                                          step_vox, world_resolution)
     atlas = scene.atlas
     nx, ny, nz = (int(v) for v in atlas.dim[0].tolist())
     if atlas.density.shape[0] < nx * ny * nz:

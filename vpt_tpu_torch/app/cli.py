@@ -5,8 +5,11 @@ Usage:
     python -m vpt_tpu_torch.app.cli render procedural --env-type constant
 
 The parser takes the reference's flags one for one (``build_parser``).
-``render`` runs what the port has: the ``procedural`` scene and a
-``.hdr`` scene (the procedural volume lit by the map), an optional
+``render`` runs what the port has: the ``procedural`` scene, a
+``.hdr`` scene (the procedural volume lit by the map) and a ``.ins``
+file's lights variant (its point lights over the procedural volume; the
+volumes variant exits, as ``.vdb`` scenes do, until the .vdb reader is
+ported), an optional
 ``.hdr`` environment map (the positional ``env``), the fused engine with
 the direct integrator at volume depth 1, every environment type (the
 default is the simple sky, or HDRI when a map is given), tracked or
@@ -29,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from vpt_tpu_torch.scene.ins import VDB_READER
 from vpt_tpu_torch.utils.logger import log
 
 
@@ -160,12 +164,20 @@ def _check_render_slice(args) -> str:
     (vpt_tpu/app/cli.py:395-398): --env-type, else hdri when a map is
     given, else atmosphere (the simple sky)."""
     scene = args.scene
-    if scene != "procedural" and not scene.endswith(".hdr"):
+    if scene != "procedural" and not scene.endswith((".hdr", ".ins")):
         if scene.endswith(".vdb"):
-            _not_ported("the .vdb scene", "ROADMAP A, the .vdb reader")
-        if scene.endswith(".ins"):
-            _not_ported("the .ins scene", "ROADMAP A.6, instanced scenes")
+            _not_ported("the .vdb scene", VDB_READER)
         raise SystemExit(f"unsupported scene file: {scene}")
+    if scene.endswith(".ins"):
+        from vpt_tpu_torch.scene.ins import read_ins
+        try:
+            volumes = read_ins(scene).lights is None
+        except (OSError, ValueError, StopIteration) as e:
+            raise SystemExit(f"unsupported scene file: {scene} ({e!r})") \
+                from None
+        if volumes:
+            _not_ported("the .ins volumes variant (.vdb instances)",
+                        VDB_READER)
     env = args.env_type or ("hdri" if (args.env or scene.endswith(".hdr"))
                             else "atmosphere")
     for flag, on, item in (
@@ -179,8 +191,7 @@ def _check_render_slice(args) -> str:
             ("--sharded", args.sharded, "ROADMAP A.11, multi-GPU"),
             (f"--inst-shards {args.inst_shards}", args.inst_shards > 1,
              "ROADMAP A.11, multi-GPU"),
-            (f"--union {args.union}", args.union != "off",
-             "ROADMAP A.6, instanced scenes"),
+            (f"--union {args.union}", args.union != "off", VDB_READER),
             (f"--aov {args.aov}", args.aov in ("occupancy", "bvh"),
              "ROADMAP A.8, render/debugviz.py")):
         if on:
@@ -216,8 +227,15 @@ def _load_scene(args, lights, device):
     from vpt_tpu_torch.volume import procedural
     if args.scene.endswith(".hdr"):
         return load_hdr_env_scene(args.scene, lights=lights, device=device)
-    scene = build_scene([procedural.default_procedural_grid(device=device)],
-                        lights=lights, device=device)
+    if args.scene.endswith(".ins"):
+        # the lights variant (_check_render_slice exits on the volumes
+        # variant): the file's point lights over the procedural volume
+        from vpt_tpu_torch.scene.ins import load_ins_scene
+        scene = load_ins_scene(args.scene, device=device)
+    else:
+        scene = build_scene(
+            [procedural.default_procedural_grid(device=device)],
+            lights=lights, device=device)
     if args.env:
         scene = attach_env_map(scene, load_hdr(args.env))
     return scene

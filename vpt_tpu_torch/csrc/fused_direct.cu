@@ -39,6 +39,22 @@
 // - on the in-kernel-ray route a lane generates its own primary ray, so
 //   the sample writes and reads no ray buffer.
 //
+// CELLS (a template argument): instanced scenes with per-cell instance
+// lists (vpt_tpu/render/tracking.py::_cells_banded_fetch, the cells
+// branches of fused.py::fused_direct).  A step loads its majorant cell
+// row (accel/majorant.py: T_box, the box extents, the 72 octant columns,
+// the K instance ids, the folded taus): the box exit, widened on an empty
+// cell by the anchored box of the ray's octant and major axis (3 floats
+// of the 72); then, for each listed instance, its instance row (the 19
+// floats of the world->index transform, bbox, dim and atlas offset,
+// through the read-only path) and its 8 corner taps, the densities added
+// in slot order.  In cached mode the taus come from the same cell row, at
+// the cell's (R+1)^3 corner lattice.  What bounds it: the dependent cell
+// row, then 1 + K dependent loads per step; a simple kernel that is right
+// (the 1024 x 96 B instance rows stay in global memory and L1/L2, not
+// staged in shared memory).  Its arguments are a struct of their own
+// after ExtParams, so the variants without CELLS compile as before.
+//
 // EXT (a template argument): scenes with an emission or a color channel,
 // or volume_depth > 1.  The emission walk (EMIT) follows a medium event
 // along its scattered direction and adds the emission LUT's row of each
@@ -102,6 +118,19 @@ struct FusedParams {
 struct ExtParams {
     int em_off, col_off, volume_depth;
     float emission_scale, rate_inv_emit;
+};
+
+// What only the CELLS variant reads: the cell rows (R^3, row_w) and the
+// instance rows (N, 24), the cell grid's resolution, the cell rows'
+// columns (the ids at ids_off, K of them; the octant columns at 7 where
+// `octant`), and the cell size per axis.  Its taus sit at
+// FusedParams::tau_off of the cell row.  Mirror of
+// vpt_tpu_torch/render/fused.py::_CellParams.
+struct CellParams {
+    const float *rows;
+    const float *inst;
+    int R, row_w, ids_off, k, octant;
+    float cs[3];
 };
 
 // The variant a launch needs: EXT for emission, color or volume_depth > 1.
@@ -327,6 +356,103 @@ __device__ void fetch_row(const Ctx& c, V3 pos, V3 dir, Fetch& f) {
     f.t_box = inb ? t_box : 0.0f;
 }
 
+// render/tracking.py::_cells_banded_fetch (banded, with the taus' weights):
+// the cell row gives T_box and the box exit (the octant box's on an empty
+// cell), each listed instance its density, and the Fetch's row and
+// fractions address the taus of an accepted event (tau_at).
+__device__ void fetch_cells(const Ctx& c, const CellParams& cp, V3 pos,
+                            V3 dir, Fetch& f) {
+    const FusedParams& p = c.p;
+    const V3 root = v3(p.root_min), cs = v3(cp.cs);
+    const V3 rel = (pos - root) / cs;
+    const int R1 = cp.R - 1;
+    const int cx = min(max((int)floorf(rel.x), 0), R1);
+    const int cy = min(max((int)floorf(rel.y), 0), R1);
+    const int cz = min(max((int)floorf(rel.z), 0), R1);
+    const float* row =
+        cp.rows + (((long long)cz * cp.R + cy) * cp.R + cx) * cp.row_w;
+    const V3 cif = v3((float)cx, (float)cy, (float)cz);
+    const float t_box = row[0];
+    const V3 cube_min =
+        root + (cif - v3(jmax(row[1], 0.0f), jmax(row[2], 0.0f),
+                         jmax(row[3], 0.0f))) * cs;
+    const V3 cube_max =
+        root + (cif + v3(1.0f, 1.0f, 1.0f) +
+                v3(jmax(row[4], 0.0f), jmax(row[5], 0.0f),
+                   jmax(row[6], 0.0f))) * cs;
+    const V3 inv = v3(1.0f / (fabsf(dir.x) < 1e-12f ? 1e-12f : dir.x),
+                      1.0f / (fabsf(dir.y) < 1e-12f ? 1e-12f : dir.y),
+                      1.0f / (fabsf(dir.z) < 1e-12f ? 1e-12f : dir.z));
+    const V3 t1 = (cube_min - pos) * inv;
+    const V3 t2 = (cube_max - pos) * inv;
+    float s_box = jmax(jmin(jmin(jmax(t1.x, t2.x), jmax(t1.y, t2.y)),
+                            jmax(t1.z, t2.z)), 0.0f);
+    if (cp.octant && t_box <= 0.0f) {
+        // accel/majorant.py::octant_exit: the box of the ray's octant
+        // (dvec > 0 per axis) and major axis (the largest |dvec|, a tie
+        // to the lower axis), 3 of the 72 columns
+        const V3 dv = dir / cs;
+        const float ax = fabsf(dv.x), ay = fabsf(dv.y), az = fabsf(dv.z);
+        const int oct = (dv.x > 0.0f) + 2 * (dv.y > 0.0f) + 4 * (dv.z > 0.0f);
+        const int major = az > jmax(ax, ay) ? 2 : (ay > ax ? 1 : 0);
+        const float* e = row + 7 + 9 * oct + 3 * major;
+        const float d3[3] = {dv.x, dv.y, dv.z};
+        const float r3[3] = {rel.x, rel.y, rel.z};
+        const float c3[3] = {cif.x, cif.y, cif.z};
+        float t_oct = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            const float ea = jmax(e[a], 0.0f);
+            const float face = d3[a] > 0.0f ? c3[a] + 1.0f + ea : c3[a] - ea;
+            const float ta =
+                fabsf(d3[a]) < 1e-12f ? 3.4e38f : (face - r3[a]) / d3[a];
+            t_oct = a == 0 ? ta : jmin(t_oct, ta);
+        }
+        s_box = jmax(s_box, jmax(t_oct, 0.0f));
+    }
+    float d = 0.0f;
+    for (int j = 0; j < cp.k; ++j) {
+        const int id = (int)row[cp.ids_off + j];
+        if (id < 0) break;  // the valid ids fill the first slots
+        const float* ir = cp.inst + 24LL * id;
+        float m[19];
+#pragma unroll
+        for (int q = 0; q < 19; ++q) m[q] = __ldg(ir + q);
+        const V3 ipos = v3(pos.x * m[0] + pos.y * m[3] + pos.z * m[6] + m[9],
+                           pos.x * m[1] + pos.y * m[4] + pos.z * m[7] + m[10],
+                           pos.x * m[2] + pos.y * m[5] + pos.z * m[8] + m[11]);
+        const V3 bmin = v3(m[12], m[13], m[14]), dimf = v3(m[15], m[16], m[17]);
+        const V3 npos = (ipos - bmin) / dimf;
+        if (!(npos.x >= 0.0f && npos.x <= 1.0f && npos.y >= 0.0f &&
+              npos.y <= 1.0f && npos.z >= 0.0f && npos.z <= 1.0f))
+            continue;  // 0 outside its grid
+        const V3 xu = npos * dimf - v3(0.5f, 0.5f, 0.5f);
+        const V3 x = v3(jmin(jmax(xu.x, 0.0f), dimf.x - 1.0f),
+                        jmin(jmax(xu.y, 0.0f), dimf.y - 1.0f),
+                        jmin(jmax(xu.z, 0.0f), dimf.z - 1.0f));
+        const V3 i0 = v3(floorf(x.x), floorf(x.y), floorf(x.z));
+        const long long flat =
+            (long long)m[18] +
+            ((long long)(int)i0.z * (int)dimf.y + (int)i0.y) * (int)dimf.x +
+            (int)i0.x;
+        Fetch g;
+        g.fr = x - i0;
+        const float* taps = c.corners + flat * p.row_w;
+        float v = taps[0] * corner_weight(g, 0);
+#pragma unroll
+        for (int q = 1; q < 8; ++q) v = v + taps[q] * corner_weight(g, q);
+        d = d + v;
+    }
+    f.density = d;
+    f.s_box = s_box;
+    f.t_box = t_box;
+    f.inb = true;
+    f.row = row;
+    f.fr = v3(jclamp(rel.x - cif.x, 0.0f, 1.0f),
+              jclamp(rel.y - cif.y, 0.0f, 1.0f),
+              jclamp(rel.z - cif.z, 0.0f, 1.0f));
+}
+
 struct Walk {
     V3 pos, dirn, anchor, sdir, beta, L, contrib;
     float alpha, tr, dist, t, skip, tbox, depth_aov;
@@ -521,9 +647,9 @@ __device__ __forceinline__ void init_walk(Walk& s, V3 org, V3 dir) {
 // loop at Q = 1 for one lane.  `org` is the ray's origin (shared memory,
 // components THREADS apart); `hk_cached` holds the step's HG subkeys
 // (shared memory), or is null past the key cache.
-template <bool EXT>
-__device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
-                                          const float* org, Key ks,
+template <bool EXT, bool CELLS>
+__device__ __forceinline__ void walk_step(const Ctx& c, const CellParams& cp,
+                                          Walk& s, const float* org, Key ks,
                                           const Key* hk_cached,
                                           unsigned long long ray) {
     const FusedParams& p = c.p;
@@ -553,7 +679,10 @@ __device__ __forceinline__ void walk_step(const Ctx& c, Walk& s,
     const V3 cursor = s.pos + s.dirn * t_new;
 
     Fetch f;
-    fetch_row(c, cursor, s.dirn, f);
+    if (CELLS)
+        fetch_cells(c, cp, cursor, s.dirn, f);
+    else
+        fetch_row(c, cursor, s.dirn, f);
     const float t_old = s.tbox;
     s.skip = exited ? 0.0f : f.s_box;
     s.tbox = exited ? 0.0f : f.t_box;
@@ -787,7 +916,7 @@ long long slot_count(const FusedParams& p) {
 // write_out's own branch; resetting the walk state in the loop instead
 // measured cached +1.6% and tracked -1.3% against this, and an
 // out-of-line writer +45% (PERF.md, Findings).
-template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT>
+template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT, bool CELLS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     const float* __restrict__ origin,
@@ -796,7 +925,7 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     const float* __restrict__ lights,
                     const float* __restrict__ lut, const Out out,
                     unsigned* __restrict__ next_ray, unsigned n_slots,
-                    const ExtParams x) {
+                    const ExtParams x, const CellParams cp) {
     // the launch's keys, once per block: [0] the pre-loop seek key
     // fold_in(key, 1 << 20); then, for each step s < n_keys,
     // fold_in(key, s) and its four HG subkeys
@@ -883,8 +1012,9 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
             const bool in_cache = step < n_keys;
             const Key* e = skeys + 1 + KEYS_PER_STEP * step;
             const Key ks = in_cache ? e[0] : fold_in(key, (uint32_t)step);
-            walk_step<EXT>(c, s, org, ks, in_cache ? e + 1 : nullptr,
-                           (unsigned long long)ray);
+            walk_step<EXT, CELLS>(c, cp, s, org, ks,
+                                  in_cache ? e + 1 : nullptr,
+                                  (unsigned long long)ray);
             ++step;
             if (s.phase == P_DONE || step >= p.max_steps) {
                 write_out<DEFER>(p, s, out, ray, dir0);
@@ -910,7 +1040,7 @@ int smem_bytes(const FusedParams& p) {
 // SMs and resident blocks per SM of one variant, asked of the runtime
 // once per library load (again only for another device or key-cache
 // size).
-template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT>
+template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT, bool CELLS>
 cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     static int o_dev = -1, o_smem = -1, o_sms = 0, o_per_sm = 0;
     int dev = 0;
@@ -921,7 +1051,7 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
         e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n_blk, fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT>,
+                &n_blk, fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS>,
                 THREADS, smem);
         if (e != cudaSuccess) return e;
         if (n_sm <= 0 || n_blk <= 0) return cudaErrorInvalidConfiguration;
@@ -932,12 +1062,13 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     return cudaSuccess;
 }
 
-template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT>
+template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT, bool CELLS>
 int launch_variant(const FusedParams& p, const ExtParams& x,
-                   const RaygenParams& rp, const float* origin,
-                   const float* direction, const float* corners,
-                   const float* lights, const float* lut, float* out,
-                   unsigned* next_ray, void* stream) {
+                   const CellParams& cp, const RaygenParams& rp,
+                   const float* origin, const float* direction,
+                   const float* corners, const float* lights,
+                   const float* lut, float* out, unsigned* next_ray,
+                   void* stream) {
     if (p.B <= 0) return 0;
     if (p.refill_min < 1 || p.refill_min > 32 ||
         (p.tile_w != 0 && (p.tile_w < 0 || p.tile_h <= 0 || p.frame_w <= 0))
@@ -945,7 +1076,8 @@ int launch_variant(const FusedParams& p, const ExtParams& x,
         return (int)cudaErrorInvalidValue;
     const int smem = smem_bytes(p);
     int sms = 0, per_sm = 0;
-    cudaError_t e = occupancy<RAYS_IN_KERNEL, DEFER, EXT>(smem, sms, per_sm);
+    cudaError_t e =
+        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS>(smem, sms, per_sm);
     if (e != cudaSuccess) return (int)e;
     const long long need = ((long long)p.B + THREADS - 1) / THREADS;
     const long long grid = (long long)sms * per_sm;
@@ -954,83 +1086,104 @@ int launch_variant(const FusedParams& p, const ExtParams& x,
     e = cudaMemsetAsync(next_ray, 0, sizeof(unsigned), st);
     if (e != cudaSuccess) return (int)e;
     const Out o{out, ((long long)p.B + 3) & ~3LL};
-    fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT>
+    fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS>
         <<<blocks, THREADS, smem, st>>>(p, rp, origin, direction, corners,
                                         lights, lut, o, next_ray,
-                                        (unsigned)slot_count(p), x);
+                                        (unsigned)slot_count(p), x, cp);
     return (int)cudaGetLastError();
 }
 
+// The variant of a launch: CELLS where a cell table is given (an
+// instanced scene: density only, so never with EXT), else EXT or not.
 template <bool RAYS_IN_KERNEL, bool DEFER>
 int launch_defer(const FusedParams& p, const ExtParams& x,
-                 const RaygenParams& rp, const float* origin,
-                 const float* direction, const float* corners,
-                 const float* lights, const float* lut, float* out,
-                 unsigned* next_ray, void* stream) {
-    return extended(x) ? launch_variant<RAYS_IN_KERNEL, DEFER, true>(
-                             p, x, rp, origin, direction, corners, lights,
-                             lut, out, next_ray, stream)
-                       : launch_variant<RAYS_IN_KERNEL, DEFER, false>(
-                             p, x, rp, origin, direction, corners, lights,
-                             lut, out, next_ray, stream);
+                 const CellParams* cp, const RaygenParams& rp,
+                 const float* origin, const float* direction,
+                 const float* corners, const float* lights, const float* lut,
+                 float* out, unsigned* next_ray, void* stream) {
+    if (cp)
+        return extended(x) ? (int)cudaErrorInvalidValue
+                           : launch_variant<RAYS_IN_KERNEL, DEFER, false, true>(
+                                 p, x, *cp, rp, origin, direction, corners,
+                                 lights, lut, out, next_ray, stream);
+    const CellParams none{};
+    return extended(x)
+               ? launch_variant<RAYS_IN_KERNEL, DEFER, true, false>(
+                     p, x, none, rp, origin, direction, corners, lights, lut,
+                     out, next_ray, stream)
+               : launch_variant<RAYS_IN_KERNEL, DEFER, false, false>(
+                     p, x, none, rp, origin, direction, corners, lights, lut,
+                     out, next_ray, stream);
 }
 
 template <bool RAYS_IN_KERNEL>
-int launch(const FusedParams& p, const ExtParams& x, const RaygenParams& rp,
-           const float* origin, const float* direction,
-           const float* corners, const float* lights, const float* lut,
-           float* out, unsigned* next_ray, void* stream) {
+int launch(const FusedParams& p, const ExtParams& x, const CellParams* cp,
+           const RaygenParams& rp, const float* origin,
+           const float* direction, const float* corners,
+           const float* lights, const float* lut, float* out,
+           unsigned* next_ray, void* stream) {
     return p.defer_env
                ? launch_defer<RAYS_IN_KERNEL, true>(
-                     p, x, rp, origin, direction, corners, lights, lut, out,
-                     next_ray, stream)
+                     p, x, cp, rp, origin, direction, corners, lights, lut,
+                     out, next_ray, stream)
                : launch_defer<RAYS_IN_KERNEL, false>(
-                     p, x, rp, origin, direction, corners, lights, lut, out,
-                     next_ray, stream);
+                     p, x, cp, rp, origin, direction, corners, lights, lut,
+                     out, next_ray, stream);
 }
 
-template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT>
+template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT, bool CELLS>
 cudaError_t variant_info(int smem, int& sms, int& per_sm,
                          cudaFuncAttributes& a) {
     const cudaError_t e =
-        occupancy<RAYS_IN_KERNEL, DEFER, EXT>(smem, sms, per_sm);
+        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS>(smem, sms, per_sm);
     return e != cudaSuccess
                ? e
                : cudaFuncGetAttributes(
-                     &a, fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT>);
+                     &a,
+                     fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS>);
 }
 
+// variant: 0 density only, 1 EXT, 2 CELLS
 template <bool RAYS_IN_KERNEL, bool DEFER>
-cudaError_t variant_info(bool ext, int smem, int& sms, int& per_sm,
+cudaError_t variant_info(int variant, int smem, int& sms, int& per_sm,
                          cudaFuncAttributes& a) {
-    return ext ? variant_info<RAYS_IN_KERNEL, DEFER, true>(smem, sms, per_sm,
-                                                           a)
-               : variant_info<RAYS_IN_KERNEL, DEFER, false>(smem, sms,
-                                                            per_sm, a);
+    if (variant == 2)
+        return variant_info<RAYS_IN_KERNEL, DEFER, false, true>(smem, sms,
+                                                                per_sm, a);
+    return variant == 1
+               ? variant_info<RAYS_IN_KERNEL, DEFER, true, false>(
+                     smem, sms, per_sm, a)
+               : variant_info<RAYS_IN_KERNEL, DEFER, false, false>(
+                     smem, sms, per_sm, a);
 }
 
 }  // namespace
 
 extern "C" int vpt_fused_params_size() { return (int)sizeof(FusedParams); }
 extern "C" int vpt_fused_ext_size() { return (int)sizeof(ExtParams); }
+extern "C" int vpt_fused_cells_size() { return (int)sizeof(CellParams); }
 
 // K1 on the rays in (B, 3) origin and direction buffers.  `out` holds
 // 7 S floats laid out as Out says; `next_ray` is the
 // 4-byte ray counter, zeroed here on the launch stream; `lut` the density
-// color LUT, then the emission LUT, (512, 3).
+// color LUT, then the emission LUT, (512, 3); `cells` the cell table of an
+// instanced scene (CellParams), or null.
 extern "C" int vpt_fused_direct(const void* params, const void* ext,
-                                const float* origin, const float* direction,
+                                const void* cells, const float* origin,
+                                const float* direction,
                                 const float* corners, const float* lights,
                                 const float* lut, float* out,
                                 unsigned* next_ray, void* stream) {
     return launch<false>(*static_cast<const FusedParams*>(params),
-                         *static_cast<const ExtParams*>(ext), RaygenParams{},
-                         origin, direction, corners, lights, lut, out,
-                         next_ray, stream);
+                         *static_cast<const ExtParams*>(ext),
+                         static_cast<const CellParams*>(cells),
+                         RaygenParams{}, origin, direction, corners, lights,
+                         lut, out, next_ray, stream);
 }
 
 // K1 on the primary rays of `raygen` (H * W = B), made in the lanes.
 extern "C" int vpt_fused_direct_primary(const void* params, const void* ext,
+                                        const void* cells,
                                         const void* raygen,
                                         const float* corners,
                                         const float* lights,
@@ -1040,27 +1193,30 @@ extern "C" int vpt_fused_direct_primary(const void* params, const void* ext,
     const RaygenParams& rp = *static_cast<const RaygenParams*>(raygen);
     if ((long long)rp.H * rp.W != (long long)p.B)
         return (int)cudaErrorInvalidValue;
-    return launch<true>(p, *static_cast<const ExtParams*>(ext), rp, nullptr,
+    return launch<true>(p, *static_cast<const ExtParams*>(ext),
+                        static_cast<const CellParams*>(cells), rp, nullptr,
                         nullptr, corners, lights, lut, out, next_ray, stream);
 }
 
-// info[0..5] of one variant (route, deferred environment, EXT) whose keys
-// of key_steps steps are cached, at Q = 1: SMs, resident blocks per SM,
-// threads per block, registers per thread, local (spill and stack) bytes
-// per thread, dynamic shared bytes per block.
+// info[0..5] of one variant (route, deferred environment, variant: 0
+// density only, 1 EXT, 2 CELLS) whose keys of key_steps steps are cached,
+// at Q = 1: SMs, resident blocks per SM, threads per block, registers per
+// thread, local (spill and stack) bytes per thread, dynamic shared bytes
+// per block.
 extern "C" int vpt_fused_launch_info(int rays_in_kernel, int defer_env,
-                                     int ext, int key_steps, int* info) {
+                                     int variant, int key_steps, int* info) {
     const int smem = key_smem_bytes(key_steps);
     int sms = 0, per_sm = 0;
     cudaFuncAttributes a{};
-    const bool x = ext != 0;
     const cudaError_t e =
         rays_in_kernel
-            ? (defer_env ? variant_info<true, true>(x, smem, sms, per_sm, a)
-                         : variant_info<true, false>(x, smem, sms, per_sm, a))
+            ? (defer_env
+                   ? variant_info<true, true>(variant, smem, sms, per_sm, a)
+                   : variant_info<true, false>(variant, smem, sms, per_sm, a))
             : (defer_env
-                   ? variant_info<false, true>(x, smem, sms, per_sm, a)
-                   : variant_info<false, false>(x, smem, sms, per_sm, a));
+                   ? variant_info<false, true>(variant, smem, sms, per_sm, a)
+                   : variant_info<false, false>(variant, smem, sms, per_sm,
+                                                a));
     if (e != cudaSuccess) return (int)e;
     info[0] = sms;
     info[1] = per_sm;

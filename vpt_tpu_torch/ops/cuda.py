@@ -82,12 +82,13 @@ def load_library() -> Library:
     dll = ctypes.CDLL(path)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, args in (
-            ("vpt_fused_direct", [vp] * 10),
-            ("vpt_fused_direct_primary", [vp] * 9),
+            ("vpt_fused_direct", [vp] * 11),
+            ("vpt_fused_direct_primary", [vp] * 10),
             ("vpt_fused_launch_info", [i32, i32, i32, i32, vp]),
             ("vpt_primary_rays", [vp, ctypes.c_int, vp, vp, vp]),
             ("vpt_fused_params_size", []),
             ("vpt_fused_ext_size", []),
+            ("vpt_fused_cells_size", []),
             ("vpt_raygen_params_size", []),
             ("vpt_film_accumulate", [vp, vp]),
             ("vpt_film_args_size", []),

@@ -1,6 +1,6 @@
 """The fused engine: the direct-integrator path trace as one lane-masked
 state machine (port of vpt_tpu/render/fused.py::fused_direct, one ray
-per lane, single-instance scenes).
+per lane; single-instance scenes, and instanced scenes with cell lists).
 
 Every ray is in one phase of the walk it is running:
 
@@ -13,8 +13,12 @@ Every ray is in one phase of the walk it is running:
     DONE   — terminal (environment applied after the loop)
 
 and one step advances every live ray by one step of its walk, with one
-corner-row fetch.  ``shadow_mode="cached"`` reads every NEE
-transmittance from the baked taus of that same row.
+corner-row fetch, or on an instanced scene one majorant cell row and
+the listed instances' rows (render/tracking.py::_cells_banded_fetch;
+K1's CELLS variant).  ``shadow_mode="cached"`` reads every NEE
+transmittance from the baked taus of that same row.  An instanced
+scene's MARCH walks cover the root box (``_walk_box``) and its Cd is
+white.
 
 ``fused_direct`` launches kernel K1 (csrc/fused_direct.cu: persistent
 warps, one ray per lane with the walk state in registers, idle lanes
@@ -45,7 +49,9 @@ the environment term.  Rays that finish are the same bits at any Q.
 (HG) and restarts MARCH from the collision, with no NEE.
 
 Not in this slice (NotImplementedError): the queue path
-(``rays_per_lane > 1``), instanced scenes, the Bruneton atmosphere.
+(``rays_per_lane > 1``), instanced scenes without cell lists or with
+emission, color or volume_depth > 1 (ROADMAP A.6), the Bruneton
+atmosphere.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from vpt_tpu_torch.accel.shadow import n_cached_lights
+from vpt_tpu_torch.accel.shadow import cached_light_channels
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.phase import phase_eval, phase_sample
 from vpt_tpu_torch.core.vecmath import (EPS, TWO_PI, aabb_contains,
@@ -68,9 +74,12 @@ from vpt_tpu_torch.render.integrator import (EnvLaunch, add_environment,
                                              environment_radiance,
                                              prepare_environment)
 from vpt_tpu_torch.render.params import Environment, check_slice
-from vpt_tpu_torch.render.tracking import (_emission_lut, _sphere_block,
+from vpt_tpu_torch.render.tracking import (FetchResult, _cells_banded_fetch,
+                                           _emission_lut, _sphere_block,
+                                           _use_cells, cell_layout, cell_size,
                                            density_color_lut,
                                            unified_fetch_full, vec3_param)
+from vpt_tpu_torch.scene.scene import check_instanced
 from vpt_tpu_torch.volume.grid import unified_layout
 
 P_SEEK, P_MARCH, P_SHADOW, P_EMIT, P_DONE = 0, 1, 2, 3, 4
@@ -91,6 +100,13 @@ FUSED_DIRECT_PRIMARY = cuda.Kernel(
 # (vpt_tpu/render/tracking.py:245) and Cd are read in the kernel
 FUSED_DIRECT_EXT = cuda.Kernel(
     name="fused_direct_ext", route="cuda",
+    source="vpt_tpu_torch/csrc/fused_direct.cu",
+    replaces="vpt_tpu/render/fused.py:100")
+# K1's CELLS variant, on either route (counted beside the route's own
+# counter): instanced scenes with cell lists, the cell fetch of
+# vpt_tpu/render/tracking.py:150 in the kernel
+FUSED_DIRECT_CELLS = cuda.Kernel(
+    name="fused_direct_cells", route="cuda",
     source="vpt_tpu_torch/csrc/fused_direct.cu",
     replaces="vpt_tpu/render/fused.py:100")
 # K1's schedule per shadow mode, chosen by timing on the H100 (PERF.md):
@@ -125,13 +141,27 @@ def _constants(scene, params, device):
         sky=vec3_param(params.sky_color, device) * params.sky_mult)
 
 
+def _walk_box(scene):
+    """The box a MARCH or EMIT walk covers: the instance's own box on a
+    single instance (the root's 1-unit pad holds no density), the root
+    box on an instanced scene (vpt_tpu/render/fused.py:49-58)."""
+    if scene.instances.count == 1:
+        return scene.instances.pmin[0], scene.instances.pmax[0]
+    return scene.root_pmin, scene.root_pmax
+
+
 def _check_scene(scene, params):
     check_slice(params)
-    if scene.instances.count != 1:
-        raise NotImplementedError("instanced scenes are not ported yet")
+    n = scene.instances.count
+    if n != 1:
+        check_instanced(n, _use_cells(scene), scene.atlas.has_emission
+                        or scene.atlas.has_color)
+        if params.volume_depth > 1:
+            raise NotImplementedError("volume_depth > 1 on an instanced "
+                                      "scene is not ported yet (ROADMAP A.6)")
     n_lights = scene.lights.count
     if params.shadow_mode == "cached":
-        n_ch = n_cached_lights(scene.atlas)
+        n_ch = cached_light_channels(scene)
         if n_ch != n_lights:
             raise ValueError(
                 f"shadow cache has {n_ch} light channels but the scene has "
@@ -176,7 +206,8 @@ def fused_direct_plain(scene, params, key, origin, direction,
     n_lights = scene.lights.count
     n_pt_walks = min(n_lights, 11)  # QUIRKS #3 budget
     root_min, root_max = scene.root_pmin, scene.root_pmax
-    walk_min, walk_max = scene.instances.pmin[0], scene.instances.pmax[0]
+    walk_min, walk_max = _walk_box(scene)
+    cells = _use_cells(scene)
     emissive = scene.atlas.has_emission
     vdepth = params.volume_depth
 
@@ -314,8 +345,12 @@ def fused_direct_plain(scene, params, key, origin, direction,
         exited = walking & (t_new >= dist)
         cursor = s["pos"] + s["dirn"] * t_new[..., None]
 
-        fr = unified_fetch_full(scene, params, cursor, s["dirn"],
-                                with_tau=cached)
+        if cells:
+            fr = FetchResult(*_cells_banded_fetch(scene, cursor, s["dirn"],
+                                                  with_tau=cached))
+        else:
+            fr = unified_fetch_full(scene, params, cursor, s["dirn"],
+                                    with_tau=cached)
         density, s_new, tbox_new = fr.density, fr.s_box, fr.t_box
         t_old = tbox
         s["skip"] = torch.where(walking, torch.where(exited, 0.0, s_new),
@@ -529,17 +564,20 @@ def warp_efficiency(cost, warp: int = 32) -> float:
 
 
 def launch_info(rays_in_kernel: bool, max_fused_steps: int,
-                defer_env: bool = False, ext: bool = False) -> dict:
+                defer_env: bool = False, ext: bool = False,
+                cells: bool = False) -> dict:
     """K1's schedule on the current card for one route at
     ``max_fused_steps`` (which sizes the key cache, whatever the queue),
     for BLACK/CONSTANT or (``defer_env``) HDRI and the sky, density-only
-    or (``ext``) emission, color or volume_depth > 1, from the CUDA
-    runtime: SMs, resident blocks per SM, threads per block, registers
-    and local bytes per thread, dynamic shared bytes per block.  The grid
-    is SMs x blocks per SM blocks (fewer for a small frame)."""
+    or (``ext``) emission, color or volume_depth > 1 or (``cells``) an
+    instanced scene, from the CUDA runtime: SMs, resident blocks per SM,
+    threads per block, registers and local bytes per thread, dynamic
+    shared bytes per block.  The grid is SMs x blocks per SM blocks
+    (fewer for a small frame)."""
     info = (ctypes.c_int * 6)()
+    variant = 2 if cells else int(ext)
     cuda.check_status(cuda.load_library().dll.vpt_fused_launch_info(
-        int(rays_in_kernel), int(defer_env), int(ext), max_fused_steps,
+        int(rays_in_kernel), int(defer_env), variant, max_fused_steps,
         info), "fused_direct launch info")
     return dict(zip(("sms", "blocks_per_sm", "threads", "registers",
                      "local_bytes", "shared_bytes"), info))
@@ -577,6 +615,16 @@ class _ExtParams(ctypes.Structure):
         (n, ctypes.c_float) for n in ("emission_scale", "rate_inv_emit")]
 
 
+class _CellParams(ctypes.Structure):
+    """Mirror of ``CellParams`` in csrc/fused_direct.cu: the cell table
+    of an instanced scene, which only K1's CELLS variant reads."""
+
+    _fields_ = [("rows", ctypes.c_void_p), ("inst", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("R", "row_w", "ids_off", "k",
+                                    "octant")] + [
+        ("cs", ctypes.c_float * 3)]
+
+
 def _f3(t):
     return (ctypes.c_float * 3)(*t.detach().cpu().reshape(3).tolist())
 
@@ -598,6 +646,9 @@ class FusedLaunch:
     # the EXT variant's arguments; by default a density-only scene's
     ext: _ExtParams = field(
         default_factory=lambda: _ExtParams(-1, -1, 1, 0.0, 0.0))
+    # the CELLS variant's, on an instanced scene (its tables in `tables`)
+    cells: _CellParams | None = None
+    tables: tuple = ()
 
 
 def prepare_fused(scene, params) -> FusedLaunch:
@@ -618,6 +669,8 @@ def prepare_fused(scene, params) -> FusedLaunch:
     cuda.check_struct(_FusedParams,
                       cuda.load_library().dll.vpt_fused_params_size)
     cuda.check_struct(_ExtParams, cuda.load_library().dll.vpt_fused_ext_size)
+    cuda.check_struct(_CellParams,
+                      cuda.load_library().dll.vpt_fused_cells_size)
 
     k = _constants(scene, params, dev)
     row = scene.instances.packed_rows[0].cpu()
@@ -658,8 +711,6 @@ def prepare_fused(scene, params) -> FusedLaunch:
     for name in ("albedo", "ext", "sun_dir", "sun_cs", "sky"):
         setattr(p, name, _f3(k[name]))
     p.root_min, p.root_max = _f3(scene.root_pmin), _f3(scene.root_pmax)
-    p.walk_min = _f3(scene.instances.pmin[0])
-    p.walk_max = _f3(scene.instances.pmax[0])
     p.gbmin, p.gdim = _f3(row[12:15]), _f3(row[15:18])
     p.inv_xf = (ctypes.c_float * 12)(
         *scene.instances.inv_xform[0, :, :3].cpu().reshape(12).tolist())
@@ -667,11 +718,37 @@ def prepare_fused(scene, params) -> FusedLaunch:
     p.sph_radius = float(sph.radius)
     p.sph_rough = float(sph.roughness)
     p.sph_enabled = int(bool(sph.enabled))
-    if p.cached and p.row_w < p.tau_off + 8 * (1 + n_lights):
+    walk_min, walk_max = _walk_box(scene)
+    p.walk_min, p.walk_max = _f3(walk_min), _f3(walk_max)
+    cells, tables = None, ()
+    if _use_cells(scene):
+        cells, tables = _cell_params(scene)
+        # the taus of an instanced scene follow the ids in the cell rows
+        p.tau_off = cells.ids_off + cells.k
+        if p.cached and cells.row_w < p.tau_off + 8 * (1 + n_lights):
+            raise ValueError("cell rows carry no shadow cache")
+    elif p.cached and p.row_w < p.tau_off + 8 * (1 + n_lights):
         raise ValueError("corner rows carry no shadow cache")
     next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
     env = prepare_environment(scene, params) if defer else None
-    return FusedLaunch(p, corners, lights, lut, next_ray, env, x)
+    return FusedLaunch(p, corners, lights, lut, next_ray, env, x, cells,
+                       tables)
+
+
+def _cell_params(scene):
+    """(CellParams, the tables it points at) of an instanced scene."""
+    dev = scene.device
+    rows = scene.majorant.cell_rows
+    inst = scene.instances.packed_rows
+    cuda.check_cuda_tensor(rows, "cell_rows", dtype=torch.float32,
+                           device=dev)
+    cuda.check_cuda_tensor(inst, "packed_rows", (scene.instances.count, 24),
+                           torch.float32, dev)
+    ids_off, k, _ = cell_layout(scene)
+    c = _CellParams(rows.data_ptr(), inst.data_ptr(),
+                    scene.majorant.resolution, rows.shape[1], ids_off, k,
+                    int(ids_off >= 79), _f3(cell_size(scene)))
+    return c, (rows, inst)
 
 
 def extended(x: _ExtParams) -> bool:
@@ -740,14 +817,21 @@ def _launch_k1(launch: FusedLaunch, key, origin, direction,
                            dev)
     p, out, views = _launch_args(launch, B, key, frame_width, queue)
     rc = cuda.load_library().dll.vpt_fused_direct(
-        ctypes.byref(p), ctypes.byref(launch.ext), origin.data_ptr(),
+        ctypes.byref(p), ctypes.byref(launch.ext), _cells_arg(launch),
+        origin.data_ptr(),
         direction.data_ptr(), launch.corners.data_ptr(),
         launch.lights.data_ptr(), launch.lut.data_ptr(), out.data_ptr(),
         launch.next_ray.data_ptr(), cuda.current_stream(dev))
     cuda.check_status(rc, "fused_direct")
     FUSED_DIRECT.launches += 1
     FUSED_DIRECT_EXT.launches += extended(launch.ext)
+    FUSED_DIRECT_CELLS.launches += launch.cells is not None
     return views
+
+
+def _cells_arg(launch: FusedLaunch):
+    """K1's cell-table argument: the CELLS variant's struct, or null."""
+    return None if launch.cells is None else ctypes.byref(launch.cells)
 
 
 def _fused_direct_primary_cuda(scene, params, key, raygen,
@@ -763,11 +847,13 @@ def _fused_direct_primary_cuda(scene, params, key, raygen,
     p, out, views = _launch_args(launch, raygen.H * raygen.W, key,
                                  raygen.W, queue)
     rc = cuda.load_library().dll.vpt_fused_direct_primary(
-        ctypes.byref(p), ctypes.byref(launch.ext), ctypes.byref(raygen),
+        ctypes.byref(p), ctypes.byref(launch.ext), _cells_arg(launch),
+        ctypes.byref(raygen),
         launch.corners.data_ptr(), launch.lights.data_ptr(),
         launch.lut.data_ptr(), out.data_ptr(), launch.next_ray.data_ptr(),
         cuda.current_stream(launch.corners.device))
     cuda.check_status(rc, "fused_direct_primary")
     FUSED_DIRECT_PRIMARY.launches += 1
     FUSED_DIRECT_EXT.launches += extended(launch.ext)
+    FUSED_DIRECT_CELLS.launches += launch.cells is not None
     return _finish(scene, params, launch, views)

@@ -1,13 +1,17 @@
-"""The per-step corner-row fetch and its helpers (port of
-vpt_tpu/render/tracking.py:64-71, 306-313, 379-572).
+"""The per-step fetches and their helpers (port of
+vpt_tpu/render/tracking.py:46-196, 306-572).
 
-Single-instance scenes only: one corner-row load serves the trilinear
+Single-instance scenes: one corner-row load serves the trilinear
 density, the banded bound T_box with its box-exit distance, the emission
-and color channels, and the cached shadow taus.  The reference's
-``optimization_barrier``s steer XLA's TPU scheduling and have no
-counterpart here; its one-hot LUT matmuls (``density_color_lut``,
-``_emission_lut``) are indexed loads.  The CUDA kernel K1
-(csrc/fused_direct.cu) inlines the same arithmetic in ``fetch_row``.
+and color channels, and the cached shadow taus (``_unified_fetch_single``;
+K1's ``fetch_row``).  Instanced scenes with cell lists: one majorant
+cell row serves T_box, the box and octant exits, the cell's instance ids
+and the cached taus, and each listed instance adds its trilinear density
+from one instance row and one corner row (``_cells_banded_fetch``; K1's
+CELLS variant).  The reference's ``optimization_barrier``s steer XLA's
+TPU scheduling and have no counterpart here; its one-hot matmuls (the
+LUTs, the instance rows of a cell) are indexed loads, exact alike on
+finite rows.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from vpt_tpu_torch.core.vecmath import _amax3, _amin3, transform_point
+from vpt_tpu_torch.core.vecmath import (_amax3, _amin3, transform_point,
+                                        true_div)
 from vpt_tpu_torch.scene.geometry import _sphere_roots
 from vpt_tpu_torch.volume.grid import unified_layout
 
@@ -81,6 +86,115 @@ def _sphere_block(scene, pos, direction):
     hit, tmin, _ = _sphere_roots(sph.center, sph.radius, pos, direction)
     hit = hit & sph.enabled
     return hit, torch.where(hit, tmin, 3.4e38)
+
+
+def _row_norm_coords(row, pos):
+    """Instance row (Instances.packed_rows) -> trilinear coordinates at
+    world ``pos``: (i0 (..., 3) int64, frac, dim (..., 3) int64,
+    in_bounds)."""
+    ipos = (pos[..., 0:1] * row[..., 0:3] + pos[..., 1:2] * row[..., 3:6]
+            + pos[..., 2:3] * row[..., 6:9] + row[..., 9:12])
+    bmin = row[..., 12:15]
+    dimf = row[..., 15:18]
+    npos = (ipos - bmin) / dimf
+    inb = torch.all((npos >= 0.0) & (npos <= 1.0), dim=-1)
+    x = torch.minimum(torch.clamp(npos * dimf - 0.5, min=0.0), dimf - 1.0)
+    i0 = torch.floor(x)
+    frac = x - i0
+    return i0.to(torch.int64), frac, dimf.to(torch.int64), inb
+
+
+def _density_from_row(atlas, row, pos):
+    """The density of one instance at ``pos``: its row, then one corner
+    row; 0 outside its grid."""
+    i0, frac, dim, inb = _row_norm_coords(row, pos)
+    flat = row[..., 18].to(torch.int64) + (
+        i0[..., 2] * dim[..., 1] + i0[..., 1]) * dim[..., 0] + i0[..., 0]
+    rows = atlas.density_corners[flat]
+    return torch.where(inb, _wsum8(rows[..., :8], _trilerp_weights(frac)),
+                       0.0)
+
+
+def _use_cells(scene) -> bool:
+    return (scene.majorant is not None
+            and scene.majorant.cell_instances is not None)
+
+
+def cell_layout(scene) -> tuple[int, int, int]:
+    """(ids column, K, tau channels) of the cell rows: the ids follow
+    the packed columns (7, or 79 with the octant columns), the taus of
+    accel/shadow.py::_fold_cell_taus follow the ids (0 channels before a
+    bake)."""
+    major = scene.majorant
+    ids_off = major.packed.shape[-1]
+    k = major.cell_instances.shape[-1]
+    return ids_off, k, (major.cell_rows.shape[-1] - ids_off - k) // 8
+
+
+def cell_size(scene):
+    """The cell grid's (3,) cell size, extent / R, one float32 division
+    per axis on every device."""
+    return true_div(scene.root_pmax - scene.root_pmin,
+                    scene.majorant.resolution)
+
+
+def _cell_coords(scene, pos):
+    """(cell size cs (3,), rel = pos in cells, ci (..., 3) int64, flat
+    cell index) of world ``pos``, as the walk computes them: cs = extent
+    / R per axis, then (pos - root_pmin) / cs."""
+    cs = cell_size(scene)
+    R = scene.majorant.resolution
+    rel = (pos - scene.root_pmin) / cs
+    ci = torch.clamp(torch.floor(rel).to(torch.int64), 0, R - 1)
+    flat = (ci[..., 2] * R + ci[..., 1]) * R + ci[..., 0]
+    return cs, rel, ci, flat
+
+
+def _cell_taus(row, rel, ci, tau_off, n_ch):
+    """(..., n_ch) trilinear taus from the cell row's corner columns."""
+    w8 = _trilerp_weights(torch.clamp(rel - ci.to(torch.float32), 0.0, 1.0))
+    return torch.stack([_wsum8(row[..., tau_off + 8 * c:tau_off + 8 * c + 8],
+                               w8) for c in range(n_ch)], dim=-1)
+
+
+def _cells_banded_fetch(scene, pos, direction, with_tau: bool = False):
+    """(density, s_box, t_box[, taus]) of an instanced scene from one
+    cell row (MajorantGrid.cell_rows) and the K listed instances' rows:
+    the box exit, widened on an empty cell by the octant box's; the
+    density summed over the valid slots in slot order; with ``with_tau``
+    the taus folded into the row (vpt_tpu/render/tracking.py:150-226)."""
+    from vpt_tpu_torch.accel.majorant import octant_exit
+    cs, rel, ci, flat = _cell_coords(scene, pos)
+    row = scene.majorant.cell_rows[flat]
+    t_box = row[..., 0]
+    cif = ci.to(torch.float32)
+    cube_min = scene.root_pmin + (cif - torch.clamp(row[..., 1:4], min=0.0)) \
+        * cs
+    cube_max = scene.root_pmin + (cif + 1.0 + torch.clamp(row[..., 4:7],
+                                                         min=0.0)) * cs
+    inv = 1.0 / torch.where(torch.abs(direction) < 1e-12, 1e-12, direction)
+    t1 = (cube_min - pos) * inv
+    t2 = (cube_max - pos) * inv
+    s_box = torch.clamp(_amin3(torch.maximum(t1, t2)), min=0.0)
+    ids_off, k, n_ch = cell_layout(scene)
+    if ids_off >= 79:
+        t_oct = octant_exit(row[..., 7:79], cif, rel, direction / cs)
+        s_box = torch.where(t_box <= 0.0,
+                            torch.maximum(s_box, torch.clamp(t_oct, min=0.0)),
+                            s_box)
+    ids = row[..., ids_off:ids_off + k].to(torch.int64)
+    rows = scene.instances.packed_rows[torch.clamp(ids, min=0)]
+    density = torch.zeros(pos.shape[:-1], dtype=torch.float32,
+                          device=pos.device)
+    for j in range(k):
+        d = _density_from_row(scene.atlas, rows[..., j, :], pos)
+        density = density + torch.where(ids[..., j] >= 0, d, 0.0)
+    if not with_tau:
+        return density, s_box, t_box
+    if n_ch == 0:
+        raise ValueError("with_tau: cell rows carry no tau columns "
+                         "(run accel.shadow.attach_shadow_cache)")
+    return density, s_box, t_box, _cell_taus(row, rel, ci, ids_off + k, n_ch)
 
 
 def _unified_fetch_single(scene, params, pos, direction,

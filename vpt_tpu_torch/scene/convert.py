@@ -7,8 +7,10 @@ over as numpy arrays keyed by their dotted field path, e.g.
 tables.  ``scene_to_arrays`` is its inverse for the port's own scenes.
 An ``env_map`` leaf may be the reference's (H, W, 12) corner-packed rows
 or the port's raw (H, W, 3) map: its first 3 channels are the raw map
-either way.  The environment CDF is not carried: the fused engine never
-reads it.
+either way.  An instanced scene carries its majorant grid
+(``"majorant.cell_rows"`` ...); a single instance's is dropped, since
+its walk never reads it.  The environment CDF is not carried: the fused
+engine never reads it.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from vpt_tpu_torch.core.camera import Camera
 from vpt_tpu_torch.core.device import DEFAULT_DEVICE
 from vpt_tpu_torch.lights.lights import PointLights
 from vpt_tpu_torch.scene.geometry import Sphere
-from vpt_tpu_torch.scene.scene import Instances, Scene
+from vpt_tpu_torch.scene.scene import (Instances, MajorantGrid, Scene,
+                                       check_instanced)
 from vpt_tpu_torch.volume.grid import VolumeAtlas
 
 _GROUPS = {"atlas": VolumeAtlas, "instances": Instances,
@@ -44,10 +47,14 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
     """Port Scene from ``{dotted leaf name: numpy array}``.
 
     Raises NotImplementedError for what this slice does not render:
-    instanced scenes, octant-box columns, bfloat16 corner rows, the
+    instanced scenes without cell lists or with emission or color,
+    octant-box columns in the corner rows, bfloat16 corner rows, the
     Bruneton atmosphere."""
-    if np.asarray(arrays["instances.grid_id"]).shape[0] != 1:
-        raise NotImplementedError("instanced scenes are not ported yet")
+    n = np.asarray(arrays["instances.grid_id"]).shape[0]
+    check_instanced(
+        n, "majorant.cell_rows" in arrays,
+        int(np.asarray(arrays["atlas.emission_offset"]).max()) >= 0
+        or int(np.asarray(arrays["atlas.color_offset"]).max()) >= 0)
     if np.asarray(arrays["atlas.density_corners"]).dtype != np.float32:
         raise NotImplementedError("corner rows other than float32 are not "
                                   "ported (ROADMAP A.10)")
@@ -62,6 +69,10 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
             f.name: _tensor(arrays[f"{group}.{f.name}"], device)
             for f in dataclasses.fields(cls)})
     parts.update({k: _tensor(arrays[k], device) for k in _TOP})
+    if n > 1:
+        parts["majorant"] = MajorantGrid(**{
+            f.name: _tensor(arrays[f"majorant.{f.name}"], device)
+            for f in dataclasses.fields(MajorantGrid)})
     if "env_map" in arrays:
         # the reference's corner-packed rows: [..., 0:3] is the raw map
         parts["env_map"] = _tensor(
@@ -81,4 +92,8 @@ def scene_to_arrays(scene: Scene) -> dict:
         out[k] = getattr(scene, k).cpu().numpy()
     if scene.env_map is not None:
         out["env_map"] = scene.env_map.cpu().numpy()
+    if scene.majorant is not None:
+        for f in dataclasses.fields(scene.majorant):
+            out[f"majorant.{f.name}"] = getattr(scene.majorant,
+                                                f.name).cpu().numpy()
     return out

@@ -1,11 +1,14 @@
-"""Scene container and the single-instance builder (port of
-vpt_tpu/scene/scene.py:117-274).
+"""Scene container and builder (port of vpt_tpu/scene/scene.py:117-274).
 
-The reference's majorant grid is not built: the single-instance
-full-fetch path never reads it (vpt_tpu/render/fused.py:182,
-tracking.py:120-122).  The LUTs not given are loaded from the EXR assets
-as the reference loads them (scene/assets.py), white where none is
-found.
+Single-instance scenes carry no majorant grid: their full-fetch path
+never reads it (vpt_tpu/render/fused.py:182, tracking.py:120-122).
+Instanced scenes carry it with per-cell instance lists once they have
+more instances than ``instance_list_threshold`` (accel/majorant.py): one
+grid instanced N times, density only.  Fewer instances take the
+reference's static per-instance loop, which is not ported, nor are
+several grids, emission or color on instanced scenes (ROADMAP A.6).  The
+LUTs not given are loaded from the EXR assets as the reference loads
+them (scene/assets.py), white where none is found.
 """
 
 from __future__ import annotations
@@ -44,6 +47,24 @@ class Instances:
 
 
 @dataclass(frozen=True)
+class MajorantGrid:
+    """The flat super-grid over the root box (accel/majorant.py), with
+    the reference's fields (vpt_tpu/scene/scene.py:55-79)."""
+
+    max_density: torch.Tensor  # (R, R, R) f32, [z, y, x]
+    occupied: torch.Tensor     # (R, R, R) bool
+    skip_dist: torch.Tensor    # (R, R, R) int32 chebyshev cells
+    packed: torch.Tensor       # (R^3, 7 [+ 72 octant]) f32
+    cell_instances: Optional[torch.Tensor] = None  # (R^3, K) int32
+    # [T_box, ext 6, octant 72?, ids K, taus 8 (1 + L)?] f32
+    cell_rows: Optional[torch.Tensor] = None
+
+    @property
+    def resolution(self) -> int:
+        return self.occupied.shape[0]
+
+
+@dataclass(frozen=True)
 class Scene:
     atlas: VolumeAtlas
     instances: Instances
@@ -59,6 +80,11 @@ class Scene:
     # the raw (H, W, 3) equirect radiance map of an HDRI environment;
     # the reference keeps corner-packed rows whose [..., 0:3] is this map
     env_map: Optional[torch.Tensor] = None
+    # instanced scenes with cell lists; None on a single instance
+    majorant: Optional[MajorantGrid] = None
+    # the reference's separate world tau grid, for instanced scenes
+    # without cell lists (not ported: their taus fold into the cell rows)
+    world_tau: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -77,16 +103,39 @@ def _world_bounds(host: HostGrid, xform: np.ndarray):
     return w.min(axis=0), w.max(axis=0)
 
 
-def _pack_instance_rows(atlas: VolumeAtlas, inv_xform: np.ndarray):
-    rows = np.zeros((1, 24), np.float32)
-    rows[0, 0:12] = inv_xform[:4, :3].reshape(12)
-    rows[0, 12:15] = atlas.bmin[0].cpu().numpy()
-    rows[0, 15:18] = atlas.dim[0].cpu().numpy().astype(np.float32)
-    rows[0, 18] = float(atlas.offset[0])
-    rows[0, 19] = float(atlas.emission_offset[0])
-    rows[0, 20] = float(atlas.color_offset[0])
-    rows[0, 21] = float(atlas.max_density[0])
+def _pack_instance_rows(atlas: VolumeAtlas, instance_grid_ids,
+                        inv_xforms: np.ndarray) -> np.ndarray:
+    """The (N, 24) instance rows (Instances; vpt_tpu/scene/scene.py:
+    139-154): the world->index transform, then the grid's bbox_min, dim,
+    channel offsets and max density."""
+    gids = np.asarray(instance_grid_ids, np.int64)
+    rows = np.zeros((len(gids), 24), np.float32)
+    rows[:, 0:12] = inv_xforms[:, :4, :3].reshape(len(gids), 12)
+    rows[:, 12:15] = atlas.bmin.cpu().numpy()[gids]
+    rows[:, 15:18] = atlas.dim.cpu().numpy()[gids].astype(np.float32)
+    rows[:, 18] = atlas.offset.cpu().numpy()[gids].astype(np.float32)
+    rows[:, 19] = atlas.emission_offset.cpu().numpy()[gids].astype(
+        np.float32)
+    rows[:, 20] = atlas.color_offset.cpu().numpy()[gids].astype(np.float32)
+    rows[:, 21] = atlas.max_density.cpu().numpy()[gids]
     return rows
+
+
+def _not_instanced(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A.6)")
+
+
+def check_instanced(n_instances: int, has_lists: bool, extended: bool):
+    """Raise for the instanced scenes the port does not render: without
+    cell lists (the static per-instance loop), and with emission or
+    color."""
+    if n_instances == 1:
+        return
+    if not has_lists:
+        _not_instanced(f"an instanced scene of {n_instances} instances "
+                       "without cell lists (the static per-instance loop)")
+    if extended:
+        _not_instanced("emission or color on an instanced scene")
 
 
 def default_camera(root_pmin, root_pmax, aspect=1.0,
@@ -98,26 +147,55 @@ def default_camera(root_pmin, root_pmax, aspect=1.0,
                        vfov=30.0, aspect=aspect, device=device)
 
 
-def build_scene(host_grids: list[HostGrid], camera: Camera | None = None,
+def build_scene(host_grids: list[HostGrid],
+                instance_grid_ids=None, instance_xforms=None,
+                camera: Camera | None = None,
                 lights: PointLights | None = None,
                 sphere: Sphere | None = None,
                 emission_lut: np.ndarray | None = None,
                 density_color_lut: np.ndarray | None = None,
                 band_divisors: tuple | None = None,
-                device=DEFAULT_DEVICE) -> Scene:
-    """Assemble a single-instance Scene on ``device``: the grid's own
-    file transform, root bounds = instance bounds padded by 1
-    (bvh_builder.cpp:76-78), corner rows from volume/grid.py."""
+                majorant_resolution: int = 64,
+                instance_list_threshold: int = 8,
+                octant_cells: bool | str = "auto",
+                device=DEFAULT_DEVICE, timings: dict | None = None) -> Scene:
+    """Assemble a Scene on ``device``.  ``instance_xforms[i]`` is
+    instance i's index->world transform (default: each grid's own file
+    transform, one instance each).  Root bounds = the union of the
+    instance bounds padded by 1 (bvh_builder.cpp:76-78); corner rows from
+    volume/grid.py; with more than ``instance_list_threshold`` instances
+    the majorant grid with cell lists at ``majorant_resolution``.
+    ``timings``, where given, receives the seconds of the majorant grid's
+    stages (accel/majorant.py::build_majorant_grid)."""
+    if instance_grid_ids is None:
+        instance_grid_ids = np.arange(len(host_grids))
+        instance_xforms = [g.transform for g in host_grids]
+    instance_grid_ids = np.asarray(instance_grid_ids, np.int32)
     if len(host_grids) != 1:
-        raise NotImplementedError("instanced scenes are not ported yet")
+        raise NotImplementedError(
+            "scenes of several grids are not ported yet (ROADMAP A.6, "
+            "multi-grid atlases, after the .vdb reader)")
+    n = len(instance_grid_ids)
     g = host_grids[0]
-    xform = np.asarray(g.transform, np.float64)
-    inv = np.linalg.inv(xform)
-    pmin, pmax = _world_bounds(g, xform)
-    root_pmin = pmin - 1.0
-    root_pmax = pmax + 1.0
+    lists = n > instance_list_threshold and bool(majorant_resolution)
+    check_instanced(n, lists, g.emission_zyx is not None
+                    or g.color_zyx is not None)
+    xforms = np.stack([np.asarray(x, np.float64) for x in instance_xforms])
+    inv = np.linalg.inv(xforms)
+    bounds = [_world_bounds(g, xf) for xf in xforms]
+    pmin = np.stack([b[0] for b in bounds])
+    pmax = np.stack([b[1] for b in bounds])
+    root_pmin = pmin.min(axis=0) - 1.0
+    root_pmax = pmax.max(axis=0) + 1.0
     atlas = build_atlas(host_grids, band_divisors=band_divisors,
                         device=device)
+    majorant = None
+    if n > 1:
+        from vpt_tpu_torch.accel.majorant import build_majorant_grid
+        majorant = build_majorant_grid(
+            host_grids, instance_grid_ids, xforms, root_pmin, root_pmax,
+            majorant_resolution, build_instance_lists=True,
+            octant_cells=octant_cells, device=device, timings=timings)
     f32 = dict(dtype=torch.float32, device=device)
     if camera is None:
         camera = default_camera(root_pmin, root_pmax, device=device)
@@ -131,13 +209,13 @@ def build_scene(host_grids: list[HostGrid], camera: Camera | None = None,
     return Scene(
         atlas=atlas,
         instances=Instances(
-            grid_id=torch.zeros(1, dtype=torch.int32, device=device),
-            xform=torch.as_tensor(xform[None], **f32),
-            inv_xform=torch.as_tensor(inv32[None], **f32),
-            pmin=torch.as_tensor(pmin[None], **f32),
-            pmax=torch.as_tensor(pmax[None], **f32),
-            packed_rows=torch.as_tensor(_pack_instance_rows(atlas, inv32),
-                                        **f32)),
+            grid_id=torch.as_tensor(instance_grid_ids, device=device),
+            xform=torch.as_tensor(xforms, **f32),
+            inv_xform=torch.as_tensor(inv32, **f32),
+            pmin=torch.as_tensor(pmin, **f32),
+            pmax=torch.as_tensor(pmax, **f32),
+            packed_rows=torch.as_tensor(
+                _pack_instance_rows(atlas, instance_grid_ids, inv32), **f32)),
         root_pmin=torch.as_tensor(root_pmin, **f32),
         root_pmax=torch.as_tensor(root_pmax, **f32),
         max_extinction=torch.tensor(g.max_density, **f32),
@@ -148,7 +226,8 @@ def build_scene(host_grids: list[HostGrid], camera: Camera | None = None,
                 else Sphere.make(device=device)).to(device),
         camera=camera.to(device),
         emission_lut=torch.as_tensor(luts[0], **f32),
-        density_color_lut=torch.as_tensor(luts[1], **f32))
+        density_color_lut=torch.as_tensor(luts[1], **f32),
+        majorant=majorant)
 
 
 def attach_env_map(scene: Scene, env_map) -> Scene:

@@ -1,7 +1,9 @@
 """Helpers shared by the tools and chip_smoke.py: timing, a NaN-aware
 equality, the random inputs (made on the CPU from a seed, then moved, so
-a CPU and a CUDA run see the same numbers), and the reference bench's
-config 2 and 3 volume and map (numpy, copied from bench.py)."""
+a CPU and a CUDA run see the same numbers), the reference bench's
+config 2 and 3 volume and map and its config 5 cloudscape (numpy, copied
+from bench.py), and the c5 golden's instanced scene (copied from
+tests/golden_scenes.py)."""
 
 from __future__ import annotations
 
@@ -126,3 +128,81 @@ def bench_env_map(h=128, w=256):
     env = np.broadcast_to(env, (h, w, 3)).copy()
     env[h // 4, w // 3] = [60.0, 55.0, 45.0]
     return env
+
+
+def cloud_xforms(n_inst, seed=7):
+    """The reference bench's config 5 instances (bench.py:630-641): n_inst
+    copies of grid 0 at uniform positions over 120 x 14 x 120 world
+    units, each scaled 0.1 U(0.7, 1.6).  (grid ids, 4x4 transforms)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ids, xforms = [], []
+    for _ in range(n_inst):
+        t = np.array([rng.uniform(0, 120), rng.uniform(0, 14),
+                      rng.uniform(0, 120)])
+        sc = rng.uniform(0.7, 1.6)
+        xf = np.diag([0.1 * sc, 0.1 * sc, 0.1 * sc, 1.0])
+        xf[3, :3] = t
+        ids.append(0)
+        xforms.append(xf)
+    return ids, xforms
+
+
+def aim_cloud(scene, aspect=1.0):
+    """The bench's config 5 camera (bench.py:643-647): 30 above and 90 in
+    front of the root box's centre, vfov 50, square unless asked."""
+    import dataclasses
+
+    import numpy as np
+
+    from vpt_tpu_torch.core.camera import Camera
+    c = (scene.root_pmin.cpu().numpy() + scene.root_pmax.cpu().numpy()) / 2
+    return dataclasses.replace(scene, camera=Camera.make(
+        c + np.array([0.0, 30.0, 90.0]), c, vfov=50.0, aspect=aspect,
+        device=scene.device))
+
+
+def golden_blob(n=12):
+    """tests/golden_scenes.py::_blob: a radial n^3 blob, voxels of 0.2."""
+    import numpy as np
+
+    from vpt_tpu_torch.volume.grid import HostGrid
+    z, y, x = np.mgrid[:n, :n, :n].astype(np.float32)
+    r = np.sqrt((x - n / 2) ** 2 + (y - n / 2) ** 2 + (z - n / 2) ** 2)
+    dens = np.clip(1.0 - r / (n / 2.4), 0.0, 1.0).astype(np.float32)
+    return HostGrid(density_zyx=dens, emission_zyx=None, color_zyx=None,
+                    bbox_min=np.zeros(3, np.int32),
+                    dim=np.array([n, n, n], np.int32),
+                    transform=np.diag([0.2, 0.2, 0.2, 1.0]), voxel_size=0.2,
+                    max_density=float(dens.max()), min_density=1e-6)
+
+
+def golden_c5_instances():
+    """The c5 golden's 27 instances (tests/golden_scenes.py:88-97): a 3^3
+    lattice 4 apart, jittered by U(-1, 1) from seed 3, voxels of 0.2."""
+    import numpy as np
+    rng = np.random.RandomState(3)
+    ids, xforms = [], []
+    for i in range(27):
+        iz, iy, ix = np.unravel_index(i, (3, 3, 3))
+        xf = np.diag([0.2, 0.2, 0.2, 1.0])
+        xf[3, :3] = (np.array([ix, iy, iz], np.float64) * 4.0
+                     + rng.uniform(-1, 1, 3))
+        ids.append(0)
+        xforms.append(xf)
+    return ids, xforms
+
+
+def golden_camera(scene, dist_scale=1.2):
+    """tests/golden_scenes.py::_camera on the scene's device."""
+    import dataclasses
+
+    import numpy as np
+
+    from vpt_tpu_torch.core.camera import Camera
+    lo, hi = scene.root_pmin.cpu().numpy(), scene.root_pmax.cpu().numpy()
+    c = (lo + hi) / 2
+    d = float(np.linalg.norm(hi - lo)) * dist_scale
+    return dataclasses.replace(scene, camera=Camera.make(
+        c + np.array([0.0, 0.15 * d, d]), c, vfov=45.0, aspect=1.0,
+        device=scene.device))

@@ -13,9 +13,14 @@ empty-box growth, the slow part at production size, is the greedy sweep
 of native/vdb_codec.cpp (``grow_empty_boxes``) vectorised in torch on
 the scene's device; how long it took is logged.
 
-Not in this slice: bf16 corner rows (they need ml_dtypes) and octant
-boxes (``build_scene`` resolves
-``octant_boxes="auto"`` to False in the reference).
+The per-(octant x major-axis) anchored extents (``_octant_box_extents``)
+grow the same way; only the majorant cell grid of instanced scenes
+carries them (accel/majorant.py).
+
+Not in this slice: bf16 corner rows (they need ml_dtypes), multi-grid
+atlases, and octant columns in the corner rows of a single grid
+(``build_scene`` resolves ``octant_boxes="auto"`` to False in the
+reference; ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -184,6 +189,103 @@ def _empty_box_extents(occ: np.ndarray, where: np.ndarray | None = None,
     t0 = time.perf_counter()
     ext = _grow_boxes_sweep(ii.reshape(-1), coords, r, nx, ny, nz, device)
     log.info("box growth (%d voxels) on %s: %.3f s", coords.shape[1], device,
+             time.perf_counter() - t0)
+    out[:, zz, yy, xx] = ext.astype(np.float32)
+    return out
+
+
+OCTANT_COLS = 72
+
+
+def _grow_octant_sweep(ii_flat, coords, r0, nx, ny, nz,
+                       device=DEFAULT_DEVICE):
+    """The 24 anchored boxes of every voxel on ``device``, (72, n) int32
+    numpy in [9 octant + 3 major + axis] order: native/vdb_codec.cpp
+    ``grow_octant_boxes`` (and its numpy fallback,
+    vpt_tpu/volume/grid.py:403-471) with the boxes side by side.  Each
+    box takes the same probes in the same order: its major axis over the
+    halving sizes, then its two minor axes interleaved per size.  The 8
+    boxes of one major axis probe the same axis at every step, so each
+    probe recomputes that axis's slab and reuses the other two axes'
+    bounds.  The voxels go in chunks (all at once on the card)."""
+    dev = torch.device(device)
+    chunk = 1 << 30 if dev.type == "cuda" else 1 << 14
+    ii = torch.as_tensor(ii_flat, device=dev).to(torch.int32)
+    lim = (nx, ny, nz)
+    stride = (1, nx + 1, (nx + 1) * (ny + 1))
+    octant = torch.arange(8, device=dev)
+    pos_dir = [((octant >> a) & 1).to(torch.bool)[:, None] for a in range(3)]
+    n_max = max(nx, ny, nz)
+    adds = [1 << k for k in range(int(np.ceil(np.log2(max(n_max, 2)))),
+                                  -1, -1)]
+    coords = torch.as_tensor(coords, device=dev).to(torch.int32)
+    r0 = torch.as_tensor(r0, device=dev).to(torch.int32)
+    n = coords.shape[1]
+    out = torch.empty((8, 3, 3, n), dtype=torch.int32, device=dev)
+
+    def bounds(a, pos, e):
+        """The box's clamped, stride-scaled [lo, hi + 1) on axis a."""
+        lo = torch.where(pos_dir[a], pos, pos - e)
+        hi = torch.where(pos_dir[a], pos + e, pos)
+        return (torch.clamp(lo, 0, lim[a]) * stride[a],
+                torch.clamp(hi + 1, 0, lim[a]) * stride[a])
+
+    for c0 in range(0, n, chunk):
+        pos = [coords[a, None, c0:c0 + chunk] for a in range(3)]
+        for m in range(3):
+            minors = [a for a in range(3) if a != m]
+            probes = [(m, add) for add in adds]
+            probes += [(a, add) for add in adds for a in minors]
+            ext = [r0[None, c0:c0 + chunk].repeat(8, 1) for _ in range(3)]
+            box = [bounds(a, pos[a], ext[a]) for a in range(3)]
+            for a, add in probes:
+                # the slab just past the box's face on axis a, add deep
+                base = torch.where(pos_dir[a], pos[a] + ext[a] + 1,
+                                   pos[a] - ext[a] - add)
+                slab = (torch.clamp(base, 0, lim[a]) * stride[a],
+                        torch.clamp(base + add, 0, lim[a]) * stride[a])
+                (x0, x1), (y0, y1), (z0, z1) = [
+                    slab if b == a else box[b] for b in range(3)]
+                zy = {(zi, yi): z + y for zi, z in ((1, z1), (0, z0))
+                      for yi, y in ((1, y1), (0, y0))}
+
+                def at(zi, yi, x):
+                    return torch.index_select(
+                        ii, 0, (zy[zi, yi] + x).reshape(-1)).reshape(x.shape)
+                count = (at(1, 1, x1) - at(0, 1, x1) - at(1, 0, x1)
+                         - at(1, 1, x0) + at(0, 0, x1) + at(0, 1, x0)
+                         + at(1, 0, x0) - at(0, 0, x0))
+                ext[a] = ext[a] + (count == 0).to(torch.int32) * add
+                box[a] = bounds(a, pos[a], ext[a])
+            for o in range(8):
+                out[o, m, :, c0:c0 + chunk] = torch.stack([e[o] for e in ext])
+    return out.reshape(OCTANT_COLS, n).cpu().numpy()
+
+
+def _octant_box_extents(occ: np.ndarray,
+                        device=DEFAULT_DEVICE) -> np.ndarray:
+    """Per-voxel per-(octant x major-axis) anchored empty-box extents,
+    (72, nz, ny, nx) float32 (vpt_tpu/volume/grid.py:354-473): for free
+    voxel v, octant o = sx + 2 sy + 4 sz (bit set = positive direction)
+    and major axis m, cols [9 o + 3 m : 9 o + 3 m + 3] hold extents
+    (ex, ey, ez) >= 0 such that the box from v to v + sign * e per axis
+    (inclusive, voxels) holds no occupied voxel; occupied voxels get 0.
+    Grown from the chebyshev cube on ``device``; the time is logged."""
+    from scipy import ndimage
+    nz, ny, nx = occ.shape
+    free = ~occ
+    zz, yy, xx = np.nonzero(free)
+    out = np.zeros((OCTANT_COLS, nz, ny, nx), np.float32)
+    if zz.size == 0:
+        return out
+    cheb = ndimage.distance_transform_cdt(free, metric="chessboard")
+    r0 = np.maximum(cheb[zz, yy, xx].astype(np.int32) - 1, 0)
+    ii = np.zeros((nz + 1, ny + 1, nx + 1), np.int32)
+    ii[1:, 1:, 1:] = occ.astype(np.int32).cumsum(0).cumsum(1).cumsum(2)
+    coords = np.ascontiguousarray(np.stack([xx, yy, zz]).astype(np.int32))
+    t0 = time.perf_counter()
+    ext = _grow_octant_sweep(ii.reshape(-1), coords, r0, nx, ny, nz, device)
+    log.info("octant box growth (%d voxels) on %s: %.3f s", zz.size, device,
              time.perf_counter() - t0)
     out[:, zz, yy, xx] = ext.astype(np.float32)
     return out
