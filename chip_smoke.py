@@ -123,6 +123,27 @@ Phases, one JSON line each:
                scene (27 instances of the 12^3 blob), built by the port
                on the card, K1 against the plain loop there too, with its
                golden render's mean beside the golden's;
+  8f. atmosphere — the Bruneton atmosphere on the reference bench's
+               config 4 (vpt_tpu_torch/tools/time_atmosphere.py::run, its
+               parts printed as they end): the LUT precompute on the card
+               at the half dims and at the full LutDims (seconds per
+               stage), the sky bake; the 64^3 puff (float32 rows, no
+               octant boxes: the cuts, on a line of their own) with the
+               camera at (0, 0.5, 9) off its centre, ATMOSPHERE, the sun
+               at 150/30, ray_depth 50, 512x512, tracked and cached, live
+               and baked (256 x 512), 32 timed spp each, and the live
+               atmosphere at 1080p, tracked, 16 spp: ms/spp, iterations
+               per ray, trunc_frac, launches (K4's kind once a sample),
+               finite and not black; K1's env_pos (its DEFER 2 variant)
+               against fused_direct_plain's at 256x256 in both modes and
+               with a sphere whose events move it, bit for bit; K4's
+               ATMOSPHERE and SKY_CACHE kinds on K1's retired rays at
+               512x512 and 1080p against their plain versions (max |diff|
+               <= 2e-6, the bit-for-bit share printed), timed beside
+               them; `vpt-torch render procedural --atmosphere
+               --bake-sky` at 1080p, 16 spp, the LUT cache in a temporary
+               directory, and `vpt-torch earth` at 512x512, K4 held to the
+               plain version on its rays;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -140,7 +161,8 @@ Phases, one JSON line each:
                clock.
 Then the nvidia-smi line, the kernels' JSON line (K1 on both routes, its
 EXT variant at 1080p on the emissive grid with config 2 beside, and its
-CELLS variant on config 5 at 512x512, tracked with cached beside; K2,
+CELLS variant on config 5 at 512x512, tracked with cached beside; K4's
+ATMOSPHERE and SKY_CACHE kinds at 1080p on config 4, 512x512 beside; K2,
 its own launches beside those of K1's in-kernel-ray route, which runs
 its code, and its time at aperture 0.5; K3 at 1080p; K4 at 1080p for the
 sky, with HDRI's numbers beside, its launches those of phases 8b and
@@ -184,7 +206,6 @@ C1_SIZES = ((512, 512), (W, H))
 C1_SPP = 32
 RAGGED = (37, 29)  # K3 at a pixel count that is no multiple of 4
 CLI_SPP = 16
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 # Operations per ray step of K1, counted from the source: a threefry-2x32
 # is 80 integer operations (20 rounds of add, rotate, xor, plus 6 key
 # injections); K1 draws 5 uniforms and one step key per step, plus ~200
@@ -265,13 +286,6 @@ def lens_cameras(cam):
             "origin_minus_0": (dataclasses.replace(cam, origin=o), True)}
 
 
-def bound(n_bytes, n_ops):
-    """(least ms the card could take, what sets it)."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def max_abs(a, b):
     """Max |a - b| over two tuples of tensors."""
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
@@ -341,24 +355,26 @@ def check_lens(where, k2_lens, routes_lens):
 
 def k1_variant(route, defer, ext, cells=False):
     """K1's variant name: the route, "_env" for the deferred environment
-    (HDRI, the sky), "_ext" for emission, color or volume_depth > 1,
-    "_cells" for an instanced scene."""
-    return (route + "_env" * int(defer) + "_ext" * int(ext)
+    (HDRI, the skies), "_envpos" for the live Bruneton atmosphere (env_pos
+    too), "_ext" for emission, color or volume_depth > 1, "_cells" for an
+    instanced scene."""
+    return (route + ("", "_env", "_envpos")[int(defer)] + "_ext" * int(ext)
             + "_cells" * int(cells))
 
 
-# K1's variants: (deferred environment, EXT, CELLS) on either route
-K1_VARIANTS = [(d, e, c) for d in (0, 1) for e, c in ((0, 0), (1, 0), (0, 1))]
+# K1's variants: (deferred environment 0-2, EXT, CELLS) on either route
+K1_VARIANTS = [(d, e, c) for d in (0, 1, 2)
+               for e, c in ((0, 0), (1, 0), (0, 1))]
 
 
 def k1_registers(summary):
     """K1's ptxas lines by variant (its template arguments)."""
     out = {}
     for n, v in summary.items():
-        m = re.search(r"fused_direct_kernelILb([01])ELb([01])ELb([01])E"
+        m = re.search(r"fused_direct_kernelILb([01])ELi([012])ELb([01])E"
                       r"Lb([01])E", n)
         if m:
-            out[k1_variant(ROUTES[int(m.group(1))], m.group(2) == "1",
+            out[k1_variant(ROUTES[int(m.group(1))], int(m.group(2)),
                            m.group(3) == "1", m.group(4) == "1")] = v
     return out
 
@@ -384,7 +400,8 @@ def main():
     from vpt_tpu_torch.render import fused, integrator, renderer
     from vpt_tpu_torch.render.params import Environment, RenderParams
     from vpt_tpu_torch.scene.scene import attach_env_map, build_scene
-    from vpt_tpu_torch.tools.common import (c3_map, device_times, nan_equal,
+    from vpt_tpu_torch.tools.common import (HBM_BYTES_PER_S, bound, c3_map,
+                                            device_times, nan_equal,
                                             profiled_ms, time_ms)
     from vpt_tpu_torch.utils.hdr import load_hdr, write_hdr
     from vpt_tpu_torch.volume.procedural import create_procedural_grid
@@ -427,7 +444,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     kernels = [fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY, renderer.RAYGEN,
                film_mod.FILM_ACCUMULATE, integrator.ENVIRONMENT,
-               fused.FUSED_DIRECT_EXT, fused.FUSED_DIRECT_CELLS]
+               fused.FUSED_DIRECT_EXT, fused.FUSED_DIRECT_CELLS,
+               integrator.ENVIRONMENT_ATMOSPHERE,
+               integrator.ENVIRONMENT_SKY_CACHE]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -450,16 +469,17 @@ def main():
     t_k3 = time.perf_counter() - t0
     k1_ptxas = k1_registers(cuda.ptxas_summary(lib.ptxas_log))
     k1_launch = {k1_variant(route, defer, ext, cells): fused.launch_info(
-        route == "rays_in_kernel", 128, bool(defer), bool(ext), bool(cells))
+        route == "rays_in_kernel", 128, defer, bool(ext), bool(cells))
         for route in ROUTES for defer, ext, cells in K1_VARIANTS}
     emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
          ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
     # the density-only variants as before: 5 blocks per SM, no spills
-    # (ptxas reports only when this run built the library); EXT's and
-    # CELLS's are reported
+    # (ptxas reports only when this run built the library); EXT's,
+    # CELLS's and env_pos's are reported
     for name, info in k1_launch.items():
         v = k1_ptxas.get(name, {})
-        if not name.endswith(("_ext", "_cells")) and (
+        if not name.endswith(("_ext", "_cells")) and "_envpos" not in name \
+                and (
                 info["blocks_per_sm"] != 5
                                    or v.get("spill_stores")
                                    or v.get("spill_loads")):
@@ -1385,6 +1405,33 @@ def main():
     bounds["fused_direct_cells"] = at_c5["bound"]
     del c5, c5_cached, c5_scenes, gl, gl_scenes
 
+    # ---- 8f. the Bruneton atmosphere (config 4) ---------------------------
+    from vpt_tpu_torch.tools import time_atmosphere
+    emit("atmosphere_cuts", config="config4 (bench.py:649-681)",
+         cut={"corner rows": "bfloat16 -> float32 (ROADMAP A.10)",
+              "octant_boxes": "True -> False (ROADMAP A.10)"},
+         kept={"volume": "the 64^3 puff", "luts": time_atmosphere.HALF,
+               "camera_offset": time_atmosphere.CAMERA_OFFSET,
+               "size": [time_atmosphere.SIZE] * 2, "ray_depth": 50,
+               "sun": [AZIMUTH, ELEVATION]})
+    with tempfile.TemporaryDirectory(prefix="vpt_atm_") as atm_tmp:
+        atm_res = time_atmosphere.run(
+            dev, out=lambda ln: print(ln, flush=True), tmp=atm_tmp)
+    emit("atmosphere", **{k: v for k, v in atm_res.items()
+                          if k not in ("runs", "k4", "k1_env_pos")})
+    atm_errs = {}
+    for kind, k_ in (("atmosphere", integrator.ENVIRONMENT_ATMOSPHERE),
+                     ("sky_cache", integrator.ENVIRONMENT_SKY_CACHE)):
+        at = atm_res["k4"][f"{kind}_{W}x{H}"]
+        launches[k_.name] = atm_res["launches"][k_.name]
+        timing[k_.name] = (at["ms"], at["plain_ms"])
+        bounds[k_.name] = at["bound"]
+        atm_errs[k_.name] = max(v["max_abs"] for n_, v
+                                in atm_res["k4"].items()
+                                if n_.startswith(kind))
+        if launches[k_.name] <= 0:
+            raise RuntimeError(f"{k_.name} never launched on config 4")
+
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
         probe_gather, time_probes
@@ -1541,6 +1588,7 @@ def main():
         *k4_256.values(), *k4_1080.values()))
     timing["environment"] = (k4_1080["sky"]["ms"], k4_1080["sky"]["plain_ms"])
     bounds["environment"] = k4_1080["sky"]["bound"]
+    errs.update(atm_errs)
     errs.update(fused_direct_cells=at_c5["max_abs"],
                 fused_direct_ext=at_size["max_abs"],
                 fused_direct=k1_1080["cached"]["max_abs"],
@@ -1672,6 +1720,27 @@ def main():
         hdri_bound_by=k4_1080["hdri"]["bound"][1],
         launches_by_path={n_: r_["launches"][integrator.ENVIRONMENT.name]
                           for n_, r_ in env_runs.items()})
+    for kind, k_ in (("atmosphere", integrator.ENVIRONMENT_ATMOSPHERE),
+                     ("sky_cache", integrator.ENVIRONMENT_SKY_CACHE)):
+        small = atm_res["k4"][f"{kind}_512x512"]
+        by_name[k_.name].update(
+            shape=f"{W}x{H}, config 4's K1-retired rays, tracked"
+                  + (f", a {time_atmosphere.CACHE_H}x"
+                     f"{time_atmosphere.CACHE_W} cache"
+                     if kind == "sky_cache" else ", the half LutDims"),
+            design="one thread a ray, a kind of K4's environment kernel; "
+                   + ("the ground or the sky branch only, the LUTs through "
+                      "the read-only path" if kind == "atmosphere" else
+                      "four taps of the (H, W, 6) cache"),
+            bit_share=atm_res["k4"][f"{kind}_{W}x{H}"]["bit_share"],
+            tolerance="max |diff| <= 2e-6 (the tonemapped output lies in "
+                      "[0, 1])",
+            at_512=dict(ms=small["ms"], plain_ms=small["plain_ms"],
+                        bound_ms=small["bound"][0],
+                        bound_by=small["bound"][1],
+                        bit_share=small["bit_share"]))
+    by_name[integrator.ENVIRONMENT_ATMOSPHERE.name]["ground_share"] = \
+        atm_res["k4"][f"atmosphere_{W}x{H}"]["ground_share"]
     for name, shape in shapes.items():
         by_name[name]["shape"] = shape
     print(smi, flush=True)

@@ -167,10 +167,11 @@ BLACK = ["--env-type", "black"]
     ["render", "dragon.vdb", *BLACK], ["render", "cloud.ins", *BLACK],
     ["render", "sky.hdr", "--engine", "reference"],
     ["render", "procedural", "sky.hdr", "--sharded"],
-    ["render", "procedural", "--atmosphere"],  # the Bruneton sky
+    # the Bruneton atmosphere is ported: with an option that is not
+    ["render", "procedural", "--atmosphere", "--sharded"],
     ["render", "procedural", "--denoise", "nn"],
     ["render", "procedural", "--aov", "occupancy"],
-    ["render", "procedural", *BLACK, "--atmosphere"],
+    ["render", "procedural", "--atmosphere", "-o", "x.jpg"],
     ["render", "procedural", *BLACK, "--engine", "reference"],
     ["render", "procedural", *BLACK, "--engine", "march"],
     ["render", "procedural", *BLACK, "--integrator", "volumetric"],
@@ -182,7 +183,7 @@ BLACK = ["--env-type", "black"]
     ["render", "sky.hdr", "--integrator", "volumetric"],
     ["render", "procedural", *BLACK, "--aov", "bvh"],
     ["render", "procedural", *BLACK, "-o", "x.jpg"],
-    ["earth"], ["view", "procedural"]])
+    ["earth", "-o", "x.jpg"], ["view", "procedural"]])
 def test_out_of_slice_exits(argv):
     """Each option outside the slice exits with a message before any
     work, naming what is not ported; nothing renders in its place."""

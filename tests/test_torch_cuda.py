@@ -25,7 +25,7 @@ from vpt_tpu_torch.lights.lights import PointLights
 from vpt_tpu_torch.ops import probe
 from vpt_tpu_torch.render import film as tfilm
 from vpt_tpu_torch.render import fused, renderer
-from vpt_tpu_torch.render.integrator import _EnvParams
+from vpt_tpu_torch.render.integrator import _AtmParams, _EnvParams
 from vpt_tpu_torch.render.params import RenderParams
 from vpt_tpu_torch.scene.assets import ramp_lut
 from vpt_tpu_torch.scene.scene import build_scene
@@ -825,7 +825,138 @@ def _c_fields(source, struct):
     ("probe_launch.cuh", "ProbeLaunch", probe._ProbeLaunch),
     ("gather_rows.cu", "GatherLaunch", probe._GatherLaunch),
     ("film_accumulate.cu", "FilmArgs", tfilm._FilmArgs),
-    ("environment.cu", "EnvParams", _EnvParams)])
+    ("environment.cu", "EnvParams", _EnvParams),
+    ("environment.cu", "AtmParams", _AtmParams)])
 def test_ctypes_mirrors_match_c_structs(source, struct, mirror):
     """The ctypes launch structs list the C structs' fields in order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]
+
+
+GOLDEN_LUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "golden", "tiny_luts.npz")
+TINY_DIMS = dict(transmittance_w=64, transmittance_h=16, r=4, mu=32, mu_s=8,
+                 nu=4, irradiance_w=16, irradiance_h=4)
+
+
+def _atmosphere_scene(device, sphere=False):
+    """The 16^3 blob scene with the golden tiny LUTs attached, and a
+    sphere below its centre where asked."""
+    from vpt_tpu_torch.scene.geometry import Sphere
+    from vpt_tpu_torch.scene.scene import attach_atmosphere
+    from vpt_tpu_torch.sky.bruneton import LutDims
+    s = _blob_scene(device)
+    if sphere:
+        c = ((s.root_pmin + s.root_pmax) / 2).cpu().numpy()
+        s = dataclasses.replace(s, sphere=Sphere.make(
+            center=(c + np.array([0.0, -1.0, 0.5])).tolist(), radius=1.0,
+            color=(0.8, 0.8, 0.8), roughness=0.3, device=device))
+    return attach_atmosphere(s, cache_path=GOLDEN_LUTS,
+                             dims=LutDims(**TINY_DIMS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["atmosphere", "sky_cache"])
+def test_k4_atmosphere_kinds_match_plain(cuda_device, kind):
+    """K4's ATMOSPHERE and SKY_CACHE kinds on K1's retired rays against
+    L + environment_radiance(pos, dir) * beta on the card: within 2e-6
+    (the tonemapped output lies in [0, 1]); bit for bit measured."""
+    from vpt_tpu_torch.render import integrator
+    from vpt_tpu_torch.scene.scene import attach_sky_cache
+    s = _atmosphere_scene(cuda_device)
+    if kind == "sky_cache":
+        s = attach_sky_cache(s, 150.0, 30.0, 32, 64)
+    p = RenderParams(width=48, height=40, shadow_mode="tracked",
+                     environment_type=0, ray_depth=8, sky_mult=0.7)
+    key = rng.render_key(0, 5)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    launch = fused.prepare_fused(s, p)
+    views = fused._launch_k1(launch, renderer.tile_key(key), o, d)
+    pos = views[7] if kind == "atmosphere" else None
+    assert (len(views) == 8) == (kind == "atmosphere")
+    want = views[0] + integrator.environment_radiance(
+        s, p, views[6] if pos is None else pos, views[6]) * views[5]
+    got = integrator.add_environment(s, p, views[0].clone(), views[5],
+                                     views[6], pos, launch=launch.env)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+def test_k1_env_pos_matches_plain(cuda_device, mode):
+    """K1's DEFER 2 variant writes the plain loop's env_pos bit for bit
+    on every ray whose outputs are the plain loop's; a sphere's events
+    move it off the origin."""
+    s = _atmosphere_scene(cuda_device, sphere=True)
+    p = RenderParams(width=48, height=40, shadow_mode=mode,
+                     environment_type=0, ray_depth=8)
+    key = rng.render_key(0, 6)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    tkey = renderer.tile_key(key)
+    launch = fused.prepare_fused(s, p)
+    assert launch.params.defer_env == 2
+    views = fused._launch_k1(launch, tkey, o, d)
+    plain = fused.fused_direct_plain(s, p, tkey, o, d, deferred=True)
+    torch.cuda.synchronize()
+    same = torch.ones(o.shape[0], dtype=torch.bool, device=cuda_device)
+    for a, b in zip(views[:7], plain[:7]):
+        eq = a.contiguous().view(torch.int32) == b.contiguous().view(
+            torch.int32)
+        same &= eq.all(-1) if eq.dim() == 2 else eq
+    env = (views[7].view(torch.int32) == plain[7].view(torch.int32)).all(-1)
+    assert float(same.double().mean()) >= 0.99
+    assert bool(env[same].all())
+    assert bool((plain[7] != o).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_kernel", [False, True])
+def test_k1_env_pos_queued_cut_matches_plain(cuda_device, in_kernel):
+    """K1's DEFER 2 at queue 16 with the walk cut short (16 steps in a 32
+    times denser blob), on the buffer route and the in-kernel-ray route:
+    every output, beta, direction and env_pos of the plain loop's on
+    every ray whose outputs agree, and some slots cut, their env_pos the
+    primary origin."""
+    s = _atmosphere_scene(cuda_device, sphere=True)
+    p = RenderParams(width=48, height=40, shadow_mode="cached",
+                     environment_type=0, ray_depth=8, max_fused_steps=1,
+                     density_mult=32.0)
+    key = rng.render_key(0, 7)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    tkey = renderer.tile_key(key)
+    launch = fused.prepare_fused(s, p)
+    assert launch.params.defer_env == 2
+    if in_kernel:
+        raygen = renderer._raygen_for_sample(
+            renderer.prepare_raygen(s.camera, p), key)
+        views = fused._launch_k1_primary(launch, tkey, raygen, 16)
+    else:
+        views = fused._launch_k1(launch, tkey, o, d, p.width, 16)
+    plain = fused.fused_direct_plain(s, p, tkey, o, d, 16, deferred=True)
+    torch.cuda.synchronize()
+    same = torch.ones(o.shape[0], dtype=torch.bool, device=cuda_device)
+    for a, b in zip(views[:7], plain[:7]):
+        eq = a.contiguous().view(torch.int32) == b.contiguous().view(
+            torch.int32)
+        same &= eq.all(-1) if eq.dim() == 2 else eq
+    env = (views[7].view(torch.int32) == plain[7].view(torch.int32)).all(-1)
+    cut = plain[3] == 1.0
+    assert float(same.double().mean()) >= 0.99
+    assert bool(env[same].all())
+    assert bool(cut.any()) and bool((plain[7][cut] == o[cut]).all())
+
+
+@pytest.mark.cuda
+def test_earth_on_the_card_matches_plain(cuda_device):
+    from vpt_tpu_torch.render import integrator
+    from vpt_tpu_torch.sky import runtime as rt
+    from vpt_tpu_torch.sky.bruneton import LutDims
+    atm = rt.make_atmosphere(LutDims(**TINY_DIMS), cache_path=GOLDEN_LUTS,
+                             device=cuda_device)
+    before = integrator.ENVIRONMENT_ATMOSPHERE.launches
+    img = rt.render_earth(atm, 64, 48)
+    assert integrator.ENVIRONMENT_ATMOSPHERE.launches == before + 1
+    pos, dirs = rt.earth_rays(atm.params, 64, 48)
+    want = rt.sample_atmosphere(atm, pos, dirs, 150.0, 30.0, atm.dims)
+    assert float((img.reshape(-1, 3) - want).abs().max()) <= 2e-6

@@ -163,9 +163,12 @@ def test_environment_radiance_matches_reference(env, sky_reference):
 
 
 def test_bruneton_atmosphere_raises():
+    """An attached atmosphere that is not sky/runtime.py's Atmosphere is
+    refused (the Bruneton atmosphere itself: tests/test_torch_
+    atmosphere.py)."""
     ts = types.SimpleNamespace(env_map=None, atmosphere=object())
     d = torch.tensor([[0.0, 1.0, 0.0]])
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(TypeError, match="Atmosphere"):
         t_integrator.environment_radiance(ts, TParams(), d, d)
 
 

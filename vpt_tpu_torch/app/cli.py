@@ -12,14 +12,16 @@ volumes variant exits, as ``.vdb`` scenes do, until the .vdb reader is
 ported), an optional
 ``.hdr`` environment map (the positional ``env``), the fused engine with
 the direct integrator at volume depth 1, every environment type (the
-default is the simple sky, or HDRI when a map is given), tracked or
-cached shadows, checkpoint and resume (the
-reference's npz keys, so a checkpoint moves between the two), PNG and
-EXR output and the alpha/cost/depth AOVs.  Everything runs on the card
-(``cuda:0``) through kernels K1-K4 unless ``--cpu`` asks for the CPU.
-Every other option, and the ``earth`` and ``view`` subcommands, exit
-with a message naming the ROADMAP item that ports it; nothing renders
-something else in its place.
+default is the simple sky, or HDRI when a map is given; ``--atmosphere``
+puts the Bruneton atmosphere in the simple sky's place, baked into a sky
+cache unless ``--no-bake-sky``), tracked or cached shadows, checkpoint
+and resume (the reference's npz keys, so a checkpoint moves between the
+two), PNG and EXR output and the alpha/cost/depth AOVs.  ``earth``
+renders the planet from orbit.  Everything runs on the card (``cuda:0``)
+through kernels K1-K4 unless ``--cpu`` asks for the CPU.  Every other
+option, and the ``view`` subcommand, exit with a message naming the
+ROADMAP item that ports it; nothing renders something else in its
+place.
 """
 
 from __future__ import annotations
@@ -107,7 +109,8 @@ def build_parser():
                    default="none", help="save an extra AOV image (the port "
                    "writes alpha, cost and depth)")
     r.add_argument("--atmosphere", action="store_true",
-                   help="the Bruneton atmosphere (not ported)")
+                   help="precompute/attach the full Bruneton atmosphere "
+                   "(otherwise env-type=atmosphere uses the simple sky)")
     r.add_argument("--luminance", choices=["none", "approximate",
                                            "precomputed"], default="none",
                    help="Bruneton luminance mode (with --atmosphere)")
@@ -120,8 +123,8 @@ def build_parser():
                    help="bake the atmosphere to an equirect cache (with "
                         "--atmosphere)")
 
-    e = sub.add_parser("earth", help="planetary render from orbit (not "
-                       "ported)")
+    e = sub.add_parser("earth", help="planetary render from orbit (the "
+                       "reference's render_earth)")
     e.add_argument("-o", "--output", default="render/earth.png")
     e.add_argument("--width", type=int, default=512)
     e.add_argument("--height", type=int, default=512)
@@ -181,7 +184,6 @@ def _check_render_slice(args) -> str:
     env = args.env_type or ("hdri" if (args.env or scene.endswith(".hdr"))
                             else "atmosphere")
     for flag, on, item in (
-            ("--atmosphere", args.atmosphere, "ROADMAP A.7, atmosphere"),
             (f"--engine {args.engine}", args.engine != "fused",
              "ROADMAP A.8, the other engines and integrators"),
             ("--integrator volumetric", args.integrator != "direct",
@@ -241,9 +243,41 @@ def _load_scene(args, lights, device):
     return scene
 
 
+def _attach_atmosphere(scene, args, stats):
+    """``--atmosphere``: the Bruneton atmosphere at full LutDims from the
+    npz cache (precomputed on the scene's device and saved there when the
+    file is absent), and its sky cache with ``--bake-sky``, logging as
+    vpt_tpu/app/cli.py:401-417 does."""
+    from vpt_tpu_torch.scene.scene import attach_atmosphere, attach_sky_cache
+    from vpt_tpu_torch.sky.runtime import make_atmosphere
+    os.makedirs(os.path.dirname(args.atmosphere_cache) or ".", exist_ok=True)
+    sync = torch.cuda.synchronize if scene.device.type == "cuda" else None
+    t1 = time.time()
+    atm = make_atmosphere(cache_path=args.atmosphere_cache,
+                          luminance_mode=args.luminance,
+                          do_white_balance=args.white_balance,
+                          device=scene.device)
+    scene = attach_atmosphere(scene, atmosphere=atm)
+    if sync:
+        sync(scene.device)
+    stats["atmosphere_s"] = time.time() - t1
+    log(f"atmosphere LUTs ready in {stats['atmosphere_s']:.1f}s "
+        f"(luminance={args.luminance})")
+    if args.bake_sky:
+        t1 = time.time()
+        scene = attach_sky_cache(scene, azimuth=args.azimuth,
+                                 elevation=args.elevation)
+        if sync:
+            sync(scene.device)
+        stats["sky_bake_s"] = time.time() - t1
+        log("sky cache baked")
+    return scene
+
+
 def cmd_render(args, stats=None):
     """``vpt-torch render``; fills ``stats`` (a dict, when given) with
-    the scene, bake and render seconds and Mrays/s."""
+    the scene, bake and render seconds and Mrays/s (and the atmosphere's
+    and the sky bake's seconds with ``--atmosphere``)."""
     from vpt_tpu_torch.core.camera import Camera
     from vpt_tpu_torch.lights.lights import PointLights
     from vpt_tpu_torch.render import film as film_mod
@@ -279,6 +313,8 @@ def cmd_render(args, stats=None):
     env_type = dict(atmosphere=Environment.ATMOSPHERE, hdri=Environment.HDRI,
                     black=Environment.BLACK,
                     constant=Environment.CONSTANT)[env_name]
+    if args.atmosphere and env_name == "atmosphere":
+        scene = _attach_atmosphere(scene, args, stats)
     params = RenderParams(
         width=args.width, height=args.height, ray_depth=args.ray_depth,
         volume_depth=args.volume_depth,
@@ -344,13 +380,44 @@ def cmd_render(args, stats=None):
     return stats
 
 
+def cmd_earth(args, stats=None):
+    """``vpt-torch earth`` (vpt_tpu/app/cli.py:525-547): the planet from
+    orbit through K4's ATMOSPHERE kind (sky/runtime.py::render_earth),
+    written as an 8-bit PNG; ``stats`` gets the LUTs' and the render's
+    seconds."""
+    from vpt_tpu_torch.sky.runtime import make_atmosphere, render_earth
+    from vpt_tpu_torch.utils.io import UNPORTED_FORMATS, write_png
+    ext = os.path.splitext(args.output)[1].lower()
+    if ext in UNPORTED_FORMATS:
+        raise SystemExit(f"vpt-torch: {ext} output is not ported for earth "
+                         "(PNG is)")
+    stats = {} if stats is None else stats
+    device = torch.device("cpu") if args.cpu else torch.device("cuda", 0)
+    os.makedirs(os.path.dirname(args.atmosphere_cache) or ".",
+                exist_ok=True)
+    t0 = time.time()
+    atm = make_atmosphere(cache_path=args.atmosphere_cache, device=device)
+    stats["atmosphere_s"] = time.time() - t0
+    log(f"atmosphere LUTs ready in {stats['atmosphere_s']:.1f}s")
+    t0 = time.time()
+    img = render_earth(atm, args.width, args.height, azimuth=args.azimuth,
+                       elevation=args.elevation,
+                       altitude_factor=args.altitude).cpu().numpy()
+    stats["render_s"] = time.time() - t0
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    write_png(args.output,
+              (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8))
+    log(f"wrote {args.output}")
+    return stats
+
+
 def main(argv=None, stats=None):
     """Entry point of ``vpt-torch``; ``stats`` as in cmd_render."""
     args = build_parser().parse_args(argv)
     if args.cmd == "render":
         cmd_render(args, stats)
     elif args.cmd == "earth":
-        _not_ported("vpt earth", "ROADMAP A.7, atmosphere")
+        cmd_earth(args, stats)
     elif args.cmd == "view":
         _not_ported("vpt view", "ROADMAP A.12, app")
 

@@ -9,9 +9,19 @@
 //   isotropic();
 // - ATMOSPHERE without an attached atmosphere: sky/procedural.py::
 //   sample_sky, the 16 x 8 single-scattering march, times sky_color and
-//   sky_mult.
+//   sky_mult;
+// - ATMOSPHERE with a Bruneton atmosphere (vpt_tpu/sky/runtime.py:161
+//   sample_atmosphere, through nee.py:41-44 and runtime.py:257): from
+//   the ray's retired position, the ground hit, then the ground (the sun
+//   and sky irradiance and the aerial perspective to the hit point) or
+//   the sky (the transmittance and the 4-D scattering lookups), the sun
+//   disc and the exposure curve, times sky_color and sky_mult;
+// - the same with a baked sky cache (runtime.py:203 sample_sky_cache):
+//   one bilinear fetch of the (H, W, 6) equirect texture, x wrapping and
+//   y clamped, then the sun disc and the curve.
 // Its plain PyTorch version is vpt_tpu_torch/render/integrator.py::
-// environment_radiance (add_environment on a CPU tensor), whose
+// environment_radiance (add_environment on a CPU tensor; for the
+// atmosphere vpt_tpu_torch/sky/runtime.py), whose
 // arithmetic this kernel repeats operation for operation: the same
 // float32 constants (from the wrapper), the same order of every sum and
 // product, true divisions (by HR and HM as div_known2, which is IEEE
@@ -44,6 +54,17 @@
 // plain version's, which keeps every bit; their slow paths are out of
 // line.  128 threads a block instead of 256 measured the same (0.8375
 // against 0.836 ms) and was dropped.
+//
+// The atmosphere kinds: one thread a ray, the LUTs (float32, (..., 3)
+// texels) read through the read-only path.  Unlike the plain version,
+// which evaluates the ground and the sky for every ray and picks one, a
+// ray evaluates only its branch: the sky costs one 2-D and two 4-D
+// lookups (16 texels each from the two scattering textures), the ground
+// two 2-D, two transmittance quotients and four 4-D lookups.  Their
+// float32 constants come from the wrapper (render/integrator.py::
+// atmosphere_params), each the value of the plain version's own torch
+// expression.  What bounds it: the dependent texel loads of the 4-D
+// lookups, and the accurate powf/expf/acosf/atan2f.
 
 #include "vpt_common.cuh"
 
@@ -59,9 +80,29 @@ struct EnvParams {
     float beta_r[3], beta_m[3], beta_m11[3];
 };
 
+// Mirror of vpt_tpu_torch/render/integrator.py::_AtmParams: the
+// atmosphere kinds' LUTs (transmittance (th, tw, 3), scattering and
+// single Mie (r, mu, nu * mu_s, 3), irradiance (ih, iw, 3)), the baked
+// cache (cache_h, cache_w, 6), and the model's float32 constants.
+struct AtmParams {
+    const float *trans, *scat, *mie, *irr, *cache;
+    int tw, th, r, mu, mu_s, nu, iw, ih, cache_h, cache_w;
+    float bottom, top, bottom2, top2, H, HH, d_s_min, H_m_dsmin, A, t_m_b,
+        sar_c, cos_sar, ray_c, mie_k, one_plus_g2, two_g, exposure, nu_m1,
+        nu_f;
+    float uv0[7], uv1[7];  // _uv_from_unit's 0.5 / size and 1 - 1 / size
+    float center[3], sun[3], solar_irr[3], solar_rad[3], albedo_pi[3],
+        sky_k[3], sun_k[3], wp[3];
+};
+
 namespace {
 
-constexpr int ENV_SKY = 0, ENV_HDRI = 1;
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr int ENV_SKY = 0, ENV_HDRI = 1, ENV_ATMOSPHERE = 2,
+              ENV_SKY_CACHE = 3;
+// AtmParams::uv0 / uv1 slots: one per texture axis
+constexpr int UV_TW = 0, UV_TH = 1, UV_R = 2, UV_MU = 3, UV_MUS = 4,
+              UV_IW = 5, UV_IH = 6;
 constexpr int N_SAMPLES = 16, N_SAMPLES_LIGHT = 8;
 constexpr int THREADS = 256;
 
@@ -175,20 +216,364 @@ __device__ V3 sample_env_map(const EnvParams& p,
     return (v00 * gx + v01 * fx) * gy + (v10 * gx + v11 * fx) * fy;
 }
 
+// ------------------------------------------------ the Bruneton model --
+// vpt_tpu_torch/sky/bruneton.py and runtime.py, operation for operation.
+
+__device__ __forceinline__ V3 ldg3(const float* p) {
+    return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+}
+
+__device__ __forceinline__ float uv_from_unit(const AtmParams& a, float x,
+                                              int slot) {
+    return a.uv0[slot] + x * a.uv1[slot];
+}
+
+__device__ __forceinline__ float safe_sqrt(float x) {
+    return sqrtf(jmax(x, 0.0f));
+}
+
+// bruneton.dist_to_top
+__device__ __forceinline__ float dist_to_top(const AtmParams& a, float r,
+                                             float mu) {
+    const float disc = r * r * (mu * mu - 1.0f) + a.top2;
+    return jmax(-r * mu + safe_sqrt(disc), 0.0f);
+}
+
+__device__ __forceinline__ bool ray_hits_ground(const AtmParams& a, float r,
+                                                float mu) {
+    return (mu < 0.0f) && (r * r * (mu * mu - 1.0f) + a.bottom2 >= 0.0f);
+}
+
+__device__ __forceinline__ float clamp_radius(const AtmParams& a, float r) {
+    return jmin(jmax(r, a.bottom), a.top);
+}
+
+// bruneton.tex2d on an (H, W, 3) texture
+__device__ V3 tex2d(const float* __restrict__ tex, int H, int W, float u,
+                    float v) {
+    const float x = jclamp(u * (float)W - 0.5f, 0.0f, (float)W - 1.0f);
+    const float y = jclamp(v * (float)H - 0.5f, 0.0f, (float)H - 1.0f);
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+    const float fx = x - x0f, fy = y - y0f;
+    const float gx = 1.0f - fx, gy = 1.0f - fy;
+    const V3 c00 = ldg3(tex + 3 * (y0 * W + x0));
+    const V3 c01 = ldg3(tex + 3 * (y0 * W + x1));
+    const V3 c10 = ldg3(tex + 3 * (y1 * W + x0));
+    const V3 c11 = ldg3(tex + 3 * (y1 * W + x1));
+    return (c00 * gx + c01 * fx) * gy + (c10 * gx + c11 * fx) * fy;
+}
+
+// bruneton.tex3d of two (D, H, W, 3) textures at the same coordinates
+__device__ void tex3d2(const float* __restrict__ ta,
+                       const float* __restrict__ tb, int D, int H, int W,
+                       float u, float v, float w, V3& ra, V3& rb) {
+    const float x = jclamp(u * (float)W - 0.5f, 0.0f, (float)W - 1.0f);
+    const float y = jclamp(v * (float)H - 0.5f, 0.0f, (float)H - 1.0f);
+    const float z = jclamp(w * (float)D - 0.5f, 0.0f, (float)D - 1.0f);
+    const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
+    const int x0 = (int)x0f, y0 = (int)y0f, z0 = (int)z0f;
+    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1),
+              z1 = min(z0 + 1, D - 1);
+    const float fx = x - x0f, fy = y - y0f, fz = z - z0f;
+    const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
+    const int r00 = (z0 * H + y0) * W, r01 = (z0 * H + y1) * W;
+    const int r10 = (z1 * H + y0) * W, r11 = (z1 * H + y1) * W;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+        const float* tex = t == 0 ? ta : tb;
+        const V3 c00 = ldg3(tex + 3 * (r00 + x0)) * gx +
+                       ldg3(tex + 3 * (r00 + x1)) * fx;
+        const V3 c01 = ldg3(tex + 3 * (r01 + x0)) * gx +
+                       ldg3(tex + 3 * (r01 + x1)) * fx;
+        const V3 c10 = ldg3(tex + 3 * (r10 + x0)) * gx +
+                       ldg3(tex + 3 * (r10 + x1)) * fx;
+        const V3 c11 = ldg3(tex + 3 * (r11 + x0)) * gx +
+                       ldg3(tex + 3 * (r11 + x1)) * fx;
+        const V3 c0 = c00 * gy + c01 * fy;
+        const V3 c1 = c10 * gy + c11 * fy;
+        const V3 out = c0 * gz + c1 * fz;
+        if (t == 0) ra = out; else rb = out;
+    }
+}
+
+// bruneton.transmittance_to_top
+__device__ V3 trans_to_top(const AtmParams& a, float r, float mu) {
+    const float rho = safe_sqrt(r * r - a.bottom2);
+    const float d = dist_to_top(a, r, mu);
+    const float d_min = a.top - r;
+    const float d_max = rho + a.H;
+    const float x_mu = d_max == d_min ? 0.0f : (d - d_min) / (d_max - d_min);
+    const float x_r = rho / a.H;
+    return tex2d(a.trans, a.th, a.tw, uv_from_unit(a, x_mu, UV_TW),
+                 uv_from_unit(a, x_r, UV_TH));
+}
+
+// bruneton.transmittance_between on the branch of hits_ground only
+__device__ V3 trans_between(const AtmParams& a, float r, float mu, float d,
+                            bool hits_ground) {
+    const float r_d = clamp_radius(a, safe_sqrt(d * d + 2.0f * r * mu * d
+                                                + r * r));
+    const float mu_d = jclamp((r * mu + d) / r_d, -1.0f, 1.0f);
+    V3 num, den;
+    if (hits_ground) {
+        num = trans_to_top(a, r_d, -mu_d);
+        den = trans_to_top(a, r, -mu);
+    } else {
+        num = trans_to_top(a, r, mu);
+        den = trans_to_top(a, r_d, mu_d);
+    }
+    return v3(jmin(num.x / jmax(den.x, 1e-20f), 1.0f),
+              jmin(num.y / jmax(den.y, 1e-20f), 1.0f),
+              jmin(num.z / jmax(den.z, 1e-20f), 1.0f));
+}
+
+// bruneton.transmittance_to_sun
+__device__ V3 trans_to_sun(const AtmParams& a, float r, float mu_s) {
+    const float sin_h = a.bottom / r;
+    const float cos_h = -safe_sqrt(jmax(1.0f - sin_h * sin_h, 0.0f));
+    float vis = jclamp((mu_s - cos_h) / a.sar_c * 0.5f + 0.5f, 0.0f, 1.0f);
+    vis = vis * vis * (3.0f - 2.0f * vis);
+    return trans_to_top(a, r, mu_s) * vis;
+}
+
+__device__ __forceinline__ float rayleigh_phase(const AtmParams& a,
+                                                float nu) {
+    return a.ray_c * (1.0f + nu * nu);
+}
+
+__device__ __forceinline__ float mie_phase(const AtmParams& a, float nu) {
+    return a.mie_k * (1.0f + nu * nu) /
+           powf(jmax(a.one_plus_g2 - a.two_g * nu, 1e-12f), 1.5f);
+}
+
+// bruneton._combined_scattering: sample_scattering of the scattering and
+// the single-Mie textures (their coordinates computed once)
+__device__ void combined_scattering(const AtmParams& a, float r, float mu,
+                                    float mu_s, float nu, bool hits_ground,
+                                    V3& scat, V3& mie) {
+    // _scattering_uvwz_from_rmumusnu
+    const float rho = safe_sqrt(jmax(r * r - a.bottom2, 0.0f));
+    const float u_r = uv_from_unit(a, rho / a.H, UV_R);
+    const float r_mu = r * mu;
+    const float disc = r_mu * r_mu - r * r + a.bottom2;
+    float u_mu;
+    if (hits_ground) {
+        const float d_g = -r_mu - safe_sqrt(disc);
+        const float d_g_min = r - a.bottom;
+        const float d_g_max = rho;
+        const float x = d_g_max == d_g_min
+                            ? 0.0f
+                            : (d_g - d_g_min) / jmax(d_g_max - d_g_min,
+                                                     1e-20f);
+        u_mu = 0.5f - 0.5f * uv_from_unit(a, x, UV_MU);
+    } else {
+        const float d_t = -r_mu + safe_sqrt(disc + a.HH);
+        const float d_t_min = a.top - r;
+        const float d_t_max = rho + a.H;
+        u_mu = 0.5f + 0.5f * uv_from_unit(
+                                 a, (d_t - d_t_min) / jmax(d_t_max - d_t_min,
+                                                           1e-20f),
+                                 UV_MU);
+    }
+    const float d_s = dist_to_top(a, a.bottom, mu_s);
+    const float aa = (d_s - a.d_s_min) / a.H_m_dsmin;
+    const float u_mu_s =
+        uv_from_unit(a, jmax(1.0f - aa / a.A, 0.0f) / (1.0f + aa), UV_MUS);
+    const float u_nu = (nu + 1.0f) / 2.0f;
+    // sample_scattering: two trilinear taps lerped over nu
+    const float tex_x = u_nu * a.nu_m1;
+    const float tex_x0 = floorf(tex_x);
+    const float lerp = tex_x - tex_x0;
+    const float u0 = (tex_x0 + u_mu_s) / a.nu_f;
+    const float u1 = (tex_x0 + 1.0f + u_mu_s) / a.nu_f;
+    const int W = a.nu * a.mu_s;
+    V3 s0, m0, s1, m1;
+    tex3d2(a.scat, a.mie, a.r, a.mu, W, u0, u_mu, u_r, s0, m0);
+    tex3d2(a.scat, a.mie, a.r, a.mu, W, u1, u_mu, u_r, s1, m1);
+    const float g = 1.0f - lerp;
+    scat = s0 * g + s1 * lerp;
+    mie = m0 * g + m1 * lerp;
+}
+
+// bruneton._enter_atmosphere
+__device__ __forceinline__ void enter_atmosphere(const AtmParams& a,
+                                                 V3& camera, V3 view,
+                                                 float& r, float& rmu,
+                                                 float& d_top,
+                                                 bool& in_space) {
+    r = norm3(camera);
+    rmu = dot(camera, view);
+    d_top = -rmu - safe_sqrt(rmu * rmu - r * r + a.top2);
+    in_space = (r > a.top) && (d_top > 0.0f);
+    if (in_space) {
+        camera = camera + view * d_top;
+        r = a.top;
+        rmu = rmu + d_top;
+    }
+}
+
+// bruneton.get_sky_radiance (times sky_k): radiance and trans
+__device__ void sky_radiance(const AtmParams& a, V3 camera, V3 view,
+                             V3 sun, V3& radiance, V3& trans) {
+    float r, rmu, d_top;
+    bool in_space;
+    enter_atmosphere(a, camera, view, r, rmu, d_top, in_space);
+    const bool outside = r > a.top;
+    const float mu = rmu / jmax(r, 1e-6f);
+    const float mu_s = dot(camera, sun) / jmax(r, 1e-6f);
+    const float nu = dot(view, sun);
+    const bool hits_ground = ray_hits_ground(a, r, mu);
+    const V3 zero = v3(0.0f, 0.0f, 0.0f);
+    trans = hits_ground ? zero
+                        : (outside ? v3(1.0f, 1.0f, 1.0f)
+                                   : trans_to_top(a, r, mu));
+    if (outside) {
+        radiance = zero * v3(a.sky_k);
+        return;
+    }
+    V3 scat, mie;
+    combined_scattering(a, r, mu, mu_s, nu, hits_ground, scat, mie);
+    radiance = (scat * rayleigh_phase(a, nu) + mie * mie_phase(a, nu)) *
+               v3(a.sky_k);
+}
+
+// the ground branch of runtime._sample_atmosphere_pre: the ground's
+// radiance at its hit point gp, seen through the aerial perspective
+__device__ V3 ground_radiance(const AtmParams& a, V3 camera, V3 gp,
+                             V3 sun) {
+    const V3 normal = normalize(gp);
+    // get_sun_and_sky_irradiance
+    const float rg = norm3(gp);
+    const float mu_sg = dot(gp, sun) / jmax(rg, 1e-6f);
+    const float x_r = (rg - a.bottom) / a.t_m_b;
+    const float x_mu_s = mu_sg * 0.5f + 0.5f;
+    const V3 sky_irr =
+        tex2d(a.irr, a.ih, a.iw, uv_from_unit(a, x_mu_s, UV_IW),
+              uv_from_unit(a, x_r, UV_IH)) *
+        (1.0f + dot(gp, normal) / jmax(rg, 1e-6f)) * 0.5f;
+    const V3 sun_irr = v3(a.solar_irr) * trans_to_sun(a, rg, mu_sg) *
+                       jmax(dot(normal, sun), 0.0f);
+    V3 ground = v3(a.albedo_pi) * (sun_irr * v3(a.sun_k) +
+                                   sky_irr * v3(a.sky_k));
+    // get_sky_radiance_to_point
+    V3 view = gp - camera;
+    float d = norm3(view);
+    view = view / jmax(d, 1e-9f);
+    float r, rmu, d_top;
+    bool in_space;
+    enter_atmosphere(a, camera, view, r, rmu, d_top, in_space);
+    if (in_space) d = d - d_top;
+    const float mu = rmu / jmax(r, 1e-6f);
+    const float mu_s = dot(camera, sun) / jmax(r, 1e-6f);
+    const float nu = dot(view, sun);
+    const bool hg = ray_hits_ground(a, r, mu);
+    const V3 trans = trans_between(a, r, mu, d, hg);
+    V3 scat, mie, scat_p, mie_p;
+    combined_scattering(a, r, mu, mu_s, nu, hg, scat, mie);
+    const float r_p = clamp_radius(a, safe_sqrt(d * d + 2.0f * r * mu * d
+                                                + r * r));
+    const float mu_p = (r * mu + d) / r_p;
+    const float mu_s_p = (r * mu_s + d * nu) / r_p;
+    combined_scattering(a, r_p, mu_p, mu_s_p, nu, hg, scat_p, mie_p);
+    scat = scat - trans * scat_p;
+    mie = mie - trans * mie_p;
+    const V3 in_scatter =
+        v3(jmax(scat.x, 0.0f), jmax(scat.y, 0.0f), jmax(scat.z, 0.0f)) *
+            rayleigh_phase(a, nu) +
+        v3(jmax(mie.x, 0.0f), jmax(mie.y, 0.0f), jmax(mie.z, 0.0f)) *
+            mie_phase(a, nu);
+    return ground * trans + in_scatter * v3(a.sky_k);
+}
+
+// runtime._compose_sun_disc: the sun disc and the exposure curve
+__device__ V3 compose_sun_disc(const AtmParams& a, V3 pre, V3 trans,
+                               V3 view) {
+    const V3 sun = v3(a.sun);
+    const bool disc = dot(view, sun) > a.cos_sar;
+    const V3 sd = (trans * v3(a.solar_rad)) * v3(a.sun_k);
+    const V3 out = pre + (disc ? sd : v3(0.0f, 0.0f, 0.0f));
+    V3 res;
+    const float* o = &out.x;
+    float* q = &res.x;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+        q[c] = powf(jmax(1.0f - expf(-o[c] / a.wp[c] * a.exposure), 0.0f),
+                    (float)(1.0 / 2.2));
+    return res;
+}
+
+// runtime.sample_atmosphere: the branch the ray takes only
+__device__ V3 sample_atmosphere(const AtmParams& a, V3 pos, V3 dir) {
+    const V3 sun = v3(a.sun);
+    const V3 camera = pos - v3(a.center);
+    const V3 view = normalize(dir);
+    const float p_dot_v = dot(camera, view);
+    const float p_dot_p = dot(camera, camera);
+    const float disc = a.bottom2 - (p_dot_p - p_dot_v * p_dot_v);
+    const float dist = -p_dot_v - sqrtf(jmax(disc, 0.0f));
+    const bool hits_ground = (dist > 0.0f) && (disc >= 0.0f);
+    V3 pre, trans;
+    if (hits_ground) {
+        pre = ground_radiance(a, camera, camera + view * dist, sun);
+        trans = v3(0.0f, 0.0f, 0.0f);
+    } else {
+        sky_radiance(a, camera, view, sun, pre, trans);
+    }
+    return compose_sun_disc(a, pre, trans, view);
+}
+
+// runtime.sample_sky_cache: four taps of the (H, W, 6) cache
+__device__ V3 sample_sky_cache(const AtmParams& a, V3 dir) {
+    const V3 view = normalize(dir);
+    const int h = a.cache_h, w = a.cache_w;
+    const float theta = acosf(jclamp(view.y, -1.0f, 1.0f));
+    float phi = fmodf(atan2f(view.z, view.x), TWO_PI_F);
+    if (phi != 0.0f && phi < 0.0f) phi = phi + TWO_PI_F;
+    const float y = jclamp(theta / PI_F * (float)h - 0.5f, 0.0f,
+                           (float)h - 1.0f);
+    const float x = phi / TWO_PI_F * (float)w - 0.5f;
+    const float y0f = floorf(y), x0f = floorf(x);
+    const int y0 = (int)y0f;
+    int x0 = (int)x0f % w;
+    if (x0 < 0) x0 += w;
+    const int x1 = x0 + 1 == w ? 0 : x0 + 1;
+    const int y1 = min(y0 + 1, h - 1);
+    const float fx = x - x0f, fy = y - y0f;
+    const float gx = 1.0f - fx, gy = 1.0f - fy;
+    const float* r0 = a.cache + 6 * (y0 * w);
+    const float* r1 = a.cache + 6 * (y1 * w);
+    float v[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+        v[c] = (__ldg(r0 + 6 * x0 + c) * gx + __ldg(r0 + 6 * x1 + c) * fx) *
+                   gy +
+               (__ldg(r1 + 6 * x0 + c) * gx + __ldg(r1 + 6 * x1 + c) * fx) *
+                   fy;
+    return compose_sun_disc(a, v3(v[0], v[1], v[2]), v3(v[3], v[4], v[5]),
+                            view);
+}
+
 // One thread a ray; KIND picks the environment at compile time, so the
 // sky's kernel carries no HDRI code and HDRI's launch is not sized by the
-// sky's registers.
+// sky's registers.  `atm` and `pos` are read by the atmosphere kinds only
+// (pos by ATMOSPHERE).
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 environment_kernel(const EnvParams p, float* __restrict__ L,
                    const float* __restrict__ beta,
                    const float* __restrict__ dir,
-                   const float* __restrict__ map) {
+                   const float* __restrict__ map, const AtmParams atm,
+                   const float* __restrict__ pos) {
     const int i = blockIdx.x * THREADS + threadIdx.x;
     if (i >= p.n) return;
     const V3 d = v3(dir + 3 * i);
     const V3 li = KIND == ENV_HDRI ? sample_env_map(p, map, d)
-                                   : sample_sky(p, d);
+                  : KIND == ENV_ATMOSPHERE
+                      ? sample_atmosphere(atm, v3(pos + 3 * i), d)
+                  : KIND == ENV_SKY_CACHE ? sample_sky_cache(atm, d)
+                                          : sample_sky(p, d);
     const V3 env = (li * v3(p.color)) * p.mult;
     const V3 l = v3(L + 3 * i) + env * v3(beta + 3 * i);
     L[3 * i + 0] = l.x;
@@ -237,26 +622,53 @@ div_known_sweep_kernel(float d, float y, unsigned long long lo,
 }  // namespace
 
 extern "C" int vpt_env_params_size() { return (int)sizeof(EnvParams); }
+extern "C" int vpt_atm_params_size() { return (int)sizeof(AtmParams); }
 
 // K4 on n rays: L (n, 3) updated in place from beta and dir (n, 3); map
-// the raw (map_h, map_w, 3) float32 map for HDRI, else unused.
+// the raw (map_h, map_w, 3) float32 map for HDRI, else unused; atm the
+// AtmParams of the atmosphere kinds (null otherwise) and pos (n, 3) the
+// rays' positions for ATMOSPHERE (else unused).
 extern "C" int vpt_environment(const void* params, float* L,
                                const float* beta, const float* dir,
-                               const float* map, void* stream) {
+                               const float* map, void* stream,
+                               const void* atm, const float* pos) {
     const EnvParams& p = *static_cast<const EnvParams*>(params);
     if (p.n <= 0) return 0;
-    if ((p.kind != ENV_SKY && p.kind != ENV_HDRI) ||
+    const bool atm_kind = p.kind == ENV_ATMOSPHERE || p.kind == ENV_SKY_CACHE;
+    if (p.kind < ENV_SKY || p.kind > ENV_SKY_CACHE ||
         (p.kind == ENV_HDRI && (map == nullptr || p.map_h <= 0 ||
-                                p.map_w <= 0)))
+                                p.map_w <= 0)) ||
+        (atm_kind && atm == nullptr) ||
+        (p.kind == ENV_ATMOSPHERE && pos == nullptr))
         return (int)cudaErrorInvalidValue;
+    AtmParams a{};
+    if (atm_kind) {
+        a = *static_cast<const AtmParams*>(atm);
+        if (a.trans == nullptr || a.scat == nullptr || a.mie == nullptr ||
+            a.irr == nullptr ||
+            (p.kind == ENV_SKY_CACHE &&
+             (a.cache == nullptr || a.cache_h <= 0 || a.cache_w <= 0)))
+            return (int)cudaErrorInvalidValue;
+    }
     const int blocks = (p.n + THREADS - 1) / THREADS;
     const cudaStream_t st = (cudaStream_t)stream;
-    if (p.kind == ENV_SKY)
-        environment_kernel<ENV_SKY><<<blocks, THREADS, 0, st>>>(p, L, beta,
-                                                                dir, map);
-    else
-        environment_kernel<ENV_HDRI><<<blocks, THREADS, 0, st>>>(p, L, beta,
-                                                                 dir, map);
+    switch (p.kind) {
+    case ENV_SKY:
+        environment_kernel<ENV_SKY><<<blocks, THREADS, 0, st>>>(
+            p, L, beta, dir, map, a, pos);
+        break;
+    case ENV_HDRI:
+        environment_kernel<ENV_HDRI><<<blocks, THREADS, 0, st>>>(
+            p, L, beta, dir, map, a, pos);
+        break;
+    case ENV_ATMOSPHERE:
+        environment_kernel<ENV_ATMOSPHERE><<<blocks, THREADS, 0, st>>>(
+            p, L, beta, dir, map, a, pos);
+        break;
+    default:
+        environment_kernel<ENV_SKY_CACHE><<<blocks, THREADS, 0, st>>>(
+            p, L, beta, dir, map, a, pos);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -69,9 +69,14 @@
 // steps (at most KEY_CACHE) are cached, later steps fold their key in
 // the lane.  With `queued` a ray still walking at the end is written as
 // the reference's unretired queue slot.  With `defer_env` (HDRI, the
-// simple sky) each ray's beta and direction go beside its outputs for
-// K4 (csrc/environment.cu), which adds the environment after this
-// kernel; BLACK and CONSTANT are added here.
+// simple sky, the Bruneton atmosphere) each ray's beta and direction go
+// beside its outputs for K4 (csrc/environment.cu), which adds the
+// environment after this kernel; BLACK and CONSTANT are added here.
+// defer_env 2 (the live Bruneton atmosphere, which reads where a ray
+// retired) also writes the ray's env_pos, as the reference's loop keeps
+// it (vpt_tpu/render/fused.py:293, :361, :730): the ray's origin, moved
+// to the sphere's anchor by a sphere event and by nothing else (a volume
+// scatter leaves it), the primary origin for a queued ray that is cut.
 
 #include "raygen.cuh"
 
@@ -455,6 +460,7 @@ __device__ void fetch_cells(const Ctx& c, const CellParams& cp, V3 pos,
 
 struct Walk {
     V3 pos, dirn, anchor, sdir, beta, L, contrib;
+    V3 env_pos;  // DEFER 2: where the environment is looked up from
     float alpha, tr, dist, t, skip, tbox, depth_aov;
     int phase, ascode, nshadow, depth_n, cost;
     int vd;  // EXT: the medium events of this walk so far
@@ -646,14 +652,18 @@ __device__ __forceinline__ void init_walk(Walk& s, V3 org, V3 dir) {
 // One step of one ray's walk at step key ks: the body of the reference's
 // loop at Q = 1 for one lane.  `org` is the ray's origin (shared memory,
 // components THREADS apart); `hk_cached` holds the step's HG subkeys
-// (shared memory), or is null past the key cache.
-template <bool EXT, bool CELLS>
+// (shared memory), or is null past the key cache.  ENVPOS: a sphere event
+// moves env_pos to the sphere's anchor (seek's only way to P_SHADOW).
+template <bool EXT, bool CELLS, bool ENVPOS = false>
 __device__ __forceinline__ void walk_step(const Ctx& c, const CellParams& cp,
                                           Walk& s, const float* org, Key ks,
                                           const Key* hk_cached,
                                           unsigned long long ray) {
     const FusedParams& p = c.p;
-    if (s.phase == P_SEEK) seek<EXT>(c, s, ks, ray);
+    if (s.phase == P_SEEK) {
+        seek<EXT>(c, s, ks, ray);
+        if (ENVPOS && s.phase == P_SHADOW) s.env_pos = s.anchor;
+    }
     if (s.phase == P_DONE) return;
     const V3 sun = v3(p.sun_dir);
     const bool marching = s.phase == P_MARCH;
@@ -814,20 +824,23 @@ __device__ __forceinline__ void walk_step(const Ctx& c, const CellParams& cp,
 // K1's outputs, one float buffer of 7 S, S = B rounded up to a multiple
 // of 4: L (B, 3) at 0, alpha at 3 S, cost at 4 S, unfinished at 5 S,
 // depth at 6 S, so that each field starts 16-byte aligned for K3; with
-// defer_env 13 S, beta (B, 3) at 7 S and the direction (B, 3) at 10 S.
+// defer_env 13 S, beta (B, 3) at 7 S and the direction (B, 3) at 10 S;
+// with defer_env 2 16 S, env_pos (B, 3) at 13 S.
 struct Out {
     float* base;
     long long S;
 };
 
 // DEFER (= p.defer_env): beta and the direction go to K4, which adds the
-// environment; else BLACK or CONSTANT is added here.  `dir0` is the
-// ray's primary direction (shared memory, components THREADS apart),
-// read with DEFER for a queued ray that is cut.
-template <bool DEFER>
+// environment, and with DEFER 2 env_pos; else BLACK or CONSTANT is added
+// here.  `dir0` and `org0` are the ray's primary direction and origin
+// (shared memory, components THREADS apart), read with DEFER for a
+// queued ray that is cut.
+template <int DEFER>
 __device__ __forceinline__ void write_out(const FusedParams& p,
                                           const Walk& s, Out o,
-                                          long long i, const float* dir0) {
+                                          long long i, const float* dir0,
+                                          const float* org0) {
     if (p.queued && s.phase != P_DONE) {
         // a queued ray still walking: the reference's unretired slot, its
         // environment term on beta 0 in its primary direction
@@ -849,6 +862,12 @@ __device__ __forceinline__ void write_out(const FusedParams& p,
             w[0] = dir0[0];
             w[1] = dir0[THREADS];
             w[2] = dir0[2 * THREADS];
+        }
+        if (DEFER == 2) {
+            float* e = o.base + 13 * o.S + 3 * i;
+            e[0] = org0[0];
+            e[1] = org0[THREADS];
+            e[2] = org0[2 * THREADS];
         }
         return;
     }
@@ -875,6 +894,12 @@ __device__ __forceinline__ void write_out(const FusedParams& p,
         w[0] = s.dirn.x;
         w[1] = s.dirn.y;
         w[2] = s.dirn.z;
+    }
+    if (DEFER == 2) {
+        float* e = o.base + 13 * o.S + 3 * i;
+        e[0] = s.env_pos.x;
+        e[1] = s.env_pos.y;
+        e[2] = s.env_pos.z;
     }
 }
 
@@ -909,14 +934,14 @@ long long slot_count(const FusedParams& p) {
 // taken at every aperture here: skipping them at aperture 0, as K2 does,
 // measured the cached 1080p main path 8-9% slower on the H100 (at run
 // time on a lens flag and as a compile-time constant alike;
-// PERF.md, Findings).  DEFER = p.defer_env is
+// PERF.md, Findings).  DEFER = p.defer_env (0, 1, 2) is
 // a template argument so that BLACK and CONSTANT compile without K4's
-// two extra outputs: with one shared write path the cached 1080p main
+// extra outputs, and HDRI and the sky without env_pos: with one shared write path the cached 1080p main
 // path measured 1.5% slower on the H100.  The queued cut's writes sit in
 // write_out's own branch; resetting the walk state in the loop instead
 // measured cached +1.6% and tracked -1.3% against this, and an
 // out-of-line writer +45% (PERF.md, Findings).
-template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT, bool CELLS>
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     const float* __restrict__ origin,
@@ -998,11 +1023,13 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     dir0[2 * THREADS] = dir.z;
                 }
                 init_walk(s, o, dir);
+                if (DEFER == 2) s.env_pos = o;
                 // pre-loop seek: uniform(fold_in(key, 1 << 20), (B, 5))
                 seek<EXT>(c, s, k_seek, (unsigned long long)r);
+                if (DEFER == 2 && s.phase == P_SHADOW) s.env_pos = s.anchor;
                 step = 0;
                 live = s.phase != P_DONE && p.max_steps > 0;
-                if (!live) write_out<DEFER>(p, s, out, r, dir0);
+                if (!live) write_out<DEFER>(p, s, out, r, dir0, org);
             }
         }
         // the slots are gone or too few lanes are idle: step the live
@@ -1012,12 +1039,12 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
             const bool in_cache = step < n_keys;
             const Key* e = skeys + 1 + KEYS_PER_STEP * step;
             const Key ks = in_cache ? e[0] : fold_in(key, (uint32_t)step);
-            walk_step<EXT, CELLS>(c, cp, s, org, ks,
+            walk_step<EXT, CELLS, DEFER == 2>(c, cp, s, org, ks,
                                   in_cache ? e + 1 : nullptr,
                                   (unsigned long long)ray);
             ++step;
             if (s.phase == P_DONE || step >= p.max_steps) {
-                write_out<DEFER>(p, s, out, ray, dir0);
+                write_out<DEFER>(p, s, out, ray, dir0, org);
                 live = false;
             }
         }
@@ -1040,7 +1067,7 @@ int smem_bytes(const FusedParams& p) {
 // SMs and resident blocks per SM of one variant, asked of the runtime
 // once per library load (again only for another device or key-cache
 // size).
-template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT, bool CELLS>
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS>
 cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     static int o_dev = -1, o_smem = -1, o_sms = 0, o_per_sm = 0;
     int dev = 0;
@@ -1062,7 +1089,7 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     return cudaSuccess;
 }
 
-template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT, bool CELLS>
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS>
 int launch_variant(const FusedParams& p, const ExtParams& x,
                    const CellParams& cp, const RaygenParams& rp,
                    const float* origin, const float* direction,
@@ -1095,7 +1122,7 @@ int launch_variant(const FusedParams& p, const ExtParams& x,
 
 // The variant of a launch: CELLS where a cell table is given (an
 // instanced scene: density only, so never with EXT), else EXT or not.
-template <bool RAYS_IN_KERNEL, bool DEFER>
+template <bool RAYS_IN_KERNEL, int DEFER>
 int launch_defer(const FusedParams& p, const ExtParams& x,
                  const CellParams* cp, const RaygenParams& rp,
                  const float* origin, const float* direction,
@@ -1122,16 +1149,20 @@ int launch(const FusedParams& p, const ExtParams& x, const CellParams* cp,
            const float* direction, const float* corners,
            const float* lights, const float* lut, float* out,
            unsigned* next_ray, void* stream) {
+    if (p.defer_env == 2)
+        return launch_defer<RAYS_IN_KERNEL, 2>(p, x, cp, rp, origin,
+                                               direction, corners, lights,
+                                               lut, out, next_ray, stream);
     return p.defer_env
-               ? launch_defer<RAYS_IN_KERNEL, true>(
+               ? launch_defer<RAYS_IN_KERNEL, 1>(
                      p, x, cp, rp, origin, direction, corners, lights, lut,
                      out, next_ray, stream)
-               : launch_defer<RAYS_IN_KERNEL, false>(
+               : launch_defer<RAYS_IN_KERNEL, 0>(
                      p, x, cp, rp, origin, direction, corners, lights, lut,
                      out, next_ray, stream);
 }
 
-template <bool RAYS_IN_KERNEL, bool DEFER, bool EXT, bool CELLS>
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS>
 cudaError_t variant_info(int smem, int& sms, int& per_sm,
                          cudaFuncAttributes& a) {
     const cudaError_t e =
@@ -1144,7 +1175,7 @@ cudaError_t variant_info(int smem, int& sms, int& per_sm,
 }
 
 // variant: 0 density only, 1 EXT, 2 CELLS
-template <bool RAYS_IN_KERNEL, bool DEFER>
+template <bool RAYS_IN_KERNEL, int DEFER>
 cudaError_t variant_info(int variant, int smem, int& sms, int& per_sm,
                          cudaFuncAttributes& a) {
     if (variant == 2)
@@ -1164,7 +1195,7 @@ extern "C" int vpt_fused_ext_size() { return (int)sizeof(ExtParams); }
 extern "C" int vpt_fused_cells_size() { return (int)sizeof(CellParams); }
 
 // K1 on the rays in (B, 3) origin and direction buffers.  `out` holds
-// 7 S floats laid out as Out says; `next_ray` is the
+// 7, 13 or 16 S floats laid out as Out says; `next_ray` is the
 // 4-byte ray counter, zeroed here on the launch stream; `lut` the density
 // color LUT, then the emission LUT, (512, 3); `cells` the cell table of an
 // instanced scene (CellParams), or null.
@@ -1198,7 +1229,8 @@ extern "C" int vpt_fused_direct_primary(const void* params, const void* ext,
                         nullptr, corners, lights, lut, out, next_ray, stream);
 }
 
-// info[0..5] of one variant (route, deferred environment, variant: 0
+// info[0..5] of one variant (route, deferred environment 0, 1 or 2
+// (with env_pos), variant: 0
 // density only, 1 EXT, 2 CELLS) whose keys of key_steps steps are cached,
 // at Q = 1: SMs, resident blocks per SM, threads per block, registers per
 // thread, local (spill and stack) bytes per thread, dynamic shared bytes
@@ -1208,15 +1240,15 @@ extern "C" int vpt_fused_launch_info(int rays_in_kernel, int defer_env,
     const int smem = key_smem_bytes(key_steps);
     int sms = 0, per_sm = 0;
     cudaFuncAttributes a{};
-    const cudaError_t e =
-        rays_in_kernel
-            ? (defer_env
-                   ? variant_info<true, true>(variant, smem, sms, per_sm, a)
-                   : variant_info<true, false>(variant, smem, sms, per_sm, a))
-            : (defer_env
-                   ? variant_info<false, true>(variant, smem, sms, per_sm, a)
-                   : variant_info<false, false>(variant, smem, sms, per_sm,
-                                                a));
+    cudaError_t e;
+    if (rays_in_kernel)
+        e = defer_env == 2 ? variant_info<true, 2>(variant, smem, sms, per_sm, a)
+            : defer_env    ? variant_info<true, 1>(variant, smem, sms, per_sm, a)
+                           : variant_info<true, 0>(variant, smem, sms, per_sm, a);
+    else
+        e = defer_env == 2 ? variant_info<false, 2>(variant, smem, sms, per_sm, a)
+            : defer_env    ? variant_info<false, 1>(variant, smem, sms, per_sm, a)
+                           : variant_info<false, 0>(variant, smem, sms, per_sm, a);
     if (e != cudaSuccess) return (int)e;
     info[0] = sms;
     info[1] = per_sm;

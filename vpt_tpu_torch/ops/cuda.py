@@ -92,8 +92,9 @@ def load_library() -> Library:
             ("vpt_raygen_params_size", []),
             ("vpt_film_accumulate", [vp, vp]),
             ("vpt_film_args_size", []),
-            ("vpt_environment", [vp] * 6),
+            ("vpt_environment", [vp] * 8),
             ("vpt_env_params_size", []),
+            ("vpt_atm_params_size", []),
             ("vpt_div_known_sweep", [ctypes.c_float, ctypes.c_float,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong,
                                      vp, vp]),

@@ -33,11 +33,13 @@ sampling ``fold_in(fold_in(key, s), 7)``, so K1's schedule does not
 change its output.
 
 The terminal environment: K1 adds BLACK and CONSTANT itself when a ray
-retires; for HDRI with a map and the simple sky (ATMOSPHERE) it writes
-each ray's beta and direction beside its outputs and kernel K4
-(render/integrator.py::add_environment, csrc/environment.cu) adds
-env(direction) * beta to L after it, as the reference applies the
-environment after its loop.
+retires; for HDRI with a map, the simple sky and the Bruneton atmosphere
+(ATMOSPHERE) it writes each ray's beta and direction beside its outputs,
+and for the live atmosphere also its env_pos (the origin, moved to the
+sphere's anchor by a sphere event only, as the reference keeps it), and
+kernel K4 (render/integrator.py::add_environment, csrc/environment.cu)
+adds env(env_pos, direction) * beta to L after it, as the reference
+applies the environment after its loop.
 
 ``queue`` (render/params.py::resolve_queue): at Q = 16 each ray may take
 max_fused_steps * 16 steps, and a ray still walking at the end is
@@ -50,8 +52,7 @@ the environment term.  Rays that finish are the same bits at any Q.
 
 Not in this slice (NotImplementedError): the queue path
 (``rays_per_lane > 1``), instanced scenes without cell lists or with
-emission, color or volume_depth > 1 (ROADMAP A.6), the Bruneton
-atmosphere.
+emission, color or volume_depth > 1 (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ from vpt_tpu_torch.ops import cuda
 from vpt_tpu_torch.render.integrator import (EnvLaunch, add_environment,
                                              defers_environment,
                                              environment_radiance,
+                                             needs_env_pos,
                                              prepare_environment)
 from vpt_tpu_torch.render.params import Environment, check_slice
 from vpt_tpu_torch.render.tracking import (FetchResult, _cells_banded_fetch,
@@ -191,11 +193,13 @@ def fused_direct(scene, params, key, origin, direction, launch=None,
 
 
 def fused_direct_plain(scene, params, key, origin, direction,
-                       queue: int = 1):
+                       queue: int = 1, deferred: bool = False):
     """The lane-masked loop in torch, step for step the reference's
     ``body`` at Q = 1 (vpt_tpu/render/fused.py:393-791), run for
     max_fused_steps * queue steps; at queue > 1 the rays still walking
-    are written as unretired queue slots (:745-767)."""
+    are written as unretired queue slots (:745-767).  ``deferred``:
+    return L before the environment, with beta, the direction and
+    env_pos after the five outputs, what K1 hands K4."""
     _check_scene(scene, params)
     dev = origin.device
     B = origin.shape[0]
@@ -545,6 +549,9 @@ def fused_direct_plain(scene, params, key, origin, direction,
         dirn, env_pos = W(cut, direction, dirn), W(cut, origin, env_pos)
         alpha, cost, depth = (torch.where(cut, 0.0, x)
                               for x in (alpha, cost, depth))
+    if deferred:
+        return (L, alpha, cost, cut.to(torch.float32), depth, beta, dirn,
+                env_pos)
     L = L + environment_radiance(scene, params, env_pos, dirn) * beta
     return L, alpha, cost, cut.to(torch.float32), depth
 
@@ -568,7 +575,8 @@ def launch_info(rays_in_kernel: bool, max_fused_steps: int,
                 cells: bool = False) -> dict:
     """K1's schedule on the current card for one route at
     ``max_fused_steps`` (which sizes the key cache, whatever the queue),
-    for BLACK/CONSTANT or (``defer_env``) HDRI and the sky, density-only
+    for BLACK/CONSTANT or (``defer_env`` 1) HDRI and the skies or (2) the
+    live Bruneton atmosphere, with env_pos, density-only
     or (``ext``) emission, color or volume_depth > 1 or (``cells``) an
     instanced scene, from the CUDA runtime: SMs, resident blocks per SM,
     threads per block, registers and local bytes per thread, dynamic
@@ -688,7 +696,7 @@ def prepare_fused(scene, params) -> FusedLaunch:
     p.env_constant = int(params.environment_type
                          == int(Environment.CONSTANT))
     defer = defers_environment(scene, params)
-    p.defer_env = int(defer)
+    p.defer_env = 2 if needs_env_pos(scene, params) else int(defer)
     p.row_w = corners.shape[1]
     x = _ExtParams()
     x.em_off, x.col_off, p.tau_off = unified_layout(scene.atlas)
@@ -762,7 +770,8 @@ def _launch_args(launch: FusedLaunch, B: int, key, frame_width, queue=1):
     cost, unfinished and depth at 3 S .. 6 S, returned as contiguous
     views that each start 16-byte aligned, as K3 takes them; with a
     deferred environment 13 S, beta (B, 3) at 7 S and the direction
-    (B, 3) at 10 S, K4's inputs.  Rays of no known frame
+    (B, 3) at 10 S, K4's inputs, and for the live atmosphere 16 S, env_pos
+    (B, 3) at 13 S.  Rays of no known frame
     (``frame_width`` None) are scheduled in ray order."""
     p = _FusedParams.from_buffer_copy(launch.params)
     p.B = B
@@ -773,12 +782,13 @@ def _launch_args(launch: FusedLaunch, B: int, key, frame_width, queue=1):
     p.frame_w = frame_width or B
     p.key[0], p.key[1] = int(key[0]), int(key[1])
     S = -(-B // 4) * 4
-    out = torch.empty((13 if p.defer_env else 7) * S, dtype=torch.float32,
+    n_s = (7, 13, 16)[p.defer_env]
+    out = torch.empty(n_s * S, dtype=torch.float32,
                       device=launch.corners.device)
     views = (out[:3 * B].view(B, 3),) + tuple(
         out[i * S:i * S + B] for i in range(3, 7))
-    if p.defer_env:
-        views += tuple(out[i * S:i * S + 3 * B].view(B, 3) for i in (7, 10))
+    views += tuple(out[i * S:i * S + 3 * B].view(B, 3)
+                   for i in range(7, n_s, 3))
     return p, out, views
 
 
@@ -786,8 +796,9 @@ def _finish(scene, params, launch: FusedLaunch, views):
     """K1's five outputs, after K4 has added the environment for a
     deferred one (in place on L)."""
     if launch.env is not None:
-        L, _, _, _, _, beta, dirn = views
-        add_environment(scene, params, L, beta, dirn, launch=launch.env)
+        L, beta, dirn = views[0], views[5], views[6]
+        pos = views[7] if len(views) > 7 else None
+        add_environment(scene, params, L, beta, dirn, pos, launch=launch.env)
     return views[:5]
 
 
@@ -809,7 +820,8 @@ def _fused_direct_cuda(scene, params, key, origin, direction,
 def _launch_k1(launch: FusedLaunch, key, origin, direction,
                frame_width=None, queue: int = 1):
     """K1 alone on the buffer route: its output views (_launch_args),
-    beta and the direction included for a deferred environment."""
+    beta, the direction and env_pos included for a deferred
+    environment."""
     dev = launch.corners.device
     B = origin.shape[0]
     cuda.check_cuda_tensor(origin, "origin", (B, 3), torch.float32, dev)
@@ -844,6 +856,13 @@ def _fused_direct_primary_cuda(scene, params, key, raygen,
     fused_direct on K2's rays."""
     if launch is None:
         launch = prepare_fused(scene, params)
+    return _finish(scene, params, launch,
+                   _launch_k1_primary(launch, key, raygen, queue))
+
+
+def _launch_k1_primary(launch: FusedLaunch, key, raygen, queue: int = 1):
+    """K1 alone on the in-kernel-ray route: its output views, as
+    _launch_k1's."""
     p, out, views = _launch_args(launch, raygen.H * raygen.W, key,
                                  raygen.W, queue)
     rc = cuda.load_library().dll.vpt_fused_direct_primary(
@@ -856,4 +875,4 @@ def _fused_direct_primary_cuda(scene, params, key, raygen,
     FUSED_DIRECT_PRIMARY.launches += 1
     FUSED_DIRECT_EXT.launches += extended(launch.ext)
     FUSED_DIRECT_CELLS.launches += launch.cells is not None
-    return _finish(scene, params, launch, views)
+    return views

@@ -3,11 +3,14 @@ vpt_tpu/render/integrator.py::environment_radiance, :26-45) and kernel
 K4, which adds it to each finished ray's radiance on the card.
 
 ``environment_radiance`` is K4's plain version.  ``add_environment``
-computes L + environment_radiance(dir) * beta: on CPU tensors with the
-plain version, on CUDA tensors with K4 (csrc/environment.cu), in place
-on L.  K4 takes the two environments that depend on the direction, HDRI
-with a map and the simple sky (ATMOSPHERE); K1 adds BLACK and CONSTANT
-itself when a ray retires, so those launch no K4.
+computes L + environment_radiance(pos, dir) * beta: on CPU tensors with
+the plain version, on CUDA tensors with K4 (csrc/environment.cu), in
+place on L.  K4 takes the environments that depend on the direction,
+each a kind of its own: HDRI with a map, the simple sky (ATMOSPHERE
+without an atmosphere), the live Bruneton atmosphere (ATMOSPHERE with
+one; it also reads the ray's retired position, which K1 then writes)
+and its baked sky cache.  K1 adds BLACK and CONSTANT itself when a ray
+retires, so those launch no K4.
 """
 
 from __future__ import annotations
@@ -17,10 +20,11 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from vpt_tpu_torch.core.phase import isotropic
-from vpt_tpu_torch.core.vecmath import degree_to_cartesian
+from vpt_tpu_torch.core.vecmath import degree_to_cartesian, true_div
 from vpt_tpu_torch.ops import cuda
 from vpt_tpu_torch.render.nee import environment_light_radiance
 from vpt_tpu_torch.render.params import Environment
@@ -30,7 +34,16 @@ ENVIRONMENT = cuda.Kernel(
     name="environment", route="cuda",
     source="vpt_tpu_torch/csrc/environment.cu",
     replaces="vpt_tpu/render/integrator.py:26")
-ENV_SKY, ENV_HDRI = 0, 1
+# K4's atmosphere kinds, each counted on its own
+ENVIRONMENT_ATMOSPHERE = cuda.Kernel(
+    name="environment_atmosphere", route="cuda",
+    source="vpt_tpu_torch/csrc/environment.cu",
+    replaces="vpt_tpu/sky/runtime.py:161")
+ENVIRONMENT_SKY_CACHE = cuda.Kernel(
+    name="environment_sky_cache", route="cuda",
+    source="vpt_tpu_torch/csrc/environment.cu",
+    replaces="vpt_tpu/sky/runtime.py:203")
+ENV_SKY, ENV_HDRI, ENV_ATMOSPHERE, ENV_SKY_CACHE = 0, 1, 2, 3
 
 
 def environment_radiance(scene, params, pos, wi):
@@ -66,6 +79,15 @@ def defers_environment(scene, params) -> bool:
             or (et == int(Environment.HDRI) and scene.env_map is not None))
 
 
+def needs_env_pos(scene, params) -> bool:
+    """True for the live Bruneton atmosphere (ATMOSPHERE with an attached
+    atmosphere and no baked cache), which reads each ray's retired
+    position: K1 then writes it beside beta and the direction."""
+    return (params.environment_type == int(Environment.ATMOSPHERE)
+            and getattr(scene, "atmosphere", None) is not None
+            and getattr(scene, "sky_cache", None) is None)
+
+
 class _EnvParams(ctypes.Structure):
     """Mirror of ``EnvParams`` in csrc/environment.cu."""
 
@@ -79,27 +101,130 @@ class _EnvParams(ctypes.Structure):
                                              "beta_m11")]
 
 
+# the uv constants' slots in _AtmParams.uv0 / uv1: one per texture axis
+UV_TW, UV_TH, UV_R, UV_MU, UV_MUS, UV_IW, UV_IH = range(7)
+
+
+class _AtmParams(ctypes.Structure):
+    """Mirror of ``AtmParams`` in csrc/environment.cu: the atmosphere
+    kinds' LUTs, dims and float32 constants, each computed by the plain
+    version's own torch expression (``atmosphere_params``)."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "trans", "scat", "mie", "irr", "cache")] + [
+        (n, ctypes.c_int) for n in (
+            "tw", "th", "r", "mu", "mu_s", "nu", "iw", "ih", "cache_h",
+            "cache_w")] + [
+        (n, ctypes.c_float) for n in (
+            "bottom", "top", "bottom2", "top2", "H", "HH", "d_s_min",
+            "H_m_dsmin", "A", "t_m_b", "sar_c", "cos_sar", "ray_c",
+            "mie_k", "one_plus_g2", "two_g", "exposure", "nu_m1",
+            "nu_f")] + [
+        ("uv0", ctypes.c_float * 7), ("uv1", ctypes.c_float * 7)] + [
+        (n, ctypes.c_float * 3) for n in (
+            "center", "sun", "solar_irr", "solar_rad", "albedo_pi",
+            "sky_k", "sun_k", "wp")]
+
+
 @dataclass
 class EnvLaunch:
     """K4's launch arguments for one (scene, params), built once."""
 
     params: _EnvParams
     env_map: Optional[torch.Tensor]   # (H, W, 3) float32 on the card
+    atm: Optional[_AtmParams] = None  # the atmosphere kinds'
+    tables: tuple = ()                # the tensors atm points at
 
 
 def _c3(values):
     return (ctypes.c_float * 3)(*[float(v) for v in values])
 
 
+def _f(t) -> float:
+    return float(t.detach().cpu())
+
+
+def atmosphere_params(atm, azimuth, elevation,
+                      cache: torch.Tensor | None = None):
+    """(_AtmParams, the tensors it points at) of an atmosphere
+    (sky/runtime.py::Atmosphere on the card) and its baked cache or None:
+    every constant is the value the plain version's torch expression
+    gives, computed on the CPU in float32 (IEEE operations, so the same
+    bits as on the card)."""
+    from vpt_tpu_torch.sky import bruneton as br
+    from vpt_tpu_torch.sky import runtime as rt
+    cuda.check_struct(_AtmParams,
+                      cuda.load_library().dll.vpt_atm_params_size)
+    dims, luts = atm.dims, atm.luts
+    rt.check_luts(luts, dims)
+    dev = luts.transmittance.device
+    tables = [getattr(luts, n) for n in ("transmittance", "scattering",
+                                         "single_mie", "irradiance")]
+    for t, n in zip(tables, ("transmittance", "scattering", "single_mie",
+                             "irradiance")):
+        cuda.check_cuda_tensor(t, f"atmosphere LUT {n}", dtype=torch.float32,
+                               device=dev)
+    p = atm.params.to("cpu")
+    a = _AtmParams()
+    a.trans, a.scat, a.mie, a.irr = (t.data_ptr() for t in tables)
+    if cache is not None:
+        cuda.check_cuda_tensor(cache, "sky_cache", dtype=torch.float32,
+                               device=dev)
+        if cache.dim() != 3 or cache.shape[2] != 6:
+            raise ValueError(f"sky_cache: shape {tuple(cache.shape)}, "
+                             "expected (H, W, 6)")
+        a.cache = cache.data_ptr()
+        a.cache_h, a.cache_w = cache.shape[0], cache.shape[1]
+        tables.append(cache)
+    a.tw, a.th, a.r, a.mu = (dims.transmittance_w, dims.transmittance_h,
+                             dims.r, dims.mu)
+    a.mu_s, a.nu, a.iw, a.ih = (dims.mu_s, dims.nu, dims.irradiance_w,
+                                dims.irradiance_h)
+    a.bottom, a.top = _f(p.bottom_radius), _f(p.top_radius)
+    a.bottom2 = _f(p.bottom_radius * p.bottom_radius)
+    a.top2 = _f(p.top_radius * p.top_radius)
+    H = br._horizon(p)
+    a.H, a.HH = _f(H), _f(H * H)
+    d_s_min = p.top_radius - p.bottom_radius
+    a.d_s_min, a.H_m_dsmin = _f(d_s_min), _f(H - d_s_min)
+    a.A = _f(br._mu_s_a_max(p))
+    a.t_m_b = _f(p.top_radius - p.bottom_radius)
+    a.sar_c = _f(torch.clamp(p.sun_angular_radius, min=1e-6))
+    a.cos_sar = _f(rt.cos_sun_radius(p))
+    a.ray_c = float(np.float32(3.0 / (16.0 * math.pi)))
+    g = p.mie_phase_g
+    a.mie_k = _f(3.0 / (8.0 * math.pi) * (1.0 - g * g) / (2.0 + g * g))
+    a.one_plus_g2, a.two_g = _f(1.0 + g * g), _f(2.0 * g)
+    a.exposure = _f(rt.curve_exposure(p))
+    a.nu_m1, a.nu_f = dims.nu - 1.0, float(dims.nu)
+    for slot, size in ((UV_TW, dims.transmittance_w),
+                       (UV_TH, dims.transmittance_h), (UV_R, dims.r),
+                       (UV_MU, dims.mu // 2), (UV_MUS, dims.mu_s),
+                       (UV_IW, dims.irradiance_w),
+                       (UV_IH, dims.irradiance_h)):
+        a.uv0[slot] = float(np.float32(0.5 / size))
+        a.uv1[slot] = float(np.float32(1.0 - 1.0 / size))
+    sky_k, sun_k = rt.luminance_factors(p)
+    for name, v in (("center", rt.earth_center(p)),
+                    ("sun", rt.sun_direction(azimuth, elevation, "cpu")),
+                    ("solar_irr", p.solar_irradiance),
+                    ("solar_rad", br.get_solar_radiance(p)),
+                    ("albedo_pi", true_div(p.ground_albedo, math.pi)),
+                    ("sky_k", sky_k), ("sun_k", sun_k),
+                    ("wp", p.white_point)):
+        setattr(a, name, _c3(v.tolist()))
+    return a, tuple(tables)
+
+
 def prepare_environment(scene, params) -> EnvLaunch:
     """K4's parameter struct: the sun direction from
     core/vecmath.py::degree_to_cartesian, as the plain version makes it,
-    the sky's float32 constants, and the map for HDRI."""
+    the sky's float32 constants, the map for HDRI, and for the Bruneton
+    atmosphere its LUTs, its baked cache where the scene has one, and
+    its constants (atmosphere_params)."""
     if not defers_environment(scene, params):
-        raise ValueError("K4 takes the simple sky or HDRI with a map")
-    if getattr(scene, "atmosphere", None) is not None:
-        raise NotImplementedError("the Bruneton atmosphere is not ported "
-                                  "yet (ROADMAP A.7)")
+        raise ValueError("K4 takes the simple sky, HDRI with a map or the "
+                         "Bruneton atmosphere")
     cuda.check_struct(_EnvParams,
                       cuda.load_library().dll.vpt_env_params_size)
     from vpt_tpu_torch.sky.procedural import sky_constants
@@ -108,6 +233,7 @@ def prepare_environment(scene, params) -> EnvLaunch:
                                     "cpu").tolist())
     p.color = _c3(vec3_param(params.sky_color).tolist())
     env_map = None
+    atm, tables = None, ()
     if params.environment_type == int(Environment.HDRI):
         env_map = scene.env_map
         cuda.check_cuda_tensor(env_map, "env_map", dtype=torch.float32)
@@ -119,29 +245,55 @@ def prepare_environment(scene, params) -> EnvLaunch:
         p.kind, p.mult = ENV_HDRI, isotropic()
         p.u_scale, p.pi = 0.5 / math.pi, math.pi
         p.map_h, p.map_w = env_map.shape[0], env_map.shape[1]
+    elif getattr(scene, "atmosphere", None) is not None:
+        atm, tables = atmosphere_params(scene.atmosphere, params.azimuth,
+                                        params.elevation, scene.sky_cache)
+        p.kind = ENV_SKY_CACHE if scene.sky_cache is not None \
+            else ENV_ATMOSPHERE
+        p.mult = float(params.sky_mult)
     else:
         p.kind, p.mult = ENV_SKY, float(params.sky_mult)
     for name, v in sky_constants().items():
         setattr(p, name, _c3(v) if isinstance(v, list) else v)
-    return EnvLaunch(p, env_map)
+    return EnvLaunch(p, env_map, atm, tables)
 
 
-def add_environment(scene, params, L, beta, dirn,
+_KIND_COUNTERS = {ENV_ATMOSPHERE: ENVIRONMENT_ATMOSPHERE,
+                  ENV_SKY_CACHE: ENVIRONMENT_SKY_CACHE}
+
+
+def add_environment(scene, params, L, beta, dirn, pos=None,
                     launch: EnvLaunch | None = None):
-    """L + environment_radiance(scene, params, dirn, dirn) * beta for
-    (B, 3) tensors (the position matters only to the Bruneton
-    atmosphere, which is not ported).  CPU tensors: the plain version, a
-    new tensor.  CUDA tensors: K4 (``launch`` from prepare_environment,
-    or None to prepare it here) adds the term in place on L, which it
-    returns."""
+    """L + environment_radiance(scene, params, pos, dirn) * beta for
+    (B, 3) tensors; ``pos``, the rays' retired positions, is read by the
+    live Bruneton atmosphere only (needs_env_pos) and may be None
+    elsewhere.  CPU tensors: the plain version, a new tensor.  CUDA
+    tensors: K4 (``launch`` from prepare_environment, or None to prepare
+    it here) adds the term in place on L, which it returns."""
+    live = needs_env_pos(scene, params)
+    if live and pos is None:
+        raise ValueError("add_environment: the live atmosphere needs the "
+                         "rays' positions")
     if L.device.type == "cpu":
-        return L + environment_radiance(scene, params, dirn, dirn) * beta
+        return L + environment_radiance(
+            scene, params, dirn if pos is None else pos, dirn) * beta
     if L.device.type != "cuda":
         raise ValueError(f"add_environment: unsupported device {L.device}")
     if launch is None:
         launch = prepare_environment(scene, params)
+    return _launch_k4(launch, L, beta, dirn, pos if live else None)
+
+
+def _launch_k4(launch: EnvLaunch, L, beta, dirn, pos=None):
+    """K4 on (B, 3) CUDA tensors, in place on L; ``pos`` for the
+    ATMOSPHERE kind."""
     n = L.shape[0]
-    for t, name in ((L, "L"), (beta, "beta"), (dirn, "dirn")):
+    named = [(L, "L"), (beta, "beta"), (dirn, "dirn")]
+    if launch.params.kind == ENV_ATMOSPHERE:
+        if pos is None:
+            raise ValueError("K4's ATMOSPHERE kind reads the positions")
+        named.append((pos, "pos"))
+    for t, name in named:
         cuda.check_cuda_tensor(t, f"add_environment: {name}", (n, 3),
                                torch.float32, L.device)
     if 3 * n > 2 ** 31 - 1:
@@ -151,13 +303,32 @@ def add_environment(scene, params, L, beta, dirn,
         raise ValueError("add_environment: the map is on another device")
     p = _EnvParams.from_buffer_copy(launch.params)
     p.n = n
+    if launch.tables and launch.tables[0].device != L.device:
+        raise ValueError("add_environment: the LUTs are on another device")
     rc = cuda.load_library().dll.vpt_environment(
         ctypes.byref(p), L.data_ptr(), beta.data_ptr(), dirn.data_ptr(),
         None if launch.env_map is None else launch.env_map.data_ptr(),
-        cuda.current_stream(L.device))
-    cuda.check_status(rc, ENVIRONMENT.name)
-    ENVIRONMENT.launches += 1
+        cuda.current_stream(L.device),
+        None if launch.atm is None else ctypes.byref(launch.atm),
+        None if pos is None else pos.data_ptr())
+    counter = _KIND_COUNTERS.get(p.kind, ENVIRONMENT)
+    cuda.check_status(rc, counter.name)
+    counter.launches += 1
     return L
+
+
+def atmosphere_on_rays(atm, pos, dirn, azimuth, elevation):
+    """sky/runtime.py::sample_atmosphere on (B, 3) CUDA rays through K4's
+    ATMOSPHERE kind, on L = 0 and beta = 1 with sky_mult and sky_color 1
+    (0 + (x * 1) * 1 * 1 is x): ``vpt-torch earth``'s image."""
+    p = _EnvParams()
+    p.kind, p.mult = ENV_ATMOSPHERE, 1.0
+    p.color = _c3((1.0, 1.0, 1.0))
+    a, tables = atmosphere_params(atm, azimuth, elevation)
+    L = torch.zeros_like(dirn)
+    return _launch_k4(EnvLaunch(p, None, a, tables), L,
+                      torch.ones_like(dirn), dirn.contiguous(),
+                      pos.contiguous())
 
 
 def div_known_sweep(d: float, y: float, lo: int = 0, hi: int = 2 ** 32,

@@ -10,7 +10,12 @@ or the port's raw (H, W, 3) map: its first 3 channels are the raw map
 either way.  An instanced scene carries its majorant grid
 (``"majorant.cell_rows"`` ...); a single instance's is dropped, since
 its walk never reads it.  The environment CDF is not carried: the fused
-engine never reads it.
+engine never reads it.  A Bruneton atmosphere is carried as its model
+(``"atmosphere.params.*"``), its LUTs (``"atmosphere.luts.*"``) and its
+dims (``"atmosphere.dims.*"``); the reference's corner-packed LUTs
+(``"atmosphere.packed.*"``) are dropped, the port reads the plain ones.
+A ``sky_cache`` leaf may be the reference's (H, W, 24) corner-packed rows
+or the port's (H, W, 6) texture: its first 6 channels are the texture.
 """
 
 from __future__ import annotations
@@ -48,8 +53,7 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
 
     Raises NotImplementedError for what this slice does not render:
     instanced scenes without cell lists or with emission or color,
-    octant-box columns in the corner rows, bfloat16 corner rows, the
-    Bruneton atmosphere."""
+    octant-box columns in the corner rows, bfloat16 corner rows."""
     n = np.asarray(arrays["instances.grid_id"]).shape[0]
     check_instanced(
         n, "majorant.cell_rows" in arrays,
@@ -60,9 +64,6 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
                                   "ported (ROADMAP A.10)")
     if int(arrays.get("atlas.octant_cols", 0)):
         raise NotImplementedError("octant-box columns are not ported")
-    if any(k.startswith(("atmosphere.", "sky_cache")) for k in arrays):
-        raise NotImplementedError("the Bruneton atmosphere is not ported "
-                                  "yet (ROADMAP A.7)")
     parts = {}
     for group, cls in _GROUPS.items():
         parts[group] = cls(**{
@@ -78,7 +79,36 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
         parts["env_map"] = _tensor(
             np.ascontiguousarray(np.asarray(arrays["env_map"])[..., 0:3]),
             device)
+    if "atmosphere.luts.transmittance" in arrays:
+        parts["atmosphere"] = _atmosphere_from_arrays(arrays, device)
+    if "sky_cache" in arrays:
+        parts["sky_cache"] = _tensor(np.ascontiguousarray(
+            np.asarray(arrays["sky_cache"])[..., 0:6]), device)
     return Scene(**parts)
+
+
+def _atmosphere_from_arrays(arrays: dict, device):
+    from vpt_tpu_torch.sky.bruneton import (AtmosphereLUTs,
+                                            AtmosphereParams, LutDims)
+    from vpt_tpu_torch.sky.runtime import Atmosphere, check_luts
+
+    def group(cls, prefix, conv):
+        return cls(**{f.name: conv(arrays[f"{prefix}.{f.name}"])
+                      for f in dataclasses.fields(cls)})
+
+    def param(a):
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            return int(a)
+        return _tensor(a, device)
+
+    atm = Atmosphere(
+        params=group(AtmosphereParams, "atmosphere.params", param),
+        luts=group(AtmosphereLUTs, "atmosphere.luts",
+                   lambda a: _tensor(a, device)),
+        dims=group(LutDims, "atmosphere.dims", int))
+    check_luts(atm.luts, atm.dims)
+    return atm
 
 
 def scene_to_arrays(scene: Scene) -> dict:
@@ -96,4 +126,14 @@ def scene_to_arrays(scene: Scene) -> dict:
         for f in dataclasses.fields(scene.majorant):
             out[f"majorant.{f.name}"] = getattr(scene.majorant,
                                                 f.name).cpu().numpy()
+    if scene.atmosphere is not None:
+        atm = scene.atmosphere
+        for group in ("params", "luts", "dims"):
+            obj = getattr(atm, group)
+            for f in dataclasses.fields(obj):
+                v = getattr(obj, f.name)
+                out[f"atmosphere.{group}.{f.name}"] = (
+                    v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+    if scene.sky_cache is not None:
+        out["sky_cache"] = scene.sky_cache.cpu().numpy()
     return out

@@ -85,6 +85,11 @@ class Scene:
     # the reference's separate world tau grid, for instanced scenes
     # without cell lists (not ported: their taus fold into the cell rows)
     world_tau: Optional[torch.Tensor] = None
+    # the Bruneton atmosphere (sky/runtime.py::Atmosphere) read by the
+    # ATMOSPHERE environment in place of the simple sky, and its baked
+    # (H, W, 6) equirect cache
+    atmosphere: Optional[object] = None
+    sky_cache: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -242,6 +247,41 @@ def attach_env_map(scene: Scene, env_map) -> Scene:
         raise ValueError(f"env_map: shape {tuple(env.shape)}, expected "
                          "(H, W, 3)")
     return dataclasses.replace(scene, env_map=env.contiguous())
+
+
+def attach_atmosphere(scene: Scene, atmosphere=None, cache_path=None,
+                      dims=None) -> Scene:
+    """Attach a Bruneton atmosphere (earth_atmosphere.init(), main.cpp:1504
+    / atmosphere.cpp:1177; vpt_tpu/scene/scene.py:283): ``atmosphere``
+    (sky/runtime.py::Atmosphere, moved to the scene's device), or one
+    precomputed or loaded from ``cache_path`` at ``dims`` on the scene's
+    device."""
+    from vpt_tpu_torch.sky.bruneton import LutDims
+    from vpt_tpu_torch.sky.runtime import make_atmosphere
+    if atmosphere is None:
+        atmosphere = make_atmosphere(dims or LutDims(),
+                                     cache_path=cache_path,
+                                     device=scene.device)
+    return dataclasses.replace(scene,
+                               atmosphere=atmosphere.to(scene.device))
+
+
+def attach_sky_cache(scene: Scene, azimuth: float, elevation: float,
+                     height: int = 256, width: int = 512) -> Scene:
+    """Bake the attached atmosphere, seen from the scene's centre, into an
+    equirect cache (sky/runtime.py::bake_sky_cache; vpt_tpu/scene/
+    scene.py:330): the terminal ATMOSPHERE lookup then reads one bilinear
+    fetch.  For this sun only: re-bake when it moves."""
+    if scene.atmosphere is None:
+        raise ValueError("attach_sky_cache needs an attached atmosphere "
+                         "(attach_atmosphere first)")
+    from vpt_tpu_torch.sky.runtime import bake_sky_cache
+    # the root box's centre as the reference's float32 numpy halves it
+    centre = (scene.root_pmin.cpu().numpy()
+              + scene.root_pmax.cpu().numpy()) / np.float32(2)
+    cache = bake_sky_cache(scene.atmosphere, centre, azimuth, elevation,
+                           height, width)
+    return dataclasses.replace(scene, sky_cache=cache.contiguous())
 
 
 def load_hdr_env_scene(hdr_path: str, **kw) -> Scene:

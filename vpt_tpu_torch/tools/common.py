@@ -1,15 +1,25 @@
-"""Helpers shared by the tools and chip_smoke.py: timing, a NaN-aware
-equality, the random inputs (made on the CPU from a seed, then moved, so
-a CPU and a CUDA run see the same numbers), the reference bench's
-config 2 and 3 volume and map and its config 5 cloudscape (numpy, copied
-from bench.py), and the c5 golden's instanced scene (copied from
-tests/golden_scenes.py)."""
+"""Helpers shared by the tools and chip_smoke.py: timing, the card's
+peak rates and a kernel's bound, a NaN-aware equality, the random inputs
+(made on the CPU from a seed, then moved, so a CPU and a CUDA run see
+the same numbers), the reference bench's config 2 and 3 volume and map
+and its config 5 cloudscape (numpy, copied from bench.py), and the c5
+golden's instanced scene (copied from tests/golden_scenes.py)."""
 
 from __future__ import annotations
 
 import time
 
 import torch
+
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
+
+
+def bound(n_bytes, n_ops):
+    """(least ms the card could take to move n_bytes and do n_ops
+    float32 operations, and which of the two sets it)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(fn, device, n=8):

@@ -2,7 +2,7 @@
 
     python -m vpt_tpu_torch.tools.sass_count LIB_OR_DUMP [...]
         [--kernel SUBSTRING ...] [--trips SUBSTRING=16,8 ...]
-        [--save DIR]
+        [--save DIR] [--against OLD_LIB_OR_DUMP]
 
 Each argument is a built kernel library (a ``.so``, disassembled with
 ``cuobjdump -sass``, which the CUDA toolkit has) or a text file holding
@@ -23,7 +23,9 @@ instruction counts, so ``per_thread`` is that of a thread that runs
 every instruction outside those slow paths (``per_thread_all`` counts
 the calling blocks too).  ``text_sha256`` hashes the function's
 instructions (address, opcode and operands): two builds whose code is the
-same give the same hash.
+same give the same hash.  ``--against`` adds ``same_as_against``: whether
+the function of the same name (``common_name``) in another build has the
+same hash (None where that build has no such function).
 """
 
 from __future__ import annotations
@@ -92,6 +94,23 @@ def functions(text: str) -> dict:
         if m:
             pending.append(m.group(1))
     return out
+
+
+def common_name(name: str) -> str:
+    """A kernel's name across builds of the sources: the anonymous
+    namespace's per-source hash dropped; K1's deferred-environment
+    template argument read as an int (a bool before env_pos: the same 0
+    and 1); K4's parameter list dropped (the atmosphere kinds appended
+    arguments to it)."""
+    name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name)
+    name = re.sub(r"(fused_direct_kernelILb[01]E)Lb([01])E", r"\1Li\2E",
+                  name)
+    return re.sub(r"(environment_kernelILi\d+E).*", r"\1", name)
+
+
+def _sha(insns) -> str:
+    return hashlib.sha256("\n".join(
+        f"{a:x} {op} {r}" for a, op, r in insns).encode()).hexdigest()
 
 
 def _target(rest: str, labels: dict):
@@ -193,7 +212,13 @@ def main(argv=None):
                          "the kernels whose name holds SUBSTRING")
     ap.add_argument("--save", default=None,
                     help="directory for each library's disassembly")
+    ap.add_argument("--against", default=None,
+                    help="another build: compare each kernel's text_sha256")
     args = ap.parse_args(argv)
+    against = None
+    if args.against:
+        against = {common_name(n): _sha(insns) for n, (insns, _) in
+                   functions(disassemble(args.against)).items()}
     trips = {}
     for t in args.trips:
         key, _, val = t.partition("=")
@@ -208,11 +233,13 @@ def main(argv=None):
             if not any(k in name for k in args.kernel):
                 continue
             t = next((v for k, v in trips.items() if k in name), [])
-            sha = hashlib.sha256("\n".join(
-                f"{a:x} {op} {r}" for a, op, r in insns).encode()).hexdigest()
-            print(json.dumps({"source": path, "kernel": name,
-                              **count(insns, labels, t),
-                              "text_sha256": sha}), flush=True)
+            sha = _sha(insns)
+            rec = {"source": path, "kernel": name,
+                   **count(insns, labels, t), "text_sha256": sha}
+            if against is not None:
+                old = against.get(common_name(name))
+                rec["same_as_against"] = None if old is None else old == sha
+            print(json.dumps(rec), flush=True)
     return 0
 
 
