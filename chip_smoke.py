@@ -95,18 +95,25 @@ Phases, one JSON line each:
                the reference bench's config 2 (the 64^3 puff with
                emission 0.9 density, BLACK, emission_scale 2, cached and
                tracked) and config 3 (the puff with color, its HDRI map,
-               aperture 0.25, tracked) at 512x512, the 200^3 grid with
+               aperture 0.25, tracked) at 512x512, each as the bench
+               builds it (bfloat16 corner rows with the octant columns:
+               K1's _bf16 instances), each beside the same render in
+               float32 rows without octant columns (*_f32), config 2
+               also in float32 rows with them (K1's _octant instances),
+               the 200^3 grid with
                emission 0.9 density at 1080p (cached and tracked, 64 timed
                spp) and the main path's scene at volume_depth 2 (256x256,
                both modes, beside volume_depth 1 there, which is not
                counted), every scene with the ramp emission LUT
                (scene/assets.py::ramp_lut): ms/spp, iterations per ray,
                trunc_frac, each render's launches (the EXT variant and K3
-               once a sample, K4 for config 3), finite and not black;
+               once a sample, K4 for config 3, the rows' instances),
+               finite and not black;
                config 2 with the sun off and no light not black; K1
                against fused_direct_plain at 256x256 on each scene by
                phase 6's rule, the routes bit for bit; the EXT variant
-               timed beside the plain loop on config 2 and at 1080p;
+               timed beside the plain loop on config 2 (in each of its
+               three rows) and at 1080p;
   8e. instanced — K1's CELLS variant on the reference bench's config 5:
                1024 instances of the 24^3 puff (cloud_xforms, seed 7)
                with cell lists at R 64, CONSTANT, the bench's camera,
@@ -127,11 +134,13 @@ Phases, one JSON line each:
                config 4 (vpt_tpu_torch/tools/time_atmosphere.py::run, its
                parts printed as they end): the LUT precompute on the card
                at the half dims and at the full LutDims (seconds per
-               stage), the sky bake; the 64^3 puff (float32 rows, no
-               octant boxes: the cuts, on a line of their own) with the
+               stage), the sky bake; the 64^3 puff as the bench builds
+               it (bfloat16 rows, octant columns; no cuts, on a line of
+               their own) with the
                camera at (0, 0.5, 9) off its centre, ATMOSPHERE, the sun
                at 150/30, ray_depth 50, 512x512, tracked and cached, live
-               and baked (256 x 512), 32 timed spp each, and the live
+               and baked (256 x 512), 32 timed spp each, live tracked in
+               float32 rows without octant columns beside, and the live
                atmosphere at 1080p, tracked, 16 spp: ms/spp, iterations
                per ray, trunc_frac, launches (K4's kind once a sample),
                finite and not black; K1's env_pos (its DEFER 2 variant)
@@ -144,6 +153,18 @@ Phases, one JSON line each:
                --bake-sky` at 1080p, 16 spp, the LUT cache in a temporary
                directory, and `vpt-torch earth` at 512x512, K4 held to the
                plain version on its rays;
+  8g. bigvol — the reference bench's bigvol_512 (tools/common.py::
+               bigvol_scene: the fBm grid in bfloat16 rows, cut from
+               512^3 to 384^3 for the phase's time, the cut named on its
+               line; still tau_downsample 2), the sun
+               and one light baked with tau_downsample 2, the raw density
+               dropped): the corner table's GiB, the fill's, build's and
+               bake's seconds, the peak host RSS and device memory; 2 + 16
+               spp at 512x512, cached: ms/spp, iterations per ray,
+               trunc_frac, launches (K1's _bf16 instance and K3 once a
+               sample), finite and not black; K1 against
+               fused_direct_plain on the middle 64x64 of the frame's rays
+               by phase 6's rule, and K1 alone on the frame, timed;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -160,8 +181,10 @@ Phases, one JSON line each:
                beside event time, and the wrapper's parts by the host
                clock.
 Then the nvidia-smi line, the kernels' JSON line (K1 on both routes, its
-EXT variant at 1080p on the emissive grid with config 2 beside, and its
-CELLS variant on config 5 at 512x512, tracked with cached beside; K4's
+EXT variant at 1080p on the emissive grid with config 2 beside, its
+_bf16 instances on config 2 as the bench builds it with bigvol beside,
+its _octant instances on config 2 in float32 rows with octant columns,
+and its CELLS variant on config 5 at 512x512, tracked with cached beside; K4's
 ATMOSPHERE and SKY_CACHE kinds at 1080p on config 4, 512x512 beside; K2,
 its own launches beside those of K1's in-kernel-ray route, which runs
 its code, and its time at aperture 0.5; K3 at 1080p; K4 at 1080p for the
@@ -221,8 +244,18 @@ K2_INT_OPS = {False: 2 * 75 + 5, True: 4 * 75 + 5}
 K2_FLOAT_OPS = {False: 2 + 6 + 25, True: 4 + 6 + 25 + 19}
 K2_APERTURE = 0.5  # the aperture of K2's lens-drawing checks
 K1_ROW_BYTES = 15 * 4  # the columns every step loads (taus not counted)
-# K1's EXT variant on an emissive scene: the 8 emission columns too
-K1_EMIT_ROW_BYTES = (15 + 8) * 4
+
+
+def k1_row_bytes(atlas, emission):
+    """The bytes of a visited row that K1's steps read, counted as
+    K1_ROW_BYTES counts them: the 15 density columns, the 8 emission
+    columns on an emissive scene (EXT), and where the rows carry the 72
+    octant columns the 3 that an empty box's exit reads; each at the
+    rows' element width, the taus not counted."""
+    cols = 15 + 8 * bool(emission) + 3 * bool(atlas.octant_cols)
+    return cols * atlas.density_corners.element_size()
+
+
 EMIT_SIZE, EMIT_SPP, VD_SPP = 512, 32, 16   # configs 2 and 3; volume_depth 2
 EMIT_CAMERA = (0.0, 1.0, 9.0)   # the bench's aim_camera offset
 C3_APERTURE = 0.25
@@ -230,6 +263,12 @@ EMIT_OF_DENSITY = 0.9   # the 200^3 grid's emission, as the bench's blob
 # config 5 of the reference bench: 1024 instances of the 24^3 puff
 C5_INSTANCES, C5_BLOB_N, C5_SPP = 1024, 24, 32
 C5_SIZES = ((512, 512), (W, H))
+# the bench's bigvol_512 (tools/common.py::bigvol_scene) at BIGVOL_N^3,
+# 512x512, cached; K1 against the plain loop on a BIGVOL_CROP^2 crop of
+# its rays.  Cut to 384^3 (still tau_downsample 2): at 512^3 the host
+# build alone took 219.6 s on the H100 machine, past the phase's 180 s
+# (tools/time_spp.py --bigvol renders the 512^3 scene, PERF.md)
+BIGVOL_N, BIGVOL_SPP, BIGVOL_CROP = 384, 16, 64
 # K4's operations per ray, counted from csrc/environment.cu (each
 # arithmetic operation, comparison and transcendental one): the sky's
 # head (two sphere tests of 25, the phases) 76, each of its 16 view
@@ -353,29 +392,41 @@ def check_lens(where, k2_lens, routes_lens):
                                f"{K2_APERTURE} ({mode})")
 
 
-def k1_variant(route, defer, ext, cells=False):
+def k1_variant(route, defer, ext, cells=False, rows=""):
     """K1's variant name: the route, "_env" for the deferred environment
     (HDRI, the skies), "_envpos" for the live Bruneton atmosphere (env_pos
     too), "_ext" for emission, color or volume_depth > 1, "_cells" for an
-    instanced scene."""
+    instanced scene; then the rows' instances: "_octant" for float32 rows
+    with the octant columns, "_bf16" for bfloat16 rows (ROW_SUFFIX)."""
     return (route + ("", "_env", "_envpos")[int(defer)] + "_ext" * int(ext)
-            + "_cells" * int(cells))
+            + "_cells" * int(cells) + rows)
 
 
-# K1's variants: (deferred environment 0-2, EXT, CELLS) on either route
-K1_VARIANTS = [(d, e, c) for d in (0, 1, 2)
-               for e, c in ((0, 0), (1, 0), (0, 1))]
+# K1's instances of a single grid's rows: the name's suffix, the
+# template's row type and OCT flag as mangled, and the ROWS_* that takes
+# them (ops/cuda.py::row_kind)
+ROW_SUFFIX = {"": ("f", "0", 0), "_octant": ("f", "1", 1),
+              "_bf16": ("13__nv_bfloat16", "1", 2)}
+# K1's variants: (deferred environment 0-2, EXT, CELLS, rows) on either
+# route; CELLS only on float32 rows without octant columns
+K1_VARIANTS = [(d, e, c, r) for d in (0, 1, 2)
+               for e, c, r in ((0, 0, ""), (1, 0, ""), (0, 1, ""),
+                               (0, 0, "_octant"), (1, 0, "_octant"),
+                               (0, 0, "_bf16"), (1, 0, "_bf16"))]
+K1_NEW = ("_octant", "_bf16")   # the rows' instances: reported, not gated
 
 
 def k1_registers(summary):
     """K1's ptxas lines by variant (its template arguments)."""
     out = {}
+    rows = {(t, o): suf for suf, (t, o, _) in ROW_SUFFIX.items()}
     for n, v in summary.items():
         m = re.search(r"fused_direct_kernelILb([01])ELi([012])ELb([01])E"
-                      r"Lb([01])E", n)
+                      r"Lb([01])E(f|13__nv_bfloat16)Lb([01])E", n)
         if m:
             out[k1_variant(ROUTES[int(m.group(1))], int(m.group(2)),
-                           m.group(3) == "1", m.group(4) == "1")] = v
+                           m.group(3) == "1", m.group(4) == "1",
+                           rows[m.group(5), m.group(6)])] = v
     return out
 
 
@@ -446,7 +497,8 @@ def main():
                film_mod.FILM_ACCUMULATE, integrator.ENVIRONMENT,
                fused.FUSED_DIRECT_EXT, fused.FUSED_DIRECT_CELLS,
                integrator.ENVIRONMENT_ATMOSPHERE,
-               integrator.ENVIRONMENT_SKY_CACHE]
+               integrator.ENVIRONMENT_SKY_CACHE, fused.FUSED_DIRECT_BF16,
+               fused.FUSED_DIRECT_OCTANT]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -468,18 +520,20 @@ def main():
     torch.cuda.synchronize()
     t_k3 = time.perf_counter() - t0
     k1_ptxas = k1_registers(cuda.ptxas_summary(lib.ptxas_log))
-    k1_launch = {k1_variant(route, defer, ext, cells): fused.launch_info(
-        route == "rays_in_kernel", 128, defer, bool(ext), bool(cells))
-        for route in ROUTES for defer, ext, cells in K1_VARIANTS}
+    k1_launch = {k1_variant(route, defer, ext, cells, rows):
+                 fused.launch_info(route == "rays_in_kernel", 128, defer,
+                                   bool(ext), bool(cells),
+                                   ROW_SUFFIX[rows][2])
+                 for route in ROUTES for defer, ext, cells, rows in K1_VARIANTS}
     emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
          ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
     # the density-only variants as before: 5 blocks per SM, no spills
     # (ptxas reports only when this run built the library); EXT's,
-    # CELLS's and env_pos's are reported
+    # CELLS's, env_pos's and the rows' new instances are reported
     for name, info in k1_launch.items():
         v = k1_ptxas.get(name, {})
-        if not name.endswith(("_ext", "_cells")) and "_envpos" not in name \
-                and (
+        if not name.endswith(("_ext", "_cells") + K1_NEW) \
+                and "_envpos" not in name and (
                 info["blocks_per_sm"] != 5
                                    or v.get("spill_stores")
                                    or v.get("spill_loads")):
@@ -1085,7 +1139,8 @@ def main():
     # ---- 8d. emission, color and volume_depth 2 (K1's EXT variant) -------
     from vpt_tpu_torch.core.camera import Camera
     from vpt_tpu_torch.scene.assets import ramp_lut
-    from vpt_tpu_torch.tools.common import bench_blob, bench_env_map
+    from vpt_tpu_torch.tools.common import (BENCH_ROWS, bench_blob,
+                                            bench_env_map)
     lut = ramp_lut()
 
     def aimed(s_, aperture=0.0):
@@ -1096,13 +1151,29 @@ def main():
             c + np.array(EMIT_CAMERA), c, vfov=40.0, aspect=1.0,
             aperture=aperture, device=dev))
 
+    def c2_scene(**rows):
+        return aimed(build_scene([bench_blob(emission=True)],
+                                 emission_lut=lut, device=dev, **rows))
+
+    def c3_scene(**rows):
+        return attach_env_map(aimed(build_scene(
+            [bench_blob(color=True)], emission_lut=lut, device=dev, **rows),
+            aperture=C3_APERTURE), bench_env_map())
+
+    # configs 2 and 3 as the bench builds them (bfloat16 rows, octant
+    # columns), and beside them in float32 rows without octant columns
+    # (K1's instances without the octant branch) and, for config 2, in
+    # float32 rows with them (K1's float32 OCT instances)
     t0 = time.perf_counter()
-    c2 = aimed(build_scene([bench_blob(emission=True)], emission_lut=lut,
-                           device=dev))
+    c2 = c2_scene(**BENCH_ROWS)
+    torch.cuda.synchronize()
+    c2_build_s = time.perf_counter() - t0
     c2_cached = attach_shadow_cache(c2, AZIMUTH, ELEVATION)
-    c3 = attach_env_map(aimed(build_scene(
-        [bench_blob(color=True)], emission_lut=lut, device=dev),
-        aperture=C3_APERTURE), bench_env_map())
+    c3 = c3_scene(**BENCH_ROWS)
+    c2_f32 = attach_shadow_cache(c2_scene(), AZIMUTH, ELEVATION)
+    c2_oct = attach_shadow_cache(c2_scene(octant_boxes=True), AZIMUTH,
+                                 ELEVATION)
+    c3_f32 = c3_scene()
     big = build_scene([dataclasses.replace(
         grid, emission_zyx=(EMIT_OF_DENSITY * grid.density_zyx).astype(
             np.float32))], lights=lights, emission_lut=lut, device=dev)
@@ -1119,6 +1190,15 @@ def main():
                             .replace(**c2_kw), 2, EMIT_SPP),
         "config3_tracked": (c3, params(EMIT_SIZE, EMIT_SIZE, "tracked")
                             .replace(**hdri), 2, EMIT_SPP),
+        "config2_cached_f32": (c2_f32, params(EMIT_SIZE, EMIT_SIZE,
+                                              "cached").replace(**c2_kw), 2,
+                               EMIT_SPP),
+        "config2_cached_f32_octant": (
+            c2_oct, params(EMIT_SIZE, EMIT_SIZE, "cached").replace(**c2_kw),
+            2, EMIT_SPP),
+        "config3_tracked_f32": (c3_f32, params(EMIT_SIZE, EMIT_SIZE,
+                                               "tracked").replace(**hdri), 2,
+                                EMIT_SPP),
         "emissive200_cached": (
             dataclasses.replace(big, camera=cli.default_framing(big, W, H)),
             params(W, H, "cached").replace(emission_scale=2.0), 2,
@@ -1152,19 +1232,29 @@ def main():
             finite=bool(torch.isfinite(f.accum).all()))
 
     emit_runs, ext_launches = {}, 0
+    rows_launches = {fused.FUSED_DIRECT_BF16.name: 0,
+                     fused.FUSED_DIRECT_OCTANT.name: 0}
     for name, (sc, pe, warm, spp) in runs.items():
         for k in kernels:
             k.launches = 0
         rr, emit_runs[name] = timed_render(sc, pe, warm, spp)
         got = {k.name: k.launches for k in kernels}
         emit_runs[name]["launches"] = got
+        emit_runs[name]["rows"] = dict(
+            dtype=str(sc.atlas.density_corners.dtype).replace("torch.", ""),
+            octant_cols=sc.atlas.octant_cols,
+            width=sc.atlas.density_corners.shape[1])
         ext_launches += got[fused.FUSED_DIRECT_EXT.name]
+        for k_ in rows_launches:
+            rows_launches[k_] += got[k_]
         mode = pe.shadow_mode
         route = ({fused.FUSED_DIRECT_PRIMARY.name} if
                  renderer.RAYS_IN_KERNEL[mode] else
                  {fused.FUSED_DIRECT.name, renderer.RAYGEN.name})
         on = route | {fused.FUSED_DIRECT_EXT.name,
                       film_mod.FILM_ACCUMULATE.name}
+        if fused.rows_kernel(sc) is not None:
+            on.add(fused.rows_kernel(sc).name)
         if pe.environment_type == int(Environment.HDRI):
             on.add(integrator.ENVIRONMENT.name)
         want = {k.name: (warm + spp if k.name in on else 0)
@@ -1179,6 +1269,9 @@ def main():
             np.save(os.path.join(args.save, f"chip_smoke_{name}.npy"),
                     rr.display_image())
         del rr
+    for k_, n_ in rows_launches.items():
+        if n_ <= 0:
+            raise RuntimeError(f"emission: {k_} never launched")
     # volume_depth 1 on the same 256^2 scene: vd2's baseline
     vd1 = {mode: timed_render(s256, params(PARITY_SIZE, PARITY_SIZE, mode),
                               2, VD_SPP)[1] for mode in ("cached", "tracked")}
@@ -1205,9 +1298,12 @@ def main():
             renderer._trace_primary_cuda(sc, p256, key), out_k)
     # K1's EXT variant timed beside the plain loop on the cached config 2
     # (512^2) and the cached 200^3 emissive grid (1080p), at the frame's
-    # queue length; the timed outputs held together by the share rule
+    # queue length; the timed outputs held together by the share rule:
+    # config 2 in float32 rows (no octant branch), in float32 rows
+    # with octant columns and as the bench builds it (bfloat16, octant)
     ext_time = {}
-    for name in ("config2_cached", "emissive200_cached"):
+    for name in ("config2_cached_f32", "config2_cached_f32_octant",
+                 "config2_cached", "emissive200_cached"):
         sc, pe, _, _ = runs[name]
         lt = renderer.prepare(sc, pe)
         o, d = renderer._primary_rays_cuda(sc.camera, pe, key, lt.raygen)
@@ -1217,31 +1313,42 @@ def main():
         tp, out_p = cuda_ms(lambda: fused.fused_direct_plain(
             sc, pe, tkey, o, d, q), 1)
         steps = float(out_k[2].double().sum())
-        rows = min(steps, sc.atlas.density_corners.shape[0])
+        corners_ = sc.atlas.density_corners
+        rows = min(steps, corners_.shape[0])
+        # rays in and out and the operations of every step; and each
+        # row once, the columns a step reads (k1_row_bytes)
+        row_bytes = k1_row_bytes(sc.atlas, True)
         ext_time[name] = dict(
             size=[pe.width, pe.height], ms=tk, plain_ms=tp,
-            # rays in and out, each row's 15 density and 8 emission
-            # columns once, and the operations of every step
-            bound=bound(o.shape[0] * (24 + 28) + rows * K1_EMIT_ROW_BYTES,
+            row_bytes=row_bytes,
+            bound=bound(o.shape[0] * (24 + 28) + rows * row_bytes,
                         steps * K1_OPS_PER_STEP),
             steps=steps, **k1_agreement([(out_k, out_p)]))
         del o, d, out_k, out_p, lt
     emit("emission", lut="scene/assets.py::ramp_lut", build_s=emit_build_s,
+         config2_build_s=c2_build_s,
          runs=emit_runs, vd1_baseline=vd1, emission_alone_mean=dark_mean,
          k1=emit_k1,
          k1_routes_bit_equal=emit_routes, k1_ext_timed=ext_time,
-         k1_ext_launches=ext_launches,
-         cuts="float32 rows and no octant boxes (the bench: bfloat16 rows, "
-              "octant_boxes=True; ROADMAP A.10)")
+         k1_ext_launches=ext_launches, k1_rows_launches=rows_launches,
+         rows="configs 2 and 3 as bench.py builds them: bfloat16 rows, "
+              "octant_boxes=True; the *_f32 runs in float32 rows without "
+              "octant columns, *_f32_octant in float32 rows with them")
     check_parity("emission 256^2", emit_k1, 0.0, True, emit_routes)
     check_parity("emission timed", ext_time, 0.0, True, {})
     if not dark_mean > 0.0:
         raise RuntimeError("config 2 with emission alone is black")
     launches[fused.FUSED_DIRECT_EXT.name] = ext_launches
+    launches.update(rows_launches)
     at_size = ext_time["emissive200_cached"]
     timing["fused_direct_ext"] = (at_size["ms"], at_size["plain_ms"])
     bounds["fused_direct_ext"] = at_size["bound"]
-    del c2, c2_cached, c3, big, runs
+    for k_, run_ in ((fused.FUSED_DIRECT_BF16, "config2_cached"),
+                     (fused.FUSED_DIRECT_OCTANT,
+                      "config2_cached_f32_octant")):
+        timing[k_.name] = (ext_time[run_]["ms"], ext_time[run_]["plain_ms"])
+        bounds[k_.name] = ext_time[run_]["bound"]
+    del c2, c2_cached, c3, c2_f32, c2_oct, c3_f32, big, runs
 
     # ---- 8e. instanced: config 5's cloudscape through K1's CELLS variant
     from vpt_tpu_torch.tools.common import (aim_cloud, cloud_xforms,
@@ -1407,10 +1514,10 @@ def main():
 
     # ---- 8f. the Bruneton atmosphere (config 4) ---------------------------
     from vpt_tpu_torch.tools import time_atmosphere
-    emit("atmosphere_cuts", config="config4 (bench.py:649-681)",
-         cut={"corner rows": "bfloat16 -> float32 (ROADMAP A.10)",
-              "octant_boxes": "True -> False (ROADMAP A.10)"},
-         kept={"volume": "the 64^3 puff", "luts": time_atmosphere.HALF,
+    emit("atmosphere_cuts", config="config4 (bench.py:649-681)", cut={},
+         kept={"volume": "the 64^3 puff", "rows": "bfloat16, octant_boxes "
+               "(a float32 run without octant columns beside)",
+               "luts": time_atmosphere.HALF,
                "camera_offset": time_atmosphere.CAMERA_OFFSET,
                "size": [time_atmosphere.SIZE] * 2, "ray_depth": 50,
                "sun": [AZIMUTH, ELEVATION]})
@@ -1431,6 +1538,78 @@ def main():
                                 if n_.startswith(kind))
         if launches[k_.name] <= 0:
             raise RuntimeError(f"{k_.name} never launched on config 4")
+    launches[fused.FUSED_DIRECT_BF16.name] += atm_res["launches"][
+        fused.FUSED_DIRECT_BF16.name]
+
+    # ---- 8g. bigvol: the bench's 512^3 grid in bfloat16 rows ------------
+    import resource
+
+    from vpt_tpu_torch.tools.common import (BIGVOL_N as BENCH_BIGVOL_N,
+                                            bigvol_params, bigvol_scene)
+    bv_t = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bv = bigvol_scene(BIGVOL_N, dev, bv_t)
+    bv_t["phase_build_s"] = time.perf_counter() - t0
+    bv_rows = bv.atlas.density_corners
+    bv_p = bigvol_params()
+    for k in kernels:
+        k.launches = 0
+    rr, bv_run = timed_render(bv, bv_p, 2, BIGVOL_SPP)
+    got = {k.name: k.launches for k in kernels}
+    route = ({fused.FUSED_DIRECT_PRIMARY.name} if
+             renderer.RAYS_IN_KERNEL[bv_p.shadow_mode] else
+             {fused.FUSED_DIRECT.name, renderer.RAYGEN.name})
+    on = route | {fused.FUSED_DIRECT_BF16.name,
+                  film_mod.FILM_ACCUMULATE.name}
+    want = {k.name: (2 + BIGVOL_SPP if k.name in on else 0) for k in kernels}
+    if got != want:
+        raise RuntimeError(f"bigvol: launches {got}, expected {want}")
+    if not (bv_run["finite"] and bv_run["image_mean"] > 0.0):
+        raise RuntimeError(f"bigvol: not finite, or black: {bv_run}")
+    if args.save:
+        np.save(os.path.join(args.save, "chip_smoke_bigvol.npy"),
+                rr.display_image())
+    del rr
+    launches[fused.FUSED_DIRECT_BF16.name] += got[fused.FUSED_DIRECT_BF16.name]
+    # K1 (its bfloat16 density-only instance) against the plain loop on
+    # a crop of the frame's rays, at the frame's queue, by phase 6's
+    # rule; then K1 alone on the whole frame, timed
+    key = rng.render_key(SEED, 0)
+    tkey = renderer.tile_key(key)
+    q = renderer.frame_queue(bv_p)
+    o, d = renderer._primary_rays_cuda(bv.camera, bv_p, key)
+    lo_ = (bv_p.width - BIGVOL_CROP) // 2
+    crop = [x.view(bv_p.height, bv_p.width, 3)[
+        lo_:lo_ + BIGVOL_CROP, lo_:lo_ + BIGVOL_CROP].reshape(-1, 3)
+        .contiguous() for x in (o, d)]
+    out_k = fused._fused_direct_cuda(bv, bv_p, tkey, *crop, None,
+                                     BIGVOL_CROP, q)
+    out_p = fused.fused_direct_plain(bv, bv_p, tkey, *crop, q)
+    bv_k1 = dict(crop=[BIGVOL_CROP] * 2, queue=q,
+                 **k1_agreement([(out_k, out_p)]),
+                 bit_share=bit_share(out_k, out_p))
+    lt = renderer.prepare(bv, bv_p)
+    tk, out_k = cuda_ms(lambda: fused._fused_direct_cuda(
+        bv, bv_p, tkey, o, d, lt.fused, bv_p.width, q), 3)
+    steps = float(out_k[2].double().sum())
+    bv_k1.update(ms=tk, steps=steps, bound=bound(
+        o.shape[0] * (24 + 28) + min(steps, bv_rows.shape[0])
+        * k1_row_bytes(bv.atlas, False), steps * K1_OPS_PER_STEP))
+    check_parity("bigvol crop", {"cached": bv_k1}, 0.0, True, {})
+    emit("bigvol", n=BIGVOL_N,
+         cut=(None if BIGVOL_N == BENCH_BIGVOL_N else
+              f"{BENCH_BIGVOL_N}^3 -> {BIGVOL_N}^3: the phase's time"),
+         corner_table=list(bv_rows.shape),
+         corner_dtype=str(bv_rows.dtype).replace("torch.", ""),
+         corner_gib=bv_rows.numel() * bv_rows.element_size() / 2 ** 30,
+         octant_cols=bv.atlas.octant_cols, **bv_t, run=bv_run, launches=got,
+         peak_host_rss_gib=resource.getrusage(
+             resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         k1=bv_k1)
+    del bv, bv_rows, o, d, crop, out_k, out_p, lt
+    torch.cuda.empty_cache()
 
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
@@ -1589,6 +1768,10 @@ def main():
     timing["environment"] = (k4_1080["sky"]["ms"], k4_1080["sky"]["plain_ms"])
     bounds["environment"] = k4_1080["sky"]["bound"]
     errs.update(atm_errs)
+    cfg2_oct = ext_time["config2_cached_f32_octant"]
+    cfg2_16 = ext_time["config2_cached"]
+    errs.update(fused_direct_bf16=cfg2_16["max_abs"],
+                fused_direct_octant=cfg2_oct["max_abs"])
     errs.update(fused_direct_cells=at_c5["max_abs"],
                 fused_direct_ext=at_size["max_abs"],
                 fused_direct=k1_1080["cached"]["max_abs"],
@@ -1619,7 +1802,7 @@ def main():
         routes_bit_equal=routes_same,
         tracked_ms=timing["fused_direct_primary_tracked"][0],
         tracked_plain_ms=timing["fused_direct_primary_tracked"][1])
-    cfg2 = ext_time["config2_cached"]
+    cfg2 = ext_time["config2_cached_f32"]
     by_name["fused_direct_ext"].update(
         also_replaces="vpt_tpu/render/tracking.py:245 (_emission_lut)",
         shape=f"{W}x{H}, the 200^3 grid with emission "
@@ -1659,6 +1842,43 @@ def main():
                     steps=cells_time["cached"]["steps"]),
         ptxas={k: v for k, v in k1_ptxas.items() if "_cells" in k},
         launch={k: v for k, v in k1_launch.items() if "_cells" in k})
+    rows_design = ("K1's template instances of a single grid's rows: every "
+                   "row read through one typed load (a 2-byte load widened "
+                   "by __bfloat162float for bfloat16), and on an empty box "
+                   "the exit widened by the anchored box of the ray's "
+                   "octant and major axis (3 of the 72 columns at 15), "
+                   "taken where the launch's rows carry them")
+    by_name["fused_direct_bf16"].update(
+        also_replaces="vpt_tpu/render/fused.py:100, "
+                      "vpt_tpu/render/tracking.py:502 (octant_exit)",
+        shape="512x512, config 2 as the bench builds it (bfloat16 rows, "
+              "octant columns; EXT), cached, the frame's queue",
+        design=rows_design, row_bytes=cfg2_16["row_bytes"],
+        agree_share=cfg2_16["share"], steps=cfg2_16["steps"],
+        bound_counts="rays x 52 B + each row visited once, the 26 "
+                     "columns a step reads (15 density, 8 emission, 3 "
+                     "octant; 2 B a column) + K1's operations a step",
+        f32_rows=dict(ms=cfg2["ms"], plain_ms=cfg2["plain_ms"],
+                      steps=cfg2["steps"]),
+        bigvol=dict(n=BIGVOL_N, ms=bv_k1["ms"], bound_ms=bv_k1["bound"][0],
+                    bound_by=bv_k1["bound"][1], steps=bv_k1["steps"],
+                    crop_agree_share=bv_k1["share"],
+                    crop_bit_share=bv_k1["bit_share"],
+                    crop_max_abs_err=bv_k1["max_abs"]),
+        ptxas={k: v for k, v in k1_ptxas.items() if k.endswith("_bf16")},
+        launch={k: v for k, v in k1_launch.items() if k.endswith("_bf16")})
+    by_name["fused_direct_octant"].update(
+        also_replaces="vpt_tpu/render/fused.py:100",
+        shape="512x512, config 2 in float32 rows with the octant columns "
+              "(EXT), cached, the frame's queue",
+        design=rows_design, row_bytes=cfg2_oct["row_bytes"],
+        agree_share=cfg2_oct["share"], steps=cfg2_oct["steps"],
+        bound_counts="rays x 52 B + each row visited once, the 26 "
+                     "columns a step reads (15 density, 8 emission, 3 "
+                     "octant; 4 B a column) + K1's operations a step",
+        ptxas={k: v for k, v in k1_ptxas.items() if k.endswith("_octant")},
+        launch={k: v for k, v in k1_launch.items()
+                if k.endswith("_octant")})
     # K2's ray also runs inside K1's in-kernel-ray route, once per launch
     lens_name = f"aperture_{K2_APERTURE}"
     by_name["primary_rays"].update(

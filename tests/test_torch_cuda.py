@@ -35,9 +35,10 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "vpt_tpu_torch", "csrc")
 
 
-def _blob_scene(device, n=16, emission=False, color=False):
+def _blob_scene(device, n=16, emission=False, color=False, **rows):
     """A 16^3 blob with one point light, shadow-baked; with an emission
-    channel (and the ramp LUT) and a color channel where asked."""
+    channel (and the ramp LUT) and a color channel where asked; ``rows``:
+    build_scene's corner_dtype and octant_boxes."""
     z, y, x = np.mgrid[:n, :n, :n].astype(np.float32)
     r = np.sqrt((x - n / 2) ** 2 + (y - n / 2) ** 2 + (z - n / 2) ** 2)
     dens = np.clip(1.0 - r / (n / 2.4), 0.0, 1.0).astype(np.float32)
@@ -52,7 +53,7 @@ def _blob_scene(device, n=16, emission=False, color=False):
     s = build_scene([g], lights=PointLights.make([[2.0, 3.0, 4.0]],
                                                  [[1, 1, 1]], [30.0],
                                                  device=device),
-                    emission_lut=ramp_lut(), device=device)
+                    emission_lut=ramp_lut(), device=device, **rows)
     lo, hi = s.root_pmin.cpu().numpy(), s.root_pmax.cpu().numpy()
     c, d = (lo + hi) / 2, float(np.linalg.norm(hi - lo)) * 1.2
     s = dataclasses.replace(s, camera=Camera.make(
@@ -838,13 +839,13 @@ TINY_DIMS = dict(transmittance_w=64, transmittance_h=16, r=4, mu=32, mu_s=8,
                  nu=4, irradiance_w=16, irradiance_h=4)
 
 
-def _atmosphere_scene(device, sphere=False):
+def _atmosphere_scene(device, sphere=False, **rows):
     """The 16^3 blob scene with the golden tiny LUTs attached, and a
-    sphere below its centre where asked."""
+    sphere below its centre where asked; ``rows`` as _blob_scene's."""
     from vpt_tpu_torch.scene.geometry import Sphere
     from vpt_tpu_torch.scene.scene import attach_atmosphere
     from vpt_tpu_torch.sky.bruneton import LutDims
-    s = _blob_scene(device)
+    s = _blob_scene(device, **rows)
     if sphere:
         c = ((s.root_pmin + s.root_pmax) / 2).cpu().numpy()
         s = dataclasses.replace(s, sphere=Sphere.make(
@@ -960,3 +961,101 @@ def test_earth_on_the_card_matches_plain(cuda_device):
     pos, dirs = rt.earth_rays(atm.params, 64, 48)
     want = rt.sample_atmosphere(atm, pos, dirs, 150.0, 30.0, atm.dims)
     assert float((img.reshape(-1, 3) - want).abs().max()) <= 2e-6
+
+
+# K1's instances of a single grid's rows: build_scene's options, and the
+# counter beside the route's that a launch on them adds to
+ROW_CASES = {"bf16": dict(corner_dtype="bfloat16"),
+             "bf16_octant": dict(corner_dtype="bfloat16", octant_boxes=True),
+             "f32_octant": dict(octant_boxes=True)}
+
+
+def _rows_counter(rows):
+    return (fused.FUSED_DIRECT_OCTANT if rows == "f32_octant"
+            else fused.FUSED_DIRECT_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", list(ROW_CASES))
+@pytest.mark.parametrize("env", ["black", "sky", "atmosphere"])
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+def test_k1_row_instances_match_plain(cuda_device, mode, ext, env, rows):
+    """K1's bfloat16 and octant instances (density only and EXT, DEFER 0,
+    1 and 2) on both routes against the plain loop by the share rule, the
+    in-kernel-ray route bit for bit the buffer route, env_pos the plain
+    loop's wherever the outputs are; each launch counted once on the
+    rows' counter and never on the other."""
+    kw = dict(ROW_CASES[rows], emission=ext)
+    s = (_atmosphere_scene(cuda_device, **kw) if env == "atmosphere"
+         else _blob_scene(cuda_device, **kw))
+    p = RenderParams(width=48, height=40, shadow_mode=mode,
+                     environment_type={"black": 2, "sky": 0,
+                                       "atmosphere": 0}[env],
+                     ray_depth=8, emission_scale=1.5)
+    key = rng.render_key(0, 7)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    tkey = renderer.tile_key(key)
+    counter, other = _rows_counter(rows), (
+        fused.FUSED_DIRECT_BF16 if rows == "f32_octant"
+        else fused.FUSED_DIRECT_OCTANT)
+    before = (counter.launches, other.launches)
+    launch = fused.prepare_fused(s, p)
+    assert launch.params.defer_env == {"black": 0, "sky": 1,
+                                       "atmosphere": 2}[env]
+    views = fused._launch_k1(launch, tkey, o, d)
+    buf = fused._finish(s, p, launch, views)
+    gen = renderer._trace_primary_cuda(s, p, key)
+    torch.cuda.synchronize()
+    assert (counter.launches, other.launches) == (before[0] + 2, before[1])
+    assert _same_bits(gen, buf)
+    plain = fused.fused_direct_plain(s, p, tkey, o, d, deferred=True)
+    ref = fused.fused_direct_plain(s, p, tkey, o, d)
+    share, rel = agreement([x.cpu().numpy() for x in buf],
+                           [x.cpu().numpy() for x in ref])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
+    assert float(ref[0].mean()) > 0.0
+    if env == "atmosphere":
+        # L took K4's term in place: the other outputs, beta and direction
+        same = torch.ones(o.shape[0], dtype=torch.bool, device=cuda_device)
+        for a, b in zip(views[1:7], plain[1:7]):
+            eq = a.contiguous().view(torch.int32) == b.contiguous().view(
+                torch.int32)
+            same &= eq.all(-1) if eq.dim() == 2 else eq
+        env_same = (views[7].view(torch.int32)
+                    == plain[7].view(torch.int32)).all(-1)
+        assert bool(env_same[same].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", list(ROW_CASES))
+def test_k1_row_instances_launch_info(cuda_device, rows):
+    """Every instance a launch can reach reports its schedule."""
+    from vpt_tpu_torch.ops import cuda
+    kind = cuda.row_kind(
+        torch.bfloat16 if rows.startswith("bf16") else torch.float32,
+        72 if rows.endswith("octant") else 0)
+    for in_kernel in (False, True):
+        for defer in (0, 1, 2):
+            for ext in (False, True):
+                info = fused.launch_info(in_kernel, 128, defer, ext,
+                                         rows=kind)
+                assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+
+
+def test_row_kind_picks_the_instances():
+    """ops/cuda.py::row_kind on the rows K1 takes, and a refusal on
+    others (no card needed)."""
+    from vpt_tpu_torch.ops import cuda
+    assert cuda.row_kind(torch.float32, 0) == cuda.ROWS_F32
+    assert cuda.row_kind(torch.float32, 72) == cuda.ROWS_F32_OCTANT
+    assert cuda.row_kind(torch.bfloat16, 0) == cuda.ROWS_BF16
+    assert cuda.row_kind(torch.bfloat16, 72) == cuda.ROWS_BF16_OCTANT
+    with pytest.raises(ValueError):
+        cuda.row_kind(torch.float16, 0)
+    src = open(os.path.join(CSRC, "fused_direct.cu")).read()
+    m = re.search(r"constexpr int ROWS_F32 = (\d), ROWS_F32_OCTANT = (\d), "
+                  r"ROWS_BF16 = (\d),\s+ROWS_BF16_OCTANT = (\d);", src)
+    assert m and [int(v) for v in m.groups()] == [
+        cuda.ROWS_F32, cuda.ROWS_F32_OCTANT, cuda.ROWS_BF16,
+        cuda.ROWS_BF16_OCTANT]

@@ -163,13 +163,20 @@ def test_scene_from_arrays_round_trip(built):
 
 
 def test_out_of_slice_scenes_raise(grids):
-    """What the port still refuses: two grids, and the reference's octant
-    columns and bfloat16 rows (ROADMAP A.6, A.10)."""
+    """What the port still refuses: two grids, and octant columns or
+    bfloat16 rows on an instanced scene (ROADMAP A.6, A.10); a single
+    grid's rows of the reference with both are carried over."""
     g = grids["blob24"][0]
     with pytest.raises(NotImplementedError):
         tbuild([g, g], device="cpu")
     small = _blob(n=8, emission=True, color=True)
+    ids = [0] * 9
+    xf = [np.diag([0.2, 0.2, 0.2, 1.0]) for _ in ids]
     for kw in (dict(octant_boxes=True), dict(corner_dtype="bfloat16")):
-        arrays = jax_scene_arrays(jbuild([small], **kw))
         with pytest.raises(NotImplementedError):
-            scene_from_arrays(arrays, device="cpu")
+            tbuild([_blob(n=8)], instance_grid_ids=ids, instance_xforms=xf,
+                   device="cpu", **kw)
+    conv = scene_from_arrays(jax_scene_arrays(jbuild(
+        [small], octant_boxes=True, corner_dtype="bfloat16")), device="cpu")
+    assert conv.atlas.octant_cols == 72
+    assert conv.atlas.density_corners.dtype == torch.bfloat16

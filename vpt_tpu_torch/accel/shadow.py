@@ -370,9 +370,11 @@ def attach_shadow_cache(scene, azimuth: float, elevation: float,
                         step_vox: float = 0.5,
                         world_resolution: int = 192,
                         tau_downsample: int | None = None):
-    """Bake sun + point-light optical depths into the corner rows: the
-    table becomes (V, 15 + 8 (1 + L)).  Render with
-    ``shadow_mode="cached"`` at the same azimuth/elevation.
+    """Bake sun + point-light optical depths into the corner rows: 8 (1 +
+    L) columns after unified_layout's tau offset, in the rows' dtype
+    (float32 or bfloat16, rounded to nearest, as vpt_tpu/accel/shadow.py:
+    393-396).  Render with ``shadow_mode="cached"`` at the same
+    azimuth/elevation.
 
     ``tau_downsample`` None = auto: 1 below 32 M voxels; at and above,
     the bake runs on a 2x pooled proxy with 240x480 angular cells and
@@ -412,7 +414,8 @@ def attach_shadow_cache(scene, azimuth: float, elevation: float,
                                     step_vox=step_vox)
     if vox_scale > 1.0:
         tau_sun = _upsample_tau(tau_sun, (nz, ny, nx), vox_scale)
-    channels = [_corner_pack_plain(tau_sun)]
+    dtype = atlas.density_corners.dtype
+    channels = [_corner_pack_plain(tau_sun).to(dtype)]
 
     xform_p = xform.copy()
     if vox_scale > 1.0:
@@ -428,7 +431,7 @@ def attach_shadow_cache(scene, azimuth: float, elevation: float,
         tau_l = point_tau_nodes(dens_p, xform_p, bmin_p, lpos[i], **pt_kw)
         if vox_scale > 1.0:
             tau_l = _upsample_tau(tau_l, (nz, ny, nx), vox_scale)
-        channels.append(_corner_pack_plain(tau_l))
+        channels.append(_corner_pack_plain(tau_l).to(dtype))
 
     base = atlas.density_corners[:, :unified_layout(atlas)[2]]
     rows = torch.cat([base] + channels, dim=1).contiguous()

@@ -63,6 +63,19 @@
 // restarts MARCH with no NEE.  Density-only scenes at volume_depth 1 run
 // the variants without EXT, which compile none of that code.
 //
+// Row (a template argument, float or __nv_bfloat16): the corner rows'
+// element type.  Every read of a row goes through ld(), the one typed
+// load, which widens a 16-bit element with __bfloat162float; the walk's
+// arithmetic stays float32, as the reference reads its bfloat16 rows
+// (vpt_tpu/render/tracking.py:445, astype(float32) after the gather).
+// OCT (a template argument): the row carries the 72 per-(octant x
+// major-axis) anchored extents in cols 15:87 where the launch says so
+// (CellParams::octant), and an empty box's exit is widened by the box of
+// the ray's octant and major axis, the CELLS branch's arithmetic in the
+// grid's index space (vpt_tpu/render/tracking.py:502-513).  ROWS_* below
+// says which instances a launch's rows take.  A simple kernel that is
+// right: one 2-byte load per column read, no vector row loads.
+//
 // The step budget is max_steps steps per ray: max_fused_steps, or 16
 // times that where the reference queues 16 rays per lane
 // (render/params.py::resolve_queue); the keys of the first key_steps
@@ -77,6 +90,8 @@
 // it (vpt_tpu/render/fused.py:293, :361, :730): the ray's origin, moved
 // to the sphere's anchor by a sphere event and by nothing else (a volume
 // scatter leaves it), the primary origin for a queued ray that is cut.
+
+#include <cuda_bf16.h>
 
 #include "raygen.cuh"
 
@@ -93,6 +108,15 @@ constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 5;
 constexpr int KEY_CACHE = 1024;   // steps whose keys live in shared memory
 constexpr int KEYS_PER_STEP = 5;  // fold_in(key, s) and 4 HG subkeys
+// The corner rows of a launch (vpt_tpu_torch/ops/cuda.py::row_kind) and
+// the instances each takes (launch_rows, rows_info): ROWS_F32 those
+// without OCT, which compile as before; ROWS_F32_OCTANT the float32 OCT
+// ones; ROWS_BF16 and ROWS_BF16_OCTANT both the bfloat16 OCT ones, which
+// a single grid's launch tells apart at run time by CellParams::octant
+// (its only field such a launch sets), so that bfloat16 rows cost one
+// set of instances and not two.
+constexpr int ROWS_F32 = 0, ROWS_F32_OCTANT = 1, ROWS_BF16 = 2,
+              ROWS_BF16_OCTANT = 3;
 
 // Mirror of vpt_tpu_torch/render/fused.py::_FusedParams (all 4-byte
 // fields, same order).
@@ -130,7 +154,8 @@ struct ExtParams {
 // columns (the ids at ids_off, K of them; the octant columns at 7 where
 // `octant`), and the cell size per axis.  Its taus sit at
 // FusedParams::tau_off of the cell row.  Mirror of
-// vpt_tpu_torch/render/fused.py::_CellParams.
+// vpt_tpu_torch/render/fused.py::_CellParams.  A single grid's OCT
+// instances read `octant` alone (ROWS_*).
 struct CellParams {
     const float *rows;
     const float *inst;
@@ -143,10 +168,11 @@ inline bool extended(const ExtParams& x) {
     return x.em_off >= 0 || x.col_off >= 0 || x.volume_depth > 1;
 }
 
+template <typename Row>
 struct Ctx {
     const FusedParams& p;
     const ExtParams& x;
-    const float* __restrict__ corners;
+    const Row* __restrict__ corners;
     const float* __restrict__ lights;  // (L, 7): pos, color, power
     // (512, 3): the density color LUT, then the emission LUT
     const float* __restrict__ lut;
@@ -255,15 +281,23 @@ __device__ V3 phase_sample(const FusedParams& p, V3 dir, const Key (&hk)[4],
     return normalize(d1 + (d2 - d1) * (1.0f - p.phase_f));
 }
 
+// A corner row's element as a float: the one typed load of the rows.
+__device__ __forceinline__ float ld(const float* q) { return *q; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* q) {
+    return __bfloat162float(*q);
+}
+
+template <typename Row>
 struct Fetch {
     float density, s_box, t_box;
-    bool inb;          // the point lies in the grid
-    const float* row;  // the corner row, for the taus of an accepted event
+    bool inb;        // the point lies in the grid
+    const Row* row;  // the corner row, for the taus of an accepted event
     V3 fr;  // the point's fractions in its cell, for the 8 weights
 };
 
 // The trilinear weight of corner k (x fastest), as _trilerp_weights.
-__device__ __forceinline__ float corner_weight(const Fetch& f, int k) {
+template <typename F>
+__device__ __forceinline__ float corner_weight(const F& f, int k) {
     const float wx = (k & 1) ? f.fr.x : 1.0f - f.fr.x;
     const float wy = (k & 2) ? f.fr.y : 1.0f - f.fr.y;
     const float wz = (k & 4) ? f.fr.z : 1.0f - f.fr.z;
@@ -272,28 +306,33 @@ __device__ __forceinline__ float corner_weight(const Fetch& f, int k) {
 
 // The trilinear sum of the 8 taps at f.row + off, left to right (taps
 // `stride` apart: 1, or 3 for a color channel).
-__device__ __forceinline__ float taps_at(const Fetch& f, int off,
+template <typename Row>
+__device__ __forceinline__ float taps_at(const Fetch<Row>& f, int off,
                                          int stride = 1) {
-    const float* tr = f.row + off;
-    float s = tr[0] * corner_weight(f, 0);
+    const Row* tr = f.row + off;
+    float s = ld(tr) * corner_weight(f, 0);
 #pragma unroll
-    for (int k = 1; k < 8; ++k) s = s + tr[k * stride] * corner_weight(f, k);
+    for (int k = 1; k < 8; ++k)
+        s = s + ld(tr + k * stride) * corner_weight(f, k);
     return s;
 }
 
 // Trilinear tau of channel ch (0 = sun, 1 + l = point light l).
-__device__ __forceinline__ float tau_at(const FusedParams& p, const Fetch& f,
-                                        int ch) {
-    const float* tr = f.row + p.tau_off + 8 * ch;
-    float s = tr[0] * corner_weight(f, 0);
+template <typename Row>
+__device__ __forceinline__ float tau_at(const FusedParams& p,
+                                        const Fetch<Row>& f, int ch) {
+    const Row* tr = f.row + p.tau_off + 8 * ch;
+    float s = ld(tr) * corner_weight(f, 0);
 #pragma unroll
-    for (int k = 1; k < 8; ++k) s = s + tr[k] * corner_weight(f, k);
+    for (int k = 1; k < 8; ++k) s = s + ld(tr + k) * corner_weight(f, k);
     return s;
 }
 
 // tracking._emission_lut of this row's emission: the LUT row at the
 // truncated index (QUIRKS #15) x emission_scale, 0 outside the grid.
-__device__ __forceinline__ V3 emission_at(const Ctx& c, const Fetch& f) {
+template <typename Row>
+__device__ __forceinline__ V3 emission_at(const Ctx<Row>& c,
+                                          const Fetch<Row>& f) {
     if (!f.inb) return v3(0.0f, 0.0f, 0.0f);
     const float li =
         jclamp(taps_at(f, c.x.em_off) * 255.0f / c.p.emission_pivot, 0.0f,
@@ -304,8 +343,12 @@ __device__ __forceinline__ V3 emission_at(const Ctx& c, const Fetch& f) {
 }
 
 // render/tracking.py::_unified_fetch_single (banded, full): one corner
-// row serves density, the banded bound and its box exit, and the taus.
-__device__ void fetch_row(const Ctx& c, V3 pos, V3 dir, Fetch& f) {
+// row serves density, the banded bound and its box exit (with OCT and the
+// launch's octant columns, widened on an empty box by the octant box's),
+// and the taus.
+template <bool OCT, typename Row>
+__device__ void fetch_row(const Ctx<Row>& c, const CellParams& cp, V3 pos,
+                          V3 dir, Fetch<Row>& f) {
     const FusedParams& p = c.p;
     const float* m = p.inv_xf;
     const V3 ipos = v3(pos.x * m[0] + pos.y * m[3] + pos.z * m[6] + m[9],
@@ -328,27 +371,50 @@ __device__ void fetch_row(const Ctx& c, V3 pos, V3 dir, Fetch& f) {
         p.grid_off +
         ((long long)(int)i0f.z * p.dim[1] + (int)i0f.y) * p.dim[0] +
         (int)i0f.x;
-    const float* row = c.corners + flat * p.row_w;
+    const Row* row = c.corners + flat * p.row_w;
     f.fr = fr;
     f.row = row;
     f.inb = inb;
-    float d = row[0] * corner_weight(f, 0);
+    float d = ld(row) * corner_weight(f, 0);
 #pragma unroll
-    for (int k = 1; k < 8; ++k) d = d + row[k] * corner_weight(f, k);
+    for (int k = 1; k < 8; ++k) d = d + ld(row + k) * corner_weight(f, k);
     f.density = inb ? d : 0.0f;
-    const float t_box = row[8];
-    const V3 cube_min = i0f - v3(jmax(row[9], 0.0f), jmax(row[10], 0.0f),
-                                 jmax(row[11], 0.0f));
+    const float t_box = ld(row + 8);
+    const V3 cube_min =
+        i0f - v3(jmax(ld(row + 9), 0.0f), jmax(ld(row + 10), 0.0f),
+                 jmax(ld(row + 11), 0.0f));
     const V3 cube_max = i0f + v3(1.0f, 1.0f, 1.0f) +
-                        v3(jmax(row[12], 0.0f), jmax(row[13], 0.0f),
-                           jmax(row[14], 0.0f));
+                        v3(jmax(ld(row + 12), 0.0f), jmax(ld(row + 13), 0.0f),
+                           jmax(ld(row + 14), 0.0f));
     const V3 sd = v3(fabsf(idir.x) < 1e-12f ? 1e-12f : idir.x,
                      fabsf(idir.y) < 1e-12f ? 1e-12f : idir.y,
                      fabsf(idir.z) < 1e-12f ? 1e-12f : idir.z);
     const V3 t1 = (cube_min - x_u) / sd;
     const V3 t2 = (cube_max - x_u) / sd;
-    const float t_exit = jmin(jmin(jmax(t1.x, t2.x), jmax(t1.y, t2.y)),
-                              jmax(t1.z, t2.z));
+    float t_exit = jmin(jmin(jmax(t1.x, t2.x), jmax(t1.y, t2.y)),
+                        jmax(t1.z, t2.z));
+    if (OCT && cp.octant && t_box <= 0.0f) {
+        // accel/majorant.py::octant_exit in index space (i0f, x_u, idir):
+        // the box of the ray's octant and major axis, 3 of the 72 columns
+        const float ax = fabsf(idir.x), ay = fabsf(idir.y), az = fabsf(idir.z);
+        const int oct =
+            (idir.x > 0.0f) + 2 * (idir.y > 0.0f) + 4 * (idir.z > 0.0f);
+        const int major = az > jmax(ax, ay) ? 2 : (ay > ax ? 1 : 0);
+        const Row* e = row + 15 + 9 * oct + 3 * major;
+        const float d3[3] = {idir.x, idir.y, idir.z};
+        const float r3[3] = {x_u.x, x_u.y, x_u.z};
+        const float c3[3] = {i0f.x, i0f.y, i0f.z};
+        float t_oct = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            const float ea = jmax(ld(e + a), 0.0f);
+            const float face = d3[a] > 0.0f ? c3[a] + 1.0f + ea : c3[a] - ea;
+            const float ta =
+                fabsf(d3[a]) < 1e-12f ? 3.4e38f : (face - r3[a]) / d3[a];
+            t_oct = a == 0 ? ta : jmin(t_oct, ta);
+        }
+        t_exit = jmax(t_exit, t_oct);
+    }
     const V3 t1b = (bmin - ipos) / sd;
     const V3 t2b = (bmin + dimf - ipos) / sd;
     float t_entry = jmax(jmax(jmin(t1b.x, t2b.x), jmin(t1b.y, t2b.y)),
@@ -365,8 +431,9 @@ __device__ void fetch_row(const Ctx& c, V3 pos, V3 dir, Fetch& f) {
 // the cell row gives T_box and the box exit (the octant box's on an empty
 // cell), each listed instance its density, and the Fetch's row and
 // fractions address the taus of an accepted event (tau_at).
-__device__ void fetch_cells(const Ctx& c, const CellParams& cp, V3 pos,
-                            V3 dir, Fetch& f) {
+template <typename Row>
+__device__ void fetch_cells(const Ctx<Row>& c, const CellParams& cp, V3 pos,
+                            V3 dir, Fetch<Row>& f) {
     const FusedParams& p = c.p;
     const V3 root = v3(p.root_min), cs = v3(cp.cs);
     const V3 rel = (pos - root) / cs;
@@ -440,12 +507,12 @@ __device__ void fetch_cells(const Ctx& c, const CellParams& cp, V3 pos,
             (long long)m[18] +
             ((long long)(int)i0.z * (int)dimf.y + (int)i0.y) * (int)dimf.x +
             (int)i0.x;
-        Fetch g;
+        Fetch<Row> g;
         g.fr = x - i0;
-        const float* taps = c.corners + flat * p.row_w;
-        float v = taps[0] * corner_weight(g, 0);
+        const Row* taps = c.corners + flat * p.row_w;
+        float v = ld(taps) * corner_weight(g, 0);
 #pragma unroll
-        for (int q = 1; q < 8; ++q) v = v + taps[q] * corner_weight(g, q);
+        for (int q = 1; q < 8; ++q) v = v + ld(taps + q) * corner_weight(g, q);
         d = d + v;
     }
     f.density = d;
@@ -538,8 +605,8 @@ __device__ __forceinline__ V3 point_contrib(const FusedParams& p,
 }
 
 // fused.seek_block for one SEEK ray.
-template <bool EXT>
-__device__ void seek(const Ctx& c, Walk& s, Key ks,
+template <bool EXT, typename C>
+__device__ void seek(const C& c, Walk& s, Key ks,
                      unsigned long long ray) {
     const FusedParams& p = c.p;
     bool hit1;
@@ -617,8 +684,8 @@ __device__ __forceinline__ void resume(const FusedParams& p, Walk& s) {
 
 // The end of a medium event's light estimates: the emission walk from the
 // event along its scattered direction, on an emissive scene; else resume.
-template <bool EXT>
-__device__ __forceinline__ void after_event(const Ctx& c, Walk& s) {
+template <bool EXT, typename C>
+__device__ __forceinline__ void after_event(const C& c, Walk& s) {
     const FusedParams& p = c.p;
     if (!(EXT && c.x.em_off >= 0)) {
         resume(p, s);
@@ -654,8 +721,9 @@ __device__ __forceinline__ void init_walk(Walk& s, V3 org, V3 dir) {
 // components THREADS apart); `hk_cached` holds the step's HG subkeys
 // (shared memory), or is null past the key cache.  ENVPOS: a sphere event
 // moves env_pos to the sphere's anchor (seek's only way to P_SHADOW).
-template <bool EXT, bool CELLS, bool ENVPOS = false>
-__device__ __forceinline__ void walk_step(const Ctx& c, const CellParams& cp,
+template <bool EXT, bool CELLS, bool ENVPOS, typename Row, bool OCT>
+__device__ __forceinline__ void walk_step(const Ctx<Row>& c,
+                                          const CellParams& cp,
                                           Walk& s, const float* org, Key ks,
                                           const Key* hk_cached,
                                           unsigned long long ray) {
@@ -688,11 +756,11 @@ __device__ __forceinline__ void walk_step(const Ctx& c, const CellParams& cp,
     const bool exited = t_new >= s.dist;
     const V3 cursor = s.pos + s.dirn * t_new;
 
-    Fetch f;
-    if (CELLS)
+    Fetch<Row> f;
+    if constexpr (CELLS)
         fetch_cells(c, cp, cursor, s.dirn, f);
     else
-        fetch_row(c, cursor, s.dirn, f);
+        fetch_row<OCT>(c, cp, cursor, s.dirn, f);
     const float t_old = s.tbox;
     s.skip = exited ? 0.0f : f.s_box;
     s.tbox = exited ? 0.0f : f.t_box;
@@ -941,12 +1009,13 @@ long long slot_count(const FusedParams& p) {
 // write_out's own branch; resetting the walk state in the loop instead
 // measured cached +1.6% and tracked -1.3% against this, and an
 // out-of-line writer +45% (PERF.md, Findings).
-template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS>
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS,
+          typename Row = float, bool OCT = false>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     const float* __restrict__ origin,
                     const float* __restrict__ direction,
-                    const float* __restrict__ corners,
+                    const Row* __restrict__ corners,
                     const float* __restrict__ lights,
                     const float* __restrict__ lut, const Out out,
                     unsigned* __restrict__ next_ray, unsigned n_slots,
@@ -972,7 +1041,7 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
     }
     __syncthreads();
 
-    const Ctx c{p, x, corners, lights, lut};
+    const Ctx<Row> c{p, x, corners, lights, lut};
     const Key k_seek = skeys[0];
     const int lane = threadIdx.x & 31;
     const unsigned below = (1u << lane) - 1u;
@@ -1039,9 +1108,9 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
             const bool in_cache = step < n_keys;
             const Key* e = skeys + 1 + KEYS_PER_STEP * step;
             const Key ks = in_cache ? e[0] : fold_in(key, (uint32_t)step);
-            walk_step<EXT, CELLS, DEFER == 2>(c, cp, s, org, ks,
-                                  in_cache ? e + 1 : nullptr,
-                                  (unsigned long long)ray);
+            walk_step<EXT, CELLS, DEFER == 2, Row, OCT>(
+                c, cp, s, org, ks, in_cache ? e + 1 : nullptr,
+                (unsigned long long)ray);
             ++step;
             if (s.phase == P_DONE || step >= p.max_steps) {
                 write_out<DEFER>(p, s, out, ray, dir0, org);
@@ -1067,7 +1136,8 @@ int smem_bytes(const FusedParams& p) {
 // SMs and resident blocks per SM of one variant, asked of the runtime
 // once per library load (again only for another device or key-cache
 // size).
-template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS>
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS,
+          typename Row = float, bool OCT = false>
 cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     static int o_dev = -1, o_smem = -1, o_sms = 0, o_per_sm = 0;
     int dev = 0;
@@ -1078,7 +1148,8 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
         e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n_blk, fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS>,
+                &n_blk,
+                fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT>,
                 THREADS, smem);
         if (e != cudaSuccess) return e;
         if (n_sm <= 0 || n_blk <= 0) return cudaErrorInvalidConfiguration;
@@ -1089,11 +1160,12 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     return cudaSuccess;
 }
 
-template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS>
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS,
+          typename Row = float, bool OCT = false>
 int launch_variant(const FusedParams& p, const ExtParams& x,
                    const CellParams& cp, const RaygenParams& rp,
                    const float* origin, const float* direction,
-                   const float* corners, const float* lights,
+                   const void* corners, const float* lights,
                    const float* lut, float* out, unsigned* next_ray,
                    void* stream) {
     if (p.B <= 0) return 0;
@@ -1104,7 +1176,8 @@ int launch_variant(const FusedParams& p, const ExtParams& x,
     const int smem = smem_bytes(p);
     int sms = 0, per_sm = 0;
     cudaError_t e =
-        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS>(smem, sms, per_sm);
+        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT>(smem, sms,
+                                                               per_sm);
     if (e != cudaSuccess) return (int)e;
     const long long need = ((long long)p.B + THREADS - 1) / THREADS;
     const long long grid = (long long)sms * per_sm;
@@ -1113,79 +1186,128 @@ int launch_variant(const FusedParams& p, const ExtParams& x,
     e = cudaMemsetAsync(next_ray, 0, sizeof(unsigned), st);
     if (e != cudaSuccess) return (int)e;
     const Out o{out, ((long long)p.B + 3) & ~3LL};
-    fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS>
-        <<<blocks, THREADS, smem, st>>>(p, rp, origin, direction, corners,
-                                        lights, lut, o, next_ray,
-                                        (unsigned)slot_count(p), x, cp);
+    fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT>
+        <<<blocks, THREADS, smem, st>>>(
+            p, rp, origin, direction, static_cast<const Row*>(corners),
+            lights, lut, o, next_ray, (unsigned)slot_count(p), x, cp);
     return (int)cudaGetLastError();
 }
 
+// The instance of a single grid's rows (`rows`: ROWS_* says which).
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT>
+int launch_rows(int rows, const FusedParams& p, const ExtParams& x,
+                const RaygenParams& rp, const float* origin,
+                const float* direction, const void* corners,
+                const float* lights, const float* lut, float* out,
+                unsigned* next_ray, void* stream) {
+    CellParams oct{};
+    oct.octant = rows == ROWS_F32_OCTANT || rows == ROWS_BF16_OCTANT;
+    switch (rows) {
+        case ROWS_F32:
+            return launch_variant<RAYS_IN_KERNEL, DEFER, EXT, false>(
+                p, x, oct, rp, origin, direction, corners, lights, lut, out,
+                next_ray, stream);
+        case ROWS_F32_OCTANT:
+            return launch_variant<RAYS_IN_KERNEL, DEFER, EXT, false, float,
+                                  true>(p, x, oct, rp, origin, direction,
+                                        corners, lights, lut, out, next_ray,
+                                        stream);
+        case ROWS_BF16:
+        case ROWS_BF16_OCTANT:
+            return launch_variant<RAYS_IN_KERNEL, DEFER, EXT, false,
+                                  __nv_bfloat16, true>(
+                p, x, oct, rp, origin, direction, corners, lights, lut, out,
+                next_ray, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
 // The variant of a launch: CELLS where a cell table is given (an
-// instanced scene: density only, so never with EXT), else EXT or not.
+// instanced scene: density only in float32 rows, so never with EXT),
+// else EXT or not, in the instances of its rows (launch_rows).
 template <bool RAYS_IN_KERNEL, int DEFER>
 int launch_defer(const FusedParams& p, const ExtParams& x,
-                 const CellParams* cp, const RaygenParams& rp,
+                 const CellParams* cp, int rows, const RaygenParams& rp,
                  const float* origin, const float* direction,
-                 const float* corners, const float* lights, const float* lut,
+                 const void* corners, const float* lights, const float* lut,
                  float* out, unsigned* next_ray, void* stream) {
     if (cp)
-        return extended(x) ? (int)cudaErrorInvalidValue
-                           : launch_variant<RAYS_IN_KERNEL, DEFER, false, true>(
-                                 p, x, *cp, rp, origin, direction, corners,
-                                 lights, lut, out, next_ray, stream);
-    const CellParams none{};
+        return extended(x) || rows != ROWS_F32
+                   ? (int)cudaErrorInvalidValue
+                   : launch_variant<RAYS_IN_KERNEL, DEFER, false, true>(
+                         p, x, *cp, rp, origin, direction, corners, lights,
+                         lut, out, next_ray, stream);
     return extended(x)
-               ? launch_variant<RAYS_IN_KERNEL, DEFER, true, false>(
-                     p, x, none, rp, origin, direction, corners, lights, lut,
+               ? launch_rows<RAYS_IN_KERNEL, DEFER, true>(
+                     rows, p, x, rp, origin, direction, corners, lights, lut,
                      out, next_ray, stream)
-               : launch_variant<RAYS_IN_KERNEL, DEFER, false, false>(
-                     p, x, none, rp, origin, direction, corners, lights, lut,
+               : launch_rows<RAYS_IN_KERNEL, DEFER, false>(
+                     rows, p, x, rp, origin, direction, corners, lights, lut,
                      out, next_ray, stream);
 }
 
 template <bool RAYS_IN_KERNEL>
 int launch(const FusedParams& p, const ExtParams& x, const CellParams* cp,
-           const RaygenParams& rp, const float* origin,
-           const float* direction, const float* corners,
+           int rows, const RaygenParams& rp, const float* origin,
+           const float* direction, const void* corners,
            const float* lights, const float* lut, float* out,
            unsigned* next_ray, void* stream) {
     if (p.defer_env == 2)
-        return launch_defer<RAYS_IN_KERNEL, 2>(p, x, cp, rp, origin,
+        return launch_defer<RAYS_IN_KERNEL, 2>(p, x, cp, rows, rp, origin,
                                                direction, corners, lights,
                                                lut, out, next_ray, stream);
     return p.defer_env
                ? launch_defer<RAYS_IN_KERNEL, 1>(
-                     p, x, cp, rp, origin, direction, corners, lights, lut,
-                     out, next_ray, stream)
+                     p, x, cp, rows, rp, origin, direction, corners, lights,
+                     lut, out, next_ray, stream)
                : launch_defer<RAYS_IN_KERNEL, 0>(
-                     p, x, cp, rp, origin, direction, corners, lights, lut,
-                     out, next_ray, stream);
+                     p, x, cp, rows, rp, origin, direction, corners, lights,
+                     lut, out, next_ray, stream);
 }
 
-template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS>
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS,
+          typename Row = float, bool OCT = false>
 cudaError_t variant_info(int smem, int& sms, int& per_sm,
                          cudaFuncAttributes& a) {
     const cudaError_t e =
-        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS>(smem, sms, per_sm);
+        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT>(smem, sms,
+                                                               per_sm);
     return e != cudaSuccess
                ? e
                : cudaFuncGetAttributes(
-                     &a,
-                     fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS>);
+                     &a, fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT,
+                                             CELLS, Row, OCT>);
 }
 
-// variant: 0 density only, 1 EXT, 2 CELLS
+template <bool RAYS_IN_KERNEL, int DEFER, bool EXT>
+cudaError_t rows_info(int rows, int smem, int& sms, int& per_sm,
+                      cudaFuncAttributes& a) {
+    if (rows == ROWS_F32_OCTANT)
+        return variant_info<RAYS_IN_KERNEL, DEFER, EXT, false, float, true>(
+            smem, sms, per_sm, a);
+    if (rows == ROWS_BF16 || rows == ROWS_BF16_OCTANT)
+        return variant_info<RAYS_IN_KERNEL, DEFER, EXT, false, __nv_bfloat16,
+                            true>(smem, sms, per_sm, a);
+    return variant_info<RAYS_IN_KERNEL, DEFER, EXT, false>(smem, sms, per_sm,
+                                                            a);
+}
+
+// variant: 0 density only, 1 EXT, 2 CELLS (float32 rows only); rows: the
+// ROWS_* of a single grid
 template <bool RAYS_IN_KERNEL, int DEFER>
-cudaError_t variant_info(int variant, int smem, int& sms, int& per_sm,
-                         cudaFuncAttributes& a) {
+cudaError_t variant_info(int variant, int rows, int smem, int& sms,
+                         int& per_sm, cudaFuncAttributes& a) {
     if (variant == 2)
-        return variant_info<RAYS_IN_KERNEL, DEFER, false, true>(smem, sms,
-                                                                per_sm, a);
+        return rows != ROWS_F32
+                   ? cudaErrorInvalidValue
+                   : variant_info<RAYS_IN_KERNEL, DEFER, false, true>(
+                         smem, sms, per_sm, a);
     return variant == 1
-               ? variant_info<RAYS_IN_KERNEL, DEFER, true, false>(
-                     smem, sms, per_sm, a)
-               : variant_info<RAYS_IN_KERNEL, DEFER, false, false>(
-                     smem, sms, per_sm, a);
+               ? rows_info<RAYS_IN_KERNEL, DEFER, true>(rows, smem, sms,
+                                                        per_sm, a)
+               : rows_info<RAYS_IN_KERNEL, DEFER, false>(rows, smem, sms,
+                                                         per_sm, a);
 }
 
 }  // namespace
@@ -1198,25 +1320,26 @@ extern "C" int vpt_fused_cells_size() { return (int)sizeof(CellParams); }
 // 7, 13 or 16 S floats laid out as Out says; `next_ray` is the
 // 4-byte ray counter, zeroed here on the launch stream; `lut` the density
 // color LUT, then the emission LUT, (512, 3); `cells` the cell table of an
-// instanced scene (CellParams), or null.
+// instanced scene (CellParams), or null; `rows` the corner rows' ROWS_*
+// (their element type and whether they carry the octant columns).
 extern "C" int vpt_fused_direct(const void* params, const void* ext,
-                                const void* cells, const float* origin,
-                                const float* direction,
-                                const float* corners, const float* lights,
+                                const void* cells, int rows,
+                                const float* origin, const float* direction,
+                                const void* corners, const float* lights,
                                 const float* lut, float* out,
                                 unsigned* next_ray, void* stream) {
     return launch<false>(*static_cast<const FusedParams*>(params),
                          *static_cast<const ExtParams*>(ext),
-                         static_cast<const CellParams*>(cells),
+                         static_cast<const CellParams*>(cells), rows,
                          RaygenParams{}, origin, direction, corners, lights,
                          lut, out, next_ray, stream);
 }
 
 // K1 on the primary rays of `raygen` (H * W = B), made in the lanes.
 extern "C" int vpt_fused_direct_primary(const void* params, const void* ext,
-                                        const void* cells,
+                                        const void* cells, int rows,
                                         const void* raygen,
-                                        const float* corners,
+                                        const void* corners,
                                         const float* lights,
                                         const float* lut, float* out,
                                         unsigned* next_ray, void* stream) {
@@ -1225,30 +1348,38 @@ extern "C" int vpt_fused_direct_primary(const void* params, const void* ext,
     if ((long long)rp.H * rp.W != (long long)p.B)
         return (int)cudaErrorInvalidValue;
     return launch<true>(p, *static_cast<const ExtParams*>(ext),
-                        static_cast<const CellParams*>(cells), rp, nullptr,
-                        nullptr, corners, lights, lut, out, next_ray, stream);
+                        static_cast<const CellParams*>(cells), rows, rp,
+                        nullptr, nullptr, corners, lights, lut, out,
+                        next_ray, stream);
 }
 
 // info[0..5] of one variant (route, deferred environment 0, 1 or 2
-// (with env_pos), variant: 0
-// density only, 1 EXT, 2 CELLS) whose keys of key_steps steps are cached,
+// (with env_pos), variant: 0 density only, 1 EXT, 2 CELLS; rows: the
+// ROWS_* of a single grid) whose keys of key_steps steps are cached,
 // at Q = 1: SMs, resident blocks per SM, threads per block, registers per
 // thread, local (spill and stack) bytes per thread, dynamic shared bytes
 // per block.
 extern "C" int vpt_fused_launch_info(int rays_in_kernel, int defer_env,
-                                     int variant, int key_steps, int* info) {
+                                     int variant, int rows, int key_steps,
+                                     int* info) {
     const int smem = key_smem_bytes(key_steps);
     int sms = 0, per_sm = 0;
     cudaFuncAttributes a{};
     cudaError_t e;
     if (rays_in_kernel)
-        e = defer_env == 2 ? variant_info<true, 2>(variant, smem, sms, per_sm, a)
-            : defer_env    ? variant_info<true, 1>(variant, smem, sms, per_sm, a)
-                           : variant_info<true, 0>(variant, smem, sms, per_sm, a);
+        e = defer_env == 2 ? variant_info<true, 2>(variant, rows, smem, sms,
+                                                   per_sm, a)
+            : defer_env    ? variant_info<true, 1>(variant, rows, smem, sms,
+                                                   per_sm, a)
+                           : variant_info<true, 0>(variant, rows, smem, sms,
+                                                   per_sm, a);
     else
-        e = defer_env == 2 ? variant_info<false, 2>(variant, smem, sms, per_sm, a)
-            : defer_env    ? variant_info<false, 1>(variant, smem, sms, per_sm, a)
-                           : variant_info<false, 0>(variant, smem, sms, per_sm, a);
+        e = defer_env == 2 ? variant_info<false, 2>(variant, rows, smem, sms,
+                                                    per_sm, a)
+            : defer_env    ? variant_info<false, 1>(variant, rows, smem, sms,
+                                                    per_sm, a)
+                           : variant_info<false, 0>(variant, rows, smem, sms,
+                                                    per_sm, a);
     if (e != cudaSuccess) return (int)e;
     info[0] = sms;
     info[1] = per_sm;

@@ -82,9 +82,9 @@ def load_library() -> Library:
     dll = ctypes.CDLL(path)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, args in (
-            ("vpt_fused_direct", [vp] * 11),
-            ("vpt_fused_direct_primary", [vp] * 10),
-            ("vpt_fused_launch_info", [i32, i32, i32, i32, vp]),
+            ("vpt_fused_direct", [vp] * 3 + [i32] + [vp] * 8),
+            ("vpt_fused_direct_primary", [vp] * 3 + [i32] + [vp] * 7),
+            ("vpt_fused_launch_info", [i32, i32, i32, i32, i32, vp]),
             ("vpt_primary_rays", [vp, ctypes.c_int, vp, vp, vp]),
             ("vpt_fused_params_size", []),
             ("vpt_fused_ext_size", []),
@@ -168,6 +168,22 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+# K1's corner rows (csrc/fused_direct.cu, ROWS_*, which lists the
+# instances each kind takes)
+ROWS_F32, ROWS_F32_OCTANT, ROWS_BF16, ROWS_BF16_OCTANT = 0, 1, 2, 3
+
+
+def row_kind(dtype: torch.dtype, octant_cols: int) -> int:
+    """K1's ROWS_* for corner rows of ``dtype`` with ``octant_cols`` (0 or
+    72) octant columns."""
+    if dtype == torch.float32:
+        return ROWS_F32_OCTANT if octant_cols else ROWS_F32
+    if dtype == torch.bfloat16:
+        return ROWS_BF16_OCTANT if octant_cols else ROWS_BF16
+    raise ValueError(f"corner rows of dtype {dtype}: K1 takes float32 or "
+                     "bfloat16")
+
+
 def current_stream(device: torch.device) -> int:
     """The raw handle of the current CUDA stream on ``device`` (torch's
     raw getter where it has one: the Stream object costs microseconds a
@@ -187,12 +203,14 @@ def check_struct(struct, size_fn) -> None:
 
 
 def check_cuda_tensor(t, name, shape=None, dtype=None, device=None):
-    """Raise on a tensor the kernel does not take."""
+    """Raise on a tensor the kernel does not take; ``dtype`` is one type
+    or a set of them."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if dtype is not None and t.dtype != dtype:
+    dtypes = dtype if isinstance(dtype, (set, frozenset)) else {dtype}
+    if dtype is not None and t.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "

@@ -50,9 +50,15 @@ the environment term.  Rays that finish are the same bits at any Q.
 ``volume_depth`` > 1: every medium event but the last of a walk scatters
 (HG) and restarts MARCH from the collision, with no NEE.
 
+A single grid's corner rows may be bfloat16 and may carry the 72 octant
+columns (volume/grid.py): the plain loop reads them through the fetch,
+widened to float32; K1 takes them in instances of their own
+(``FUSED_DIRECT_BF16``, ``FUSED_DIRECT_OCTANT``).
+
 Not in this slice (NotImplementedError): the queue path
 (``rays_per_lane > 1``), instanced scenes without cell lists or with
-emission, color or volume_depth > 1 (ROADMAP A.6).
+emission, color or volume_depth > 1 (ROADMAP A.6), and instanced scenes
+whose corner rows are bfloat16 or carry octant columns (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -111,6 +117,23 @@ FUSED_DIRECT_CELLS = cuda.Kernel(
     name="fused_direct_cells", route="cuda",
     source="vpt_tpu_torch/csrc/fused_direct.cu",
     replaces="vpt_tpu/render/fused.py:100")
+# K1's instances for bfloat16 corner rows, with the octant exit compiled in
+# and taken where the rows carry the octant columns, on either route
+# (counted beside the route's own counter)
+FUSED_DIRECT_BF16 = cuda.Kernel(
+    name="fused_direct_bf16", route="cuda",
+    source="vpt_tpu_torch/csrc/fused_direct.cu",
+    replaces="vpt_tpu/render/tracking.py:407")
+# K1's instances for float32 corner rows with the octant columns, on
+# either route (counted beside the route's own counter)
+FUSED_DIRECT_OCTANT = cuda.Kernel(
+    name="fused_direct_octant", route="cuda",
+    source="vpt_tpu_torch/csrc/fused_direct.cu",
+    replaces="vpt_tpu/render/tracking.py:502")
+# the counter of the instances that each kind of rows takes
+_ROWS_KERNEL = {cuda.ROWS_BF16: FUSED_DIRECT_BF16,
+                cuda.ROWS_BF16_OCTANT: FUSED_DIRECT_BF16,
+                cuda.ROWS_F32_OCTANT: FUSED_DIRECT_OCTANT}
 # K1's schedule per shadow mode, chosen by timing on the H100 (PERF.md):
 # a warp refills its idle lanes once at least refill_min (1..32) are
 # idle, each taking the next slot of the global counter, the slots
@@ -158,6 +181,11 @@ def _check_scene(scene, params):
     if n != 1:
         check_instanced(n, _use_cells(scene), scene.atlas.has_emission
                         or scene.atlas.has_color)
+        if (scene.atlas.density_corners.dtype != torch.float32
+                or scene.atlas.octant_cols):
+            raise NotImplementedError(
+                "bfloat16 corner rows or octant columns on an instanced "
+                "scene are not ported yet (ROADMAP A.10)")
         if params.volume_depth > 1:
             raise NotImplementedError("volume_depth > 1 on an instanced "
                                       "scene is not ported yet (ROADMAP A.6)")
@@ -572,20 +600,21 @@ def warp_efficiency(cost, warp: int = 32) -> float:
 
 def launch_info(rays_in_kernel: bool, max_fused_steps: int,
                 defer_env: bool = False, ext: bool = False,
-                cells: bool = False) -> dict:
+                cells: bool = False, rows: int = cuda.ROWS_F32) -> dict:
     """K1's schedule on the current card for one route at
     ``max_fused_steps`` (which sizes the key cache, whatever the queue),
     for BLACK/CONSTANT or (``defer_env`` 1) HDRI and the skies or (2) the
     live Bruneton atmosphere, with env_pos, density-only
     or (``ext``) emission, color or volume_depth > 1 or (``cells``) an
-    instanced scene, from the CUDA runtime: SMs, resident blocks per SM,
+    instanced scene, for corner rows of ``rows`` (ops/cuda.py::row_kind),
+    from the CUDA runtime: SMs, resident blocks per SM,
     threads per block, registers and local bytes per thread, dynamic
     shared bytes per block.  The grid is SMs x blocks per SM blocks
     (fewer for a small frame)."""
     info = (ctypes.c_int * 6)()
     variant = 2 if cells else int(ext)
     cuda.check_status(cuda.load_library().dll.vpt_fused_launch_info(
-        int(rays_in_kernel), int(defer_env), variant, max_fused_steps,
+        int(rays_in_kernel), int(defer_env), variant, rows, max_fused_steps,
         info), "fused_direct launch info")
     return dict(zip(("sms", "blocks_per_sm", "threads", "registers",
                      "local_bytes", "shared_bytes"), info))
@@ -657,6 +686,9 @@ class FusedLaunch:
     # the CELLS variant's, on an instanced scene (its tables in `tables`)
     cells: _CellParams | None = None
     tables: tuple = ()
+    # the corner rows' element type and octant columns (ops/cuda.py::
+    # row_kind), which pick K1's instances
+    rows: int = cuda.ROWS_F32
 
 
 def prepare_fused(scene, params) -> FusedLaunch:
@@ -664,7 +696,8 @@ def prepare_fused(scene, params) -> FusedLaunch:
     _check_scene(scene, params)
     dev = scene.device
     corners = scene.atlas.density_corners
-    cuda.check_cuda_tensor(corners, "density_corners", dtype=torch.float32)
+    cuda.check_cuda_tensor(corners, "density_corners",
+                           dtype={torch.float32, torch.bfloat16})
     for name in ("density_color_lut", "emission_lut"):
         cuda.check_cuda_tensor(getattr(scene, name), name, (256, 3),
                                torch.float32, dev)
@@ -740,7 +773,8 @@ def prepare_fused(scene, params) -> FusedLaunch:
     next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
     env = prepare_environment(scene, params) if defer else None
     return FusedLaunch(p, corners, lights, lut, next_ray, env, x, cells,
-                       tables)
+                       tables, cuda.row_kind(corners.dtype,
+                                             scene.atlas.octant_cols))
 
 
 def _cell_params(scene):
@@ -830,15 +864,32 @@ def _launch_k1(launch: FusedLaunch, key, origin, direction,
     p, out, views = _launch_args(launch, B, key, frame_width, queue)
     rc = cuda.load_library().dll.vpt_fused_direct(
         ctypes.byref(p), ctypes.byref(launch.ext), _cells_arg(launch),
-        origin.data_ptr(),
+        launch.rows, origin.data_ptr(),
         direction.data_ptr(), launch.corners.data_ptr(),
         launch.lights.data_ptr(), launch.lut.data_ptr(), out.data_ptr(),
         launch.next_ray.data_ptr(), cuda.current_stream(dev))
     cuda.check_status(rc, "fused_direct")
     FUSED_DIRECT.launches += 1
+    _count_variants(launch)
+    return views
+
+
+def rows_kernel(scene):
+    """The counter of K1's instances that a single grid's rows take beside
+    the route's own: FUSED_DIRECT_BF16 for bfloat16 rows,
+    FUSED_DIRECT_OCTANT for float32 rows with octant columns; None for
+    float32 rows without them."""
+    return _ROWS_KERNEL.get(cuda.row_kind(scene.atlas.density_corners.dtype,
+                                          scene.atlas.octant_cols))
+
+
+def _count_variants(launch: FusedLaunch):
+    """One launch of K1 on either route, on the counters of the variant
+    and the rows' instances it ran."""
     FUSED_DIRECT_EXT.launches += extended(launch.ext)
     FUSED_DIRECT_CELLS.launches += launch.cells is not None
-    return views
+    if launch.rows in _ROWS_KERNEL:
+        _ROWS_KERNEL[launch.rows].launches += 1
 
 
 def _cells_arg(launch: FusedLaunch):
@@ -867,12 +918,11 @@ def _launch_k1_primary(launch: FusedLaunch, key, raygen, queue: int = 1):
                                  raygen.W, queue)
     rc = cuda.load_library().dll.vpt_fused_direct_primary(
         ctypes.byref(p), ctypes.byref(launch.ext), _cells_arg(launch),
-        ctypes.byref(raygen),
+        launch.rows, ctypes.byref(raygen),
         launch.corners.data_ptr(), launch.lights.data_ptr(),
         launch.lut.data_ptr(), out.data_ptr(), launch.next_ray.data_ptr(),
         cuda.current_stream(launch.corners.device))
     cuda.check_status(rc, "fused_direct_primary")
     FUSED_DIRECT_PRIMARY.launches += 1
-    FUSED_DIRECT_EXT.launches += extended(launch.ext)
-    FUSED_DIRECT_CELLS.launches += launch.cells is not None
+    _count_variants(launch)
     return views

@@ -1,10 +1,12 @@
 """The per-step fetches and their helpers (port of
 vpt_tpu/render/tracking.py:46-196, 306-572).
 
-Single-instance scenes: one corner-row load serves the trilinear
-density, the banded bound T_box with its box-exit distance, the emission
-and color channels, and the cached shadow taus (``_unified_fetch_single``;
-K1's ``fetch_row``).  Instanced scenes with cell lists: one majorant
+Single-instance scenes: one corner-row load (float32 or bfloat16 rows,
+read as float32) serves the trilinear density, the banded bound T_box
+with its box-exit distance (on an empty box widened by the octant box's
+where the rows carry the octant columns), the emission and color
+channels, and the cached shadow taus (``_unified_fetch_single``; K1's
+``fetch_row``).  Instanced scenes with cell lists: one majorant
 cell row serves T_box, the box and octant exits, the cell's instance ids
 and the cached taus, and each listed instance adds its trilinear density
 from one instance row and one corner row (``_cells_banded_fetch``; K1's
@@ -208,9 +210,10 @@ def _unified_fetch_single(scene, params, pos, direction,
     reaching to the grid entry (1e30 when the ray misses the grid).
     banded=False: (density, skip_dt[, tau]), skip_dt > 0 only in
     guaranteed-empty regions.  full=True returns a FetchResult, with the
-    emission and color channels where the grid has them."""
-    if scene.atlas.octant_cols:
-        raise NotImplementedError("octant-box columns are not ported")
+    emission and color channels where the grid has them.  bfloat16 rows
+    are read as float32; with the octant columns an empty box's exit is
+    widened by the anchored box of the ray's octant and major axis
+    (vpt_tpu/render/tracking.py:502-513)."""
     if not params.use_majorant:
         raise NotImplementedError("use_majorant=False is not ported")
     inv = scene.instances.inv_xform[0]
@@ -231,7 +234,7 @@ def _unified_fetch_single(scene, params, pos, direction,
     i0 = i0f.to(torch.int64)
     dim = [int(v) for v in dimf.tolist()]
     flat = off + (i0[..., 2] * dim[1] + i0[..., 1]) * dim[0] + i0[..., 0]
-    rows = scene.atlas.density_corners[flat]
+    rows = scene.atlas.density_corners[flat].float()
     w8 = _trilerp_weights(frac)
     density = torch.where(inb, _wsum8(rows[..., :8], w8), 0.0)
 
@@ -254,6 +257,11 @@ def _unified_fetch_single(scene, params, pos, direction,
     t1 = (cube_min - x_u) / safe_dir
     t2 = (cube_max - x_u) / safe_dir
     t_exit = _amin3(torch.maximum(t1, t2))
+    if scene.atlas.octant_cols:
+        from vpt_tpu_torch.accel.majorant import octant_exit
+        t_oct = octant_exit(rows[..., 15:87], i0f, x_u, idir)
+        t_exit = torch.where(t_box <= 0.0, torch.maximum(t_exit, t_oct),
+                             t_exit)
     in_skip = inb & (t_box <= 0.0)
 
     t1b = (bmin - ipos) / safe_dir

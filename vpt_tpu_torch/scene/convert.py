@@ -16,6 +16,11 @@ dims (``"atmosphere.dims.*"``); the reference's corner-packed LUTs
 (``"atmosphere.packed.*"``) are dropped, the port reads the plain ones.
 A ``sky_cache`` leaf may be the reference's (H, W, 24) corner-packed rows
 or the port's (H, W, 6) texture: its first 6 channels are the texture.
+bfloat16 corner rows come as the reference's ml_dtypes array, read by
+its dtype's name as 16-bit patterns (ml_dtypes is not imported), or as
+the ``uint16`` view that ``scene_to_arrays`` writes (numpy has no
+bfloat16 of its own), with ``"atlas.density_corners_dtype"`` naming the
+type; ``"atlas.octant_cols"`` (0 or 72) goes with them.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ _TOP = ("root_pmin", "root_pmax", "max_extinction", "min_extinction",
         "emission_lut", "density_color_lut")
 
 
+BF16 = "bfloat16"
+
+
 def _tensor(a, device):
     a = np.asarray(a)
     if a.dtype == np.bool_:
@@ -48,27 +56,39 @@ def _tensor(a, device):
     return torch.as_tensor(a.astype(np.float32), device=device)
 
 
+def _corner_rows(arrays: dict, device):
+    """The corner rows: bfloat16 from the reference's ml_dtypes array or
+    from a uint16 view with its dtype key (the same 16 bits), else
+    float32."""
+    a = np.asarray(arrays["atlas.density_corners"])
+    if str(arrays.get("atlas.density_corners_dtype", a.dtype.name)) == BF16:
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return _tensor(a, device)
+
+
 def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
     """Port Scene from ``{dotted leaf name: numpy array}``.
 
     Raises NotImplementedError for what this slice does not render:
-    instanced scenes without cell lists or with emission or color,
-    octant-box columns in the corner rows, bfloat16 corner rows."""
+    instanced scenes without cell lists or with emission or color."""
     n = np.asarray(arrays["instances.grid_id"]).shape[0]
     check_instanced(
         n, "majorant.cell_rows" in arrays,
         int(np.asarray(arrays["atlas.emission_offset"]).max()) >= 0
         or int(np.asarray(arrays["atlas.color_offset"]).max()) >= 0)
-    if np.asarray(arrays["atlas.density_corners"]).dtype != np.float32:
-        raise NotImplementedError("corner rows other than float32 are not "
-                                  "ported (ROADMAP A.10)")
-    if int(arrays.get("atlas.octant_cols", 0)):
-        raise NotImplementedError("octant-box columns are not ported")
     parts = {}
     for group, cls in _GROUPS.items():
-        parts[group] = cls(**{
-            f.name: _tensor(arrays[f"{group}.{f.name}"], device)
-            for f in dataclasses.fields(cls)})
+        kw = {}
+        for f in dataclasses.fields(cls):
+            name = f"{group}.{f.name}"
+            if name == "atlas.octant_cols":
+                kw[f.name] = int(arrays.get(name, 0))
+            elif name == "atlas.density_corners":
+                kw[f.name] = _corner_rows(arrays, device)
+            else:
+                kw[f.name] = _tensor(arrays[name], device)
+        parts[group] = cls(**kw)
     parts.update({k: _tensor(arrays[k], device) for k in _TOP})
     if n > 1:
         parts["majorant"] = MajorantGrid(**{
@@ -117,7 +137,15 @@ def scene_to_arrays(scene: Scene) -> dict:
     for group in _GROUPS:
         obj = getattr(scene, group)
         for f in dataclasses.fields(obj):
-            out[f"{group}.{f.name}"] = getattr(obj, f.name).cpu().numpy()
+            v = getattr(obj, f.name)
+            if isinstance(v, int):
+                out[f"{group}.{f.name}"] = np.asarray(v)
+            elif v.dtype == torch.bfloat16:
+                out[f"{group}.{f.name}"] = v.cpu().view(
+                    torch.int16).numpy().view(np.uint16)
+                out[f"{group}.{f.name}_dtype"] = np.asarray(BF16)
+            else:
+                out[f"{group}.{f.name}"] = v.cpu().numpy()
     for k in _TOP:
         out[k] = getattr(scene, k).cpu().numpy()
     if scene.env_map is not None:

@@ -4,9 +4,11 @@ Single-instance scenes carry no majorant grid: their full-fetch path
 never reads it (vpt_tpu/render/fused.py:182, tracking.py:120-122).
 Instanced scenes carry it with per-cell instance lists once they have
 more instances than ``instance_list_threshold`` (accel/majorant.py): one
-grid instanced N times, density only.  Fewer instances take the
-reference's static per-instance loop, which is not ported, nor are
-several grids, emission or color on instanced scenes (ROADMAP A.6).  The
+grid instanced N times, density only, in float32 rows without octant
+columns (ROADMAP A.10).  Fewer instances take the reference's static
+per-instance loop, which is not ported, nor are several grids, emission
+or color on instanced scenes (ROADMAP A.6).  A single instance's rows
+may be bfloat16 and carry the octant columns (volume/grid.py).  The
 LUTs not given are loaded from the EXR assets as the reference loads
 them (scene/assets.py), white where none is found.
 """
@@ -163,15 +165,20 @@ def build_scene(host_grids: list[HostGrid],
                 majorant_resolution: int = 64,
                 instance_list_threshold: int = 8,
                 octant_cells: bool | str = "auto",
+                corner_dtype: str = "float32",
+                octant_boxes: bool | str = "auto",
                 device=DEFAULT_DEVICE, timings: dict | None = None) -> Scene:
     """Assemble a Scene on ``device``.  ``instance_xforms[i]`` is
     instance i's index->world transform (default: each grid's own file
     transform, one instance each).  Root bounds = the union of the
     instance bounds padded by 1 (bvh_builder.cpp:76-78); corner rows from
-    volume/grid.py; with more than ``instance_list_threshold`` instances
-    the majorant grid with cell lists at ``majorant_resolution``.
-    ``timings``, where given, receives the seconds of the majorant grid's
-    stages (accel/majorant.py::build_majorant_grid)."""
+    volume/grid.py, in ``corner_dtype`` ("float32" or "bfloat16"), with
+    the 72 octant columns where ``octant_boxes`` ("auto" resolves to
+    False, as the reference's: vpt_tpu/scene/scene.py:205-215); with more
+    than ``instance_list_threshold`` instances the majorant grid with
+    cell lists at ``majorant_resolution``.  ``timings``, where given,
+    receives the seconds of the majorant grid's stages
+    (accel/majorant.py::build_majorant_grid)."""
     if instance_grid_ids is None:
         instance_grid_ids = np.arange(len(host_grids))
         instance_xforms = [g.transform for g in host_grids]
@@ -185,6 +192,12 @@ def build_scene(host_grids: list[HostGrid],
     lists = n > instance_list_threshold and bool(majorant_resolution)
     check_instanced(n, lists, g.emission_zyx is not None
                     or g.color_zyx is not None)
+    if octant_boxes == "auto":
+        octant_boxes = False
+    if n > 1 and (octant_boxes or corner_dtype != "float32"):
+        raise NotImplementedError(
+            "octant columns or bfloat16 corner rows on an instanced scene "
+            "are not ported yet (ROADMAP A.10)")
     xforms = np.stack([np.asarray(x, np.float64) for x in instance_xforms])
     inv = np.linalg.inv(xforms)
     bounds = [_world_bounds(g, xf) for xf in xforms]
@@ -193,7 +206,8 @@ def build_scene(host_grids: list[HostGrid],
     root_pmin = pmin.min(axis=0) - 1.0
     root_pmax = pmax.max(axis=0) + 1.0
     atlas = build_atlas(host_grids, band_divisors=band_divisors,
-                        device=device)
+                        device=device, corner_dtype=corner_dtype,
+                        octant_boxes=bool(octant_boxes))
     majorant = None
     if n > 1:
         from vpt_tpu_torch.accel.majorant import build_majorant_grid

@@ -1,9 +1,10 @@
 """Helpers shared by the tools and chip_smoke.py: timing, the card's
 peak rates and a kernel's bound, a NaN-aware equality, the random inputs
 (made on the CPU from a seed, then moved, so a CPU and a CUDA run see
-the same numbers), the reference bench's config 2 and 3 volume and map
-and its config 5 cloudscape (numpy, copied from bench.py), and the c5
-golden's instanced scene (copied from tests/golden_scenes.py)."""
+the same numbers), the reference bench's config 2-4 volume, map and
+corner rows, its config 5 cloudscape (numpy, copied from bench.py) and
+its bigvol_512 scene, and the c5 golden's instanced scene (copied from
+tests/golden_scenes.py)."""
 
 from __future__ import annotations
 
@@ -128,6 +129,11 @@ def bench_blob(n=64, emission=False, color=False):
         max_density=float(dens.max()), min_density=1e-6)
 
 
+# bench.py builds configs 2-4 with these corner rows (bench.py:589-590,
+# :614-615, :664-665)
+BENCH_ROWS = dict(octant_boxes=True, corner_dtype="bfloat16")
+
+
 def bench_env_map(h=128, w=256):
     """The reference bench's config 3 environment (bench.py:608-613): a
     vertical gradient with a bright "sun" texel, float32 (h, w, 3)."""
@@ -216,3 +222,72 @@ def golden_camera(scene, dist_scale=1.2):
     return dataclasses.replace(scene, camera=Camera.make(
         c + np.array([0.0, 0.15 * d, d]), c, vfov=45.0, aspect=1.0,
         device=scene.device))
+
+
+# the reference bench's bigvol_512 (bench.py:526-575): a 512^3 fBm-Perlin
+# grid at voxel size 1, scale 0.012, seed 5, in bfloat16 corner rows
+BIGVOL_N, BIGVOL_SCALE, BIGVOL_SEED = 512, 0.012, 5
+BIGVOL_DENSITY_MULT = 0.04
+
+
+def bigvol_scene(n=BIGVOL_N, device=None, timings=None):
+    """bench.py's bigvol scene at n^3 on ``device``: the fBm grid over
+    [-n/2, n/2]^3 (its noise in 64-slice slabs), one point light at (0,
+    2.2 h, 3 h) of power 8 h^2 (h = n / 2), bfloat16 corner rows without
+    octant columns, the sun and the light baked (attach_shadow_cache, 150
+    / 30; tau_downsample auto: 2 from 32 M voxels), then the raw density
+    dropped, as the bench's keep_raw_density=False; the camera at (0, 1,
+    10) h / 3.5 from the centre, vfov 40, square.  ``timings``, where
+    given, receives procedural_s, build_s and bake_s."""
+    import dataclasses
+
+    import numpy as np
+
+    from vpt_tpu_torch.accel.shadow import attach_shadow_cache
+    from vpt_tpu_torch.core.camera import Camera
+    from vpt_tpu_torch.lights.lights import PointLights
+    from vpt_tpu_torch.scene.scene import build_scene
+    from vpt_tpu_torch.volume.procedural import create_procedural_grid
+    dev = torch.device(device) if device is not None else torch.device(
+        "cuda", 0)
+    t = {} if timings is None else timings
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    half = n / 2.0
+    t0 = time.perf_counter()
+    grid = create_procedural_grid(vmin=(-half,) * 3, vmax=(half,) * 3,
+                                  res=1.0, scale=BIGVOL_SCALE,
+                                  seed=BIGVOL_SEED, chunk_z=64, device=dev)
+    t["procedural_s"] = time.perf_counter() - t0
+    lights = PointLights.make([[0.0, half * 2.2, half * 3.0]],
+                              [[1.0, 1.0, 1.0]], [half * half * 8.0],
+                              device=dev)
+    t0 = time.perf_counter()
+    s = build_scene([grid], lights=lights, corner_dtype="bfloat16",
+                    device=dev)
+    sync()
+    t["build_s"] = time.perf_counter() - t0
+    del grid
+    t0 = time.perf_counter()
+    s = attach_shadow_cache(s, 150.0, 30.0)
+    sync()
+    t["bake_s"] = time.perf_counter() - t0
+    s = dataclasses.replace(s, atlas=dataclasses.replace(
+        s.atlas, density=torch.zeros(1, device=dev)))
+    c = (s.root_pmin + s.root_pmax).cpu().numpy() / 2
+    return dataclasses.replace(s, camera=Camera.make(
+        c + np.array([0.0, 1.0, 10.0]) * (half / 3.5), c, vfov=40.0,
+        aspect=1.0, device=dev))
+
+
+def bigvol_params():
+    """The bench's bigvol parameters (bench.py:389-391, :567-568): 512^2,
+    cached, BLACK, density_mult 0.04, ray_depth 50, 128 fused steps."""
+    from vpt_tpu_torch.render.params import Environment, RenderParams
+    return RenderParams(width=512, height=512, ray_depth=50, volume_depth=1,
+                        max_track_steps=256, max_fused_steps=128,
+                        shadow_mode="cached", azimuth=150.0, elevation=30.0,
+                        density_mult=BIGVOL_DENSITY_MULT,
+                        environment_type=int(Environment.BLACK))

@@ -100,11 +100,16 @@ def common_name(name: str) -> str:
     """A kernel's name across builds of the sources: the anonymous
     namespace's per-source hash dropped; K1's deferred-environment
     template argument read as an int (a bool before env_pos: the same 0
-    and 1); K4's parameter list dropped (the atmosphere kinds appended
-    arguments to it)."""
+    and 1); K1's row arguments and its parameter list dropped where they
+    are float32 rows without the octant branch (their defaults: the older
+    builds had no such arguments, and the corner rows' parameter mangles
+    as the row argument); K4's parameter list dropped (the atmosphere
+    kinds appended arguments to it)."""
     name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name)
     name = re.sub(r"(fused_direct_kernelILb[01]E)Lb([01])E", r"\1Li\2E",
                   name)
+    name = re.sub(r"(fused_direct_kernelI(?:L[bi]\d+E){4})(?:fLb0E)?E.*",
+                  r"\1E", name)
     return re.sub(r"(environment_kernelILi\d+E).*", r"\1", name)
 
 

@@ -1,6 +1,7 @@
 """The Bruneton atmosphere on the card: the reference bench's config 4
 (vpt_tpu's bench.py:649-681), K4's ATMOSPHERE and SKY_CACHE kinds and
-K1's env_pos, each held to its plain version, and the LUT precompute's
+K1's env_pos (in the bench's rows and in float32 rows), each held to its
+plain version, and the LUT precompute's
 and the sky bake's seconds.
 
     python -m vpt_tpu_torch.tools.time_atmosphere [--quick | --memory]
@@ -11,20 +12,21 @@ and leaves out the full-size precompute, the 1080p render and the entry
 points (a first check of a new build); ``--memory`` runs only
 ``stage_memory``.  Needs a CUDA device.
 
-Config 4, cut as configs 2-3 are (ROADMAP A.10): the 64^3 puff
-(tools/common.py::bench_blob) in float32 corner rows without octant
-boxes (the bench: bfloat16 rows, ``octant_boxes=True``); the half
-LutDims; the camera 9 in front of the root box's centre and 0.5 above
-it, vfov 40; ATMOSPHERE, the sun at 150/30, ray_depth 50, 512^2;
-tracked and cached shadows, live and baked (attach_sky_cache at 256 x
-512), 32 timed spp each after 2; the live atmosphere at 1080p, tracked,
-16 spp.
+Config 4 as the bench builds it: the 64^3 puff
+(tools/common.py::bench_blob) in bfloat16 corner rows with the octant
+columns (``BENCH_ROWS``); the half LutDims; the camera 9 in front of the
+root box's centre and 0.5 above it, vfov 40; ATMOSPHERE, the sun at
+150/30, ray_depth 50, 512^2; tracked and cached shadows, live and baked
+(attach_sky_cache at 256 x 512), 32 timed spp each after 2, and the live
+tracked render beside in float32 rows without octant columns
+(``live_tracked_f32``); the live atmosphere at 1080p, tracked, 16 spp.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import sys
@@ -44,7 +46,10 @@ MIN_SHARE = 0.99   # K1's rays bit for bit with the plain loop, the least
 # a walk cut short at Q = 16: 16 steps in a 32 times denser puff (a few
 # per cent of the rays are cut)
 CUT = dict(max_fused_steps=1, density_mult=32.0)
-# K1 against the plain loop: (name, scene, size, in-kernel rays, cut)
+# K1 against the plain loop: (name, scene, size, in-kernel rays, cut),
+# each on both kinds of rows: the bench's (bfloat16, octant columns) and,
+# as the name's ``_f32`` (the rows that ``vpt-torch render --atmosphere``
+# builds), float32 without octant columns
 K1_CASES = (("live_tracked", "live_tracked", PARITY, False, False),
             ("live_cached", "live_cached", PARITY, False, False),
             ("sphere_tracked", "sphere_tracked", PARITY, False, False),
@@ -102,7 +107,8 @@ def run(dev, quick=False, out=print, tmp=None):
                                            attach_sky_cache, build_scene)
     from vpt_tpu_torch.sky import bruneton as br
     from vpt_tpu_torch.sky import runtime as rt
-    from vpt_tpu_torch.tools.common import bench_blob, bound, time_ms
+    from vpt_tpu_torch.tools.common import (BENCH_ROWS, bench_blob, bound,
+                                            time_ms)
     from vpt_tpu_torch.utils.io import read_png
 
     def emit(part, **kw):
@@ -115,7 +121,8 @@ def run(dev, quick=False, out=print, tmp=None):
     kernels = [fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY,
                renderer.RAYGEN, film_mod.FILM_ACCUMULATE,
                integrator.ENVIRONMENT, integrator.ENVIRONMENT_ATMOSPHERE,
-               integrator.ENVIRONMENT_SKY_CACHE]
+               integrator.ENVIRONMENT_SKY_CACHE, fused.FUSED_DIRECT_BF16,
+               fused.FUSED_DIRECT_OCTANT]
     spp = 2 if quick else SPP
 
     # ---- the LUTs: half dims for config 4, full dims timed -------------
@@ -140,7 +147,10 @@ def run(dev, quick=False, out=print, tmp=None):
     emit("precompute", **res)
 
     # ---- config 4 ------------------------------------------------------
-    scene = build_scene([bench_blob()], device=dev)
+    t0 = time.perf_counter()
+    scene = build_scene([bench_blob()], device=dev, **BENCH_ROWS)
+    sync()
+    res["build_s"] = time.perf_counter() - t0
     c = (scene.root_pmin + scene.root_pmax).cpu().numpy() / 2
 
     def aimed(s_, w, h):
@@ -159,8 +169,12 @@ def run(dev, quick=False, out=print, tmp=None):
     res["shadow_bake_s"] = time.perf_counter() - t0
     baked_cached = dataclasses.replace(live_cached,
                                        sky_cache=baked.sky_cache)
+    live_f32 = attach_atmosphere(aimed(build_scene([bench_blob()],
+                                                   device=dev), SIZE, SIZE),
+                                 atmosphere=atm)
     scenes = {"live_tracked": live, "live_cached": live_cached,
-              "baked_tracked": baked, "baked_cached": baked_cached}
+              "baked_tracked": baked, "baked_cached": baked_cached,
+              "live_tracked_f32": live_f32}
 
     def params(w, h, mode, **kw):
         return RenderParams(**{**dict(
@@ -187,6 +201,8 @@ def run(dev, quick=False, out=print, tmp=None):
                  if renderer.RAYS_IN_KERNEL[pe.shadow_mode]
                  else {fused.FUSED_DIRECT.name, renderer.RAYGEN.name})
         on = route | {film_mod.FILM_ACCUMULATE.name, k4_counter(sc).name}
+        if fused.rows_kernel(sc) is not None:
+            on.add(fused.rows_kernel(sc).name)
         want = {k.name: (warm + n if k.name in on else 0) for k in kernels}
         if got != want:
             raise RuntimeError(f"atmosphere {name}: launches {got}, "
@@ -205,7 +221,8 @@ def run(dev, quick=False, out=print, tmp=None):
         return rr, rec
 
     runs, k4_launches = {}, {integrator.ENVIRONMENT_ATMOSPHERE.name: 0,
-                             integrator.ENVIRONMENT_SKY_CACHE.name: 0}
+                             integrator.ENVIRONMENT_SKY_CACHE.name: 0,
+                             fused.FUSED_DIRECT_BF16.name: 0}
     for name, sc in scenes.items():
         rr, runs[name] = timed_render(name, sc, params(
             SIZE, SIZE, name.split("_")[1]), WARM, spp)
@@ -217,12 +234,15 @@ def run(dev, quick=False, out=print, tmp=None):
         sc = dataclasses.replace(live, camera=aimed(live, w, h).camera)
         rr, runs["live_tracked_1080p"] = timed_render(
             "live 1080p", sc, params(w, h, "tracked"), WARM, HD_SPP)
-        k4_launches[integrator.ENVIRONMENT_ATMOSPHERE.name] += \
-            runs["live_tracked_1080p"]["launches"][
-                integrator.ENVIRONMENT_ATMOSPHERE.name]
+        for k in (integrator.ENVIRONMENT_ATMOSPHERE, fused.FUSED_DIRECT_BF16):
+            k4_launches[k.name] += runs["live_tracked_1080p"]["launches"][
+                k.name]
         del rr
     res["runs"] = runs
-    emit("config4", runs=runs, sky_bake_s=res["sky_bake_s"],
+    emit("config4", runs=runs, build_s=res["build_s"],
+         rows=dict(dtype="bfloat16", octant_cols=scene.atlas.octant_cols,
+                   width=scene.atlas.density_corners.shape[1]),
+         sky_bake_s=res["sky_bake_s"],
          shadow_bake_s=res["shadow_bake_s"], dims=HALF,
          cache=[CACHE_H, CACHE_W])
 
@@ -235,15 +255,22 @@ def run(dev, quick=False, out=print, tmp=None):
     sph = Sphere.make(center=(c + np.array([0.0, -1.0, 1.5])).tolist(),
                       radius=1.2, color=(0.8, 0.8, 0.8), roughness=0.3,
                       device=dev)
-    k1_scenes = {"live_tracked": live, "live_cached": live_cached,
-                 "sphere_tracked": dataclasses.replace(live, sphere=sph),
-                 "sphere_cached": dataclasses.replace(live_cached,
-                                                      sphere=sph)}
+    k1_scenes = {}
+    for rows, (tracked, cached) in (
+            ("", (live, live_cached)),
+            ("_f32", (live_f32, attach_shadow_cache(live_f32, AZIMUTH,
+                                                    ELEVATION)))):
+        k1_scenes.update({
+            f"live_tracked{rows}": tracked, f"live_cached{rows}": cached,
+            f"sphere_tracked{rows}": dataclasses.replace(tracked,
+                                                         sphere=sph),
+            f"sphere_cached{rows}": dataclasses.replace(cached, sphere=sph)})
     key = rng.render_key(0, 0)
     tkey = renderer.tile_key(key)
     k1 = {}
-    for name, scene_name, size, in_kernel, cut in K1_CASES:
-        sc = k1_scenes[scene_name]
+    for (name, scene_name, size, in_kernel, cut), rows in itertools.product(
+            K1_CASES, ("", "_f32")):
+        name, sc = name + rows, k1_scenes[scene_name + rows]
         pe = params(size, size, scene_name.split("_")[1],
                     **(CUT if cut else {}))
         if in_kernel and not renderer.RAYS_IN_KERNEL[pe.shadow_mode]:
@@ -269,7 +296,9 @@ def run(dev, quick=False, out=print, tmp=None):
         env_same = bit_equal(views[7], plain[7])
         rec = dict(
             rays=o.shape[0], queue=q, route="rays_in_kernel" if in_kernel
-            else "rays_in_memory",
+            else "rays_in_memory", rows=str(
+                sc.atlas.density_corners.dtype).replace("torch.", ""),
+            octant_cols=sc.atlas.octant_cols,
             outputs_bit_share=float(same.double().mean()),
             beta_dir_bit_share=float((bit_equal(views[5], plain[5])
                                       & bit_equal(views[6], plain[6])

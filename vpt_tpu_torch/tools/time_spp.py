@@ -4,6 +4,7 @@
                                             [--spp 64] [--warmup 2]
                                             [--rays-per-lane 0]
                                             [--default-command]
+                                            [--bigvol [N]]
 
 Builds chip_smoke.py's scene at 1920x1080 (the procedural 200^3 grid,
 one point light and the sun, shadow-baked on the card), then, for each
@@ -20,7 +21,13 @@ instead `vpt-torch render procedural` as a user types it (the simple
 sky, the sun and no point light) at 1920x1080 with --spp samples in each
 mode, through the CLI's entry point in this process: its ``render_s``
 per sample (the renderer's set-up and the display image included) and
-the SHA-256 of the PNG it writes.  It calls only the renderer's and the
+the SHA-256 of the PNG it writes.  ``--bigvol`` times instead the
+reference bench's bigvol_512 scene (tools/common.py::bigvol_scene: a
+512^3 fBm grid, or N^3, in bfloat16 corner rows, shadow-baked with
+tau_downsample 2, the raw density dropped) at 512x512 with cached
+shadows: the corner table's GiB, the fill's, build's and bake's seconds,
+the peak host RSS, then the renderer's ms/spp, iterations per ray and
+trunc_frac over --spp samples.  It calls only the renderer's and the
 CLI's public entry points, so run by its path with another checkout of
 the package first on PYTHONPATH it times that checkout.
 """
@@ -32,6 +39,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import resource
 import subprocess
 import tempfile
 import time
@@ -58,9 +66,13 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--rays-per-lane", type=int, default=0, choices=[0, 1])
     ap.add_argument("--default-command", action="store_true")
+    ap.add_argument("--bigvol", type=int, nargs="?", const=512, default=0,
+                    metavar="N", help="the bench's bigvol scene at N^3")
     args = ap.parse_args(argv)
     if args.default_command:
         return default_command(args.modes, args.spp)
+    if args.bigvol:
+        return bigvol(args.bigvol, args.spp, args.warmup)
     dev = torch.device("cuda", 0)
     grid = create_procedural_grid(vmin=(-100.0,) * 3, vmax=(100.0,) * 3,
                                   device=dev)
@@ -112,6 +124,41 @@ def default_command(modes, spp):
             ms_per_spp=st["render_s"] * 1e3 / st["spp"],
             scene_s=st["scene_s"], bake_s=st["bake_s"],
             png_sha256=sha)), flush=True)
+    print_smi()
+
+
+def bigvol(n, spp, warmup):
+    """The bench's bigvol scene at n^3, built, baked and rendered at
+    512x512 with cached shadows."""
+    from vpt_tpu_torch.tools.common import bigvol_params, bigvol_scene
+    dev = torch.device("cuda", 0)
+    st = {}
+    scene = bigvol_scene(n, dev, st)
+    rows = scene.atlas.density_corners
+    p = bigvol_params()
+    r = ProgressiveRenderer(scene, p)
+    t0 = time.perf_counter()
+    r.step(warmup)
+    torch.cuda.synchronize()
+    st["first_samples_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r.step(spp)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rays = p.width * p.height * (warmup + spp)
+    print(json.dumps(dict(
+        scene="bigvol", n=n, corner_table=list(rows.shape),
+        corner_dtype=str(rows.dtype).replace("torch.", ""),
+        corner_gib=rows.numel() * rows.element_size() / 2 ** 30,
+        peak_host_rss_gib=resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+        peak_device_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        size=[p.width, p.height], spp=spp, ms_per_spp=dt * 1e3 / spp,
+        mean_iters_per_ray=float(r.film.cost.double().sum()) / rays,
+        trunc_frac=float(r.film.trunc.double().sum()) / rays,
+        image_mean=float(r.film.accum.double().mean()),
+        finite=bool(torch.isfinite(r.film.accum).all()), **st)),
+        flush=True)
     print_smi()
 
 

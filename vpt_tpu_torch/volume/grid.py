@@ -1,26 +1,26 @@
 """Dense volume atlas and the corner-row packers (port of
-vpt_tpu/volume/grid.py, the single-grid float32 subset).
+vpt_tpu/volume/grid.py, the single-grid subset).
 
 A trilinear fetch reads ONE row of the corner table: the 2x2x2
 neighbourhood of the base voxel (tap order c = x + 2y + 4z), then the
 acceleration channels T_box (col 8) and the empty-box extents
-(cols 9:15), then the grid's emission taps (8 columns) and color taps
-(24: corner-major, channel-minor) where it has those channels, then the
-shadow-cache taus that accel/shadow.py appends (``unified_layout``).
+(cols 9:15), then, with ``octant_boxes``, the 72 per-(octant x
+major-axis) anchored extents (cols 15:87), then the grid's emission taps
+(8 columns) and color taps (24: corner-major, channel-minor) where it
+has those channels, then the shadow-cache taus that accel/shadow.py
+appends (``unified_layout``).
 
 The packers run on the host in numpy, like the reference's.  The
 empty-box growth, the slow part at production size, is the greedy sweep
 of native/vdb_codec.cpp (``grow_empty_boxes``) vectorised in torch on
-the scene's device; how long it took is logged.
+the scene's device; how long it took is logged.  The octant extents
+(``_octant_box_extents``) grow the same way; the majorant cell grid of
+instanced scenes carries them too (accel/majorant.py).
 
-The per-(octant x major-axis) anchored extents (``_octant_box_extents``)
-grow the same way; only the majorant cell grid of instanced scenes
-carries them (accel/majorant.py).
+``corner_dtype="bfloat16"`` stores the rows in torch.bfloat16, cast in
+torch (no ml_dtypes): half the bytes of a row (``to_corner_dtype``).
 
-Not in this slice: bf16 corner rows (they need ml_dtypes), multi-grid
-atlases, and octant columns in the corner rows of a single grid
-(``build_scene`` resolves ``octant_boxes="auto"`` to False in the
-reference; ROADMAP A.10).
+Not ported: multi-grid atlases (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -60,7 +60,8 @@ class VolumeAtlas:
     """Device tensors of the one grid of a single-instance scene."""
 
     density: torch.Tensor          # (V,) f32 raw voxels (the bakes read it)
-    # (V, 15 [+ 8 emission] [+ 24 color] [+ 8 (1+L) taus]) f32
+    # (V, 15 [+ 72 octant] [+ 8 emission] [+ 24 color] [+ 8 (1+L) taus]),
+    # float32 or bfloat16
     density_corners: torch.Tensor
     offset: torch.Tensor           # (1,) int32
     emission_offset: torch.Tensor  # (1,) int32: 0, or -1 without emission
@@ -70,8 +71,9 @@ class VolumeAtlas:
     max_density: torch.Tensor      # (1,) f32
     min_density: torch.Tensor      # (1,) f32
     voxel_size: torch.Tensor       # (1,) f32
-
-    octant_cols = 0
+    # 72 when the rows carry the octant extents in cols 15:87, else 0;
+    # shifts every later channel (unified_layout)
+    octant_cols: int = 0
 
     @functools.cached_property
     def has_emission(self) -> bool:
@@ -304,16 +306,19 @@ def _max3(d_zyx: np.ndarray) -> np.ndarray:
 
 def _corner_pack(d_zyx: np.ndarray, band_divisors: tuple | None = None,
                  device=DEFAULT_DEVICE,
-                 emit_zyx: np.ndarray | None = None) -> np.ndarray:
-    """(nz,ny,nx) -> (V, 15) rows: 8 edge-clamped taps, T_box (a density
-    bound for every trilinear sample whose base voxel lies in the box;
-    banded at BAND_DIVISORS x the grid max, 0 = empty) and the box's
-    extents (vpt_tpu/volume/grid.py:474-559, without octant boxes).
+                 emit_zyx: np.ndarray | None = None,
+                 octant_boxes: bool = False) -> np.ndarray:
+    """(nz,ny,nx) -> (V, 15 [+ 72]) rows: 8 edge-clamped taps, T_box (a
+    density bound for every trilinear sample whose base voxel lies in the
+    box; banded at BAND_DIVISORS x the grid max, 0 = empty), the box's
+    extents and, with ``octant_boxes``, the 72 octant extents of the
+    voxels whose 3^3 majorant is 0 (vpt_tpu/volume/grid.py:474-559).
 
     ``emit_zyx``: the emission channel, whose 3^3 majorant joins the
-    occupancy of the zero band, so that an empty box is emission-free
-    too and the EMIT walk may jump it; boxes only shrink, so MARCH and
-    SHADOW stay exact (vpt_tpu/volume/grid.py:511-526, :548-550)."""
+    occupancy of the zero band and of the octant boxes, so that an empty
+    box is emission-free too and the EMIT walk may jump it; boxes only
+    shrink, so MARCH and SHADOW stay exact (vpt_tpu/volume/grid.py:
+    511-526, :548-556)."""
     nz, ny, nx = d_zyx.shape
     out = np.empty((15, nz, ny, nx), np.float32)
     for c, tap in enumerate(_corner_taps(
@@ -341,20 +346,65 @@ def _corner_pack(d_zyx: np.ndarray, band_divisors: tuple | None = None,
         t_box[sel] = t
     out[8] = t_box
     out[9:15] = ext
-    return np.ascontiguousarray(out.reshape(15, -1).T)
+    if octant_boxes:
+        occ0 = maj > 0.0
+        if extra_occ is not None:
+            occ0 = occ0 | extra_occ
+        out = np.concatenate([out, _octant_box_extents(occ0, device=device)])
+    return np.ascontiguousarray(out.reshape(out.shape[0], -1).T)
+
+
+def to_corner_dtype(rows: torch.Tensor, corner_dtype: str,
+                    octant_cols: int = 0) -> torch.Tensor:
+    """The float32 corner rows in ``corner_dtype`` ("float32" or
+    "bfloat16"), on their device.
+
+    bfloat16 rounds to nearest even (the cast of torch and of ml_dtypes
+    alike), except the box extents (cols 9:15 + octant_cols), which
+    round DOWN, so that an empty box never claims a voxel it does not
+    hold: where the nearest bfloat16 lies above the float32 value, the
+    bit pattern steps one ulp toward -inf.  T_box (col 8) keeps the
+    nearest rounding: every tap of a row is at most its T_box in
+    float32, and rounding is monotone, so every bfloat16 tap, and every
+    interpolated density, stays at most the bfloat16 T_box; the bound
+    holds without rounding up.
+
+    The reference (vpt_tpu/volume/grid.py:576-598,
+    ``_bf16_conservative_up`` / ``_down``) steps one float32 ulp and casts
+    back, which rounds back to the nearest value: its extents are the
+    nearest bfloat16, which lies above the float32 count for about half
+    of the odd counts above 256 (bf16 holds integers exactly up to 256).
+    Such a box claims one voxel layer more than it holds.  Up to 256 the
+    two agree bit for bit (ROADMAP C, the known faults of the
+    reference)."""
+    if corner_dtype == "float32":
+        return rows.to(torch.float32)
+    if corner_dtype != "bfloat16":
+        raise ValueError(f"corner_dtype {corner_dtype!r}")
+    out = rows.to(torch.bfloat16)
+    ext = slice(9, 15 + octant_cols)
+    want, got = rows[:, ext], out[:, ext]
+    high = got.to(torch.float32) > want
+    bits = got.view(torch.int16)
+    down = torch.where(bits < 0, bits + 1, bits - 1)
+    out[:, ext] = torch.where(high, down, bits).view(torch.bfloat16)
+    return out
 
 
 def build_atlas(host_grids: list[HostGrid], band_divisors=None,
-                device=DEFAULT_DEVICE) -> VolumeAtlas:
-    """Pack the one grid of a single-instance scene into device tensors
-    (float32 corner rows; the emission and color taps after the 15
-    density columns, vpt_tpu/volume/grid.py:652-671)."""
+                device=DEFAULT_DEVICE, corner_dtype: str = "float32",
+                octant_boxes: bool = False) -> VolumeAtlas:
+    """Pack the one grid of a single-instance scene into device tensors:
+    the corner rows in ``corner_dtype`` (to_corner_dtype), with the 72
+    octant columns after the 15 density columns where ``octant_boxes``,
+    then the emission and color taps (vpt_tpu/volume/grid.py:640-690)."""
     if len(host_grids) != 1:
         raise NotImplementedError("the port packs single-grid scenes only")
     g = host_grids[0]
     parts = [_corner_pack(np.asarray(g.density_zyx, np.float32),
                           band_divisors, device=device,
-                          emit_zyx=g.emission_zyx)]
+                          emit_zyx=g.emission_zyx,
+                          octant_boxes=octant_boxes)]
     if g.emission_zyx is not None:
         parts.append(_corner_pack_plain(torch.as_tensor(
             np.asarray(g.emission_zyx, np.float32))).numpy())
@@ -364,6 +414,7 @@ def build_atlas(host_grids: list[HostGrid], band_divisors=None,
                                   for ch in range(3)], -1).reshape(-1, 24)
                      .numpy())
     corners = np.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
+    oct_cols = OCTANT_COLS if octant_boxes else 0
     f32 = dict(dtype=torch.float32, device=device)
 
     def channel_offset(present):
@@ -371,7 +422,8 @@ def build_atlas(host_grids: list[HostGrid], band_divisors=None,
                             device=device)
     return VolumeAtlas(
         density=torch.tensor(g.density_zyx.reshape(-1), **f32),
-        density_corners=torch.as_tensor(corners, **f32),
+        density_corners=to_corner_dtype(torch.as_tensor(corners, **f32),
+                                        corner_dtype, oct_cols),
         offset=torch.zeros(1, dtype=torch.int32, device=device),
         emission_offset=channel_offset(g.emission_zyx is not None),
         color_offset=channel_offset(g.color_zyx is not None),
@@ -381,4 +433,5 @@ def build_atlas(host_grids: list[HostGrid], band_divisors=None,
                              **f32),
         max_density=torch.tensor([g.max_density], **f32),
         min_density=torch.tensor([g.min_density], **f32),
-        voxel_size=torch.tensor([g.voxel_size], **f32))
+        voxel_size=torch.tensor([g.voxel_size], **f32),
+        octant_cols=oct_cols)
