@@ -145,14 +145,18 @@ Phases, one JSON line each:
                per ray, trunc_frac, launches (K4's kind once a sample),
                finite and not black; K1's env_pos (its DEFER 2 variant)
                against fused_direct_plain's at 256x256 in both modes and
-               with a sphere whose events move it, bit for bit; K4's
-               ATMOSPHERE and SKY_CACHE kinds on K1's retired rays at
-               512x512 and 1080p against their plain versions (max |diff|
-               <= 2e-6, the bit-for-bit share printed), timed beside
-               them; `vpt-torch render procedural --atmosphere
-               --bake-sky` at 1080p, 16 spp, the LUT cache in a temporary
-               directory, and `vpt-torch earth` at 512x512, K4 held to the
-               plain version on its rays;
+               with a sphere whose events move it, bit for bit, and K4 on
+               its rays bit for bit; K4's packing of the LUTs (seconds
+               and bytes, once per atmosphere); K4's ATMOSPHERE kind on
+               K1's retired rays at 512x512 and 1080p, and at 1080p on
+               the full LutDims, bit for bit with its plain version on
+               every ray (its ground share, registers and blocks per SM
+               printed), and SKY_CACHE at 512x512 and 1080p (max |diff|
+               <= 2e-6), timed beside them; `vpt-torch render procedural
+               --atmosphere` at 1080p, 16 spp, baked and live, the LUT
+               cache in a temporary directory, and `vpt-torch earth` at
+               512x512, K4 held to the plain version on its rays bit for
+               bit;
   8g. bigvol — the reference bench's bigvol_512 (tools/common.py::
                bigvol_scene: the fBm grid in bfloat16 rows, cut from
                512^3 to 384^3 for the phase's time, the cut named on its
@@ -1948,19 +1952,36 @@ def main():
                   + (f", a {time_atmosphere.CACHE_H}x"
                      f"{time_atmosphere.CACHE_W} cache"
                      if kind == "sky_cache" else ", the half LutDims"),
-            design="one thread a ray, a kind of K4's environment kernel; "
-                   + ("the ground or the sky branch only, the LUTs through "
-                      "the read-only path" if kind == "atmosphere" else
-                      "four taps of the (H, W, 6) cache"),
+            design="one thread a ray; " + (
+                "its own kernel: the LUTs packed once per atmosphere as "
+                "16-byte texels, scattering and single Mie in one 32-byte "
+                "sector; each lookup in turn, a 4-D slice row by row; "
+                "the rays in K1's order (ground and sky warps sorted "
+                "measured slower); registers capped for 5 blocks of 256 "
+                "an SM"
+                if kind == "atmosphere" else
+                "a kind of K4's environment kernel, four taps of the "
+                "(H, W, 6) cache"),
             bit_share=atm_res["k4"][f"{kind}_{W}x{H}"]["bit_share"],
-            tolerance="max |diff| <= 2e-6 (the tonemapped output lies in "
-                      "[0, 1])",
+            tolerance="bit for bit on every ray" if kind == "atmosphere"
+            else "max |diff| <= 2e-6 (the tonemapped output lies in "
+                 "[0, 1])",
             at_512=dict(ms=small["ms"], plain_ms=small["plain_ms"],
                         bound_ms=small["bound"][0],
                         bound_by=small["bound"][1],
                         bit_share=small["bit_share"]))
-    by_name[integrator.ENVIRONMENT_ATMOSPHERE.name]["ground_share"] = \
-        atm_res["k4"][f"atmosphere_{W}x{H}"]["ground_share"]
+    full_hd = atm_res["k4"][f"atmosphere_full_{W}x{H}"]
+    by_name[integrator.ENVIRONMENT_ATMOSPHERE.name].update(
+        ground_share=atm_res["k4"][f"atmosphere_{W}x{H}"]["ground_share"],
+        schedule=atm_res["k4_atmosphere"],
+        packed_luts=dict(half=atm_res["k4_pack_half"],
+                         full=atm_res["k4_pack_full"]),
+        at_full_dims=dict(ms=full_hd["ms"], plain_ms=full_hd["plain_ms"],
+                          bound_ms=full_hd["bound"][0],
+                          bound_by=full_hd["bound"][1],
+                          bit_share=full_hd["bit_share"],
+                          ground_share=full_hd["ground_share"]),
+        earth_bit_share=atm_res["cli_earth"]["bit_share"])
     for name, shape in shapes.items():
         by_name[name]["shape"] = shape
     print(smi, flush=True)

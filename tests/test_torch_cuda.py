@@ -859,8 +859,9 @@ def _atmosphere_scene(device, sphere=False, **rows):
 @pytest.mark.parametrize("kind", ["atmosphere", "sky_cache"])
 def test_k4_atmosphere_kinds_match_plain(cuda_device, kind):
     """K4's ATMOSPHERE and SKY_CACHE kinds on K1's retired rays against
-    L + environment_radiance(pos, dir) * beta on the card: within 2e-6
-    (the tonemapped output lies in [0, 1]); bit for bit measured."""
+    L + environment_radiance(pos, dir) * beta on the card: ATMOSPHERE bit
+    for bit, SKY_CACHE within 2e-6 (the tonemapped output lies in [0,
+    1])."""
     from vpt_tpu_torch.render import integrator
     from vpt_tpu_torch.scene.scene import attach_sky_cache
     s = _atmosphere_scene(cuda_device)
@@ -880,7 +881,114 @@ def test_k4_atmosphere_kinds_match_plain(cuda_device, kind):
                                      views[6], pos, launch=launch.env)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
-    assert float((got - want).abs().max()) <= 2e-6
+    if kind == "atmosphere":
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        assert float((got - want).abs().max()) <= 2e-6
+
+
+def _k4_atmosphere(device, dims):
+    """The golden's tiny LUTs, or LUTs at the full LutDims of seeded
+    uniform values (the kernel's lookups do not depend on what the
+    texels hold)."""
+    from vpt_tpu_torch.sky import bruneton as br
+    from vpt_tpu_torch.sky import runtime as rt
+    if dims == "tiny":
+        return rt.make_atmosphere(br.LutDims(**TINY_DIMS),
+                                  cache_path=GOLDEN_LUTS, device=device)
+    d, r = br.LutDims(), np.random.default_rng(3)
+    luts = br.AtmosphereLUTs(**{
+        n: torch.as_tensor(r.uniform(0.0, 1.0, s).astype(np.float32),
+                           device=device) for n, s in d.shapes().items()})
+    return rt.Atmosphere(br.default_model(device=device), luts, d)
+
+
+def _k4_rays(kind, n, device, seed=0):
+    """Seeded (pos, dir) on the card: positions in the upper part of
+    config 4's box (2-6.4 m above the ground: a ray from a few
+    centimetres up meets the ground sphere at a distance that float32
+    rounds to 0 at r ~ 6.4e6 m, which counts as no hit), directions down
+    (every ray to the ground), up (every ray to the sky), or alternating
+    lane by lane."""
+    r = np.random.default_rng(seed)
+    pos = r.uniform(0.0, 6.4, (n, 3)).astype(np.float32)
+    pos[:, 1] = r.uniform(2.0, 6.4, n)
+    d = r.normal(size=(n, 3))
+    down = {"ground": np.ones(n, bool), "sky": np.zeros(n, bool),
+            "alternate": np.arange(n) % 2 == 0}[kind]
+    d[:, 1] = np.where(down, -1.0, 1.0) * (np.abs(d[:, 1]) + 0.05)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(pos, device=device),
+            torch.as_tensor(d.astype(np.float32), device=device), down)
+
+
+@pytest.fixture(scope="module")
+def k4_atmospheres():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    return {dims: _k4_atmosphere(dev, dims) for dims in ("tiny", "full")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", ["tiny", "full"])
+@pytest.mark.parametrize("rays,n", [
+    ("ground", 4096), ("sky", 4096), ("alternate", 4096), ("space", 4096),
+    ("alternate", 1), ("alternate", 1000)])
+def test_k4_atmosphere_bit_for_bit(k4_atmospheres, dims, rays, n):
+    """K4's ATMOSPHERE kind against L + environment_radiance(pos, dir) *
+    beta on the card, bit for bit on every ray: rays all to the ground,
+    all to the sky, alternating lane by lane (every warp in ray order
+    holds both branches), from space, one ray, and a count no block
+    size divides; one launch, on the atmosphere's packed LUTs."""
+    import types
+
+    from vpt_tpu_torch.render import integrator
+    from vpt_tpu_torch.sky import runtime as rt
+    atm = k4_atmospheres[dims]
+    dev = atm.luts.transmittance.device
+    if rays == "space":
+        pos, d = rt.earth_rays(atm.params, 64, 64)
+        pos, d = pos[:n].contiguous(), d[:n].contiguous()
+    else:
+        pos, d, down = _k4_rays(rays, n, dev)
+        assert np.array_equal(
+            rt.ground_hit(atm.params, pos, d)[3].cpu().numpy(), down)
+    scene = types.SimpleNamespace(atmosphere=atm, sky_cache=None,
+                                  env_map=None)
+    p = RenderParams(width=8, height=8, environment_type=0, sky_mult=0.7,
+                     sky_color=(0.9, 1.0, 1.1))
+    g = torch.Generator(device="cpu").manual_seed(4)
+    L = torch.rand((n, 3), generator=g).to(dev)
+    beta = torch.rand((n, 3), generator=g).to(dev)
+    want = L + integrator.environment_radiance(scene, p, pos, d) * beta
+    before = integrator.ENVIRONMENT_ATMOSPHERE.launches
+    got = integrator.add_environment(scene, p, L.clone(), beta, d, pos)
+    torch.cuda.synchronize()
+    assert integrator.ENVIRONMENT_ATMOSPHERE.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_k4_atmosphere_schedule_and_packed_luts(k4_atmospheres):
+    """The ATMOSPHERE kind runs 256 threads a block at 5 or more blocks
+    an SM (48 registers or fewer), and prepare_environment launches it on
+    the atmosphere's packed LUTs, the same tensors every time."""
+    import types
+
+    from vpt_tpu_torch.render import integrator
+    atm = k4_atmospheres["tiny"]
+    scene = types.SimpleNamespace(atmosphere=atm, sky_cache=None,
+                                  env_map=None)
+    p = RenderParams(width=8, height=8, environment_type=0)
+    launch = integrator.prepare_environment(scene, p)
+    assert launch.atm.scat_mie == atm.k4_luts.scattering_mie.data_ptr()
+    assert integrator.prepare_environment(scene, p).atm.scat_mie == \
+        launch.atm.scat_mie
+    info = integrator.atmosphere_launch_info()
+    assert info["threads"] == 256 and info["blocks_per_sm"] >= 5
+    assert info["registers"] <= 48
 
 
 @pytest.mark.cuda
@@ -960,7 +1068,8 @@ def test_earth_on_the_card_matches_plain(cuda_device):
     assert integrator.ENVIRONMENT_ATMOSPHERE.launches == before + 1
     pos, dirs = rt.earth_rays(atm.params, 64, 48)
     want = rt.sample_atmosphere(atm, pos, dirs, 150.0, 30.0, atm.dims)
-    assert float((img.reshape(-1, 3) - want).abs().max()) <= 2e-6
+    assert torch.equal(img.reshape(-1, 3).view(torch.int32),
+                       want.view(torch.int32))
 
 
 # K1's instances of a single grid's rows: build_scene's options, and the

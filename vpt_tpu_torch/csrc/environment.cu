@@ -55,16 +55,41 @@
 // line.  128 threads a block instead of 256 measured the same (0.8375
 // against 0.836 ms) and was dropped.
 //
-// The atmosphere kinds: one thread a ray, the LUTs (float32, (..., 3)
-// texels) read through the read-only path.  Unlike the plain version,
+// The atmosphere kinds: one thread a ray.  Unlike the plain version,
 // which evaluates the ground and the sky for every ray and picks one, a
-// ray evaluates only its branch: the sky costs one 2-D and two 4-D
-// lookups (16 texels each from the two scattering textures), the ground
-// two 2-D, two transmittance quotients and four 4-D lookups.  Their
-// float32 constants come from the wrapper (render/integrator.py::
+// ray evaluates only its branch: the sky one 2-D and one 4-D lookup of
+// the scattering and the single Mie (36 texels), the ground two 2-D
+// lookups, a transmittance quotient and two 4-D lookups (80 texels).
+// Their float32 constants come from the wrapper (render/integrator.py::
 // atmosphere_params), each the value of the plain version's own torch
-// expression.  What bounds it: the dependent texel loads of the 4-D
-// lookups, and the accurate powf/expf/acosf/atan2f.
+// expression.
+//
+// What bounds ATMOSPHERE on the H100, measured (tools/time_env.py,
+// tools/sass_count.py): issue and latency, not the loads.  With the
+// (..., 3) LUTs a ray issued three 4-byte loads a texel (381 LDG in the
+// kernel, 8% of its 4,656 SASS instructions; the float arithmetic that
+// keeps every bit, with IEEE divisions and square roots, is 59%); at 64
+// registers, 4 blocks of 256 an SM, it took 0.235 ms at 1080p on config
+// 4's K1-retired rays, and 0.243 ms on the full LUT dims, whose LUTs are
+// eight times larger: the bytes barely matter.  Fewer warps an SM cost
+// more than anything else: this kernel at 219 registers, 1 block an SM,
+// takes 0.44 ms.
+//
+// What the design does about it: ATMOSPHERE has a kernel of its own
+// (environment_atmosphere_kernel), on the LUTs in K4's layout
+// (sky/runtime.py::pack_k4_luts, packed once per atmosphere): a texel is
+// one 16-byte load, a 4-D tap of the scattering and the single Mie one
+// 32-byte sector, 116 LDG.128 in all where there were 381 loads.  Each
+// lookup runs in turn, a 4-D slice row by row, each result folded in as
+// it arrives, and the registers are capped for 5 blocks of 256 threads
+// an SM (48 registers, 72 bytes of local memory): 0.210 ms and 0.212 ms
+// where the (..., 3) LUTs took 0.235 and 0.243.  Measured and dropped
+// (PERF.md has their times): sorting each block's rays into ground and
+// sky warps (86% of the warps of K1's pixel order hold one branch
+// already: 1.5% slower), a pass that sorts them across the launch (38%
+// slower), every tap of a branch computed before its first load (2.1x
+// slower at 219 registers, 13% capped), and the other register caps and
+// block sizes.
 
 #include "vpt_common.cuh"
 
@@ -81,11 +106,13 @@ struct EnvParams {
 };
 
 // Mirror of vpt_tpu_torch/render/integrator.py::_AtmParams: the
-// atmosphere kinds' LUTs (transmittance (th, tw, 3), scattering and
-// single Mie (r, mu, nu * mu_s, 3), irradiance (ih, iw, 3)), the baked
-// cache (cache_h, cache_w, 6), and the model's float32 constants.
+// ATMOSPHERE kind's LUTs in K4's layout (sky/runtime.py::K4Luts:
+// transmittance (th, tw, 4) and irradiance (ih, iw, 4), rgb and a zero,
+// 16-byte aligned; scattering and single Mie interleaved, (r, mu, nu *
+// mu_s, 8), 32-byte aligned), the baked cache (cache_h, cache_w, 6) of
+// SKY_CACHE, and the model's float32 constants.
 struct AtmParams {
-    const float *trans, *scat, *mie, *irr, *cache;
+    const float *trans, *irr, *scat_mie, *cache;
     int tw, th, r, mu, mu_s, nu, iw, ih, cache_h, cache_w;
     float bottom, top, bottom2, top2, H, HH, d_s_min, H_m_dsmin, A, t_m_b,
         sar_c, cos_sar, ray_c, mie_k, one_plus_g2, two_g, exposure, nu_m1,
@@ -105,6 +132,9 @@ constexpr int UV_TW = 0, UV_TH = 1, UV_R = 2, UV_MU = 3, UV_MUS = 4,
               UV_IW = 5, UV_IH = 6;
 constexpr int N_SAMPLES = 16, N_SAMPLES_LIGHT = 8;
 constexpr int THREADS = 256;
+// environment_atmosphere_kernel's resident blocks an SM, which caps its
+// registers at 48
+constexpr int ATM_MIN_BLOCKS = 5;
 
 // sky/procedural.py::_ray_sphere: the nearer and farther roots of a
 // unit-a quadratic (hit = disc >= 0)
@@ -217,11 +247,15 @@ __device__ V3 sample_env_map(const EnvParams& p,
 }
 
 // ------------------------------------------------ the Bruneton model --
-// vpt_tpu_torch/sky/bruneton.py and runtime.py, operation for operation.
+// vpt_tpu_torch/sky/bruneton.py and runtime.py, operation for operation,
+// on the LUTs in K4's layout (sky/runtime.py::pack_k4_luts): a texel of
+// the transmittance and the irradiance is one float4 (rgb, 0), a texel of
+// the 4-D LUT two (scattering rgb, 0, single Mie rgb, 0), one 32-byte
+// sector.  Each lookup is split into its taps (coordinates and weights,
+// from the ray alone), their loads and the blend, and runs in turn, a
+// 4-D slice row by row.
 
-__device__ __forceinline__ V3 ldg3(const float* p) {
-    return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
-}
+__device__ __forceinline__ V3 rgb(float4 c) { return v3(c.x, c.y, c.z); }
 
 __device__ __forceinline__ float uv_from_unit(const AtmParams& a, float x,
                                               int slot) {
@@ -248,111 +282,91 @@ __device__ __forceinline__ float clamp_radius(const AtmParams& a, float r) {
     return jmin(jmax(r, a.bottom), a.top);
 }
 
-// bruneton.tex2d on an (H, W, 3) texture
-__device__ V3 tex2d(const float* __restrict__ tex, int H, int W, float u,
-                    float v) {
+// bruneton.tex2d's four taps on an (H, W) texture and their weights
+struct Taps2 {
+    int i00, i01, i10, i11;
+    float fx, gx, fy, gy;
+};
+
+__device__ __forceinline__ Taps2 taps2(int H, int W, float u, float v) {
     const float x = jclamp(u * (float)W - 0.5f, 0.0f, (float)W - 1.0f);
     const float y = jclamp(v * (float)H - 0.5f, 0.0f, (float)H - 1.0f);
     const float x0f = floorf(x), y0f = floorf(y);
     const int x0 = (int)x0f, y0 = (int)y0f;
     const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
-    const float fx = x - x0f, fy = y - y0f;
-    const float gx = 1.0f - fx, gy = 1.0f - fy;
-    const V3 c00 = ldg3(tex + 3 * (y0 * W + x0));
-    const V3 c01 = ldg3(tex + 3 * (y0 * W + x1));
-    const V3 c10 = ldg3(tex + 3 * (y1 * W + x0));
-    const V3 c11 = ldg3(tex + 3 * (y1 * W + x1));
-    return (c00 * gx + c01 * fx) * gy + (c10 * gx + c11 * fx) * fy;
+    Taps2 t;
+    t.i00 = y0 * W + x0;
+    t.i01 = y0 * W + x1;
+    t.i10 = y1 * W + x0;
+    t.i11 = y1 * W + x1;
+    t.fx = x - x0f;
+    t.fy = y - y0f;
+    t.gx = 1.0f - t.fx;
+    t.gy = 1.0f - t.fy;
+    return t;
 }
 
-// bruneton.tex3d of two (D, H, W, 3) textures at the same coordinates
-__device__ void tex3d2(const float* __restrict__ ta,
-                       const float* __restrict__ tb, int D, int H, int W,
-                       float u, float v, float w, V3& ra, V3& rb) {
+__device__ __forceinline__ V3 lookup2(const float4* __restrict__ tex,
+                                      const Taps2& t) {
+    const float4 c00 = __ldg(tex + t.i00), c01 = __ldg(tex + t.i01);
+    const float4 c10 = __ldg(tex + t.i10), c11 = __ldg(tex + t.i11);
+    return (rgb(c00) * t.gx + rgb(c01) * t.fx) * t.gy +
+           (rgb(c10) * t.gx + rgb(c11) * t.fx) * t.fy;
+}
+
+// bruneton.tex3d's eight taps on a (D, H, W) texture: four rows (z, y),
+// two columns
+struct Taps3 {
+    int r00, r01, r10, r11, x0, x1;
+    float fx, gx, fy, gy, fz, gz;
+};
+
+__device__ __forceinline__ Taps3 taps3(int D, int H, int W, float u,
+                                       float v, float w) {
     const float x = jclamp(u * (float)W - 0.5f, 0.0f, (float)W - 1.0f);
     const float y = jclamp(v * (float)H - 0.5f, 0.0f, (float)H - 1.0f);
     const float z = jclamp(w * (float)D - 0.5f, 0.0f, (float)D - 1.0f);
     const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
     const int x0 = (int)x0f, y0 = (int)y0f, z0 = (int)z0f;
-    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1),
-              z1 = min(z0 + 1, D - 1);
-    const float fx = x - x0f, fy = y - y0f, fz = z - z0f;
-    const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
-    const int r00 = (z0 * H + y0) * W, r01 = (z0 * H + y1) * W;
-    const int r10 = (z1 * H + y0) * W, r11 = (z1 * H + y1) * W;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-        const float* tex = t == 0 ? ta : tb;
-        const V3 c00 = ldg3(tex + 3 * (r00 + x0)) * gx +
-                       ldg3(tex + 3 * (r00 + x1)) * fx;
-        const V3 c01 = ldg3(tex + 3 * (r01 + x0)) * gx +
-                       ldg3(tex + 3 * (r01 + x1)) * fx;
-        const V3 c10 = ldg3(tex + 3 * (r10 + x0)) * gx +
-                       ldg3(tex + 3 * (r10 + x1)) * fx;
-        const V3 c11 = ldg3(tex + 3 * (r11 + x0)) * gx +
-                       ldg3(tex + 3 * (r11 + x1)) * fx;
-        const V3 c0 = c00 * gy + c01 * fy;
-        const V3 c1 = c10 * gy + c11 * fy;
-        const V3 out = c0 * gz + c1 * fz;
-        if (t == 0) ra = out; else rb = out;
-    }
+    const int y1 = min(y0 + 1, H - 1), z1 = min(z0 + 1, D - 1);
+    Taps3 t;
+    t.x0 = x0;
+    t.x1 = min(x0 + 1, W - 1);
+    t.r00 = (z0 * H + y0) * W;
+    t.r01 = (z0 * H + y1) * W;
+    t.r10 = (z1 * H + y0) * W;
+    t.r11 = (z1 * H + y1) * W;
+    t.fx = x - x0f;
+    t.fy = y - y0f;
+    t.fz = z - z0f;
+    t.gx = 1.0f - t.fx;
+    t.gy = 1.0f - t.fy;
+    t.gz = 1.0f - t.fz;
+    return t;
 }
 
-// bruneton.transmittance_to_top
-__device__ V3 trans_to_top(const AtmParams& a, float r, float mu) {
+// bruneton.transmittance_to_top's taps
+__device__ __forceinline__ Taps2 trans_taps(const AtmParams& a, float r,
+                                            float mu) {
     const float rho = safe_sqrt(r * r - a.bottom2);
     const float d = dist_to_top(a, r, mu);
     const float d_min = a.top - r;
     const float d_max = rho + a.H;
     const float x_mu = d_max == d_min ? 0.0f : (d - d_min) / (d_max - d_min);
     const float x_r = rho / a.H;
-    return tex2d(a.trans, a.th, a.tw, uv_from_unit(a, x_mu, UV_TW),
+    return taps2(a.th, a.tw, uv_from_unit(a, x_mu, UV_TW),
                  uv_from_unit(a, x_r, UV_TH));
 }
 
-// bruneton.transmittance_between on the branch of hits_ground only
-__device__ V3 trans_between(const AtmParams& a, float r, float mu, float d,
-                            bool hits_ground) {
-    const float r_d = clamp_radius(a, safe_sqrt(d * d + 2.0f * r * mu * d
-                                                + r * r));
-    const float mu_d = jclamp((r * mu + d) / r_d, -1.0f, 1.0f);
-    V3 num, den;
-    if (hits_ground) {
-        num = trans_to_top(a, r_d, -mu_d);
-        den = trans_to_top(a, r, -mu);
-    } else {
-        num = trans_to_top(a, r, mu);
-        den = trans_to_top(a, r_d, mu_d);
-    }
-    return v3(jmin(num.x / jmax(den.x, 1e-20f), 1.0f),
-              jmin(num.y / jmax(den.y, 1e-20f), 1.0f),
-              jmin(num.z / jmax(den.z, 1e-20f), 1.0f));
-}
+// bruneton._combined_scattering's taps: sample_scattering's two
+// trilinear lookups (the nu slices) at the same (mu, r), and their lerp
+struct Taps4 {
+    Taps3 s0, s1;
+    float lerp;
+};
 
-// bruneton.transmittance_to_sun
-__device__ V3 trans_to_sun(const AtmParams& a, float r, float mu_s) {
-    const float sin_h = a.bottom / r;
-    const float cos_h = -safe_sqrt(jmax(1.0f - sin_h * sin_h, 0.0f));
-    float vis = jclamp((mu_s - cos_h) / a.sar_c * 0.5f + 0.5f, 0.0f, 1.0f);
-    vis = vis * vis * (3.0f - 2.0f * vis);
-    return trans_to_top(a, r, mu_s) * vis;
-}
-
-__device__ __forceinline__ float rayleigh_phase(const AtmParams& a,
-                                                float nu) {
-    return a.ray_c * (1.0f + nu * nu);
-}
-
-__device__ __forceinline__ float mie_phase(const AtmParams& a, float nu) {
-    return a.mie_k * (1.0f + nu * nu) /
-           powf(jmax(a.one_plus_g2 - a.two_g * nu, 1e-12f), 1.5f);
-}
-
-// bruneton._combined_scattering: sample_scattering of the scattering and
-// the single-Mie textures (their coordinates computed once)
-__device__ void combined_scattering(const AtmParams& a, float r, float mu,
-                                    float mu_s, float nu, bool hits_ground,
-                                    V3& scat, V3& mie) {
+__device__ Taps4 scattering_taps(const AtmParams& a, float r, float mu,
+                                 float mu_s, float nu, bool hits_ground) {
     // _scattering_uvwz_from_rmumusnu
     const float rho = safe_sqrt(jmax(r * r - a.bottom2, 0.0f));
     const float u_r = uv_from_unit(a, rho / a.H, UV_R);
@@ -382,19 +396,61 @@ __device__ void combined_scattering(const AtmParams& a, float r, float mu,
     const float u_mu_s =
         uv_from_unit(a, jmax(1.0f - aa / a.A, 0.0f) / (1.0f + aa), UV_MUS);
     const float u_nu = (nu + 1.0f) / 2.0f;
-    // sample_scattering: two trilinear taps lerped over nu
     const float tex_x = u_nu * a.nu_m1;
     const float tex_x0 = floorf(tex_x);
-    const float lerp = tex_x - tex_x0;
     const float u0 = (tex_x0 + u_mu_s) / a.nu_f;
     const float u1 = (tex_x0 + 1.0f + u_mu_s) / a.nu_f;
     const int W = a.nu * a.mu_s;
+    Taps4 t;
+    t.s0 = taps3(a.r, a.mu, W, u0, u_mu, u_r);
+    t.s1 = taps3(a.r, a.mu, W, u1, u_mu, u_r);
+    t.lerp = tex_x - tex_x0;
+    return t;
+}
+
+// bruneton.tex3d of the scattering (s) and the single Mie (m) row by
+// row: each row's four texels loaded, then lerped over x
+__device__ __forceinline__ void slice_lookup(const float4* __restrict__ sm,
+                                             const Taps3& t, V3& s, V3& m) {
+    const int rows[4] = {t.r00, t.r01, t.r10, t.r11};
+    V3 rs[2], rm[2], zs[2], zm[2];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const float4* p0 = sm + 2 * (rows[k] + t.x0);
+        const float4* p1 = sm + 2 * (rows[k] + t.x1);
+        const float4 s0 = __ldg(p0), m0 = __ldg(p0 + 1);
+        const float4 s1 = __ldg(p1), m1 = __ldg(p1 + 1);
+        rs[k & 1] = rgb(s0) * t.gx + rgb(s1) * t.fx;
+        rm[k & 1] = rgb(m0) * t.gx + rgb(m1) * t.fx;
+        if (k & 1) {   // the rows (z, y0), (z, y1) lerped over y
+            zs[k >> 1] = rs[0] * t.gy + rs[1] * t.fy;
+            zm[k >> 1] = rm[0] * t.gy + rm[1] * t.fy;
+        }
+    }
+    s = zs[0] * t.gz + zs[1] * t.fz;
+    m = zm[0] * t.gz + zm[1] * t.fz;
+}
+
+// sample_scattering of the scattering and the single Mie, a slice at a
+// time
+__device__ __forceinline__ void scattering_lookup(
+    const float4* __restrict__ sm, const Taps4& t, V3& scat, V3& mie) {
+    const float g = 1.0f - t.lerp;
     V3 s0, m0, s1, m1;
-    tex3d2(a.scat, a.mie, a.r, a.mu, W, u0, u_mu, u_r, s0, m0);
-    tex3d2(a.scat, a.mie, a.r, a.mu, W, u1, u_mu, u_r, s1, m1);
-    const float g = 1.0f - lerp;
-    scat = s0 * g + s1 * lerp;
-    mie = m0 * g + m1 * lerp;
+    slice_lookup(sm, t.s0, s0, m0);
+    slice_lookup(sm, t.s1, s1, m1);
+    scat = s0 * g + s1 * t.lerp;
+    mie = m0 * g + m1 * t.lerp;
+}
+
+__device__ __forceinline__ float rayleigh_phase(const AtmParams& a,
+                                                float nu) {
+    return a.ray_c * (1.0f + nu * nu);
+}
+
+__device__ __forceinline__ float mie_phase(const AtmParams& a, float nu) {
+    return a.mie_k * (1.0f + nu * nu) /
+           powf(jmax(a.one_plus_g2 - a.two_g * nu, 1e-12f), 1.5f);
 }
 
 // bruneton._enter_atmosphere
@@ -426,57 +482,92 @@ __device__ void sky_radiance(const AtmParams& a, V3 camera, V3 view,
     const float nu = dot(view, sun);
     const bool hits_ground = ray_hits_ground(a, r, mu);
     const V3 zero = v3(0.0f, 0.0f, 0.0f);
-    trans = hits_ground ? zero
-                        : (outside ? v3(1.0f, 1.0f, 1.0f)
-                                   : trans_to_top(a, r, mu));
     if (outside) {
+        trans = hits_ground ? zero : v3(1.0f, 1.0f, 1.0f);
         radiance = zero * v3(a.sky_k);
         return;
     }
+    const float4* trans_lut = reinterpret_cast<const float4*>(a.trans);
+    const float4* sm = reinterpret_cast<const float4*>(a.scat_mie);
+    const V3 to_top = lookup2(trans_lut, trans_taps(a, r, mu));
     V3 scat, mie;
-    combined_scattering(a, r, mu, mu_s, nu, hits_ground, scat, mie);
+    scattering_lookup(sm, scattering_taps(a, r, mu, mu_s, nu, hits_ground),
+                      scat, mie);
+    trans = hits_ground ? zero : to_top;
     radiance = (scat * rayleigh_phase(a, nu) + mie * mie_phase(a, nu)) *
                v3(a.sky_k);
 }
 
-// the ground branch of runtime._sample_atmosphere_pre: the ground's
-// radiance at its hit point gp, seen through the aerial perspective
-__device__ V3 ground_radiance(const AtmParams& a, V3 camera, V3 gp,
-                             V3 sun) {
-    const V3 normal = normalize(gp);
-    // get_sun_and_sky_irradiance
-    const float rg = norm3(gp);
-    const float mu_sg = dot(gp, sun) / jmax(rg, 1e-6f);
-    const float x_r = (rg - a.bottom) / a.t_m_b;
-    const float x_mu_s = mu_sg * 0.5f + 0.5f;
-    const V3 sky_irr =
-        tex2d(a.irr, a.ih, a.iw, uv_from_unit(a, x_mu_s, UV_IW),
-              uv_from_unit(a, x_r, UV_IH)) *
-        (1.0f + dot(gp, normal) / jmax(rg, 1e-6f)) * 0.5f;
-    const V3 sun_irr = v3(a.solar_irr) * trans_to_sun(a, rg, mu_sg) *
-                       jmax(dot(normal, sun), 0.0f);
-    V3 ground = v3(a.albedo_pi) * (sun_irr * v3(a.sun_k) +
-                                   sky_irr * v3(a.sky_k));
-    // get_sky_radiance_to_point
+// get_sky_radiance_to_point's ray from the camera to the ground point gp,
+// entered into the atmosphere: (r, mu, mu_s, nu) at the camera, d, the
+// ground branch of the 4-D lookups (hg), and at gp (r_p, which is
+// transmittance_between's r_d, mu_d, mu_p, mu_s_p)
+struct ToPoint {
+    float r, mu, mu_s, nu, d, r_p, mu_d, mu_p, mu_s_p;
+    bool hg;
+};
+
+__device__ __forceinline__ ToPoint to_point(const AtmParams& a, V3 camera,
+                                            V3 gp, V3 sun) {
+    ToPoint q;
     V3 view = gp - camera;
-    float d = norm3(view);
-    view = view / jmax(d, 1e-9f);
-    float r, rmu, d_top;
+    q.d = norm3(view);
+    view = view / jmax(q.d, 1e-9f);
+    float rmu, d_top;
     bool in_space;
-    enter_atmosphere(a, camera, view, r, rmu, d_top, in_space);
-    if (in_space) d = d - d_top;
-    const float mu = rmu / jmax(r, 1e-6f);
-    const float mu_s = dot(camera, sun) / jmax(r, 1e-6f);
-    const float nu = dot(view, sun);
-    const bool hg = ray_hits_ground(a, r, mu);
-    const V3 trans = trans_between(a, r, mu, d, hg);
-    V3 scat, mie, scat_p, mie_p;
-    combined_scattering(a, r, mu, mu_s, nu, hg, scat, mie);
-    const float r_p = clamp_radius(a, safe_sqrt(d * d + 2.0f * r * mu * d
-                                                + r * r));
-    const float mu_p = (r * mu + d) / r_p;
-    const float mu_s_p = (r * mu_s + d * nu) / r_p;
-    combined_scattering(a, r_p, mu_p, mu_s_p, nu, hg, scat_p, mie_p);
+    enter_atmosphere(a, camera, view, q.r, rmu, d_top, in_space);
+    if (in_space) q.d = q.d - d_top;
+    const float r = q.r, d = q.d;
+    q.mu = rmu / jmax(r, 1e-6f);
+    q.mu_s = dot(camera, sun) / jmax(r, 1e-6f);
+    q.nu = dot(view, sun);
+    q.hg = ray_hits_ground(a, r, q.mu);
+    q.r_p = clamp_radius(a, safe_sqrt(d * d + 2.0f * r * q.mu * d + r * r));
+    q.mu_d = jclamp((r * q.mu + d) / q.r_p, -1.0f, 1.0f);
+    q.mu_p = (r * q.mu + d) / q.r_p;
+    q.mu_s_p = (r * q.mu_s + d * q.nu) / q.r_p;
+    return q;
+}
+
+// transmittance_between's two taps on hg's branch
+__device__ __forceinline__ Taps2 num_taps(const AtmParams& a,
+                                          const ToPoint& q) {
+    return trans_taps(a, q.hg ? q.r_p : q.r, q.hg ? -q.mu_d : q.mu);
+}
+
+__device__ __forceinline__ Taps2 den_taps(const AtmParams& a,
+                                          const ToPoint& q) {
+    return trans_taps(a, q.hg ? q.r : q.r_p, q.hg ? -q.mu : q.mu_d);
+}
+
+// get_sun_and_sky_irradiance at gp (the irradiance lookup irr, the sun's
+// transmittance to_sun) and the ground's radiance there
+__device__ __forceinline__ V3 ground_at(const AtmParams& a, V3 gp,
+                                        V3 normal, float rg, float mu_sg,
+                                        V3 irr, V3 to_sun, V3 sun) {
+    const V3 sky_irr = irr * (1.0f + dot(gp, normal) / jmax(rg, 1e-6f)) *
+                       0.5f;
+    // transmittance_to_sun
+    const float sin_h = a.bottom / rg;
+    const float cos_h = -safe_sqrt(jmax(1.0f - sin_h * sin_h, 0.0f));
+    float vis = jclamp((mu_sg - cos_h) / a.sar_c * 0.5f + 0.5f, 0.0f, 1.0f);
+    vis = vis * vis * (3.0f - 2.0f * vis);
+    const V3 sun_irr = v3(a.solar_irr) * (to_sun * vis) *
+                       jmax(dot(normal, sun), 0.0f);
+    return v3(a.albedo_pi) * (sun_irr * v3(a.sun_k) + sky_irr * v3(a.sky_k));
+}
+
+// transmittance_between's quotient
+__device__ __forceinline__ V3 quotient(V3 num, V3 den) {
+    return v3(jmin(num.x / jmax(den.x, 1e-20f), 1.0f),
+              jmin(num.y / jmax(den.y, 1e-20f), 1.0f),
+              jmin(num.z / jmax(den.z, 1e-20f), 1.0f));
+}
+
+// the ground seen through the aerial perspective
+__device__ __forceinline__ V3 aerial(const AtmParams& a, V3 ground,
+                                     V3 trans, V3 scat, V3 mie, V3 scat_p,
+                                     V3 mie_p, float nu) {
     scat = scat - trans * scat_p;
     mie = mie - trans * mie_p;
     const V3 in_scatter =
@@ -485,6 +576,38 @@ __device__ V3 ground_radiance(const AtmParams& a, V3 camera, V3 gp,
         v3(jmax(mie.x, 0.0f), jmax(mie.y, 0.0f), jmax(mie.z, 0.0f)) *
             mie_phase(a, nu);
     return ground * trans + in_scatter * v3(a.sky_k);
+}
+
+// the ground branch of runtime._sample_atmosphere_pre: the ground's
+// radiance at its hit point gp, seen through the aerial perspective.  The
+// lookups run in the plain version's order, each result folded in as
+// soon as it is loaded.
+__device__ V3 ground_radiance(const AtmParams& a, V3 camera, V3 gp,
+                              V3 sun) {
+    const float4* trans_lut = reinterpret_cast<const float4*>(a.trans);
+    const float4* irr_lut = reinterpret_cast<const float4*>(a.irr);
+    const float4* sm = reinterpret_cast<const float4*>(a.scat_mie);
+    const V3 normal = normalize(gp);
+    const float rg = norm3(gp);
+    const float mu_sg = dot(gp, sun) / jmax(rg, 1e-6f);
+    const float x_r = (rg - a.bottom) / a.t_m_b;
+    const float x_mu_s = mu_sg * 0.5f + 0.5f;
+    const Taps2 t_irr = taps2(a.ih, a.iw, uv_from_unit(a, x_mu_s, UV_IW),
+                              uv_from_unit(a, x_r, UV_IH));
+    const Taps2 t_sun = trans_taps(a, rg, mu_sg);
+    const V3 ground = ground_at(a, gp, normal, rg, mu_sg,
+                                lookup2(irr_lut, t_irr),
+                                lookup2(trans_lut, t_sun), sun);
+    const ToPoint q = to_point(a, camera, gp, sun);
+    const V3 trans = quotient(lookup2(trans_lut, num_taps(a, q)),
+                              lookup2(trans_lut, den_taps(a, q)));
+    V3 scat, mie, scat_p, mie_p;
+    scattering_lookup(sm, scattering_taps(a, q.r, q.mu, q.mu_s, q.nu, q.hg),
+                      scat, mie);
+    scattering_lookup(
+        sm, scattering_taps(a, q.r_p, q.mu_p, q.mu_s_p, q.nu, q.hg), scat_p,
+        mie_p);
+    return aerial(a, ground, trans, scat, mie, scat_p, mie_p, q.nu);
 }
 
 // runtime._compose_sun_disc: the sun disc and the exposure curve
@@ -504,24 +627,38 @@ __device__ V3 compose_sun_disc(const AtmParams& a, V3 pre, V3 trans,
     return res;
 }
 
+// runtime.sample_atmosphere's ground hit (render_kernel.cu:847-860)
+struct RayHead {
+    V3 camera, view;
+    float dist;
+    bool ground;
+};
+
+__device__ __forceinline__ RayHead ray_head(const AtmParams& a, V3 pos,
+                                            V3 dir) {
+    RayHead h;
+    h.camera = pos - v3(a.center);
+    h.view = normalize(dir);
+    const float p_dot_v = dot(h.camera, h.view);
+    const float p_dot_p = dot(h.camera, h.camera);
+    const float disc = a.bottom2 - (p_dot_p - p_dot_v * p_dot_v);
+    h.dist = -p_dot_v - sqrtf(jmax(disc, 0.0f));
+    h.ground = (h.dist > 0.0f) && (disc >= 0.0f);
+    return h;
+}
+
 // runtime.sample_atmosphere: the branch the ray takes only
 __device__ V3 sample_atmosphere(const AtmParams& a, V3 pos, V3 dir) {
     const V3 sun = v3(a.sun);
-    const V3 camera = pos - v3(a.center);
-    const V3 view = normalize(dir);
-    const float p_dot_v = dot(camera, view);
-    const float p_dot_p = dot(camera, camera);
-    const float disc = a.bottom2 - (p_dot_p - p_dot_v * p_dot_v);
-    const float dist = -p_dot_v - sqrtf(jmax(disc, 0.0f));
-    const bool hits_ground = (dist > 0.0f) && (disc >= 0.0f);
+    const RayHead h = ray_head(a, pos, dir);
     V3 pre, trans;
-    if (hits_ground) {
-        pre = ground_radiance(a, camera, camera + view * dist, sun);
+    if (h.ground) {
+        pre = ground_radiance(a, h.camera, h.camera + h.view * h.dist, sun);
         trans = v3(0.0f, 0.0f, 0.0f);
     } else {
-        sky_radiance(a, camera, view, sun, pre, trans);
+        sky_radiance(a, h.camera, h.view, sun, pre, trans);
     }
-    return compose_sun_disc(a, pre, trans, view);
+    return compose_sun_disc(a, pre, trans, h.view);
 }
 
 // runtime.sample_sky_cache: four taps of the (H, W, 6) cache
@@ -557,8 +694,8 @@ __device__ V3 sample_sky_cache(const AtmParams& a, V3 dir) {
 
 // One thread a ray; KIND picks the environment at compile time, so the
 // sky's kernel carries no HDRI code and HDRI's launch is not sized by the
-// sky's registers.  `atm` and `pos` are read by the atmosphere kinds only
-// (pos by ATMOSPHERE).
+// sky's registers.  `atm` is read by SKY_CACHE only (the live atmosphere
+// has a kernel of its own, environment_atmosphere_kernel).
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 environment_kernel(const EnvParams p, float* __restrict__ L,
@@ -570,10 +707,27 @@ environment_kernel(const EnvParams p, float* __restrict__ L,
     if (i >= p.n) return;
     const V3 d = v3(dir + 3 * i);
     const V3 li = KIND == ENV_HDRI ? sample_env_map(p, map, d)
-                  : KIND == ENV_ATMOSPHERE
-                      ? sample_atmosphere(atm, v3(pos + 3 * i), d)
                   : KIND == ENV_SKY_CACHE ? sample_sky_cache(atm, d)
                                           : sample_sky(p, d);
+    const V3 env = (li * v3(p.color)) * p.mult;
+    const V3 l = v3(L + 3 * i) + env * v3(beta + 3 * i);
+    L[3 * i + 0] = l.x;
+    L[3 * i + 1] = l.y;
+    L[3 * i + 2] = l.z;
+}
+
+// The ATMOSPHERE kind: L[i] += (sample_atmosphere(pos[i], dir[i]) * color)
+// * mult * beta[i], one thread a ray, the rays in K1's order; the
+// registers capped for ATM_MIN_BLOCKS blocks an SM.
+__global__ void __launch_bounds__(THREADS, ATM_MIN_BLOCKS)
+environment_atmosphere_kernel(const EnvParams p, float* __restrict__ L,
+                              const float* __restrict__ beta,
+                              const float* __restrict__ dir,
+                              const AtmParams a,
+                              const float* __restrict__ pos) {
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= p.n) return;
+    const V3 li = sample_atmosphere(a, v3(pos + 3 * i), v3(dir + 3 * i));
     const V3 env = (li * v3(p.color)) * p.mult;
     const V3 l = v3(L + 3 * i) + env * v3(beta + 3 * i);
     L[3 * i + 0] = l.x;
@@ -644,10 +798,14 @@ extern "C" int vpt_environment(const void* params, float* L,
     AtmParams a{};
     if (atm_kind) {
         a = *static_cast<const AtmParams*>(atm);
-        if (a.trans == nullptr || a.scat == nullptr || a.mie == nullptr ||
-            a.irr == nullptr ||
-            (p.kind == ENV_SKY_CACHE &&
-             (a.cache == nullptr || a.cache_h <= 0 || a.cache_w <= 0)))
+        if ((p.kind == ENV_ATMOSPHERE &&
+             (a.trans == nullptr || a.irr == nullptr ||
+              a.scat_mie == nullptr ||
+              reinterpret_cast<uintptr_t>(a.trans) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(a.irr) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(a.scat_mie) % 32 != 0))
+            || (p.kind == ENV_SKY_CACHE &&
+                (a.cache == nullptr || a.cache_h <= 0 || a.cache_w <= 0)))
             return (int)cudaErrorInvalidValue;
     }
     const int blocks = (p.n + THREADS - 1) / THREADS;
@@ -662,14 +820,37 @@ extern "C" int vpt_environment(const void* params, float* L,
             p, L, beta, dir, map, a, pos);
         break;
     case ENV_ATMOSPHERE:
-        environment_kernel<ENV_ATMOSPHERE><<<blocks, THREADS, 0, st>>>(
-            p, L, beta, dir, map, a, pos);
+        environment_atmosphere_kernel<<<blocks, THREADS, 0, st>>>(
+            p, L, beta, dir, a, pos);
         break;
     default:
         environment_kernel<ENV_SKY_CACHE><<<blocks, THREADS, 0, st>>>(
             p, L, beta, dir, map, a, pos);
     }
     return (int)cudaGetLastError();
+}
+
+// The ATMOSPHERE kind's schedule on the current card: SMs, resident
+// blocks per SM, threads per block, registers per thread, local (spill
+// and stack) bytes per thread.
+extern "C" int vpt_atmosphere_launch_info(int* info) {
+    cudaFuncAttributes f{};
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaFuncGetAttributes(&f, environment_atmosphere_kernel);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, environment_atmosphere_kernel, THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    info[0] = sms;
+    info[1] = per_sm;
+    info[2] = THREADS;
+    info[3] = f.numRegs;
+    info[4] = (int)f.localSizeBytes;
+    return 0;
 }
 
 // The check of div_known2 (a test entry point, not on the render path):

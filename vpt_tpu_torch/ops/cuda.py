@@ -95,6 +95,7 @@ def load_library() -> Library:
             ("vpt_environment", [vp] * 8),
             ("vpt_env_params_size", []),
             ("vpt_atm_params_size", []),
+            ("vpt_atmosphere_launch_info", [vp]),
             ("vpt_div_known_sweep", [ctypes.c_float, ctypes.c_float,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong,
                                      vp, vp]),

@@ -16,6 +16,7 @@ retires, so those launch no K4.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -107,11 +108,12 @@ UV_TW, UV_TH, UV_R, UV_MU, UV_MUS, UV_IW, UV_IH = range(7)
 
 class _AtmParams(ctypes.Structure):
     """Mirror of ``AtmParams`` in csrc/environment.cu: the atmosphere
-    kinds' LUTs, dims and float32 constants, each computed by the plain
-    version's own torch expression (``atmosphere_params``)."""
+    kinds' LUTs (ATMOSPHERE's in K4's layout, sky/runtime.py::K4Luts),
+    dims and float32 constants, each computed by the plain version's own
+    torch expression (``atmosphere_params``)."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "trans", "scat", "mie", "irr", "cache")] + [
+        "trans", "irr", "scat_mie", "cache")] + [
         (n, ctypes.c_int) for n in (
             "tw", "th", "r", "mu", "mu_s", "nu", "iw", "ih", "cache_h",
             "cache_w")] + [
@@ -147,10 +149,12 @@ def _f(t) -> float:
 def atmosphere_params(atm, azimuth, elevation,
                       cache: torch.Tensor | None = None):
     """(_AtmParams, the tensors it points at) of an atmosphere
-    (sky/runtime.py::Atmosphere on the card) and its baked cache or None:
-    every constant is the value the plain version's torch expression
-    gives, computed on the CPU in float32 (IEEE operations, so the same
-    bits as on the card)."""
+    (sky/runtime.py::Atmosphere on the card) and its baked cache, for
+    the SKY_CACHE kind, or None, for the ATMOSPHERE kind, which reads
+    the atmosphere's LUTs in K4's layout (``atm.k4_luts``, packed once
+    per atmosphere): every constant is the value the plain version's
+    torch expression gives, computed on the CPU in float32 (IEEE
+    operations, so the same bits as on the card)."""
     from vpt_tpu_torch.sky import bruneton as br
     from vpt_tpu_torch.sky import runtime as rt
     cuda.check_struct(_AtmParams,
@@ -158,16 +162,21 @@ def atmosphere_params(atm, azimuth, elevation,
     dims, luts = atm.dims, atm.luts
     rt.check_luts(luts, dims)
     dev = luts.transmittance.device
-    tables = [getattr(luts, n) for n in ("transmittance", "scattering",
-                                         "single_mie", "irradiance")]
-    for t, n in zip(tables, ("transmittance", "scattering", "single_mie",
-                             "irradiance")):
-        cuda.check_cuda_tensor(t, f"atmosphere LUT {n}", dtype=torch.float32,
-                               device=dev)
+    for f in dataclasses.fields(luts):
+        cuda.check_cuda_tensor(getattr(luts, f.name),
+                               f"atmosphere LUT {f.name}",
+                               dtype=torch.float32, device=dev)
     p = atm.params.to("cpu")
     a = _AtmParams()
-    a.trans, a.scat, a.mie, a.irr = (t.data_ptr() for t in tables)
-    if cache is not None:
+    if cache is None:
+        k4 = atm.k4_luts
+        tables = [k4.transmittance, k4.irradiance, k4.scattering_mie]
+        for t, align in zip(tables, (16, 16, 32)):
+            if t.data_ptr() % align:
+                raise ValueError(f"K4's LUTs: a table not {align}-byte "
+                                 "aligned")
+        a.trans, a.irr, a.scat_mie = (t.data_ptr() for t in tables)
+    else:
         cuda.check_cuda_tensor(cache, "sky_cache", dtype=torch.float32,
                                device=dev)
         if cache.dim() != 3 or cache.shape[2] != 6:
@@ -175,7 +184,7 @@ def atmosphere_params(atm, azimuth, elevation,
                              "expected (H, W, 6)")
         a.cache = cache.data_ptr()
         a.cache_h, a.cache_w = cache.shape[0], cache.shape[1]
-        tables.append(cache)
+        tables = [cache]
     a.tw, a.th, a.r, a.mu = (dims.transmittance_w, dims.transmittance_h,
                              dims.r, dims.mu)
     a.mu_s, a.nu, a.iw, a.ih = (dims.mu_s, dims.nu, dims.irradiance_w,
@@ -329,6 +338,17 @@ def atmosphere_on_rays(atm, pos, dirn, azimuth, elevation):
     return _launch_k4(EnvLaunch(p, None, a, tables), L,
                       torch.ones_like(dirn), dirn.contiguous(),
                       pos.contiguous())
+
+
+def atmosphere_launch_info() -> dict:
+    """The ATMOSPHERE kind's schedule on the current card, from the CUDA
+    runtime: SMs, resident blocks per SM, threads per block, registers
+    and local (spill and stack) bytes per thread."""
+    info = (ctypes.c_int * 5)()
+    cuda.check_status(cuda.load_library().dll.vpt_atmosphere_launch_info(
+        info), "atmosphere launch info")
+    return dict(zip(("sms", "blocks_per_sm", "threads", "registers",
+                     "local_bytes"), info))
 
 
 def div_known_sweep(d: float, y: float, lo: int = 0, hi: int = 2 ** 32,

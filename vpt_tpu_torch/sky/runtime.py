@@ -16,6 +16,7 @@ that every device uses the same float32 values.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from dataclasses import dataclass
@@ -31,6 +32,38 @@ LUMINANCE_MODES = {"none": 0, "approximate": 1, "precomputed": 2}
 
 
 @dataclass(frozen=True)
+class K4Luts:
+    """The LUTs in the layout of kernel K4's ATMOSPHERE kind
+    (csrc/environment.cu), every texel a whole number of 16-byte words:
+    the transmittance (TH, TW, 4) and the irradiance (IH, IW, 4), rgb and
+    a zero; the scattering and the single Mie interleaved, (R, MU, NU *
+    MU_S, 8): scattering rgb, 0, single Mie rgb, 0, so that one 4-D tap
+    of both is one 32-byte sector.  Contiguous; each value the (..., 3)
+    LUT's bit for bit."""
+
+    transmittance: torch.Tensor
+    scattering_mie: torch.Tensor
+    irradiance: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        return sum(getattr(self, f.name).numel() * 4
+                   for f in dataclasses.fields(self))
+
+
+def pack_k4_luts(luts: br.AtmosphereLUTs) -> K4Luts:
+    """The (..., 3) LUTs in K4's layout, on their device."""
+    def rgb0(t):
+        return torch.cat([t, torch.zeros_like(t[..., :1])], dim=-1)
+    return K4Luts(
+        transmittance=rgb0(luts.transmittance).contiguous(),
+        scattering_mie=torch.cat([rgb0(luts.scattering),
+                                  rgb0(luts.single_mie)],
+                                 dim=-1).contiguous(),
+        irradiance=rgb0(luts.irradiance).contiguous())
+
+
+@dataclass(frozen=True)
 class Atmosphere:
     """A scene's atmosphere: the model, its LUTs and their dims."""
 
@@ -39,8 +72,20 @@ class Atmosphere:
     dims: br.LutDims = dataclasses.field(default_factory=br.LutDims)
 
     def to(self, device) -> "Atmosphere":
-        return Atmosphere(self.params.to(device), self.luts.to(device),
-                          self.dims)
+        """This atmosphere on ``device``: itself where its tensors are
+        there already (so its packed LUTs are kept), else a copy."""
+        moved = Atmosphere(self.params.to(device), self.luts.to(device),
+                           self.dims)
+        same = all(getattr(moved.luts, f.name) is getattr(self.luts, f.name)
+                   for f in dataclasses.fields(self.luts)) and \
+            moved.params.top_radius is self.params.top_radius
+        return self if same else moved
+
+    @functools.cached_property
+    def k4_luts(self) -> K4Luts:
+        """The LUTs in K4's layout (pack_k4_luts), packed at first use and
+        kept: once per atmosphere, for every launch of the live kind."""
+        return pack_k4_luts(self.luts)
 
 
 def check_luts(luts: br.AtmosphereLUTs, dims: br.LutDims):
@@ -118,6 +163,21 @@ def curve_exposure(p: br.AtmosphereParams):
     return p.exposure if p.use_luminance == 0 else p.exposure * 1e-5
 
 
+def ground_hit(p: br.AtmosphereParams, ray_pos, ray_dir):
+    """The ground hit of sample_atmosphere (render_kernel.cu:847-860):
+    (camera, the position relative to the planet's centre; view, the
+    unit direction; dist, the distance to the ground sphere; hits_ground,
+    the rays that take the ground branch).  K4's ATMOSPHERE kind makes
+    the same decision (environment.cu::ray_head)."""
+    camera = ray_pos - earth_center(p)
+    view = normalize(ray_dir)
+    p_dot_v = dot(camera, view)
+    p_dot_p = dot(camera, camera)
+    disc = p.bottom_radius * p.bottom_radius - (p_dot_p - p_dot_v * p_dot_v)
+    dist = -p_dot_v - true_sqrt(torch.clamp(disc, min=0.0))
+    return camera, view, dist, (dist > 0.0) & (disc >= 0.0)
+
+
 def _sample_atmosphere_pre(atm: Atmosphere, ray_pos, ray_dir, azimuth,
                            elevation, dims: br.LutDims):
     """render_kernel.cu:839-877 without the sun disc and the curve:
@@ -125,15 +185,7 @@ def _sample_atmosphere_pre(atm: Atmosphere, ray_pos, ray_dir, azimuth,
     cache bakes."""
     p, luts = atm.params, atm.luts
     sun = sun_direction(azimuth, elevation, ray_pos.device)
-    camera = ray_pos - earth_center(p)
-    view = normalize(ray_dir)
-
-    # the ground hit (render_kernel.cu:847-860)
-    p_dot_v = dot(camera, view)
-    p_dot_p = dot(camera, camera)
-    disc = p.bottom_radius * p.bottom_radius - (p_dot_p - p_dot_v * p_dot_v)
-    dist = -p_dot_v - true_sqrt(torch.clamp(disc, min=0.0))
-    hits_ground = (dist > 0.0) & (disc >= 0.0)
+    camera, view, dist, hits_ground = ground_hit(p, ray_pos, ray_dir)
     sky_k, sun_k = luminance_factors(p)
 
     gp = camera + view * dist[..., None]

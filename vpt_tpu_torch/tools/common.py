@@ -44,6 +44,20 @@ def time_ms(fn, device, n=8):
     return start.elapsed_time(end) / n, out
 
 
+def mixed_warp_share(hits_ground, warp: int = 32) -> float:
+    """The share of warps (``warp`` consecutive rays, the last one
+    short) whose rays take both of sky/runtime.py::sample_atmosphere's
+    branches (``hits_ground``, ground_hit's)."""
+    n = hits_ground.shape[0]
+    pad = torch.zeros((-n) % warp, dtype=torch.int8,
+                      device=hits_ground.device)
+    g = torch.cat([hits_ground.to(torch.int8), pad]).view(-1, warp)
+    counts = g.sum(1)
+    sizes = torch.full_like(counts, warp)
+    sizes[-1] = warp - pad.numel()
+    return float(((counts > 0) & (counts < sizes)).double().mean())
+
+
 def nan_equal(a, b):
     """True when two tensors hold equal values, NaN where the other has
     NaN."""

@@ -25,7 +25,12 @@ the calling blocks too).  ``text_sha256`` hashes the function's
 instructions (address, opcode and operands): two builds whose code is the
 same give the same hash.  ``--against`` adds ``same_as_against``: whether
 the function of the same name (``common_name``) in another build has the
-same hash (None where that build has no such function).
+same hash (None where that build has no such function).  ``loads``
+counts the global loads (LDG) outside the slow paths by opcode, each
+once, and ``ldg_in_flight`` places them: for each, the loads issued from
+it to the first instruction that reads what it loaded, in program order
+(1 where that instruction follows it before any other load), its mean
+and its largest value.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import shutil
 import subprocess
 import sys
 
-KERNELS = ("environment_kernel", "primary_rays_kernel")
+KERNELS = ("environment_kernel", "atmosphere_kernel",
+           "primary_rays_kernel")
 INT_OPS = ("IADD", "IMAD", "LOP", "SHF", "ISETP", "LEA", "IABS", "IMNMX",
            "POPC", "FLO", "PRMT", "SEL", "SGXT", "BMSK", "BREV", "IDP",
            "VIADD", "VIMNMX", "IMUL", "USHF", "ULOP", "UIADD", "UIMAD",
@@ -56,6 +62,8 @@ _LABEL = re.compile(r"^\s*([^\s/][^\s]*):\s*$")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 _TARGET = re.compile(r"`\(([^)]+)\)")
 _PRED = re.compile(r"^@!?U?P(?:[0-9]|T)\s+")
+_REG = re.compile(r"\bR(\d+)(\.64)?\b")
+_NO_DEST = ("ST", "RED", "ATOM", "BRA", "EXIT", "CALL", "RET", "BAR")
 
 
 def disassemble(path: str) -> str:
@@ -162,6 +170,44 @@ def _cold(body, labels):
     return cold
 
 
+def _regs(text: str) -> set:
+    out = set()
+    for m in _REG.finditer(text):
+        r = int(m.group(1))
+        out.update((r, r + 1) if m.group(2) else (r,))
+    return out
+
+
+def _sources(op: str, rest: str) -> set:
+    """The general registers an instruction reads: every one in its
+    operands but a leading destination register."""
+    if op.startswith(_NO_DEST) or not re.match(r"\s*R\d", rest):
+        return _regs(rest)
+    return _regs(rest.split(",", 1)[1] if "," in rest else "")
+
+
+def ldg_in_flight(body) -> list:
+    """For each LDG of ``body`` ([(address, opcode, operands)] in program
+    order): the LDGs from it to the first instruction that reads one of
+    its destination registers, itself included."""
+    out = []
+    for k, (_, op, rest) in enumerate(body):
+        if not op.startswith("LDG"):
+            continue
+        m = re.match(r"\s*R(\d+)", rest)
+        if not m:
+            continue
+        width = 4 if ".128" in op else 2 if ".64" in op else 1
+        dest = set(range(int(m.group(1)), int(m.group(1)) + width))
+        n = 1
+        for _, op2, rest2 in body[k + 1:]:
+            if _sources(op2, rest2) & dest:
+                break
+            n += op2.startswith("LDG")
+        out.append(n)
+    return out
+
+
 def count(insns, labels, trips=()):
     """The per-thread counts of one function (see the module doc)."""
     calls = {_target(r, labels) for _, op, r in insns if op.startswith("CALL")}
@@ -194,6 +240,12 @@ def count(insns, labels, trips=()):
         per_class[c] = per_class.get(c, 0) + weights[a]
     depth = [sum(1 for lo2, hi2 in loops if lo2 <= lo and hi <= hi2)
              for lo, hi in loops]
+    hot = [(a, op, r) for a, op, r in body if a not in cold]
+    loads = {}
+    for _, op, _ in hot:
+        if op.startswith("LDG"):
+            loads[op] = loads.get(op, 0) + 1
+    flight = ldg_in_flight(hot)
     return dict(
         static=len(body), subroutine_insns=len(insns) - len(body),
         slow_path_call_insns=len(cold),
@@ -205,7 +257,10 @@ def count(insns, labels, trips=()):
                for (lo, hi), d, t in zip(loops, depth, given)],
         trips_missing=sum(t is None for t in given),
         per_thread=sum(w for a, w in weights.items() if a not in cold),
-        per_thread_all=sum(weights.values()), by_class=per_class, mufu=mufu)
+        per_thread_all=sum(weights.values()), by_class=per_class, mufu=mufu,
+        loads=loads, ldg_in_flight=dict(
+            mean=sum(flight) / len(flight) if flight else 0.0,
+            max=max(flight, default=0)))
 
 
 def main(argv=None):

@@ -1,8 +1,8 @@
 """The Bruneton atmosphere on the card: the reference bench's config 4
 (vpt_tpu's bench.py:649-681), K4's ATMOSPHERE and SKY_CACHE kinds and
 K1's env_pos (in the bench's rows and in float32 rows), each held to its
-plain version, and the LUT precompute's
-and the sky bake's seconds.
+plain version (ATMOSPHERE bit for bit on every ray), the LUT
+precompute's, K4's packing's and the sky bake's seconds.
 
     python -m vpt_tpu_torch.tools.time_atmosphere [--quick | --memory]
 
@@ -20,6 +20,8 @@ root box's centre and 0.5 above it, vfov 40; ATMOSPHERE, the sun at
 (attach_sky_cache at 256 x 512), 32 timed spp each after 2, and the live
 tracked render beside in float32 rows without octant columns
 (``live_tracked_f32``); the live atmosphere at 1080p, tracked, 16 spp.
+K4's ATMOSPHERE kind is also timed at 1080p on the full LutDims (the
+CLI's), on the same scene's K1-retired rays.
 """
 
 from __future__ import annotations
@@ -108,7 +110,7 @@ def run(dev, quick=False, out=print, tmp=None):
     from vpt_tpu_torch.sky import bruneton as br
     from vpt_tpu_torch.sky import runtime as rt
     from vpt_tpu_torch.tools.common import (BENCH_ROWS, bench_blob, bound,
-                                            time_ms)
+                                            mixed_warp_share, time_ms)
     from vpt_tpu_torch.utils.io import read_png
 
     def emit(part, **kw):
@@ -125,6 +127,15 @@ def run(dev, quick=False, out=print, tmp=None):
                fused.FUSED_DIRECT_OCTANT]
     spp = 2 if quick else SPP
 
+    def pack(a):
+        """K4's layout of a's LUTs (packed here, once): seconds, bytes."""
+        t0 = time.perf_counter()
+        k4 = a.k4_luts
+        sync()
+        return dict(s=time.perf_counter() - t0, bytes=k4.nbytes,
+                    lut_bytes=sum(getattr(a.luts, f.name).numel() * 4
+                                  for f in dataclasses.fields(a.luts)))
+
     # ---- the LUTs: half dims for config 4, full dims timed -------------
     half = br.LutDims(**HALF)
     t_half = {}
@@ -133,6 +144,8 @@ def run(dev, quick=False, out=print, tmp=None):
     sync()
     res["precompute_half_s"] = time.perf_counter() - t0
     res["precompute_half_stages_s"] = t_half
+    res["k4_pack_half"] = pack(atm)
+    full = None
     if not quick:
         t_full = {}
         t0 = time.perf_counter()
@@ -143,7 +156,8 @@ def run(dev, quick=False, out=print, tmp=None):
         res["full_luts_finite"] = all(
             bool(torch.isfinite(getattr(full.luts, f.name)).all())
             for f in dataclasses.fields(full.luts))
-        del full
+        res["k4_pack_full"] = pack(full)
+    packed = atm.k4_luts
     emit("precompute", **res)
 
     # ---- config 4 ------------------------------------------------------
@@ -239,6 +253,9 @@ def run(dev, quick=False, out=print, tmp=None):
                 k.name]
         del rr
     res["runs"] = runs
+    if not all(sc.atmosphere is atm for sc in scenes.values()) or \
+            atm.k4_luts is not packed:
+        raise RuntimeError("config 4's renders packed K4's LUTs again")
     emit("config4", runs=runs, build_s=res["build_s"],
          rows=dict(dtype="bfloat16", octant_cols=scene.atlas.octant_cols,
                    width=scene.atlas.density_corners.shape[1]),
@@ -317,9 +334,11 @@ def run(dev, quick=False, out=print, tmp=None):
         k1[name] = rec
         if not (rec["outputs_bit_share"] >= MIN_SHARE
                 and rec["beta_dir_bit_share"] >= MIN_SHARE
-                and rec["env_pos_equal_where_outputs_equal"]):
+                and rec["env_pos_equal_where_outputs_equal"]
+                and rec["k4"]["bit_share"] == 1.0):
             raise RuntimeError(f"K1 {name}: its outputs, beta, direction or "
-                               f"env_pos differ from the plain loop's: {rec}")
+                               f"env_pos differ from the plain loop's, or "
+                               f"K4's from its plain version: {rec}")
         if scene_name.startswith("sphere") and rec["env_pos_moved"] == 0:
             raise RuntimeError(f"K1 {name}: no sphere event moved env_pos")
         if cut and (q == 1 or rec["cut"] == 0):
@@ -343,45 +362,51 @@ def run(dev, quick=False, out=print, tmp=None):
         return scw, pe, launch.env, views[0], views[5], views[6], pos
 
     kinds = {}
-    sizes = [(SIZE, SIZE)] + ([] if quick else [HD])
-    for kind, sc in (("atmosphere", live), ("sky_cache", baked)):
-        for (w, h) in sizes:
-            scw, pe, env, L, beta, dirn, pos = k4_inputs(sc, w, h,
-                                                         "tracked")
-            tk, got = time_ms(lambda: integrator.add_environment(
-                scw, pe, L.clone(), beta, dirn, pos, launch=env), dev, 20)
-            tp, want = time_ms(lambda: L + integrator.environment_radiance(
-                scw, pe, pos if pos is not None else dirn, dirn) * beta,
-                dev, 3)
-            tc, _ = time_ms(lambda: L.clone(), dev, 20)
-            rec = dict(size=[w, h], ms=tk - tc, clone_ms=tc, plain_ms=tp,
-                       **compare(got, want))
-            n = L.shape[0]
-            if kind == "atmosphere":
-                # the ground hit, as the kernel decides it, for the count
-                p_ = scw.atmosphere.params
-                cam = pos - rt.earth_center(p_)
-                view = torch.nn.functional.normalize(dirn, dim=-1)
-                pdv = (cam * view).sum(-1)
-                disc = p_.bottom_radius ** 2 - ((cam * cam).sum(-1) - pdv ** 2)
-                ground = float((((-pdv - disc.clamp_min(0).sqrt()) > 0)
-                                & (disc >= 0)).double().sum())
-                lut_bytes = sum(getattr(scw.atmosphere.luts, f.name).numel()
-                                for f in dataclasses.fields(
-                                    scw.atmosphere.luts)) * 4
-                rec.update(ground_share=ground / n, bound=bound(
-                    n * ATM_BYTES + lut_bytes,
-                    ground * ATM_GROUND_OPS + (n - ground) * ATM_SKY_OPS))
-            else:
-                rec["bound"] = bound(n * SKY_CACHE_BYTES
-                                     + scw.sky_cache.numel() * 4,
-                                     n * SKY_CACHE_OPS)
-            kinds[f"{kind}_{w}x{h}"] = rec
-            if not (rec["finite"] and rec["max_abs"] <= 2e-6):
-                raise RuntimeError(f"K4 {kind} at {w}x{h} differs from its "
-                                   f"plain version: {rec}")
-            del L, beta, dirn, pos, got, want
-    emit("k4_kinds", **kinds)
+    cases = [(kind, sc, size) for kind, sc in (("atmosphere", live),
+                                               ("sky_cache", baked))
+             for size in [(SIZE, SIZE)] + ([] if quick else [HD])]
+    if full is not None:
+        cases.append(("atmosphere_full", attach_atmosphere(
+            live, atmosphere=full), HD))
+    for kind, sc, (w, h) in cases:
+        scw, pe, env, L, beta, dirn, pos = k4_inputs(sc, w, h,
+                                                     "tracked")
+        tk, got = time_ms(lambda: integrator.add_environment(
+            scw, pe, L.clone(), beta, dirn, pos, launch=env), dev, 20)
+        tp, want = time_ms(lambda: L + integrator.environment_radiance(
+            scw, pe, pos if pos is not None else dirn, dirn) * beta,
+            dev, 3)
+        tc, _ = time_ms(lambda: L.clone(), dev, 20)
+        rec = dict(size=[w, h], ms=tk - tc, clone_ms=tc, plain_ms=tp,
+                   **compare(got, want))
+        n = L.shape[0]
+        if kind.startswith("atmosphere"):
+            # the ground hit, as the kernel decides it, for the count
+            hits = rt.ground_hit(scw.atmosphere.params, pos, dirn)[3]
+            ground = float(hits.double().sum())
+            rec["mixed_warp_share"] = mixed_warp_share(hits)
+            # the (..., 3) LUTs once, whatever layout the kernel reads
+            lut_bytes = sum(getattr(scw.atmosphere.luts, f.name).numel()
+                            for f in dataclasses.fields(
+                                scw.atmosphere.luts)) * 4
+            rec.update(ground_share=ground / n, bound=bound(
+                n * ATM_BYTES + lut_bytes,
+                ground * ATM_GROUND_OPS + (n - ground) * ATM_SKY_OPS),
+                dims=dataclasses.asdict(scw.atmosphere.dims))
+            ok = rec["bit_share"] == 1.0
+        else:
+            rec["bound"] = bound(n * SKY_CACHE_BYTES
+                                 + scw.sky_cache.numel() * 4,
+                                 n * SKY_CACHE_OPS)
+            ok = rec["max_abs"] <= 2e-6
+        kinds[f"{kind}_{w}x{h}"] = rec
+        if not (rec["finite"] and ok):
+            raise RuntimeError(f"K4 {kind} at {w}x{h} differs from its "
+                               f"plain version: {rec}")
+        del L, beta, dirn, pos, got, want
+    del full, cases
+    res["k4_atmosphere"] = integrator.atmosphere_launch_info()
+    emit("k4_kinds", **kinds, atmosphere_schedule=res["k4_atmosphere"])
     res["k4"] = kinds
 
     # ---- the entry points (left out by --quick) --------------------------
@@ -412,6 +437,11 @@ def run(dev, quick=False, out=print, tmp=None):
          str(w), "--height", str(h), "--spp", str(HD_SPP)],
         os.path.join(tmp, "atm.png"), (h, w, 3),
         integrator.ENVIRONMENT_SKY_CACHE)
+    res["cli_render_live"] = drive(
+        ["render", "procedural", "--atmosphere", "--no-bake-sky", "--width",
+         str(w), "--height", str(h), "--spp", str(HD_SPP)],
+        os.path.join(tmp, "atm_live.png"), (h, w, 3),
+        integrator.ENVIRONMENT_ATMOSPHERE)
     res["cli_earth"] = drive(["earth"], os.path.join(tmp, "earth.png"),
                              (512, 512, 3), integrator.ENVIRONMENT_ATMOSPHERE)
     # earth's image against the plain version on the same rays
@@ -420,11 +450,11 @@ def run(dev, quick=False, out=print, tmp=None):
     res["cli_earth"].update(compare(
         integrator.atmosphere_on_rays(eatm, pos, dirs, AZIMUTH, ELEVATION),
         rt.sample_atmosphere(eatm, pos, dirs, AZIMUTH, ELEVATION, eatm.dims)))
-    if res["cli_earth"]["max_abs"] > 2e-6:
+    if res["cli_earth"]["bit_share"] != 1.0:
         raise RuntimeError(f"earth: K4 differs from the plain version: "
                            f"{res['cli_earth']}")
     emit("entry_points", cli_render=res["cli_render"],
-         cli_earth=res["cli_earth"])
+         cli_render_live=res["cli_render_live"], cli_earth=res["cli_earth"])
     return res
 
 
