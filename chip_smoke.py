@@ -130,6 +130,28 @@ Phases, one JSON line each:
                scene (27 instances of the 12^3 blob), built by the port
                on the card, K1 against the plain loop there too, with its
                golden render's mean beside the golden's;
+  8e2. instanced_loop — K1's CELLS instances with LOOP on loop8
+               (tools/common.py::loop8_scene: 8 instances of two 64^3 grids
+               with emission and color, no cell lists, BLACK,
+               emission_scale 2), built and baked on the card (the world
+               tau grid); K1 against fused_direct_plain at 256x256 in both
+               modes by phase 6's rule with the bit-for-bit share, the
+               routes bit for bit; 32 spp after 2 at 512x512 and 1080p in
+               both modes: ms/spp, Mrays/s, iterations per ray,
+               trunc_frac, launches (LOOP, EXT, CELLS x EXT and K3 once a
+               sample), finite and not black; K1 timed beside the plain
+               loop at 512x512;
+  8e3. instanced_ext — K1's CELLS instances with EXT on config5_ext
+               (config 5 with emission and color, cell lists over each
+               whole box, CONSTANT), the same checks at 512x512;
+  8e4. union — config5_union (1024 instances) and config5_4k (4096) as
+               bench.py builds them (tools/common.py::union_scene: the
+               union grid at 320, bfloat16 rows with octant columns, the
+               sun baked), through K1's _bf16 instances: the resample's,
+               corner pack's and bake's seconds and
+               union_error_at_resolution beside each run; config5_union
+               at 512x512 and 1080p in both modes, config5_4k at 512x512
+               cached (the port's AUTO queue), with phase 8e2's checks;
   8f. atmosphere — the Bruneton atmosphere on the reference bench's
                config 4 (vpt_tpu_torch/tools/time_atmosphere.py::run, its
                parts printed as they end): the LUT precompute on the card
@@ -188,7 +210,9 @@ Then the nvidia-smi line, the kernels' JSON line (K1 on both routes, its
 EXT variant at 1080p on the emissive grid with config 2 beside, its
 _bf16 instances on config 2 as the bench builds it with bigvol beside,
 its _octant instances on config 2 in float32 rows with octant columns,
-and its CELLS variant on config 5 at 512x512, tracked with cached beside; K4's
+its CELLS variant on config 5 at 512x512, tracked with cached beside, its
+CELLS instances with LOOP on loop8 and with EXT on config5_ext, likewise;
+K4's
 ATMOSPHERE and SKY_CACHE kinds at 1080p on config 4, 512x512 beside; K2,
 its own launches beside those of K1's in-kernel-ray route, which runs
 its code, and its time at aperture 0.5; K3 at 1080p; K4 at 1080p for the
@@ -396,14 +420,16 @@ def check_lens(where, k2_lens, routes_lens):
                                f"{K2_APERTURE} ({mode})")
 
 
-def k1_variant(route, defer, ext, cells=False, rows=""):
+def k1_variant(route, defer, ext, cells=0, rows=""):
     """K1's variant name: the route, "_env" for the deferred environment
     (HDRI, the skies), "_envpos" for the live Bruneton atmosphere (env_pos
     too), "_ext" for emission, color or volume_depth > 1, "_cells" for an
-    instanced scene; then the rows' instances: "_octant" for float32 rows
-    with the octant columns, "_bf16" for bfloat16 rows (ROW_SUFFIX)."""
+    instanced scene with cell lists (``cells`` 1), "_loop" for one without
+    them (2, the CELLS instances with LOOP); then the rows' instances:
+    "_octant" for float32 rows with the octant columns, "_bf16" for
+    bfloat16 rows (ROW_SUFFIX)."""
     return (route + ("", "_env", "_envpos")[int(defer)] + "_ext" * int(ext)
-            + "_cells" * int(cells) + rows)
+            + ("", "_cells", "_loop")[int(cells)] + rows)
 
 
 # K1's instances of a single grid's rows: the name's suffix, the
@@ -411,10 +437,12 @@ def k1_variant(route, defer, ext, cells=False, rows=""):
 # them (ops/cuda.py::row_kind)
 ROW_SUFFIX = {"": ("f", "0", 0), "_octant": ("f", "1", 1),
               "_bf16": ("13__nv_bfloat16", "1", 2)}
-# K1's variants: (deferred environment 0-2, EXT, CELLS, rows) on either
-# route; CELLS only on float32 rows without octant columns
+# K1's variants: (deferred environment 0-2, EXT, CELLS 0-2 (none, cell
+# lists, LOOP), rows) on either route; CELLS only on float32 rows without
+# octant columns
 K1_VARIANTS = [(d, e, c, r) for d in (0, 1, 2)
                for e, c, r in ((0, 0, ""), (1, 0, ""), (0, 1, ""),
+                               (1, 1, ""), (0, 2, ""), (1, 2, ""),
                                (0, 0, "_octant"), (1, 0, "_octant"),
                                (0, 0, "_bf16"), (1, 0, "_bf16"))]
 K1_NEW = ("_octant", "_bf16")   # the rows' instances: reported, not gated
@@ -426,10 +454,11 @@ def k1_registers(summary):
     rows = {(t, o): suf for suf, (t, o, _) in ROW_SUFFIX.items()}
     for n, v in summary.items():
         m = re.search(r"fused_direct_kernelILb([01])ELi([012])ELb([01])E"
-                      r"Lb([01])E(f|13__nv_bfloat16)Lb([01])E", n)
+                      r"Lb([01])E(f|13__nv_bfloat16)Lb([01])ELb([01])E", n)
         if m:
+            cells = int(m.group(4)) * (1 + int(m.group(7)))
             out[k1_variant(ROUTES[int(m.group(1))], int(m.group(2)),
-                           m.group(3) == "1", m.group(4) == "1",
+                           m.group(3) == "1", cells,
                            rows[m.group(5), m.group(6)])] = v
     return out
 
@@ -502,7 +531,8 @@ def main():
                fused.FUSED_DIRECT_EXT, fused.FUSED_DIRECT_CELLS,
                integrator.ENVIRONMENT_ATMOSPHERE,
                integrator.ENVIRONMENT_SKY_CACHE, fused.FUSED_DIRECT_BF16,
-               fused.FUSED_DIRECT_OCTANT]
+               fused.FUSED_DIRECT_OCTANT, fused.FUSED_DIRECT_LOOP,
+               fused.FUSED_DIRECT_CELLS_EXT]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -527,7 +557,7 @@ def main():
     k1_launch = {k1_variant(route, defer, ext, cells, rows):
                  fused.launch_info(route == "rays_in_kernel", 128, defer,
                                    bool(ext), bool(cells),
-                                   ROW_SUFFIX[rows][2])
+                                   ROW_SUFFIX[rows][2], loop=cells == 2)
                  for route in ROUTES for defer, ext, cells, rows in K1_VARIANTS}
     emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
          ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
@@ -536,7 +566,7 @@ def main():
     # CELLS's, env_pos's and the rows' new instances are reported
     for name, info in k1_launch.items():
         v = k1_ptxas.get(name, {})
-        if not name.endswith(("_ext", "_cells") + K1_NEW) \
+        if not name.endswith(("_ext", "_cells", "_loop") + K1_NEW) \
                 and "_envpos" not in name and (
                 info["blocks_per_sm"] != 5
                                    or v.get("spill_stores")
@@ -1355,8 +1385,9 @@ def main():
     del c2, c2_cached, c3, c2_f32, c2_oct, c3_f32, big, runs
 
     # ---- 8e. instanced: config 5's cloudscape through K1's CELLS variant
-    from vpt_tpu_torch.tools.common import (aim_cloud, cloud_xforms,
-                                            golden_blob, golden_c5_instances,
+    from vpt_tpu_torch.tools.common import (aim_cloud, c5_params,
+                                            cloud_xforms, golden_blob,
+                                            golden_c5_instances,
                                             golden_camera)
     c5_ids, c5_xf = cloud_xforms(C5_INSTANCES)
     c5_build = {}
@@ -1375,11 +1406,6 @@ def main():
     c5_scenes = {"tracked": c5, "cached": c5_cached}
     c5_row_bytes = {m: sc.majorant.cell_rows.numel() * 4
                     for m, sc in c5_scenes.items()}
-
-    def c5_params(w, h, mode):
-        """The bench's config 5 parameters: CONSTANT, ray_depth 50."""
-        return params(w, h, mode).replace(
-            environment_type=int(Environment.CONSTANT))
 
     def bit_share(out_k, out_p):
         """Share of rays whose five outputs are the same bits."""
@@ -1515,6 +1541,203 @@ def main():
     timing["fused_direct_cells"] = (at_c5["ms"], at_c5["plain_ms"])
     bounds["fused_direct_cells"] = at_c5["bound"]
     del c5, c5_cached, c5_scenes, gl, gl_scenes
+
+    def instanced_runs(where, scenes_, p_of, aim, sizes, on_extra,
+                       spp=C5_SPP):
+        """spp timed samples after 2 of each scene at each size: ms/spp,
+        Mrays/s, iterations per ray, trunc_frac; each run's launches must
+        be the route's, K3's and those named in ``on_extra`` once a
+        sample and no
+        other; finite and not black.  Returns (runs, launches summed)."""
+        runs_, total = {}, {k.name: 0 for k in kernels}
+        for (w, h) in sizes:
+            for mode, sc in scenes_.items():
+                name = f"{w}x{h}_{mode}"
+                sc = aim(sc, w / h)
+                for k in kernels:
+                    k.launches = 0
+                rr, runs_[name] = timed_render(sc, p_of(w, h, mode), 2, spp)
+                got = {k.name: k.launches for k in kernels}
+                runs_[name]["launches"] = got
+                runs_[name]["mrays_per_s"] = (
+                    w * h / (runs_[name]["ms_per_spp"] * 1e-3) / 1e6)
+                for k_, n_ in got.items():
+                    total[k_] += n_
+                route = ({fused.FUSED_DIRECT_PRIMARY.name} if
+                         renderer.RAYS_IN_KERNEL[mode] else
+                         {fused.FUSED_DIRECT.name, renderer.RAYGEN.name})
+                on = route | {film_mod.FILM_ACCUMULATE.name} | set(on_extra)
+                want = {k.name: (2 + spp if k.name in on else 0)
+                        for k in kernels}
+                if got != want:
+                    raise RuntimeError(f"{where} {name}: launches {got}, "
+                                       f"expected {want}")
+                if not (runs_[name]["finite"]
+                        and runs_[name]["image_mean"] > 0.0):
+                    raise RuntimeError(f"{where} {name}: not finite, or "
+                                       "black")
+                if args.save:
+                    np.save(os.path.join(args.save,
+                                         f"chip_smoke_{where}_{name}.npy"),
+                            rr.display_image())
+                del rr
+        return runs_, total
+
+    def k1_timed(scenes_, p_of, size, reps=3):
+        """K1 (buffer route, the frame's queue) beside fused_direct_plain
+        on each scene's K2 rays at size^2, held together by the share
+        rule: device ms, the bound (rays in and out, each visited row of
+        the cell or packed table once, the instance rows and the corner
+        table once; K1's operations a step) and the bit-for-bit share."""
+        out_ = {}
+        key = rng.render_key(SEED, 0)
+        tkey = renderer.tile_key(key)
+        for mode, sc in scenes_.items():
+            pe = p_of(size, size, mode)
+            lt = renderer.prepare(sc, pe)
+            o, d = renderer._primary_rays_cuda(sc.camera, pe, key, lt.raygen)
+            q = renderer.frame_queue(pe)
+            tk, out_k = cuda_ms(lambda: fused._fused_direct_cuda(
+                sc, pe, tkey, o, d, lt.fused, pe.width, q), reps)
+            tp, out_p = cuda_ms(lambda: fused.fused_direct_plain(
+                sc, pe, tkey, o, d, q), 1)
+            steps = float(out_k[2].double().sum())
+            if sc.majorant is not None:
+                tab = (sc.majorant.packed if sc.majorant.cell_rows is None
+                       else sc.majorant.cell_rows)
+                visited = min(steps, tab.shape[0]) * tab.shape[1] * 4
+                table_bytes = (sc.instances.packed_rows.numel() * 4
+                               + sc.atlas.density_corners.numel()
+                               * sc.atlas.density_corners.element_size())
+            else:
+                corners_ = sc.atlas.density_corners
+                visited = min(steps, corners_.shape[0]) * k1_row_bytes(
+                    sc.atlas, sc.atlas.has_emission)
+                table_bytes = 0
+            out_[mode] = dict(
+                size=[pe.width, pe.height], queue=q, ms=tk, plain_ms=tp,
+                bound=bound(o.shape[0] * (24 + 28) + visited + table_bytes,
+                            steps * K1_OPS_PER_STEP),
+                steps=steps, **k1_agreement([(out_k, out_p)]),
+                bit_share=bit_share(out_k, out_p))
+            del o, d, out_k, out_p, lt
+        return out_
+
+    # ---- 8e2. instanced_loop: loop8 through K1's CELLS instances with LOOP
+    from vpt_tpu_torch.tools.common import (aim_loop8, config5_ext_scene,
+                                            loop8_params, loop8_scene,
+                                            union_error, union_scene)
+    lp_t = {}
+    t0 = time.perf_counter()
+    lp = loop8_scene(dev, lp_t)
+    torch.cuda.synchronize()
+    lp_t["build_scene_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp_scenes = {"tracked": lp,
+                 "cached": attach_shadow_cache(lp, AZIMUTH, ELEVATION)}
+    torch.cuda.synchronize()
+    lp_t["shadow_bake_s"] = time.perf_counter() - t0
+    lp_par, lp_routes = cells_parity(lp_scenes, PARITY_SIZE, loop8_params)
+    check_parity("instanced_loop 256^2", lp_par, 0.0, True, lp_routes)
+    lp_ext = {k.name for k in (fused.FUSED_DIRECT_LOOP, fused.FUSED_DIRECT_EXT,
+                               fused.FUSED_DIRECT_CELLS_EXT)}
+    lp_runs, lp_launches = instanced_runs(
+        "instanced_loop", lp_scenes, loop8_params, aim_loop8, C5_SIZES,
+        lp_ext)
+    lp_time = k1_timed(lp_scenes, loop8_params, C5_SIZES[0][0])
+    check_parity("instanced_loop timed", lp_time, 0.0, True, {})
+    emit("instanced_loop", config="loop8 (tools/common.py::loop8_scene)",
+         instances=lp.instances.count, grids=int(lp.atlas.offset.numel()),
+         resolution=lp.majorant.resolution,
+         packed_cols=lp.majorant.packed.shape[1],
+         world_tau=list(lp_scenes["cached"].world_tau.shape), build=lp_t,
+         k1=lp_par, k1_routes_bit_equal=lp_routes, runs=lp_runs,
+         k1_timed=lp_time,
+         ptxas={k: v for k, v in k1_ptxas.items() if "_loop" in k},
+         launch={k: v for k, v in k1_launch.items() if "_loop" in k})
+    del lp, lp_scenes
+
+    # ---- 8e3. instanced_ext: config 5 with emission and color (CELLS x EXT)
+    cx_t = {}
+    t0 = time.perf_counter()
+    cx = config5_ext_scene(dev, cx_t)
+    torch.cuda.synchronize()
+    cx_t["build_scene_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cx_scenes = {"tracked": cx,
+                 "cached": attach_shadow_cache(cx, AZIMUTH, ELEVATION)}
+    torch.cuda.synchronize()
+    cx_t["shadow_bake_s"] = time.perf_counter() - t0
+    cx_par, cx_routes = cells_parity(cx_scenes, PARITY_SIZE, c5_params)
+    check_parity("instanced_ext 256^2", cx_par, 0.0, True, cx_routes)
+    cx_ext = {k.name for k in (fused.FUSED_DIRECT_CELLS,
+                               fused.FUSED_DIRECT_EXT,
+                               fused.FUSED_DIRECT_CELLS_EXT)}
+    cx_runs, cx_launches = instanced_runs(
+        "instanced_ext", cx_scenes, c5_params, aim_cloud, C5_SIZES[:1],
+        cx_ext)
+    cx_time = k1_timed(cx_scenes, c5_params, C5_SIZES[0][0])
+    check_parity("instanced_ext timed", cx_time, 0.0, True, {})
+    emit("instanced_ext",
+         config="config5_ext (tools/common.py::config5_ext_scene)",
+         instances=cx.instances.count, resolution=cx.majorant.resolution,
+         k=cx.majorant.cell_instances.shape[1], build=cx_t, k1=cx_par,
+         k1_routes_bit_equal=cx_routes, runs=cx_runs, k1_timed=cx_time,
+         ptxas={k: v for k, v in k1_ptxas.items() if "_ext_cells" in k},
+         launch={k: v for k, v in k1_launch.items() if "_ext_cells" in k})
+    del cx, cx_scenes
+
+    # ---- 8e4. union: config5_union and config5_4k through K1's _bf16 ----
+    un_res, un_launches = {}, {k.name: 0 for k in kernels}
+    for uname, sizes, modes in (("config5_union", C5_SIZES,
+                                 ("tracked", "cached")),
+                                ("config5_4k", C5_SIZES[:1], ("cached",))):
+        u_t = {}
+        t0 = time.perf_counter()
+        us = union_scene(uname, dev, u_t)
+        torch.cuda.synchronize()
+        u_t["scene_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        u_err = union_error(uname, dev)
+        u_t["error_s"] = time.perf_counter() - t0
+        u_scenes = {m: us for m in modes}
+        u_par, u_routes = cells_parity(u_scenes, PARITY_SIZE, c5_params)
+        check_parity(f"{uname} 256^2", u_par, 0.0, True, u_routes)
+        u_runs, u_got = instanced_runs(uname, u_scenes, c5_params,
+                                       aim_cloud, sizes,
+                                       {fused.FUSED_DIRECT_BF16.name})
+        for k_, n_ in u_got.items():
+            un_launches[k_] += n_
+        for r_ in u_runs.values():
+            r_["union_field_error"] = u_err
+        u_time = k1_timed(u_scenes, c5_params, C5_SIZES[0][0])
+        check_parity(f"{uname} timed", u_time, 0.0, True, {})
+        rows_ = us.atlas.density_corners
+        un_res[uname] = dict(
+            grid=[int(v) for v in us.atlas.dim[0]],
+            rows=list(rows_.shape),
+            rows_gib=rows_.numel() * rows_.element_size() / 2 ** 30,
+            build=u_t, union_field_error=u_err, k1=u_par,
+            k1_routes_bit_equal=u_routes, runs=u_runs, k1_timed=u_time)
+        del us, u_scenes
+    emit("union", config="tools/common.py::union_scene (bench.py:710-800)",
+         **un_res)
+    launches[fused.FUSED_DIRECT_BF16.name] += un_launches[
+        fused.FUSED_DIRECT_BF16.name]
+    launches[fused.FUSED_DIRECT_LOOP.name] = lp_launches[
+        fused.FUSED_DIRECT_LOOP.name]
+    launches[fused.FUSED_DIRECT_CELLS_EXT.name] = (
+        lp_launches[fused.FUSED_DIRECT_CELLS_EXT.name]
+        + cx_launches[fused.FUSED_DIRECT_CELLS_EXT.name])
+    launches[fused.FUSED_DIRECT_EXT.name] += (
+        lp_launches[fused.FUSED_DIRECT_EXT.name]
+        + cx_launches[fused.FUSED_DIRECT_EXT.name])
+    launches[fused.FUSED_DIRECT_CELLS.name] += cx_launches[
+        fused.FUSED_DIRECT_CELLS.name]
+    for k_, t_ in ((fused.FUSED_DIRECT_LOOP, lp_time["tracked"]),
+                   (fused.FUSED_DIRECT_CELLS_EXT, cx_time["tracked"])):
+        timing[k_.name] = (t_["ms"], t_["plain_ms"])
+        bounds[k_.name] = t_["bound"]
 
     # ---- 8f. the Bruneton atmosphere (config 4) ---------------------------
     from vpt_tpu_torch.tools import time_atmosphere
@@ -1776,6 +1999,8 @@ def main():
     cfg2_16 = ext_time["config2_cached"]
     errs.update(fused_direct_bf16=cfg2_16["max_abs"],
                 fused_direct_octant=cfg2_oct["max_abs"])
+    errs.update(fused_direct_loop=lp_time["tracked"]["max_abs"],
+                fused_direct_cells_ext=cx_time["tracked"]["max_abs"])
     errs.update(fused_direct_cells=at_c5["max_abs"],
                 fused_direct_ext=at_size["max_abs"],
                 fused_direct=k1_1080["cached"]["max_abs"],
@@ -1846,6 +2071,36 @@ def main():
                     steps=cells_time["cached"]["steps"]),
         ptxas={k: v for k, v in k1_ptxas.items() if "_cells" in k},
         launch={k: v for k, v in k1_launch.items() if "_cells" in k})
+    for k_, t_, shape, design in (
+            (fused.FUSED_DIRECT_LOOP, lp_time,
+             "512x512, loop8: 8 instances of two 64^3 grids (emission and "
+             "color), no cell lists, BLACK, tracked, the frame's queue",
+             "K1's CELLS instances with LOOP (a template argument): the "
+             "majorant grid's packed row (T_box, box extents, 3 of the 72 "
+             "octant columns on an empty cell), then every instance in "
+             "order, its row and 8 corner taps; in cached mode one row of "
+             "the world tau grid at an accepted event"),
+            (fused.FUSED_DIRECT_CELLS_EXT, cx_time,
+             "512x512, config5_ext: config 5's 1024 instances of the 24^3 "
+             "puff with emission and color, cell lists over each whole "
+             "box, CONSTANT, tracked, the frame's queue",
+             "K1's CELLS instances with EXT: an EMIT sample sums each "
+             "listed slot's emission LUT row, an accepted event takes Cd "
+             "as the max over the slots (white for a grid without color), "
+             "both from the cell the reference's lookup picks; no "
+             "empty-box jumps on EMIT walks")):
+        by_name[k_.name].update(
+            shape=shape, design=design, agree_share=t_["tracked"]["share"],
+            bit_share=t_["tracked"]["bit_share"],
+            steps=t_["tracked"]["steps"],
+            cached=dict(ms=t_["cached"]["ms"],
+                        plain_ms=t_["cached"]["plain_ms"],
+                        bound_ms=t_["cached"]["bound"][0],
+                        bound_by=t_["cached"]["bound"][1],
+                        agree_share=t_["cached"]["share"],
+                        bit_share=t_["cached"]["bit_share"],
+                        max_abs_err=t_["cached"]["max_abs"],
+                        steps=t_["cached"]["steps"]))
     rows_design = ("K1's template instances of a single grid's rows: every "
                    "row read through one typed load (a 2-byte load widened "
                    "by __bfloat162float for bfloat16), and on an empty box "
@@ -1864,6 +2119,12 @@ def main():
                      "octant; 2 B a column) + K1's operations a step",
         f32_rows=dict(ms=cfg2["ms"], plain_ms=cfg2["plain_ms"],
                       steps=cfg2["steps"]),
+        unions={n_: {m: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                             bound_ms=v["bound"][0], bound_by=v["bound"][1],
+                             agree_share=v["share"],
+                             bit_share=v["bit_share"], steps=v["steps"])
+                     for m, v in r_["k1_timed"].items()}
+                for n_, r_ in un_res.items()},
         bigvol=dict(n=BIGVOL_N, ms=bv_k1["ms"], bound_ms=bv_k1["bound"][0],
                     bound_by=bv_k1["bound"][1], steps=bv_k1["steps"],
                     crop_agree_share=bv_k1["share"],

@@ -779,6 +779,103 @@ def test_k1_cells_variant_matches_plain(cuda_device, mode, route):
     assert float(ref[2].mean()) > 1.0 and float(ref[0].mean()) > 0.0
 
 
+def _loop_scene(device, ext, n_inst=4):
+    """n_inst instances of two grids, a 24^3 puff (with emission and color
+    where ``ext``) and a 20^3 one without, alternating, 2.0 apart with
+    overlapping boxes: below the list threshold at 4, with lists at 12;
+    one point light; framed as the c5 golden, closer."""
+    from vpt_tpu_torch.tools import common
+    xforms = []
+    for i in range(n_inst):
+        xf = np.diag([0.1, 0.1, 0.1, 1.0])
+        xf[3, :3] = (2.0 * (i % 4), 0.3 * (i % 3), 2.0 * (i // 4))
+        xforms.append(xf)
+    s = build_scene(
+        [common.bench_blob(n=24, emission=ext, color=ext),
+         common.bench_blob(n=20)],
+        instance_grid_ids=[i % 2 for i in range(n_inst)],
+        instance_xforms=xforms, majorant_resolution=16,
+        lights=PointLights.make([[2.0, 4.0, 3.0]], [[1, 1, 1]], [30.0],
+                                device=device),
+        emission_lut=ramp_lut(), device=device)
+    return common.golden_camera(s, dist_scale=0.7)
+
+
+INSTANCED_CASES = {"loop": (4, False), "loop_ext": (4, True),
+                   "cells_ext": (12, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdepth", [1, 2])
+@pytest.mark.parametrize("route", ["buffers", "in_kernel"])
+@pytest.mark.parametrize("mode", ["cached", "tracked"])
+@pytest.mark.parametrize("case", list(INSTANCED_CASES))
+def test_k1_loop_and_cells_ext_match_plain(cuda_device, case, mode, route,
+                                           vdepth):
+    """K1's CELLS instances in loop mode (4 instances of two grids, the
+    world tau grid in cached mode) and with EXT (emission, color and
+    volume_depth 2 on the loop and on cell lists) agree with
+    fused_direct_plain by the share rule, on both routes, and count
+    their launches."""
+    n_inst, ext = INSTANCED_CASES[case]
+    s = _loop_scene(cuda_device, ext, n_inst)
+    loop = s.majorant.cell_instances is None
+    assert loop == (n_inst <= 8)
+    if mode == "cached":
+        s = attach_shadow_cache(s, 150.0, 30.0, world_resolution=24)
+        assert (s.world_tau is not None) == loop
+    p = RenderParams(width=64, height=48, shadow_mode=mode,
+                     environment_type=3, ray_depth=4, max_fused_steps=256,
+                     emission_scale=2.0, volume_depth=vdepth)
+    key = rng.render_key(0, 5)
+    tkey = renderer.tile_key(key)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    counters = (fused.FUSED_DIRECT_LOOP, fused.FUSED_DIRECT_CELLS,
+                fused.FUSED_DIRECT_CELLS_EXT, fused.FUSED_DIRECT_EXT)
+    before = [k.launches for k in counters]
+    out = (fused._fused_direct_cuda(s, p, tkey, o, d) if route == "buffers"
+           else renderer._trace_primary_cuda(s, p, key))
+    extended = ext or vdepth > 1
+    assert [k.launches - b for k, b in zip(counters, before)] == [
+        int(loop), int(not loop), int(extended), int(extended)]
+    ref = fused.fused_direct_plain(s, p, tkey, o, d)
+    torch.cuda.synchronize()
+    share, rel = agreement([x.cpu().numpy() for x in out],
+                           [x.cpu().numpy() for x in ref])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
+    assert float(ref[2].mean()) > 1.0 and float(ref[0].mean()) > 0.0
+
+
+@pytest.mark.cuda
+def test_k1_cells_loop_ext_launch_info(cuda_device):
+    """The CELLS instances with LOOP, with EXT and with both exist on both
+    routes and every DEFER, and the density-only CELLS instances keep 5
+    blocks an SM."""
+    for rik in (False, True):
+        for defer in (0, 1, 2):
+            for ext, loop in ((True, False), (False, True), (True, True)):
+                info = fused.launch_info(rik, 128, defer, ext, True,
+                                         loop=loop)
+                assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+            assert fused.launch_info(rik, 128, defer, False,
+                                     True)["blocks_per_sm"] == 5
+
+
+@pytest.mark.cuda
+def test_union_resample_on_the_card_matches_cpu(cuda_device):
+    """resample_union_grid on the card equals the CPU's within float
+    rounding (the float64 coordinates' products may round apart)."""
+    from vpt_tpu_torch.tools import common
+    from vpt_tpu_torch.volume.union import resample_union_grid
+    ids, xforms = common.cloud_xforms(64)
+    grids = [common.bench_blob(n=24, emission=True, color=True)]
+    got = resample_union_grid(grids, ids, xforms, 96, device=cuda_device)
+    want = resample_union_grid(grids, ids, xforms, 96, device="cpu")
+    for f in ("density_zyx", "emission_zyx", "color_zyx"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-5, atol=1e-6, err_msg=f)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("resolution", [16, 64])
 def test_instanced_build_on_the_card_equals_cpu(cuda_device, resolution):

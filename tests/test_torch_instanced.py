@@ -14,9 +14,16 @@ rays agree: L within rtol 1e-4 + atol 1e-6, alpha within 1e-5, cost and
 unfinished equal; image means within 0.5%), with test_torch_env.py's
 SKY_RTOL for L under the sky, whose plain version differs from the
 reference's by up to 2e-4 (its 99th percentile); the c5_instanced golden
-through the port at tol_scale 1; what still raises; and `.ins` files.
-Reference scenes are carried over by scene_from_arrays, so both packages
-render the same tables; cached runs use the reference's own taus.
+through the port at tol_scale 1; what still raises (bfloat16 rows and
+octant columns, ROADMAP A.10); and `.ins` files.  Several grids, the
+static per-instance loop, emission and color: build_atlas on three grids,
+the instance rows and packed majorant rows, local_majorant_query and
+empty_skip_t, scene_density / scene_emission / scene_color on both
+branches, and world_tau_fetch exactly, the world tau bake within 1e-6;
+fused_direct ray by ray on the loop, loop x EXT, cells x EXT and
+volume_depth 2 by the same rule.  Reference scenes are carried over by
+scene_from_arrays, so both packages render the same tables; cached runs
+use the reference's own taus.
 """
 
 import dataclasses
@@ -232,11 +239,11 @@ def test_folded_taus_match_reference(c5):
         np.testing.assert_allclose(g, w, rtol=TAU_RTOL, atol=TAU_ATOL)
 
 
-def _rays(js, n=1024, seed=0):
+def _rays(js, n=1024, seed=0, spread=5.0):
     r = np.random.default_rng(seed)
     lo, hi = np.asarray(js.root_pmin), np.asarray(js.root_pmax)
     o = np.tile(np.asarray(js.camera.origin)[None], (n, 1)).astype(np.float32)
-    d = (lo + hi) / 2 + r.uniform(-5.0, 5.0, (n, 3)) - o
+    d = (lo + hi) / 2 + r.uniform(-spread, spread, (n, 3)) - o
     return o, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
         np.float32)
 
@@ -279,38 +286,245 @@ def test_c5_instanced_golden():
     _compare(img, golden, label="torch c5_instanced")
 
 
-def _raises_a6(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        fn()
-
-
-RAISE_CASES = ["four_instances", "emission_instanced", "color_instanced",
-               "from_arrays_four", "volume_depth_2"]
+RAISE_CASES = ["bfloat16_instanced", "octant_instanced"]
 
 
 @pytest.mark.parametrize("case", RAISE_CASES)
-def test_unported_instanced_raise(case, c5):
-    """Instanced scenes without cell lists (the static per-instance loop),
-    with emission or color, or rendered at volume_depth 2 raise
-    NotImplementedError naming ROADMAP A.6."""
+def test_unported_instanced_raise(case):
+    """Instanced scenes in bfloat16 rows or with octant columns raise
+    NotImplementedError naming ROADMAP A.10, in build_scene and when a
+    reference scene is carried over."""
     ids, xforms = common.golden_c5_instances()
-    if case == "four_instances":
-        _raises_a6(lambda: tbuild([_blob(n=12)], instance_grid_ids=ids[:4],
-                                  instance_xforms=xforms[:4], device="cpu"))
-    elif case in ("emission_instanced", "color_instanced"):
-        g = _blob(n=12, emission=case.startswith("emission"),
-                  color=case.startswith("color"))
-        _raises_a6(lambda: tbuild([g], instance_grid_ids=ids,
-                                  instance_xforms=xforms, device="cpu"))
-    elif case == "from_arrays_four":
-        js = jbuild([_blob(n=8)], instance_grid_ids=ids[:4],
-                    instance_xforms=xforms[:4])
-        assert js.majorant.cell_instances is None
-        _raises_a6(lambda: _carry(js))
-    else:
-        o, d = (torch.as_tensor(a) for a in _rays(c5["js"], n=8))
-        _raises_a6(lambda: t_fused.fused_direct(
-            c5["cs"], TParams(volume_depth=2), (0, 1), o, d))
+    kw = (dict(corner_dtype="bfloat16") if case.startswith("bfloat16")
+          else dict(octant_boxes=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        tbuild([_blob(n=8)], instance_grid_ids=ids[:4],
+               instance_xforms=xforms[:4], device="cpu", **kw)
+    js = jbuild([_blob(n=8)], instance_grid_ids=ids[:4],
+                instance_xforms=xforms[:4], **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        _carry(js)
+
+
+# ---- several grids, the static per-instance loop, emission and color ------
+
+def _two_grids(ext):
+    """A 10^3 blob, with emission and color where ``ext``, and an 8^3 one
+    with neither (reference HostGrids, voxels of 0.2)."""
+    return [_blob(n=10, emission=ext, color=ext), _blob(n=8)]
+
+
+def _lattice(n_inst, spacing=1.5):
+    """n_inst instances alternating over the two grids, ``spacing`` apart
+    (their 2-unit boxes overlap), in rows of 4."""
+    xforms = []
+    for i in range(n_inst):
+        xf = np.diag([0.2, 0.2, 0.2, 1.0])
+        xf[3, :3] = (spacing * (i % 4), 0.4 * (i % 3), spacing * (i // 4))
+        xforms.append(xf)
+    return [i % 2 for i in range(n_inst)], xforms
+
+
+SCENE_CASES = {"loop": (4, False), "loop_ext": (4, True),
+               "cells_ext": (12, True)}
+
+
+def _instanced(case, port=False):
+    """SCENE_CASES[case]: 4 instances (the static loop) or 12 (cell lists
+    at R 16) of the two grids, one point light, the ramp emission LUT;
+    built by the reference (framed as the c5 golden) or by the port."""
+    from vpt_tpu_torch.scene.assets import ramp_lut
+    n_inst, ext = SCENE_CASES[case]
+    ids, xforms = _lattice(n_inst)
+    kw = dict(instance_grid_ids=ids, instance_xforms=xforms,
+              majorant_resolution=16, emission_lut=ramp_lut())
+    lights = ([[3.0, 5.0, 4.0]], [[1.0, 1.0, 1.0]], [40.0])
+    if port:
+        from vpt_tpu_torch.lights.lights import PointLights as TLights
+        return tbuild(_two_grids(ext), device="cpu",
+                      lights=TLights.make(*lights, device="cpu"), **kw)
+    from vpt_tpu.lights.lights import PointLights as JLights
+    return _camera(jbuild(_two_grids(ext), lights=JLights.make(*lights),
+                          **kw), dist_scale=0.8)
+
+
+class _Scenes(dict):
+    """{case: (reference scene, its bake, both carried over)}, each case
+    built on first use (the bake only where asked)."""
+
+    def __missing__(self, case):
+        js = _instanced(case)
+        self[case] = [js, None, _carry(js), None]
+        return self[case]
+
+    def baked(self, case):
+        entry = self[case]
+        if entry[1] is None:
+            entry[1] = jshadow.attach_shadow_cache(entry[0], **BAKE)
+            entry[3] = _carry(entry[1])
+        return entry
+
+
+@pytest.fixture(scope="module")
+def inst():
+    return _Scenes()
+
+
+ATLAS_CASES = {"density_only": (False, False, False),
+               "emission": (True, False, False),
+               "emission_and_color": (True, True, False)}
+
+
+@pytest.mark.parametrize("case", list(ATLAS_CASES))
+def test_multi_grid_atlas_exact(case):
+    """build_atlas on three grids (8^3, 10^3 and 6^3) bit for bit the
+    reference's: the rows one after another, the emission and color
+    columns wherever any grid has them (zeros and white for the others),
+    and every grid's offsets (-1 where it lacks a channel)."""
+    em, col, _ = ATLAS_CASES[case]
+    grids = [_blob(n=8), _blob(n=10, emission=em, color=col),
+             _blob(n=6, color=col)]
+    want = jgrid.build_atlas(grids)
+    got = tgrid.build_atlas(grids, device="cpu")
+    for f in ("density", "density_corners", "offset", "emission_offset",
+              "color_offset", "dim", "bmin", "max_density", "min_density",
+              "voxel_size"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert (got.has_emission, got.has_color) == (em, col)
+    assert got.density_corners.shape[1] == 15 + 8 * em + 24 * col
+
+
+@pytest.mark.parametrize("case", list(SCENE_CASES))
+def test_instanced_tables_exact(case, inst):
+    """build_scene's instance rows, root box, extinction bounds and
+    majorant tables bit for bit the reference's: at 4 instances the
+    packed rows with the 72 octant columns and no lists; at 12 the cell
+    lists, each emissive instance listed in its whole box."""
+    js, ts = inst[case][0], _instanced(case, port=True)
+    n_inst = SCENE_CASES[case][0]
+    for f in dataclasses.fields(ts.majorant):
+        got, want = getattr(ts.majorant, f.name), getattr(js.majorant, f.name)
+        assert (got is None) == (want is None) == (
+            n_inst <= 8 and f.name in ("cell_instances", "cell_rows"))
+        if got is not None:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          err_msg=f.name)
+    assert ts.majorant.packed.shape[1] == 79
+    for f in ("packed_rows", "inv_xform", "pmin", "pmax", "grid_id"):
+        np.testing.assert_array_equal(getattr(ts.instances, f).numpy(),
+                                      np.asarray(getattr(js.instances, f)))
+    for f in ("root_pmin", "root_pmax", "max_extinction", "min_extinction"):
+        np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                      np.asarray(getattr(js, f)))
+    np.testing.assert_array_equal(ts.atlas.density_corners.numpy(),
+                                  np.asarray(js.atlas.density_corners))
+
+
+FETCH_CASES = [(c, f) for c in ("loop_ext", "cells_ext")
+               for f in ("density", "emission", "color")]
+
+
+@pytest.mark.parametrize("case,what", FETCH_CASES,
+                         ids=[f"{c}_{f}" for c, f in FETCH_CASES])
+def test_scene_fetches_exact(case, what, inst):
+    """scene_density, scene_emission and scene_color at 4096 seeded points
+    equal the reference's, over every instance in order (the loop) or over
+    the cell's list; Cd is white wherever an instance of the grid without
+    color is in play, in and out of its box (the reference's quirk),
+    which in the loop is everywhere."""
+    js, _, cs, _ = inst[case]
+    pos, _ = _points(js, n=4096, seed=5)
+    jp, tp = JParams(emission_scale=2.0), TParams(emission_scale=2.0)
+    fn = {"density": (lambda: jtracking.scene_density(js, jnp.asarray(pos)),
+                      lambda: ttracking.scene_density(cs, torch.as_tensor(
+                          pos))),
+          "emission": (lambda: jtracking.scene_emission(js, jnp.asarray(pos),
+                                                        jp),
+                       lambda: ttracking.scene_emission(
+                           cs, torch.as_tensor(pos), tp)),
+          "color": (lambda: jtracking.scene_color(js, jnp.asarray(pos)),
+                    lambda: ttracking.scene_color(cs, torch.as_tensor(pos)))}
+    want, got = np.asarray(fn[what][0]()), fn[what][1]().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (want != 0).mean() > 0.01
+    if what == "color":
+        white = np.all(got == 1.0, axis=-1)
+        assert white.all() if case == "loop_ext" else 0.05 < white.mean() < 1
+
+
+WORLD_TAU_TOL = 1e-6   # rtol and atol: float32 sums taken in other orders
+
+
+def test_world_tau_grid_and_fetch(inst):
+    """The port's world bake of a 4-instance scene (no lists) into the
+    world tau grid within WORLD_TAU_TOL of the reference's, and
+    world_tau_fetch exact on the reference's grid; the grid round-trips
+    through scene_to_arrays."""
+    from vpt_tpu_torch.scene.convert import scene_to_arrays
+    js, jb, cs, cb = inst.baked("loop")
+    want = np.asarray(jb.world_tau)
+    tb = tshadow.attach_shadow_cache(cs, **BAKE)
+    assert tb.majorant.cell_rows is None and want.shape[-1] == 16
+    np.testing.assert_allclose(tb.world_tau.numpy(), want,
+                               rtol=WORLD_TAU_TOL, atol=WORLD_TAU_TOL)
+    assert want.max() > 0.5
+    pos, _ = _points(jb, n=4096, seed=7)
+    np.testing.assert_array_equal(
+        tshadow.world_tau_fetch(cb, torch.as_tensor(pos)).numpy(),
+        np.asarray(jshadow.world_tau_fetch(jb, jnp.asarray(pos))))
+    back = scene_from_arrays(scene_to_arrays(cb), device="cpu")
+    assert torch.equal(back.world_tau, cb.world_tau)
+    assert back.majorant.cell_rows is None
+
+
+@pytest.mark.parametrize("query", ["local_majorant_query", "empty_skip_t"])
+def test_packed_majorant_queries_exact(inst, query):
+    """The loop's bound and box exit from the packed rows (with the octant
+    columns) at 8192 random points and directions equal the reference's
+    local_majorant_query and empty_skip_t."""
+    js, _, cs, _ = inst["loop"]
+    pos, d = _points(js)
+    want = getattr(jmajorant, query)(js.majorant, js.root_pmin, js.root_pmax,
+                                     jnp.asarray(pos), jnp.asarray(d))
+    got = getattr(tmajorant, query)(cs.majorant, cs.root_pmin, cs.root_pmax,
+                                    torch.as_tensor(pos), torch.as_tensor(d))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (np.asarray(want[1]) > 0).mean() > 0.3
+
+
+LOOP_FUSED = [("loop", "tracked", 1), ("loop", "cached", 1),
+              ("loop_ext", "cached", 1), ("cells_ext", "tracked", 1),
+              ("cells_ext", "cached", 2)]
+
+
+@pytest.mark.parametrize("case,mode,vd", LOOP_FUSED,
+                         ids=[f"{c}_{m}_vd{v}" for c, m, v in LOOP_FUSED])
+def test_instanced_fused_ray_by_ray(inst, case, mode, vd):
+    """fused_direct_plain on the static loop (the world tau grid in cached
+    mode), with emission and color on the loop (cached) and on cell lists
+    (tracked, and cached at volume_depth 2), against the reference's
+    fused_direct ray by ray, CONSTANT, emission_scale 2
+    (test_fused_direct_ray_by_ray's rule)."""
+    js, jb, cs, cb = inst.baked(case) if mode == "cached" else inst[case]
+    js, ts = (jb, cb) if mode == "cached" else (js, cs)
+    kw = dict(ray_depth=4, max_fused_steps=256, shadow_mode=mode,
+              environment_type=int(JEnv.CONSTANT), emission_scale=2.0,
+              volume_depth=vd)
+    o, d = _rays(js, n=512, spread=2.0)
+    key = jax.random.PRNGKey(3)
+    want = [np.asarray(x) for x in
+            j_fused(js, JParams(**kw), key, jnp.asarray(o), jnp.asarray(d))]
+    got = [x.numpy() for x in t_fused.fused_direct(
+        ts, TParams(**kw), tuple(int(k) for k in np.asarray(key)),
+        torch.as_tensor(o), torch.as_tensor(d))]
+    assert want[2].mean() > 1.5
+    share, rel = agreement(got, want)
+    assert share >= MIN_SHARE, share
+    assert rel <= MAX_MEAN_REL, rel
+    np.testing.assert_array_equal(got[3], want[3])
 
 
 LIGHTS = np.array([[0.0, 12.0, 12.0, 1.0, 0.9, 0.8, 200.0],

@@ -163,12 +163,16 @@ def test_scene_from_arrays_round_trip(built):
 
 
 def test_out_of_slice_scenes_raise(grids):
-    """What the port still refuses: two grids, and octant columns or
-    bfloat16 rows on an instanced scene (ROADMAP A.6, A.10); a single
-    grid's rows of the reference with both are carried over."""
+    """What the port still refuses: octant columns or bfloat16 rows on an
+    instanced scene (ROADMAP A.10); two grids build (one instance each,
+    the static loop: the majorant grid's packed rows, no lists), and a
+    single grid's rows of the reference with both are carried over."""
     g = grids["blob24"][0]
-    with pytest.raises(NotImplementedError):
-        tbuild([g, g], device="cpu")
+    two = tbuild([g, g], device="cpu")
+    assert two.instances.count == 2 and two.majorant.cell_rows is None
+    assert two.atlas.offset.tolist() == [0, g.density_zyx.size]
+    with pytest.raises(NotImplementedError, match="A.10"):
+        tbuild([g, g], corner_dtype="bfloat16", device="cpu")
     small = _blob(n=8, emission=True, color=True)
     ids = [0] * 9
     xf = [np.diag([0.2, 0.2, 0.2, 1.0]) for _ in ids]

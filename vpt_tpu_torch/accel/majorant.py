@@ -12,6 +12,12 @@ K).  ``cell_rows`` = [T_box, ext 6, octant 72, ids K] is what a walk step
 reads (render/tracking.py::_cells_banded_fetch); the shadow cache of an
 instanced scene appends its tau columns to it (accel/shadow.py).
 
+Below ``instance_list_threshold`` instances no lists are built: the
+static per-instance loop reads the packed rows alone
+(``local_majorant_query``), [T_box, ext 6] and the 72 octant columns
+where ``octant_cells`` "auto" turns them on (R <= 128, more than one
+instance).
+
 ``octant_exit`` is the walk's exit from the anchored box of the ray's
 octant and major axis.  The reference selects the box with a tree of
 ``where``s; here the column is indexed, which reads the same 3 floats.
@@ -86,6 +92,26 @@ def _build_cell_lists(inst_cells, n_instances: int, R: int,
     return table
 
 
+def _box_cells(g, xf, root_pmin, cell, R: int) -> np.ndarray:
+    """The flat cells of instance box [bbox_min, bbox_min + dim] in world
+    space: a grid with emission or color is listed in its whole box, where
+    its emission and color are read even at zero density
+    (vpt_tpu/accel/majorant.py:124-144)."""
+    bmin = np.asarray(g.bbox_min, np.float64)
+    corners = np.array([[x, y, z] for x in (bmin[0], bmin[0] + g.dim[0])
+                        for y in (bmin[1], bmin[1] + g.dim[1])
+                        for z in (bmin[2], bmin[2] + g.dim[2])])
+    wc = corners @ xf[:3, :3] + xf[3, :3]
+    lo = np.clip(np.floor((wc.min(0) - root_pmin) / cell).astype(np.int64),
+                 0, R - 1)
+    hi = np.clip(np.floor((wc.max(0) - root_pmin) / cell).astype(np.int64),
+                 0, R - 1)
+    gz, gy, gx = np.meshgrid(np.arange(lo[2], hi[2] + 1),
+                             np.arange(lo[1], hi[1] + 1),
+                             np.arange(lo[0], hi[0] + 1), indexing="ij")
+    return np.unique((gz.ravel() * R + gy.ravel()) * R + gx.ravel())
+
+
 def build_majorant_grid(host_grids, instance_grid_ids, xforms, root_pmin,
                         root_pmax, resolution: int,
                         build_instance_lists: bool = False,
@@ -123,9 +149,10 @@ def build_majorant_grid(host_grids, instance_grid_ids, xforms, root_pmin,
         flat = (ci[:, 2] * R + ci[:, 1]) * R + ci[:, 0]
         np.maximum.at(grid_max.reshape(-1), flat, vals)
         if build_instance_lists:
-            # density occupancy: build_scene refuses emission and color
-            # on instanced scenes, whose lists cover the whole box
-            inst_cells[inst_i] = np.unique(flat)
+            inst_cells[inst_i] = (
+                _box_cells(g, xf, root_pmin, cell, R)
+                if g.emission_zyx is not None or g.color_zyx is not None
+                else np.unique(flat))
         # trilinear reach: +-1 voxel in index space, in world units
         voxel_world = np.linalg.norm(xf[:3, :3], axis=1).max()
         max_influence = max(max_influence, 1.5 * voxel_world)
@@ -207,3 +234,43 @@ def octant_exit(oct_rows, i0f, pos_u, dvec):
     safe = torch.where(tiny, 1e-12, dvec)
     t_ax = torch.where(tiny, 3.4e38, (face - pos_u) / safe)
     return torch.amin(t_ax, dim=-1)
+
+
+def _packed_box(major, root_pmin, root_pmax, pos, direction):
+    """(packed row, empty-box exit distance before the clamp at 0) of the
+    cell at world ``pos``: the box's, widened on an empty cell by the
+    octant box's where the rows carry the octant columns."""
+    from vpt_tpu_torch.core.vecmath import _amin3, true_div
+    R = major.resolution
+    cs = true_div(root_pmax - root_pmin, R)
+    rel = (pos - root_pmin) / cs
+    ci = torch.clamp(torch.floor(rel).to(torch.int64), 0, R - 1)
+    row = major.packed[(ci[..., 2] * R + ci[..., 1]) * R + ci[..., 0]]
+    cif = ci.to(torch.float32)
+    cube_min = root_pmin + (cif - torch.clamp(row[..., 1:4], min=0.0)) * cs
+    cube_max = root_pmin + (cif + 1.0 + torch.clamp(row[..., 4:7], min=0.0)) \
+        * cs
+    inv = 1.0 / torch.where(torch.abs(direction) < 1e-12, 1e-12, direction)
+    t_exit = _amin3(torch.maximum((cube_min - pos) * inv,
+                                  (cube_max - pos) * inv))
+    if row.shape[-1] >= 79:
+        t_oct = octant_exit(row[..., 7:79], cif, rel, direction / cs)
+        t_exit = torch.where(row[..., 0] <= 0.0,
+                             torch.maximum(t_exit, t_oct), t_exit)
+    return row, t_exit
+
+
+def local_majorant_query(major, root_pmin, root_pmax, pos, direction):
+    """(sigma_cell, dt_exit) at world ``pos`` from the packed rows: the
+    cell's banded bound T_box (0 = empty) and the distance to the exit of
+    its box (vpt_tpu/accel/majorant.py:284-322)."""
+    row, t_exit = _packed_box(major, root_pmin, root_pmax, pos, direction)
+    return row[..., 0], torch.clamp(t_exit, min=0.0)
+
+
+def empty_skip_t(major, root_pmin, root_pmax, pos, direction):
+    """(empty, t_exit): whether the cell at ``pos`` is guaranteed empty
+    (T_box 0) and the distance to its box's exit
+    (vpt_tpu/accel/majorant.py:325-354)."""
+    row, t_exit = _packed_box(major, root_pmin, root_pmax, pos, direction)
+    return row[..., 0] <= 0.0, torch.clamp(t_exit, min=0.0)

@@ -5,7 +5,10 @@ A medium event reads its NEE transmittances from the same row fetch
 that produced the collision density: the corner rows of a single
 instance, or, on an instanced scene with cell lists, the majorant cell
 rows, whose (R+1)^3 corner lattice takes taus swept on a world grid of
-the summed instance density (``_fold_cell_taus``).  The bakes run in torch on the
+the summed instance density (``_fold_cell_taus``).  An instanced scene
+without lists keeps that world grid's corner-packed taus as a table of
+its own, ``Scene.world_tau``, read with one more row load at the event
+(``world_tau_fetch``).  The bakes run in torch on the
 scene's device: at 200^3 the directional sweep is ~700 eight-tap
 passes over 8 M voxels and the point-light resample ~48 M trilinear
 samples, which the reference ran in numpy on the host.  float64 is
@@ -250,44 +253,28 @@ def _upsample_tau(field, shape, s: float):
 def _union_density_from_scene(scene, resolution: int):
     """The scene's summed instance density resampled onto a world grid
     over the root box, in instance order, on the scene's device
-    (vpt_tpu/accel/shadow.py:402-451).  Returns (density (nz, ny, nx),
-    cell (float), root_pmin (3,) float64)."""
+    (vpt_tpu/accel/shadow.py:402-451; volume/union.py::
+    resample_instances).  Returns (density (nz, ny, nx), cell (float),
+    root_pmin (3,) float64)."""
+    from vpt_tpu_torch.volume.union import resample_instances, world_grid
     atlas = scene.atlas
-    dev = scene.device
-    f64 = dict(dtype=torch.float64, device=dev)
     root_pmin = scene.root_pmin.cpu().double().numpy()
-    extent = scene.root_pmax.cpu().double().numpy() - root_pmin
-    cell = float(extent.max()) / int(resolution)
-    dim = np.maximum(np.ceil(extent / cell).astype(np.int64), 1)
-    nx, ny, nz = (int(v) for v in dim)
-    dens = torch.zeros((nz, ny, nx), dtype=torch.float32, device=dev)
-    offs = atlas.offset.cpu().numpy()
-    dims = atlas.dim.cpu().numpy()
-    bmins = atlas.bmin.cpu().double().numpy()
+    cell, dims = world_grid(root_pmin, scene.root_pmax.cpu().double().numpy(),
+                            resolution)
     gids = scene.instances.grid_id.cpu().numpy()
-    invs = scene.instances.inv_xform.to(torch.float64)
-    pmins = scene.instances.pmin.cpu().double().numpy()
-    pmaxs = scene.instances.pmax.cpu().double().numpy()
-    vols = {}
-    for i in range(scene.instances.count):
-        g = int(gids[i])
-        if g not in vols:
-            gx, gy, gz = (int(v) for v in dims[g])
-            vols[g] = atlas.density[int(offs[g]):int(offs[g]) + gx * gy * gz] \
-                .reshape(gz, gy, gx)
-        lo = np.clip(np.floor((pmins[i] - root_pmin) / cell).astype(np.int64)
-                     - 1, 0, dim - 1)
-        hi = np.clip(np.ceil((pmaxs[i] - root_pmin) / cell).astype(np.int64)
-                     + 1, 0, dim - 1)
-        zz, yy, xx = torch.meshgrid(
-            *(torch.arange(int(lo[a]), int(hi[a]) + 1, **f64)
-              for a in (2, 1, 0)), indexing="ij")
-        wpos = (torch.stack([xx, yy, zz], dim=-1) + 0.5) * cell \
-            + torch.as_tensor(root_pmin, **f64)
-        ipos = (wpos.reshape(-1, 3) @ invs[i, :3, :3] + invs[i, 3, :3]
-                - torch.as_tensor(bmins[g] + 0.5, **f64))
-        d = _trilinear_index(vols[g], ipos.reshape(zz.shape + (3,)))
-        dens[lo[2]:hi[2] + 1, lo[1]:hi[1] + 1, lo[0]:hi[0] + 1] += d
+    offs = atlas.offset.cpu().numpy()
+    gdims = atlas.dim.cpu().numpy()
+    fields = {}
+    for g in set(int(v) for v in gids):
+        gx, gy, gz = (int(v) for v in gdims[g])
+        fields[g] = (atlas.density[int(offs[g]):int(offs[g]) + gx * gy * gz]
+                     .reshape(gz, gy, gx),)
+    (dens,) = resample_instances(
+        fields, gids, scene.instances.inv_xform.cpu().double().numpy(),
+        atlas.bmin.cpu().double().numpy(),
+        scene.instances.pmin.cpu().double().numpy(),
+        scene.instances.pmax.cpu().double().numpy(), root_pmin, cell, dims,
+        scene.device)
     return dens, cell, root_pmin
 
 
@@ -324,15 +311,11 @@ def _fold_cell_taus(scene, tau_fields, cell_t: float, root_t):
 
 def _attach_world_shadow_cache(scene, azimuth, elevation, step_vox,
                                resolution):
-    """attach_shadow_cache on an instanced scene with cell lists: sweep
-    the sun and point-light taus over the union density on a
-    ``resolution`` world grid and fold them into the cell rows
-    (vpt_tpu/accel/shadow.py:454-499)."""
+    """attach_shadow_cache on an instanced scene: sweep the sun and
+    point-light taus over the union density on a ``resolution`` world
+    grid, then fold them into the cell rows, or, without cell lists, keep
+    them as the world tau grid (vpt_tpu/accel/shadow.py:454-499)."""
     from vpt_tpu_torch.render.tracking import _use_cells
-    if not _use_cells(scene):
-        raise NotImplementedError("the world tau grid of instanced scenes "
-                                  "without cell lists is not ported yet "
-                                  "(ROADMAP A.6)")
     dens, cell, root_pmin = _union_density_from_scene(scene, resolution)
     sun_dir = degree_to_cartesian(azimuth, elevation).double().numpy()
     tau_fields = [directional_tau_nodes(dens, sun_dir, cell,
@@ -341,7 +324,41 @@ def _attach_world_shadow_cache(scene, azimuth, elevation, step_vox,
     xf[3, :3] = root_pmin
     for lp in scene.lights.pos.cpu().double().numpy():
         tau_fields.append(point_tau_nodes(dens, xf, np.zeros(3), lp))
-    return _fold_cell_taus(scene, tau_fields, cell, root_pmin)
+    if _use_cells(scene):
+        return _fold_cell_taus(scene, tau_fields, cell, root_pmin)
+    nz, ny, nx = dens.shape
+    rows = torch.cat([_corner_pack_plain(t) for t in tau_fields], dim=1)
+    return dataclasses.replace(
+        scene, world_tau=rows.reshape(nz, ny, nx, -1).contiguous())
+
+
+def world_tau_cell(scene):
+    """The world tau grid's cell as its fetch computes it: the root box's
+    largest extent over the grid's largest dimension, one float32
+    division (a 0-d tensor on the scene's device)."""
+    nz, ny, nx = scene.world_tau.shape[:3]
+    extent = scene.root_pmax - scene.root_pmin
+    return torch.amax(extent) / torch.tensor(float(max(nx, ny, nz)),
+                                             device=extent.device)
+
+
+def world_tau_fetch(scene, pos):
+    """(..., 1 + L) cached optical depths at world ``pos`` from the world
+    tau grid: one corner row and its trilinear weights
+    (vpt_tpu/accel/shadow.py:562-586)."""
+    from vpt_tpu_torch.render.tracking import _trilerp_weights, _wsum8
+    wt = scene.world_tau
+    nz, ny, nx, w = wt.shape
+    dimf = torch.tensor([nx, ny, nz], dtype=torch.float32, device=wt.device)
+    x = (pos - scene.root_pmin) / world_tau_cell(scene) - 0.5
+    x = torch.minimum(torch.clamp(x, min=0.0), dimf - 1.0)
+    i0f = torch.floor(x)
+    i0 = i0f.to(torch.int64)
+    rows = wt.reshape(-1, w)[(i0[..., 2] * ny + i0[..., 1]) * nx
+                             + i0[..., 0]]
+    w8 = _trilerp_weights(x - i0f)
+    return torch.stack([_wsum8(rows[..., 8 * c:8 * c + 8], w8)
+                        for c in range(w // 8)], dim=-1)
 
 
 def cell_tau_fetch(scene, pos):
@@ -363,6 +380,9 @@ def cached_light_channels(scene) -> int:
         from vpt_tpu_torch.render.tracking import cell_layout
         n_ch = cell_layout(scene)[2]
         return n_ch - 1 if n_ch else -1
+    if scene.instances.count != 1:
+        return (-1 if scene.world_tau is None
+                else scene.world_tau.shape[-1] // 8 - 1)
     return n_cached_lights(scene.atlas)
 
 
@@ -380,7 +400,8 @@ def attach_shadow_cache(scene, azimuth: float, elevation: float,
     the bake runs on a 2x pooled proxy with 240x480 angular cells and
     2-voxel radial steps (the layout of the reference's point-light
     bias fix).  An instanced scene bakes on a ``world_resolution`` grid
-    over its root box into its cell rows instead."""
+    over its root box instead, into its cell rows or, without cell lists,
+    into ``Scene.world_tau``."""
     n_lights = int(scene.lights.count)
     if n_lights > MAX_CACHED_LIGHTS:
         raise ValueError(f"shadow cache supports <= {MAX_CACHED_LIGHTS} "

@@ -54,6 +54,32 @@
 // (the 1024 x 96 B instance rows stay in global memory and L1/L2, not
 // staged in shared memory).  Its arguments are a struct of their own
 // after ExtParams, so the variants without CELLS compile as before.
+// LOOP (a template argument of the CELLS instances): an instanced scene of
+// at most
+// instance_list_threshold instances, without lists (CellParams::loop;
+// vpt_tpu/render/tracking.py::scene_density's static loop, accel/
+// majorant.py::local_majorant_query): the cell table is the majorant
+// grid's packed rows (T_box, the box extents, the octant columns where
+// `octant`), and the slots are every instance 0 ... k-1 in order.  Its
+// cached taus come from one row of the world tau grid at an accepted
+// event (accel/shadow.py::world_tau_fetch), 8 (1 + L) floats at the
+// grid's node lattice, in place of the cell row's.  A template argument,
+// not a run-time mode, and fetch_cells keeps its slot body written out:
+// as a run-time mode with that body in a function of its own the
+// density-only CELLS instances went from 91-93 registers to 96 with 2-14
+// B of spills; as now they keep 91-93 and none (PERF.md).
+// CELLS with EXT (6 instances, 6 more with LOOP): an instanced scene's
+// emission, color or
+// volume_depth > 1.  An EMIT sample adds the emission LUT's row of each
+// slot's emission taps, over the slots whose grid has the channel and
+// holds the point (tracking.py::scene_emission); Cd is the component-wise
+// max over the slots from 0, white for a slot whose grid has no color
+// channel wherever it is listed (scene_color).  Both read the slots of the
+// cell that the reference's lookup picks, (pos - root) / extent * R,
+// which may be the next cell at a boundary; both run only where needed
+// (an EMIT sample, an accepted event), each slot's rows loaded again.  An
+// EMIT walk jumps no empty cell there: the cell bounds come from the
+// density alone.
 //
 // EXT (a template argument): scenes with an emission or a color channel,
 // or volume_depth > 1.  The emission walk (EMIT) follows a medium event
@@ -152,15 +178,23 @@ struct ExtParams {
 // What only the CELLS variant reads: the cell rows (R^3, row_w) and the
 // instance rows (N, 24), the cell grid's resolution, the cell rows'
 // columns (the ids at ids_off, K of them; the octant columns at 7 where
-// `octant`), and the cell size per axis.  Its taus sit at
-// FusedParams::tau_off of the cell row.  Mirror of
+// `octant`), and the cell size per axis; in loop mode the packed rows in
+// place of the cell rows, K the instance count, and the world tau grid.
+// Its taus sit at FusedParams::tau_off of the cell row (0 in loop mode,
+// of the world tau grid's row).  Mirror of
 // vpt_tpu_torch/render/fused.py::_CellParams.  A single grid's OCT
 // instances read `octant` alone (ROWS_*).
 struct CellParams {
     const float *rows;
     const float *inst;
+    // loop mode with cached shadows: the world tau grid's rows
+    // (nz * ny * nx, 8 (1 + L)), its dims and its cell; else null
+    const float *wtau;
     int R, row_w, ids_off, k, octant;
+    int loop;  // the slots are every instance 0 ... k-1 (no lists)
+    int wdim[3];
     float cs[3];
+    float wcell;
 };
 
 // The variant a launch needs: EXT for emission, color or volume_depth > 1.
@@ -427,11 +461,43 @@ __device__ void fetch_row(const Ctx<Row>& c, const CellParams& cp, V3 pos,
     f.t_box = inb ? t_box : 0.0f;
 }
 
+// One instance's corner row at world pos (tracking._row_norm_coords):
+// false outside its grid; else g's row and fractions for its taps.
+template <typename Row>
+__device__ __forceinline__ bool instance_row(const Ctx<Row>& c,
+                                             const CellParams& cp, int id,
+                                             V3 pos, Fetch<Row>& g) {
+    const float* ir = cp.inst + 24LL * id;
+    float m[19];
+#pragma unroll
+    for (int q = 0; q < 19; ++q) m[q] = __ldg(ir + q);
+    const V3 ipos = v3(pos.x * m[0] + pos.y * m[3] + pos.z * m[6] + m[9],
+                       pos.x * m[1] + pos.y * m[4] + pos.z * m[7] + m[10],
+                       pos.x * m[2] + pos.y * m[5] + pos.z * m[8] + m[11]);
+    const V3 bmin = v3(m[12], m[13], m[14]), dimf = v3(m[15], m[16], m[17]);
+    const V3 npos = (ipos - bmin) / dimf;
+    if (!(npos.x >= 0.0f && npos.x <= 1.0f && npos.y >= 0.0f &&
+          npos.y <= 1.0f && npos.z >= 0.0f && npos.z <= 1.0f))
+        return false;
+    const V3 xu = npos * dimf - v3(0.5f, 0.5f, 0.5f);
+    const V3 x = v3(jmin(jmax(xu.x, 0.0f), dimf.x - 1.0f),
+                    jmin(jmax(xu.y, 0.0f), dimf.y - 1.0f),
+                    jmin(jmax(xu.z, 0.0f), dimf.z - 1.0f));
+    const V3 i0 = v3(floorf(x.x), floorf(x.y), floorf(x.z));
+    const long long flat =
+        (long long)m[18] +
+        ((long long)(int)i0.z * (int)dimf.y + (int)i0.y) * (int)dimf.x +
+        (int)i0.x;
+    g.fr = x - i0;
+    g.row = c.corners + flat * c.p.row_w;
+    return true;
+}
+
 // render/tracking.py::_cells_banded_fetch (banded, with the taus' weights):
 // the cell row gives T_box and the box exit (the octant box's on an empty
 // cell), each listed instance its density, and the Fetch's row and
 // fractions address the taus of an accepted event (tau_at).
-template <typename Row>
+template <bool LOOP, typename Row>
 __device__ void fetch_cells(const Ctx<Row>& c, const CellParams& cp, V3 pos,
                             V3 dir, Fetch<Row>& f) {
     const FusedParams& p = c.p;
@@ -484,8 +550,11 @@ __device__ void fetch_cells(const Ctx<Row>& c, const CellParams& cp, V3 pos,
     }
     float d = 0.0f;
     for (int j = 0; j < cp.k; ++j) {
-        const int id = (int)row[cp.ids_off + j];
+        const int id = LOOP ? j : (int)row[cp.ids_off + j];
         if (id < 0) break;  // the valid ids fill the first slots
+        // instance_row's body, written out: called here it took the
+        // density-only CELLS instances from 91-93 registers to 96 (the
+        // header)
         const float* ir = cp.inst + 24LL * id;
         float m[19];
 #pragma unroll
@@ -523,6 +592,91 @@ __device__ void fetch_cells(const Ctx<Row>& c, const CellParams& cp, V3 pos,
     f.fr = v3(jclamp(rel.x - cif.x, 0.0f, 1.0f),
               jclamp(rel.y - cif.y, 0.0f, 1.0f),
               jclamp(rel.z - cif.z, 0.0f, 1.0f));
+}
+
+// The ids of the slots that the reference's emission and color lookups
+// read at pos (tracking._cell_flat_index: (pos - root) / extent * R): the
+// cell row's ids columns; null in loop mode, whose slots are 0 ... k-1.
+__device__ __forceinline__ const float* list_ids(const FusedParams& p,
+                                                 const CellParams& cp,
+                                                 V3 pos) {
+    if (cp.loop) return nullptr;
+    const V3 root = v3(p.root_min);
+    const V3 rel = (pos - root) / (v3(p.root_max) - root) * (float)cp.R;
+    const int R1 = cp.R - 1;
+    const int cx = min(max((int)floorf(rel.x), 0), R1);
+    const int cy = min(max((int)floorf(rel.y), 0), R1);
+    const int cz = min(max((int)floorf(rel.z), 0), R1);
+    return cp.rows + (((long long)cz * cp.R + cy) * cp.R + cx) * cp.row_w +
+           cp.ids_off;
+}
+
+// tracking.scene_emission: the emission LUT's row x emission_scale of
+// each slot's trilinear emission, summed in slot order over the slots
+// whose grid has the channel and holds pos.
+template <typename Row>
+__device__ V3 slots_emission(const Ctx<Row>& c, const CellParams& cp,
+                             V3 pos) {
+    const float* ids = list_ids(c.p, cp, pos);
+    V3 e = v3(0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < cp.k; ++j) {
+        const int id = ids ? (int)ids[j] : j;
+        if (id < 0) break;
+        Fetch<Row> g;
+        if (__ldg(cp.inst + 24LL * id + 19) < 0.0f ||
+            !instance_row(c, cp, id, pos, g))
+            continue;
+        const float li = jclamp(
+            taps_at(g, c.x.em_off) * 255.0f / c.p.emission_pivot, 0.0f,
+            255.0f);
+        const float* r = c.lut + 768 + 3 * (int)li;
+        const float k = c.x.emission_scale;
+        e = e + v3(r[0] * k, r[1] * k, r[2] * k);
+    }
+    return e;
+}
+
+// tracking.scene_color: the component-wise max from 0 of each slot's Cd:
+// its trilinear color, 0 outside its grid, white where its grid has no
+// color channel.
+template <typename Row>
+__device__ V3 slots_color(const Ctx<Row>& c, const CellParams& cp, V3 pos) {
+    const float* ids = list_ids(c.p, cp, pos);
+    V3 cd = v3(0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < cp.k; ++j) {
+        const int id = ids ? (int)ids[j] : j;
+        if (id < 0) break;
+        V3 v = v3(1.0f, 1.0f, 1.0f);
+        if (__ldg(cp.inst + 24LL * id + 20) >= 0.0f) {
+            Fetch<Row> g;
+            v = instance_row(c, cp, id, pos, g)
+                    ? v3(taps_at(g, c.x.col_off, 3),
+                         taps_at(g, c.x.col_off + 1, 3),
+                         taps_at(g, c.x.col_off + 2, 3))
+                    : v3(0.0f, 0.0f, 0.0f);
+        }
+        cd = v3(jmax(cd.x, v.x), jmax(cd.y, v.y), jmax(cd.z, v.z));
+    }
+    return cd;
+}
+
+// accel/shadow.py::world_tau_fetch: f's row and fractions become those of
+// the world tau grid's node cell at pos, for tau_at (FusedParams::tau_off
+// 0 in loop mode).
+__device__ __forceinline__ void world_tau_row(const CellParams& cp,
+                                              const FusedParams& p, V3 pos,
+                                              Fetch<float>& f) {
+    const V3 x = (pos - v3(p.root_min)) / cp.wcell - v3(0.5f, 0.5f, 0.5f);
+    const V3 xc =
+        v3(jmin(jmax(x.x, 0.0f), (float)cp.wdim[0] - 1.0f),
+           jmin(jmax(x.y, 0.0f), (float)cp.wdim[1] - 1.0f),
+           jmin(jmax(x.z, 0.0f), (float)cp.wdim[2] - 1.0f));
+    const V3 i0 = v3(floorf(xc.x), floorf(xc.y), floorf(xc.z));
+    const long long flat =
+        ((long long)(int)i0.z * cp.wdim[1] + (int)i0.y) * cp.wdim[0] +
+        (int)i0.x;
+    f.row = cp.wtau + flat * 8 * (1 + p.n_lights);
+    f.fr = xc - i0;
 }
 
 struct Walk {
@@ -721,7 +875,8 @@ __device__ __forceinline__ void init_walk(Walk& s, V3 org, V3 dir) {
 // components THREADS apart); `hk_cached` holds the step's HG subkeys
 // (shared memory), or is null past the key cache.  ENVPOS: a sphere event
 // moves env_pos to the sphere's anchor (seek's only way to P_SHADOW).
-template <bool EXT, bool CELLS, bool ENVPOS, typename Row, bool OCT>
+template <bool EXT, bool CELLS, bool ENVPOS, typename Row, bool OCT,
+          bool LOOP>
 __device__ __forceinline__ void walk_step(const Ctx<Row>& c,
                                           const CellParams& cp,
                                           Walk& s, const float* org, Key ks,
@@ -750,15 +905,18 @@ __device__ __forceinline__ void walk_step(const Ctx<Row>& c,
     const float e_glob = -log1pf(-u0) * rate_inv;
     const float e_loc = -log1pf(-u4) / jmax(s.tbox * p.density_mult, 1e-12f);
     const bool in_box = marching && (s.tbox > 0.0f) && (e_loc <= s.skip);
-    const float dt = marching ? (in_box ? e_loc : s.skip + e_glob)
-                              : ((s.tbox <= 0.0f ? s.skip : 0.0f) + e_glob);
+    // an instanced scene's EMIT walk jumps no empty box
+    const bool jumps = !(CELLS && emitting);
+    const float dt =
+        marching ? (in_box ? e_loc : s.skip + e_glob)
+                 : ((jumps && s.tbox <= 0.0f ? s.skip : 0.0f) + e_glob);
     const float t_new = s.t + dt;
     const bool exited = t_new >= s.dist;
     const V3 cursor = s.pos + s.dirn * t_new;
 
     Fetch<Row> f;
     if constexpr (CELLS)
-        fetch_cells(c, cp, cursor, s.dirn, f);
+        fetch_cells<LOOP>(c, cp, cursor, s.dirn, f);
     else
         fetch_row<OCT>(c, cp, cursor, s.dirn, f);
     const float t_old = s.tbox;
@@ -783,9 +941,15 @@ __device__ __forceinline__ void walk_step(const Ctx<Row>& c,
     s.cost += 1;
 
     if (emitting) {
-        if (sampled) s.L = s.L + emission_at(c, f);
-        // the walk's end: out of the box, or an empty box covers the rest
-        if (exited || covers) resume(p, s);
+        if constexpr (CELLS) {
+            if (sampled) s.L = s.L + slots_emission(c, cp, cursor);
+            if (exited) resume(p, s);
+        } else {
+            if (sampled) s.L = s.L + emission_at(c, f);
+            // the walk's end: out of the box, or an empty box covers the
+            // rest
+            if (exited || covers) resume(p, s);
+        }
         return;
     }
     if (accept) {
@@ -796,10 +960,14 @@ __device__ __forceinline__ void walk_step(const Ctx<Row>& c,
         // Cd, the row's trilinear color (an accepted event lies in the
         // grid); white without a color channel
         V3 cd = v3(1.0f, 1.0f, 1.0f);
-        if (EXT && c.x.col_off >= 0)
-            cd = v3(taps_at(f, c.x.col_off, 3),
-                    taps_at(f, c.x.col_off + 1, 3),
-                    taps_at(f, c.x.col_off + 2, 3));
+        if (EXT && c.x.col_off >= 0) {
+            if constexpr (CELLS)
+                cd = slots_color(c, cp, cursor);
+            else
+                cd = v3(taps_at(f, c.x.col_off, 3),
+                        taps_at(f, c.x.col_off + 1, 3),
+                        taps_at(f, c.x.col_off + 2, 3));
+        }
         const V3 coll =
             v3(p.albedo[0] * cd.x * lrow[0] / p.ext[0] * p.energy_inject,
                p.albedo[1] * cd.y * lrow[1] / p.ext[1] * p.energy_inject,
@@ -831,7 +999,11 @@ __device__ __forceinline__ void walk_step(const Ctx<Row>& c,
         const V3 sun_contrib =
             v3(p.sun_cs) * phase_eval(p, dot(s.sdir, sun));
         if (p.cached) {
-            // the whole NEE from the cached taus of this row
+            // the whole NEE from the cached taus of this row, or of the
+            // world tau grid's in loop mode
+            if constexpr (LOOP) {
+                if (cp.wtau) world_tau_row(cp, p, cursor, f);
+            }
             V3 nee =
                 sun_contrib * cached_tr(p, tau_at(p, f, 0), cursor, sun);
             for (int l = 0; l < p.n_lights; ++l) {
@@ -1010,7 +1182,7 @@ long long slot_count(const FusedParams& p) {
 // measured cached +1.6% and tracked -1.3% against this, and an
 // out-of-line writer +45% (PERF.md, Findings).
 template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS,
-          typename Row = float, bool OCT = false>
+          typename Row = float, bool OCT = false, bool LOOP = false>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_direct_kernel(const FusedParams p, const RaygenParams rp,
                     const float* __restrict__ origin,
@@ -1108,7 +1280,7 @@ fused_direct_kernel(const FusedParams p, const RaygenParams rp,
             const bool in_cache = step < n_keys;
             const Key* e = skeys + 1 + KEYS_PER_STEP * step;
             const Key ks = in_cache ? e[0] : fold_in(key, (uint32_t)step);
-            walk_step<EXT, CELLS, DEFER == 2, Row, OCT>(
+            walk_step<EXT, CELLS, DEFER == 2, Row, OCT, LOOP>(
                 c, cp, s, org, ks, in_cache ? e + 1 : nullptr,
                 (unsigned long long)ray);
             ++step;
@@ -1137,7 +1309,7 @@ int smem_bytes(const FusedParams& p) {
 // once per library load (again only for another device or key-cache
 // size).
 template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS,
-          typename Row = float, bool OCT = false>
+          typename Row = float, bool OCT = false, bool LOOP = false>
 cudaError_t occupancy(int smem, int& sms, int& per_sm) {
     static int o_dev = -1, o_smem = -1, o_sms = 0, o_per_sm = 0;
     int dev = 0;
@@ -1149,7 +1321,7 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &n_blk,
-                fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT>,
+                fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT, LOOP>,
                 THREADS, smem);
         if (e != cudaSuccess) return e;
         if (n_sm <= 0 || n_blk <= 0) return cudaErrorInvalidConfiguration;
@@ -1161,7 +1333,7 @@ cudaError_t occupancy(int smem, int& sms, int& per_sm) {
 }
 
 template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS,
-          typename Row = float, bool OCT = false>
+          typename Row = float, bool OCT = false, bool LOOP = false>
 int launch_variant(const FusedParams& p, const ExtParams& x,
                    const CellParams& cp, const RaygenParams& rp,
                    const float* origin, const float* direction,
@@ -1176,8 +1348,8 @@ int launch_variant(const FusedParams& p, const ExtParams& x,
     const int smem = smem_bytes(p);
     int sms = 0, per_sm = 0;
     cudaError_t e =
-        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT>(smem, sms,
-                                                               per_sm);
+        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT, LOOP>(
+            smem, sms, per_sm);
     if (e != cudaSuccess) return (int)e;
     const long long need = ((long long)p.B + THREADS - 1) / THREADS;
     const long long grid = (long long)sms * per_sm;
@@ -1186,7 +1358,7 @@ int launch_variant(const FusedParams& p, const ExtParams& x,
     e = cudaMemsetAsync(next_ray, 0, sizeof(unsigned), st);
     if (e != cudaSuccess) return (int)e;
     const Out o{out, ((long long)p.B + 3) & ~3LL};
-    fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT>
+    fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT, LOOP>
         <<<blocks, THREADS, smem, st>>>(
             p, rp, origin, direction, static_cast<const Row*>(corners),
             lights, lut, o, next_ray, (unsigned)slot_count(p), x, cp);
@@ -1224,20 +1396,34 @@ int launch_rows(int rows, const FusedParams& p, const ExtParams& x,
 }
 
 // The variant of a launch: CELLS where a cell table is given (an
-// instanced scene: density only in float32 rows, so never with EXT),
-// else EXT or not, in the instances of its rows (launch_rows).
+// instanced scene, in float32 rows), with LOOP where it has no lists, EXT
+// or not; else EXT or not, in the instances of its rows (launch_rows).
 template <bool RAYS_IN_KERNEL, int DEFER>
 int launch_defer(const FusedParams& p, const ExtParams& x,
                  const CellParams* cp, int rows, const RaygenParams& rp,
                  const float* origin, const float* direction,
                  const void* corners, const float* lights, const float* lut,
                  float* out, unsigned* next_ray, void* stream) {
-    if (cp)
-        return extended(x) || rows != ROWS_F32
-                   ? (int)cudaErrorInvalidValue
+    if (cp) {
+        if (rows != ROWS_F32) return (int)cudaErrorInvalidValue;
+        if (cp->loop)
+            return extended(x)
+                       ? launch_variant<RAYS_IN_KERNEL, DEFER, true, true,
+                                        float, false, true>(
+                             p, x, *cp, rp, origin, direction, corners,
+                             lights, lut, out, next_ray, stream)
+                       : launch_variant<RAYS_IN_KERNEL, DEFER, false, true,
+                                        float, false, true>(
+                             p, x, *cp, rp, origin, direction, corners,
+                             lights, lut, out, next_ray, stream);
+        return extended(x)
+                   ? launch_variant<RAYS_IN_KERNEL, DEFER, true, true>(
+                         p, x, *cp, rp, origin, direction, corners, lights,
+                         lut, out, next_ray, stream)
                    : launch_variant<RAYS_IN_KERNEL, DEFER, false, true>(
                          p, x, *cp, rp, origin, direction, corners, lights,
                          lut, out, next_ray, stream);
+    }
     return extended(x)
                ? launch_rows<RAYS_IN_KERNEL, DEFER, true>(
                      rows, p, x, rp, origin, direction, corners, lights, lut,
@@ -1267,17 +1453,17 @@ int launch(const FusedParams& p, const ExtParams& x, const CellParams* cp,
 }
 
 template <bool RAYS_IN_KERNEL, int DEFER, bool EXT, bool CELLS,
-          typename Row = float, bool OCT = false>
+          typename Row = float, bool OCT = false, bool LOOP = false>
 cudaError_t variant_info(int smem, int& sms, int& per_sm,
                          cudaFuncAttributes& a) {
     const cudaError_t e =
-        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT>(smem, sms,
-                                                               per_sm);
+        occupancy<RAYS_IN_KERNEL, DEFER, EXT, CELLS, Row, OCT, LOOP>(
+            smem, sms, per_sm);
     return e != cudaSuccess
                ? e
                : cudaFuncGetAttributes(
                      &a, fused_direct_kernel<RAYS_IN_KERNEL, DEFER, EXT,
-                                             CELLS, Row, OCT>);
+                                             CELLS, Row, OCT, LOOP>);
 }
 
 template <bool RAYS_IN_KERNEL, int DEFER, bool EXT>
@@ -1293,16 +1479,25 @@ cudaError_t rows_info(int rows, int smem, int& sms, int& per_sm,
                                                             a);
 }
 
-// variant: 0 density only, 1 EXT, 2 CELLS (float32 rows only); rows: the
+// variant: 0 density only, 1 EXT, 2 CELLS, 3 CELLS with EXT, 4 CELLS with
+// LOOP, 5 CELLS with LOOP and EXT (CELLS in float32 rows only); rows: the
 // ROWS_* of a single grid
 template <bool RAYS_IN_KERNEL, int DEFER>
 cudaError_t variant_info(int variant, int rows, int smem, int& sms,
                          int& per_sm, cudaFuncAttributes& a) {
+    if (variant >= 2 && rows != ROWS_F32) return cudaErrorInvalidValue;
+    if (variant == 5)
+        return variant_info<RAYS_IN_KERNEL, DEFER, true, true, float, false,
+                            true>(smem, sms, per_sm, a);
+    if (variant == 4)
+        return variant_info<RAYS_IN_KERNEL, DEFER, false, true, float, false,
+                            true>(smem, sms, per_sm, a);
+    if (variant == 3)
+        return variant_info<RAYS_IN_KERNEL, DEFER, true, true>(smem, sms,
+                                                               per_sm, a);
     if (variant == 2)
-        return rows != ROWS_F32
-                   ? cudaErrorInvalidValue
-                   : variant_info<RAYS_IN_KERNEL, DEFER, false, true>(
-                         smem, sms, per_sm, a);
+        return variant_info<RAYS_IN_KERNEL, DEFER, false, true>(
+            smem, sms, per_sm, a);
     return variant == 1
                ? rows_info<RAYS_IN_KERNEL, DEFER, true>(rows, smem, sms,
                                                         per_sm, a)
@@ -1354,7 +1549,8 @@ extern "C" int vpt_fused_direct_primary(const void* params, const void* ext,
 }
 
 // info[0..5] of one variant (route, deferred environment 0, 1 or 2
-// (with env_pos), variant: 0 density only, 1 EXT, 2 CELLS; rows: the
+// (with env_pos), variant: 0 density only, 1 EXT, 2 CELLS, 3 CELLS with
+// EXT, 4 and 5 the same with LOOP; rows: the
 // ROWS_* of a single grid) whose keys of key_steps steps are cached,
 // at Q = 1: SMs, resident blocks per SM, threads per block, registers per
 // thread, local (spill and stack) bytes per thread, dynamic shared bytes

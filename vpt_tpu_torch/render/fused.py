@@ -1,6 +1,6 @@
 """The fused engine: the direct-integrator path trace as one lane-masked
 state machine (port of vpt_tpu/render/fused.py::fused_direct, one ray
-per lane; single-instance scenes, and instanced scenes with cell lists).
+per lane; single-instance and instanced scenes).
 
 Every ray is in one phase of the walk it is running:
 
@@ -15,10 +15,15 @@ Every ray is in one phase of the walk it is running:
 and one step advances every live ray by one step of its walk, with one
 corner-row fetch, or on an instanced scene one majorant cell row and
 the listed instances' rows (render/tracking.py::_cells_banded_fetch;
-K1's CELLS variant).  ``shadow_mode="cached"`` reads every NEE
-transmittance from the baked taus of that same row.  An instanced
-scene's MARCH walks cover the root box (``_walk_box``) and its Cd is
-white.
+K1's CELLS instances), or, without cell lists, the majorant grid's
+packed row and every instance's rows in order (``_loop_banded_fetch``;
+its CELLS instances with LOOP).  ``shadow_mode="cached"`` reads every
+NEE transmittance from the baked taus of that same row, or, in the loop,
+from one row of the world tau grid at the event (accel/shadow.py::
+world_tau_fetch).  An instanced scene's MARCH and EMIT walks cover the
+root box (``_walk_box``); its emission sums and its Cd takes the max
+over the instances (scene_emission, scene_color), and its EMIT walks
+jump no empty box, whose bounds come from the density alone.
 
 ``fused_direct`` launches kernel K1 (csrc/fused_direct.cu: persistent
 warps, one ray per lane with the walk state in registers, idle lanes
@@ -56,9 +61,8 @@ widened to float32; K1 takes them in instances of their own
 (``FUSED_DIRECT_BF16``, ``FUSED_DIRECT_OCTANT``).
 
 Not in this slice (NotImplementedError): the queue path
-(``rays_per_lane > 1``), instanced scenes without cell lists or with
-emission, color or volume_depth > 1 (ROADMAP A.6), and instanced scenes
-whose corner rows are bfloat16 or carry octant columns (ROADMAP A.10).
+(``rays_per_lane > 1``) and instanced scenes whose corner rows are
+bfloat16 or carry octant columns (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -68,7 +72,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-from vpt_tpu_torch.accel.shadow import cached_light_channels
+from vpt_tpu_torch.accel.shadow import (cached_light_channels,
+                                        world_tau_cell, world_tau_fetch)
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.phase import phase_eval, phase_sample
 from vpt_tpu_torch.core.vecmath import (EPS, TWO_PI, aabb_contains,
@@ -83,9 +88,11 @@ from vpt_tpu_torch.render.integrator import (EnvLaunch, add_environment,
                                              prepare_environment)
 from vpt_tpu_torch.render.params import Environment, check_slice
 from vpt_tpu_torch.render.tracking import (FetchResult, _cells_banded_fetch,
-                                           _emission_lut, _sphere_block,
-                                           _use_cells, cell_layout, cell_size,
-                                           density_color_lut,
+                                           _emission_lut, _loop_banded_fetch,
+                                           _sphere_block, _use_cells,
+                                           cell_layout, cell_size,
+                                           density_color_lut, scene_color,
+                                           scene_emission,
                                            unified_fetch_full, vec3_param)
 from vpt_tpu_torch.scene.scene import check_instanced
 from vpt_tpu_torch.volume.grid import unified_layout
@@ -117,6 +124,22 @@ FUSED_DIRECT_CELLS = cuda.Kernel(
     name="fused_direct_cells", route="cuda",
     source="vpt_tpu_torch/csrc/fused_direct.cu",
     replaces="vpt_tpu/render/fused.py:100")
+# K1's CELLS instances with LOOP (counted beside the route's own
+# counter): instanced scenes without cell lists, the static loop of
+# vpt_tpu/render/tracking.py:230 over the packed rows, and the world tau
+# grid's row at an event in cached mode
+FUSED_DIRECT_LOOP = cuda.Kernel(
+    name="fused_direct_loop", route="cuda",
+    source="vpt_tpu_torch/csrc/fused_direct.cu",
+    replaces="vpt_tpu/render/tracking.py:230")
+# the CELLS instances with EXT (counted beside the route's, EXT's and
+# CELLS' or LOOP's counters): emission, color or volume_depth > 1 on an
+# instanced scene, vpt_tpu/render/tracking.py:261 scene_emission and
+# :284 scene_color in the kernel
+FUSED_DIRECT_CELLS_EXT = cuda.Kernel(
+    name="fused_direct_cells_ext", route="cuda",
+    source="vpt_tpu_torch/csrc/fused_direct.cu",
+    replaces="vpt_tpu/render/tracking.py:261")
 # K1's instances for bfloat16 corner rows, with the octant exit compiled in
 # and taken where the rows carry the octant columns, on either route
 # (counted beside the route's own counter)
@@ -178,17 +201,11 @@ def _walk_box(scene):
 def _check_scene(scene, params):
     check_slice(params)
     n = scene.instances.count
-    if n != 1:
-        check_instanced(n, _use_cells(scene), scene.atlas.has_emission
-                        or scene.atlas.has_color)
-        if (scene.atlas.density_corners.dtype != torch.float32
-                or scene.atlas.octant_cols):
-            raise NotImplementedError(
-                "bfloat16 corner rows or octant columns on an instanced "
-                "scene are not ported yet (ROADMAP A.10)")
-        if params.volume_depth > 1:
-            raise NotImplementedError("volume_depth > 1 on an instanced "
-                                      "scene is not ported yet (ROADMAP A.6)")
+    check_instanced(n, scene.atlas.density_corners.dtype,
+                    scene.atlas.octant_cols)
+    if n != 1 and scene.majorant is None:
+        raise ValueError("an instanced scene needs its majorant grid "
+                         "(scene/scene.py::build_scene)")
     n_lights = scene.lights.count
     if params.shadow_mode == "cached":
         n_ch = cached_light_channels(scene)
@@ -240,6 +257,7 @@ def fused_direct_plain(scene, params, key, origin, direction,
     root_min, root_max = scene.root_pmin, scene.root_pmax
     walk_min, walk_max = _walk_box(scene)
     cells = _use_cells(scene)
+    single = scene.instances.count == 1
     emissive = scene.atlas.has_emission
     vdepth = params.volume_depth
 
@@ -357,9 +375,11 @@ def fused_direct_plain(scene, params, key, origin, direction,
         shadowing = s["phase"] == P_SHADOW
         emitting = s["phase"] == P_EMIT
         walking = marching | shadowing | emitting
-        # SHADOW and EMIT jump guaranteed-empty boxes: the zero band is
-        # emission-free too (volume/grid.py::_corner_pack's emit_zyx)
-        can_jump = shadowing | emitting
+        # SHADOW jumps guaranteed-empty boxes, and EMIT on a single
+        # instance, whose zero band is emission-free too (volume/grid.py::
+        # _corner_pack's emit_zyx); an instanced scene's majorant cells
+        # come from the density alone
+        can_jump = (shadowing | emitting) if single else shadowing
         skip, tbox, t, dist = s["skip"], s["tbox"], s["t"], s["dist"]
 
         rate_inv = torch.where(marching, k["inv_rate_march"],
@@ -380,6 +400,10 @@ def fused_direct_plain(scene, params, key, origin, direction,
         if cells:
             fr = FetchResult(*_cells_banded_fetch(scene, cursor, s["dirn"],
                                                   with_tau=cached))
+        elif not single:
+            fr = FetchResult(*_loop_banded_fetch(scene, cursor, s["dirn"]),
+                             world_tau_fetch(scene, cursor) if cached
+                             else None)
         else:
             fr = unified_fetch_full(scene, params, cursor, s["dirn"],
                                     with_tau=cached)
@@ -391,7 +415,10 @@ def fused_direct_plain(scene, params, key, origin, direction,
                                 torch.where(exited, 0.0, tbox_new), tbox)
         s["t"] = torch.where(walking & ~exited, t_new, t)
         sampled = walking & ~exited
-        covers = (sampled & (tbox_new <= 0.0) & (s_new > 0.0)
+        # an empty box covering the rest of the walk ends it, but an EMIT
+        # walk's only where it may jump (can_jump)
+        covers = ((sampled if single else sampled & ~emitting)
+                  & (tbox_new <= 0.0) & (s_new > 0.0)
                   & (t_new + s_new >= dist))
 
         bound = torch.where(in_box, t_old, sigma_max)
@@ -409,14 +436,18 @@ def fused_direct_plain(scene, params, key, origin, direction,
         tr_dead = shadowing & (torch.abs(s["tr"]) < EPS)
         if emissive:
             # L += emission, unscaled by beta (QUIRKS #5/#21)
-            em = _emission_lut(scene, params, fr.emission_raw,
-                               fr.emission_valid)
+            em = (_emission_lut(scene, params, fr.emission_raw,
+                                fr.emission_valid) if single
+                  else scene_emission(scene, cursor, params))
             s["L"] = s["L"] + torch.where((sampled & emitting)[..., None],
                                          em, 0.0)
         s["cost"] = s["cost"] + walking.to(torch.int32)
 
         lut = density_color_lut(scene, params, density)
-        cd = fr.color if fr.color is not None else 1.0
+        if single:
+            cd = fr.color if fr.color is not None else 1.0
+        else:
+            cd = scene_color(scene, cursor) if scene.atlas.has_color else 1.0
         coll_val = (k["albedo"] * cd * lut / k["ext"]
                     * params.energy_inject)
         s["beta"] = W(accept, s["beta"] * coll_val, s["beta"])
@@ -600,19 +631,22 @@ def warp_efficiency(cost, warp: int = 32) -> float:
 
 def launch_info(rays_in_kernel: bool, max_fused_steps: int,
                 defer_env: bool = False, ext: bool = False,
-                cells: bool = False, rows: int = cuda.ROWS_F32) -> dict:
+                cells: bool = False, rows: int = cuda.ROWS_F32,
+                loop: bool = False) -> dict:
     """K1's schedule on the current card for one route at
     ``max_fused_steps`` (which sizes the key cache, whatever the queue),
     for BLACK/CONSTANT or (``defer_env`` 1) HDRI and the skies or (2) the
     live Bruneton atmosphere, with env_pos, density-only
-    or (``ext``) emission, color or volume_depth > 1 or (``cells``) an
-    instanced scene, for corner rows of ``rows`` (ops/cuda.py::row_kind),
+    or (``ext``) emission, color or volume_depth > 1, on a single grid or
+    (``cells``) an instanced scene with cell lists, or without them
+    (``cells`` and ``loop``), for corner rows of ``rows``
+    (ops/cuda.py::row_kind),
     from the CUDA runtime: SMs, resident blocks per SM,
     threads per block, registers and local bytes per thread, dynamic
     shared bytes per block.  The grid is SMs x blocks per SM blocks
     (fewer for a small frame)."""
     info = (ctypes.c_int * 6)()
-    variant = 2 if cells else int(ext)
+    variant = 2 * int(cells) + 2 * int(cells and loop) + int(ext)
     cuda.check_status(cuda.load_library().dll.vpt_fused_launch_info(
         int(rays_in_kernel), int(defer_env), variant, rows, max_fused_steps,
         info), "fused_direct launch info")
@@ -656,10 +690,11 @@ class _CellParams(ctypes.Structure):
     """Mirror of ``CellParams`` in csrc/fused_direct.cu: the cell table
     of an instanced scene, which only K1's CELLS variant reads."""
 
-    _fields_ = [("rows", ctypes.c_void_p), ("inst", ctypes.c_void_p)] + [
-        (n, ctypes.c_int) for n in ("R", "row_w", "ids_off", "k",
-                                    "octant")] + [
-        ("cs", ctypes.c_float * 3)]
+    _fields_ = [(n, ctypes.c_void_p) for n in ("rows", "inst", "wtau")] + [
+        (n, ctypes.c_int) for n in ("R", "row_w", "ids_off", "k", "octant",
+                                    "loop")] + [
+        ("wdim", ctypes.c_int * 3), ("cs", ctypes.c_float * 3),
+        ("wcell", ctypes.c_float)]
 
 
 def _f3(t):
@@ -762,11 +797,13 @@ def prepare_fused(scene, params) -> FusedLaunch:
     walk_min, walk_max = _walk_box(scene)
     p.walk_min, p.walk_max = _f3(walk_min), _f3(walk_max)
     cells, tables = None, ()
-    if _use_cells(scene):
-        cells, tables = _cell_params(scene)
-        # the taus of an instanced scene follow the ids in the cell rows
-        p.tau_off = cells.ids_off + cells.k
-        if p.cached and cells.row_w < p.tau_off + 8 * (1 + n_lights):
+    if scene.instances.count != 1:
+        cells, tables = _cell_params(scene, p.cached)
+        # the taus of an instanced scene follow the ids in the cell rows,
+        # or start the world tau grid's rows in loop mode
+        p.tau_off = 0 if cells.loop else cells.ids_off + cells.k
+        if (p.cached and not cells.loop
+                and cells.row_w < p.tau_off + 8 * (1 + n_lights)):
             raise ValueError("cell rows carry no shadow cache")
     elif p.cached and p.row_w < p.tau_off + 8 * (1 + n_lights):
         raise ValueError("corner rows carry no shadow cache")
@@ -777,20 +814,34 @@ def prepare_fused(scene, params) -> FusedLaunch:
                                              scene.atlas.octant_cols))
 
 
-def _cell_params(scene):
-    """(CellParams, the tables it points at) of an instanced scene."""
+def _cell_params(scene, cached: bool):
+    """(CellParams, the tables it points at) of an instanced scene: its
+    cell rows, or in loop mode its packed rows and, in cached mode, its
+    world tau grid."""
     dev = scene.device
-    rows = scene.majorant.cell_rows
+    loop = not _use_cells(scene)
+    rows = scene.majorant.packed if loop else scene.majorant.cell_rows
     inst = scene.instances.packed_rows
-    cuda.check_cuda_tensor(rows, "cell_rows", dtype=torch.float32,
+    cuda.check_cuda_tensor(rows, "majorant rows", dtype=torch.float32,
                            device=dev)
     cuda.check_cuda_tensor(inst, "packed_rows", (scene.instances.count, 24),
                            torch.float32, dev)
-    ids_off, k, _ = cell_layout(scene)
-    c = _CellParams(rows.data_ptr(), inst.data_ptr(),
+    ids_off, k = ((rows.shape[1], scene.instances.count) if loop
+                  else cell_layout(scene)[:2])
+    c = _CellParams(rows.data_ptr(), inst.data_ptr(), None,
                     scene.majorant.resolution, rows.shape[1], ids_off, k,
-                    int(ids_off >= 79), _f3(cell_size(scene)))
-    return c, (rows, inst)
+                    int(ids_off >= 79), int(loop))
+    c.cs = _f3(cell_size(scene))
+    tables = (rows, inst)
+    if loop and cached:
+        wt = scene.world_tau
+        cuda.check_cuda_tensor(wt, "world_tau", dtype=torch.float32,
+                               device=dev)
+        c.wtau = wt.data_ptr()
+        c.wdim = (ctypes.c_int * 3)(wt.shape[2], wt.shape[1], wt.shape[0])
+        c.wcell = float(world_tau_cell(scene))
+        tables += (wt,)
+    return c, tables
 
 
 def extended(x: _ExtParams) -> bool:
@@ -887,7 +938,12 @@ def _count_variants(launch: FusedLaunch):
     """One launch of K1 on either route, on the counters of the variant
     and the rows' instances it ran."""
     FUSED_DIRECT_EXT.launches += extended(launch.ext)
-    FUSED_DIRECT_CELLS.launches += launch.cells is not None
+    if launch.cells is not None:
+        if launch.cells.loop:
+            FUSED_DIRECT_LOOP.launches += 1
+        else:
+            FUSED_DIRECT_CELLS.launches += 1
+        FUSED_DIRECT_CELLS_EXT.launches += extended(launch.ext)
     if launch.rows in _ROWS_KERNEL:
         _ROWS_KERNEL[launch.rows].launches += 1
 

@@ -10,7 +10,13 @@ channels, and the cached shadow taus (``_unified_fetch_single``; K1's
 cell row serves T_box, the box and octant exits, the cell's instance ids
 and the cached taus, and each listed instance adds its trilinear density
 from one instance row and one corner row (``_cells_banded_fetch``; K1's
-CELLS variant).  The reference's ``optimization_barrier``s steer XLA's
+CELLS variant).  Instanced scenes without lists: the static loop over
+every instance in order (``scene_density``) and the majorant grid's
+packed row (``_loop_banded_fetch``; K1's CELLS instances with LOOP).
+Emission sums and color takes the component-wise max over the listed
+instances, or over all of them in the loop (``scene_emission``,
+``scene_color``), each read from the instance's unified corner row.  The
+reference's ``optimization_barrier``s steer XLA's
 TPU scheduling and have no counterpart here; its one-hot matmuls (the
 LUTs, the instance rows of a cell) are indexed loads, exact alike on
 finite rows.
@@ -117,9 +123,117 @@ def _density_from_row(atlas, row, pos):
                        0.0)
 
 
+def _grid_cols(atlas, row, pos, col, width):
+    """(the ``width`` columns at ``col`` of one instance's corner row at
+    ``pos``, its trilinear weights, in_bounds)."""
+    i0, frac, dim, inb = _row_norm_coords(row, pos)
+    flat = row[..., 18].to(torch.int64) + (
+        i0[..., 2] * dim[..., 1] + i0[..., 1]) * dim[..., 0] + i0[..., 0]
+    return (atlas.density_corners[flat][..., col:col + width],
+            _trilerp_weights(frac), inb)
+
+
+def _emission_from_row(atlas, row, pos):
+    """(raw emission, valid) of one instance at ``pos``: its row's 8
+    emission columns; valid only inside its grid and where the grid has
+    the channel (QUIRKS #23), 0 elsewhere (vpt_tpu/render/tracking.py:
+    87-100)."""
+    taps, w8, inb = _grid_cols(atlas, row, pos, unified_layout(atlas)[0], 8)
+    valid = (row[..., 19] >= 0.0) & inb
+    return torch.where(valid, _wsum8(taps, w8), 0.0), valid
+
+
+def _color_from_row(atlas, row, pos):
+    """Cd of one instance at ``pos`` (..., 3): its row's 24 color
+    columns, 0 outside its grid, and WHITE where the grid has no color
+    channel, inside its grid or not (vpt_tpu/render/tracking.py:103-117;
+    render_kernel.cu:911)."""
+    taps, w8, inb = _grid_cols(atlas, row, pos, unified_layout(atlas)[1],
+                               24)
+    taps = taps.reshape(taps.shape[:-1] + (8, 3)).transpose(-1, -2)
+    val = torch.where(inb[..., None], _wsum8(taps, w8[..., None, :]), 0.0)
+    return torch.where((row[..., 20] >= 0.0)[..., None], val, 1.0)
+
+
 def _use_cells(scene) -> bool:
     return (scene.majorant is not None
             and scene.majorant.cell_instances is not None)
+
+
+def _cell_flat_index(scene, pos):
+    """The flat cell of world ``pos`` as the reference's emission and
+    color lookups find it: (pos - root_pmin) / extent * R, which may pick
+    the next cell where the walk's (pos - root_pmin) / (extent / R) does
+    not (vpt_tpu/render/tracking.py:38-43)."""
+    R = scene.majorant.resolution
+    rel = (pos - scene.root_pmin) / (scene.root_pmax - scene.root_pmin) * R
+    ci = torch.clamp(torch.floor(rel).to(torch.int64), 0, R - 1)
+    return (ci[..., 2] * R + ci[..., 1]) * R + ci[..., 0]
+
+
+def _instance_slots(scene, pos):
+    """[(valid (...,), instance row (..., 24))] in slot order: the cell's
+    listed instances, or every instance in the static loop."""
+    inst = scene.instances.packed_rows
+    if not _use_cells(scene):
+        return [(None, inst[i]) for i in range(scene.instances.count)]
+    ids = scene.majorant.cell_instances[_cell_flat_index(scene, pos)].to(
+        torch.int64)
+    rows = inst[torch.clamp(ids, min=0)]
+    return [(ids[..., j] >= 0, rows[..., j, :]) for j in range(ids.shape[-1])]
+
+
+def scene_density(scene, pos):
+    """Raw summed density at world ``pos``: over the cell's listed
+    instances, or every instance in order (vpt_tpu/render/tracking.py:
+    230-243)."""
+    total = torch.zeros(pos.shape[:-1], dtype=torch.float32,
+                        device=pos.device)
+    for valid, row in _instance_slots(scene, pos):
+        d = _density_from_row(scene.atlas, row, pos)
+        total = total + (d if valid is None else torch.where(valid, d, 0.0))
+    return total
+
+
+def scene_emission(scene, pos, params):
+    """The emission LUT's rows x emission_scale summed over the instances
+    (vpt_tpu/render/tracking.py:261-281)."""
+    total = torch.zeros(pos.shape[:-1] + (3,), dtype=torch.float32,
+                        device=pos.device)
+    if not scene.atlas.has_emission:
+        return total
+    for valid, row in _instance_slots(scene, pos):
+        raw, ok = _emission_from_row(scene.atlas, row, pos)
+        total = total + _emission_lut(scene, params, raw,
+                                      ok if valid is None else ok & valid)
+    return total
+
+
+def scene_color(scene, pos):
+    """Cd: the component-wise max over the instances, from 0, so white
+    wherever an instance of a grid without color is in the cell's list,
+    and everywhere in the loop (vpt_tpu/render/tracking.py:284-303)."""
+    if not scene.atlas.has_color:
+        return torch.ones(pos.shape[:-1] + (3,), dtype=torch.float32,
+                          device=pos.device)
+    color = torch.zeros(pos.shape[:-1] + (3,), dtype=torch.float32,
+                        device=pos.device)
+    for valid, row in _instance_slots(scene, pos):
+        c = _color_from_row(scene.atlas, row, pos)
+        color = torch.maximum(color, c if valid is None
+                              else torch.where(valid[..., None], c, 0.0))
+    return color
+
+
+def _loop_banded_fetch(scene, pos, direction):
+    """(density, s_box, t_box) of an instanced scene without cell lists:
+    the static loop's density and the packed row's bound and box exit
+    (the multi-instance branch of vpt_tpu/render/tracking.py::
+    unified_fetch, :340-375)."""
+    from vpt_tpu_torch.accel.majorant import local_majorant_query
+    t_box, s_box = local_majorant_query(scene.majorant, scene.root_pmin,
+                                        scene.root_pmax, pos, direction)
+    return scene_density(scene, pos), s_box, t_box
 
 
 def cell_layout(scene) -> tuple[int, int, int]:

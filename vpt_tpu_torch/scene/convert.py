@@ -8,8 +8,10 @@ tables.  ``scene_to_arrays`` is its inverse for the port's own scenes.
 An ``env_map`` leaf may be the reference's (H, W, 12) corner-packed rows
 or the port's raw (H, W, 3) map: its first 3 channels are the raw map
 either way.  An instanced scene carries its majorant grid
-(``"majorant.cell_rows"`` ...); a single instance's is dropped, since
-its walk never reads it.  The environment CDF is not carried: the fused
+(``"majorant.packed"``, and ``"majorant.cell_rows"`` ... where it has
+cell lists) and its world tau grid (``"world_tau"``); a single
+instance's majorant grid is dropped, since its walk never reads it.
+The environment CDF is not carried: the fused
 engine never reads it.  A Bruneton atmosphere is carried as its model
 (``"atmosphere.params.*"``), its LUTs (``"atmosphere.luts.*"``) and its
 dims (``"atmosphere.dims.*"``); the reference's corner-packed LUTs
@@ -71,12 +73,8 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
     """Port Scene from ``{dotted leaf name: numpy array}``.
 
     Raises NotImplementedError for what this slice does not render:
-    instanced scenes without cell lists or with emission or color."""
+    instanced scenes in bfloat16 rows or with octant columns."""
     n = np.asarray(arrays["instances.grid_id"]).shape[0]
-    check_instanced(
-        n, "majorant.cell_rows" in arrays,
-        int(np.asarray(arrays["atlas.emission_offset"]).max()) >= 0
-        or int(np.asarray(arrays["atlas.color_offset"]).max()) >= 0)
     parts = {}
     for group, cls in _GROUPS.items():
         kw = {}
@@ -89,11 +87,16 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
             else:
                 kw[f.name] = _tensor(arrays[name], device)
         parts[group] = cls(**kw)
+    check_instanced(n, parts["atlas"].density_corners.dtype,
+                    parts["atlas"].octant_cols)
     parts.update({k: _tensor(arrays[k], device) for k in _TOP})
-    if n > 1:
+    if n > 1 and "majorant.packed" in arrays:
         parts["majorant"] = MajorantGrid(**{
             f.name: _tensor(arrays[f"majorant.{f.name}"], device)
-            for f in dataclasses.fields(MajorantGrid)})
+            for f in dataclasses.fields(MajorantGrid)
+            if f"majorant.{f.name}" in arrays})
+        if "world_tau" in arrays:
+            parts["world_tau"] = _tensor(arrays["world_tau"], device)
     if "env_map" in arrays:
         # the reference's corner-packed rows: [..., 0:3] is the raw map
         parts["env_map"] = _tensor(
@@ -152,8 +155,11 @@ def scene_to_arrays(scene: Scene) -> dict:
         out["env_map"] = scene.env_map.cpu().numpy()
     if scene.majorant is not None:
         for f in dataclasses.fields(scene.majorant):
-            out[f"majorant.{f.name}"] = getattr(scene.majorant,
-                                                f.name).cpu().numpy()
+            v = getattr(scene.majorant, f.name)
+            if v is not None:
+                out[f"majorant.{f.name}"] = v.cpu().numpy()
+    if scene.world_tau is not None:
+        out["world_tau"] = scene.world_tau.cpu().numpy()
     if scene.atmosphere is not None:
         atm = scene.atmosphere
         for group in ("params", "luts", "dims"):

@@ -2,12 +2,11 @@
 
 Single-instance scenes carry no majorant grid: their full-fetch path
 never reads it (vpt_tpu/render/fused.py:182, tracking.py:120-122).
-Instanced scenes carry it with per-cell instance lists once they have
-more instances than ``instance_list_threshold`` (accel/majorant.py): one
-grid instanced N times, density only, in float32 rows without octant
-columns (ROADMAP A.10).  Fewer instances take the reference's static
-per-instance loop, which is not ported, nor are several grids, emission
-or color on instanced scenes (ROADMAP A.6).  A single instance's rows
+Instanced scenes, of one grid or several, carry it: with per-cell
+instance lists once they have more instances than
+``instance_list_threshold``, else its packed rows alone, which the
+static per-instance loop reads (accel/majorant.py).  Their rows are
+float32 without octant columns (ROADMAP A.10); a single instance's rows
 may be bfloat16 and carry the octant columns (volume/grid.py).  The
 LUTs not given are loaded from the EXR assets as the reference loads
 them (scene/assets.py), white where none is found.
@@ -82,10 +81,12 @@ class Scene:
     # the raw (H, W, 3) equirect radiance map of an HDRI environment;
     # the reference keeps corner-packed rows whose [..., 0:3] is this map
     env_map: Optional[torch.Tensor] = None
-    # instanced scenes with cell lists; None on a single instance
+    # instanced scenes; None on a single instance
     majorant: Optional[MajorantGrid] = None
-    # the reference's separate world tau grid, for instanced scenes
-    # without cell lists (not ported: their taus fold into the cell rows)
+    # the world tau grid of an instanced scene without cell lists,
+    # (nz, ny, nx, 8 (1 + L)) corner-packed taus toward the sun and each
+    # point light over the root box (accel/shadow.py); with cell lists the
+    # taus fold into the cell rows instead
     world_tau: Optional[torch.Tensor] = None
     # the Bruneton atmosphere (sky/runtime.py::Atmosphere) read by the
     # ATMOSPHERE environment in place of the simple sky, and its baked
@@ -128,21 +129,14 @@ def _pack_instance_rows(atlas: VolumeAtlas, instance_grid_ids,
     return rows
 
 
-def _not_instanced(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A.6)")
-
-
-def check_instanced(n_instances: int, has_lists: bool, extended: bool):
-    """Raise for the instanced scenes the port does not render: without
-    cell lists (the static per-instance loop), and with emission or
-    color."""
-    if n_instances == 1:
-        return
-    if not has_lists:
-        _not_instanced(f"an instanced scene of {n_instances} instances "
-                       "without cell lists (the static per-instance loop)")
-    if extended:
-        _not_instanced("emission or color on an instanced scene")
+def check_instanced(n_instances: int, corner_dtype, octant_cols: int):
+    """Raise for the instanced scenes the port does not render: bfloat16
+    corner rows or octant columns (ROADMAP A.10)."""
+    if n_instances > 1 and (octant_cols or corner_dtype not in (
+            "float32", torch.float32)):
+        raise NotImplementedError(
+            "octant columns or bfloat16 corner rows on an instanced scene "
+            "are not ported yet (ROADMAP A.10)")
 
 
 def default_camera(root_pmin, root_pmax, aspect=1.0,
@@ -183,24 +177,19 @@ def build_scene(host_grids: list[HostGrid],
         instance_grid_ids = np.arange(len(host_grids))
         instance_xforms = [g.transform for g in host_grids]
     instance_grid_ids = np.asarray(instance_grid_ids, np.int32)
-    if len(host_grids) != 1:
-        raise NotImplementedError(
-            "scenes of several grids are not ported yet (ROADMAP A.6, "
-            "multi-grid atlases, after the .vdb reader)")
     n = len(instance_grid_ids)
-    g = host_grids[0]
-    lists = n > instance_list_threshold and bool(majorant_resolution)
-    check_instanced(n, lists, g.emission_zyx is not None
-                    or g.color_zyx is not None)
     if octant_boxes == "auto":
         octant_boxes = False
-    if n > 1 and (octant_boxes or corner_dtype != "float32"):
+    check_instanced(n, corner_dtype, int(bool(octant_boxes)))
+    if n > 1 and not majorant_resolution:
         raise NotImplementedError(
-            "octant columns or bfloat16 corner rows on an instanced scene "
-            "are not ported yet (ROADMAP A.10)")
+            "an instanced scene without a majorant grid "
+            "(majorant_resolution=0) is not ported: its walk reads the "
+            "grid's bounds, as use_majorant=True does")
+    grids = [host_grids[int(gid)] for gid in instance_grid_ids]
     xforms = np.stack([np.asarray(x, np.float64) for x in instance_xforms])
     inv = np.linalg.inv(xforms)
-    bounds = [_world_bounds(g, xf) for xf in xforms]
+    bounds = [_world_bounds(g, xf) for g, xf in zip(grids, xforms)]
     pmin = np.stack([b[0] for b in bounds])
     pmax = np.stack([b[1] for b in bounds])
     root_pmin = pmin.min(axis=0) - 1.0
@@ -213,7 +202,8 @@ def build_scene(host_grids: list[HostGrid],
         from vpt_tpu_torch.accel.majorant import build_majorant_grid
         majorant = build_majorant_grid(
             host_grids, instance_grid_ids, xforms, root_pmin, root_pmax,
-            majorant_resolution, build_instance_lists=True,
+            majorant_resolution,
+            build_instance_lists=n > instance_list_threshold,
             octant_cells=octant_cells, device=device, timings=timings)
     f32 = dict(dtype=torch.float32, device=device)
     if camera is None:
@@ -237,8 +227,10 @@ def build_scene(host_grids: list[HostGrid],
                 _pack_instance_rows(atlas, instance_grid_ids, inv32), **f32)),
         root_pmin=torch.as_tensor(root_pmin, **f32),
         root_pmax=torch.as_tensor(root_pmax, **f32),
-        max_extinction=torch.tensor(g.max_density, **f32),
-        min_extinction=torch.tensor(g.min_density, **f32),
+        max_extinction=torch.tensor(max(g.max_density for g in grids),
+                                    **f32),
+        min_extinction=torch.tensor(min(g.min_density for g in grids),
+                                    **f32),
         lights=(lights if lights is not None
                 else PointLights.empty(device)).to(device),
         sphere=(sphere if sphere is not None

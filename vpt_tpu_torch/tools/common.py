@@ -2,9 +2,12 @@
 peak rates and a kernel's bound, a NaN-aware equality, the random inputs
 (made on the CPU from a seed, then moved, so a CPU and a CUDA run see
 the same numbers), the reference bench's config 2-4 volume, map and
-corner rows, its config 5 cloudscape (numpy, copied from bench.py) and
-its bigvol_512 scene, and the c5 golden's instanced scene (copied from
-tests/golden_scenes.py)."""
+corner rows, its config 5 cloudscape (numpy, copied from bench.py), its
+union scenes config5_union and config5_4k, and its bigvol_512 scene, the
+c5 golden's instanced scene (copied from tests/golden_scenes.py), and
+two instanced configurations of the port's own: ``loop8`` (the static
+per-instance loop, two grids) and ``config5_ext`` (config 5 with
+emission and color)."""
 
 from __future__ import annotations
 
@@ -192,6 +195,136 @@ def aim_cloud(scene, aspect=1.0):
         device=scene.device))
 
 
+def c5_params(w, h, mode, **kw):
+    """The bench's config 5 parameters (bench.py:389-391, :651-652):
+    CONSTANT, ray_depth 50, 128 fused steps, the sun at 150/30."""
+    from vpt_tpu_torch.render.params import Environment, RenderParams
+    return RenderParams(width=w, height=h, ray_depth=50, max_fused_steps=128,
+                        shadow_mode=mode, azimuth=150.0, elevation=30.0,
+                        environment_type=int(Environment.CONSTANT), **kw)
+
+
+def config5_ext_scene(device=None, timings=None):
+    """Config 5 (bench.py:629-704: cloud_xforms(1024), R 64, aim_cloud)
+    with emission and color: 1024 instances of bench_blob(24,
+    emission=True, color=True), the ramp emission LUT; the cell lists
+    cover each instance's whole box.  ``timings`` as build_scene's."""
+    from vpt_tpu_torch.scene.assets import ramp_lut
+    from vpt_tpu_torch.scene.scene import build_scene
+    ids, xforms = cloud_xforms(1024)
+    return aim_cloud(build_scene(
+        [bench_blob(n=24, emission=True, color=True)], instance_grid_ids=ids,
+        instance_xforms=xforms, emission_lut=ramp_lut(),
+        device=_device(device), timings=timings))
+
+
+# config5_union and config5_4k (bench.py:710-800): the instances of the
+# 24^3 puff resampled at 320 along the root box's longest axis, the
+# bench's rows, the sun baked into them
+UNION_RESOLUTION = 320
+UNION_CONFIGS = {"config5_union": (1024, 7), "config5_4k": (4096, 11)}
+
+
+def union_scene(name, device=None, timings=None):
+    """config5_union or config5_4k as bench.py builds it:
+    build_union_scene over cloud_xforms(n, seed) at UNION_RESOLUTION in
+    BENCH_ROWS, attach_shadow_cache at 150/30, aim_cloud.  ``timings``,
+    where given, receives resample_s, build_s (the corner pack) and
+    bake_s."""
+    from vpt_tpu_torch.accel.shadow import attach_shadow_cache
+    from vpt_tpu_torch.volume.union import build_union_scene
+    dev = _device(device)
+    t = {} if timings is None else timings
+    n_inst, seed = UNION_CONFIGS[name]
+    ids, xforms = cloud_xforms(n_inst, seed=seed)
+    s = build_union_scene([bench_blob(n=24)], ids, xforms,
+                          resolution=UNION_RESOLUTION, device=dev,
+                          timings=t, **BENCH_ROWS)
+    t0 = time.perf_counter()
+    s = attach_shadow_cache(s, 150.0, 30.0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t["bake_s"] = time.perf_counter() - t0
+    return aim_cloud(s)
+
+
+def union_error(name, device=None):
+    """The union's field error at UNION_RESOLUTION as the bench reports it
+    (bench.py:735-745: union_error_at_resolution, n 2048, seed 3)."""
+    from vpt_tpu_torch.volume.union import union_error_at_resolution
+    n_inst, seed = UNION_CONFIGS[name]
+    ids, xforms = cloud_xforms(n_inst, seed=seed)
+    return union_error_at_resolution([bench_blob(n=24)], ids, xforms,
+                                     UNION_RESOLUTION, n=2048, seed=3,
+                                     device=_device(device))
+
+
+# loop8: 8 instances of two grids at config 2's scale, below the
+# instance-list threshold, so the walk takes the static per-instance loop
+LOOP8_SPACING = 5.0
+LOOP8_GRIDS = (0, 1, 0, 1, 1, 0, 1, 0)
+
+
+def loop8_scene(device=None, timings=None):
+    """Eight instances of two 64^3 grids, voxels of 0.1: 4 of
+    bench_blob(64, emission=True, color=True) and 4 of bench_blob(64,
+    color=True), on a 4 x 2 lattice LOOP8_SPACING apart in x and z (the
+    puffs, 4 units across, apart; their 6.4-unit boxes overlap), the grids
+    alternating; the ramp emission LUT; one point light 12 above and 6
+    in front of the root box's centre, power 400; aim_loop8's camera.
+    Both grids carry color, so no slot reads white."""
+    import numpy as np
+
+    from vpt_tpu_torch.lights.lights import PointLights
+    from vpt_tpu_torch.scene.assets import ramp_lut
+    from vpt_tpu_torch.scene.scene import _world_bounds, build_scene
+    dev = _device(device)
+    grids = [bench_blob(emission=True, color=True), bench_blob(color=True)]
+    xforms = []
+    for i in range(8):
+        xf = np.diag([0.1, 0.1, 0.1, 1.0])
+        xf[3, :3] = (LOOP8_SPACING * (i % 4), 0.0, LOOP8_SPACING * (i // 4))
+        xforms.append(xf)
+    b = [_world_bounds(grids[g], x) for g, x in zip(LOOP8_GRIDS, xforms)]
+    centre = (np.stack([lo for lo, _ in b]).min(0)
+              + np.stack([hi for _, hi in b]).max(0)) / 2
+    s = build_scene(
+        grids, instance_grid_ids=list(LOOP8_GRIDS), instance_xforms=xforms,
+        lights=PointLights.make([centre + [0.0, 12.0, 6.0]], [[1.0, 1.0, 1.0]],
+                                [400.0], device=dev),
+        emission_lut=ramp_lut(), device=dev, timings=timings)
+    return aim_loop8(s)
+
+
+def aim_loop8(scene, aspect=1.0):
+    """loop8's camera: 6 above and 22 in front of the root box's centre,
+    vfov 50, square unless asked."""
+    import dataclasses
+
+    import numpy as np
+
+    from vpt_tpu_torch.core.camera import Camera
+    c = (scene.root_pmin.cpu().numpy() + scene.root_pmax.cpu().numpy()) / 2
+    return dataclasses.replace(scene, camera=Camera.make(
+        c + np.array([0.0, 6.0, 22.0]), c, vfov=50.0, aspect=aspect,
+        device=scene.device))
+
+
+def loop8_params(w, h, mode, **kw):
+    """loop8's parameters: BLACK, config 2's emission_scale 2, ray_depth
+    50, 128 fused steps, the sun at 150/30."""
+    from vpt_tpu_torch.render.params import Environment, RenderParams
+    return RenderParams(width=w, height=h, ray_depth=50, max_fused_steps=128,
+                        shadow_mode=mode, azimuth=150.0, elevation=30.0,
+                        emission_scale=2.0,
+                        environment_type=int(Environment.BLACK), **kw)
+
+
+def _device(device):
+    return torch.device(device) if device is not None else torch.device(
+        "cuda", 0)
+
+
 def golden_blob(n=12):
     """tests/golden_scenes.py::_blob: a radial n^3 blob, voxels of 0.2."""
     import numpy as np
@@ -262,8 +395,7 @@ def bigvol_scene(n=BIGVOL_N, device=None, timings=None):
     from vpt_tpu_torch.lights.lights import PointLights
     from vpt_tpu_torch.scene.scene import build_scene
     from vpt_tpu_torch.volume.procedural import create_procedural_grid
-    dev = torch.device(device) if device is not None else torch.device(
-        "cuda", 0)
+    dev = _device(device)
     t = {} if timings is None else timings
 
     def sync():

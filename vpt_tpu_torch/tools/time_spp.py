@@ -5,6 +5,7 @@
                                             [--rays-per-lane 0]
                                             [--default-command]
                                             [--bigvol [N]]
+                                            [--scene NAME]
 
 Builds chip_smoke.py's scene at 1920x1080 (the procedural 200^3 grid,
 one point light and the sun, shadow-baked on the card), then, for each
@@ -27,9 +28,21 @@ reference bench's bigvol_512 scene (tools/common.py::bigvol_scene: a
 tau_downsample 2, the raw density dropped) at 512x512 with cached
 shadows: the corner table's GiB, the fill's, build's and bake's seconds,
 the peak host RSS, then the renderer's ms/spp, iterations per ray and
-trunc_frac over --spp samples.  It calls only the renderer's and the
-CLI's public entry points, so run by its path with another checkout of
-the package first on PYTHONPATH it times that checkout.
+trunc_frac over --spp samples.  ``--scene`` times instead an instanced
+configuration at 512 x 512 in each mode: the bench's
+``config5`` (1024 instances of the 24^3 puff with cell lists, CONSTANT,
+shadow-baked for cached), or one of tools/common.py's ``loop8`` (the
+static per-instance loop), ``config5_ext`` (config 5 with emission and
+color), ``config5_union`` and ``config5_4k`` (the union grids, baked as
+the bench bakes them): its build seconds, then per mode the renderer's
+ms/spp, iterations per ray, trunc_frac and film SHA-256 as above, and K1
+alone on the frame's rays by CUDA events (``k1_ms``, the mean of
+K1_REPS launches at the frame's queue length).  It calls only the
+renderer's and the CLI's public entry points (and, for k1_ms, the
+renderer's ray and launch helpers), so run by its path with another
+checkout of the package first on PYTHONPATH it times that checkout;
+for a parent without tools/common.py's new configurations, ``config5``
+only.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from vpt_tpu_torch.scene.scene import build_scene
 from vpt_tpu_torch.volume.procedural import create_procedural_grid
 
 W, H = 1920, 1080
+SCENE_SIZE, K1_REPS = 512, 5   # --scene: the frame, K1's timed launches
 FIELDS = ("accum", "alpha", "depth", "cost", "trunc")
 
 
@@ -68,11 +82,16 @@ def main(argv=None):
     ap.add_argument("--default-command", action="store_true")
     ap.add_argument("--bigvol", type=int, nargs="?", const=512, default=0,
                     metavar="N", help="the bench's bigvol scene at N^3")
+    ap.add_argument("--scene", default=None,
+                    choices=["config5", "loop8", "config5_ext",
+                             "config5_union", "config5_4k"])
     args = ap.parse_args(argv)
     if args.default_command:
         return default_command(args.modes, args.spp)
     if args.bigvol:
         return bigvol(args.bigvol, args.spp, args.warmup)
+    if args.scene:
+        return instanced(args.scene, args.modes, args.spp, args.warmup)
     dev = torch.device("cuda", 0)
     grid = create_procedural_grid(vmin=(-100.0,) * 3, vmax=(100.0,) * 3,
                                   device=dev)
@@ -102,9 +121,7 @@ def main(argv=None):
             mean_iters_per_ray=float(r.film.cost.double().sum()) / n,
             trunc_frac=float(r.film.trunc.double().sum()) / n,
             image_mean=float(r.film.accum.double().mean()),
-            film_sha256=hashlib.sha256(b"".join(
-                getattr(r.film, f).cpu().numpy().tobytes()
-                for f in FIELDS)).hexdigest())), flush=True)
+            film_sha256=_film_sha(r.film))), flush=True)
     print_smi()
 
 
@@ -159,6 +176,84 @@ def bigvol(n, spp, warmup):
         image_mean=float(r.film.accum.double().mean()),
         finite=bool(torch.isfinite(r.film.accum).all()), **st)),
         flush=True)
+    print_smi()
+
+
+def _film_sha(film):
+    return hashlib.sha256(b"".join(getattr(film, f).cpu().numpy().tobytes()
+                                   for f in FIELDS)).hexdigest()
+
+
+def instanced(name, modes, spp, warmup):
+    """An instanced configuration (--scene) at SCENE_SIZE^2, in each
+    mode."""
+    from vpt_tpu_torch.core import rng
+    from vpt_tpu_torch.render import fused, renderer
+    from vpt_tpu_torch.tools import common
+    dev = torch.device("cuda", 0)
+    w = h = SCENE_SIZE
+    st = {}
+    t0 = time.perf_counter()
+    if name == "config5":
+        # with the helpers every checkout from config 5's port on has
+        ids, xforms = common.cloud_xforms(1024)
+        scene = common.aim_cloud(build_scene(
+            [common.bench_blob(n=24)], instance_grid_ids=ids,
+            instance_xforms=xforms, device=dev))
+    elif name == "loop8":
+        scene = common.loop8_scene(dev)
+    elif name == "config5_ext":
+        scene = common.config5_ext_scene(dev)
+    else:
+        scene = common.union_scene(name, dev, st)
+    torch.cuda.synchronize()
+    st["scene_s"] = time.perf_counter() - t0
+    baked = scene
+    if name in ("config5", "loop8", "config5_ext"):
+        t0 = time.perf_counter()
+        baked = attach_shadow_cache(scene, 150.0, 30.0)
+        torch.cuda.synchronize()
+        st["bake_s"] = time.perf_counter() - t0
+    print(json.dumps(dict(scene=name, size=[w, h], **st)), flush=True)
+    for mode in modes:
+        sc = baked if mode == "cached" else scene
+        p = RenderParams(
+            width=w, height=h, seed=0, ray_depth=50, max_fused_steps=128,
+            shadow_mode=mode, azimuth=150.0, elevation=30.0,
+            emission_scale=2.0 if name == "loop8" else 1.0,
+            environment_type=int(Environment.BLACK if name == "loop8"
+                                 else Environment.CONSTANT))
+        r = ProgressiveRenderer(sc, p)
+        r.step(warmup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.step(spp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = w * h * (warmup + spp)
+        key = rng.render_key(0, 0)
+        lt = renderer.prepare(sc, p)
+        o, d = renderer._primary_rays_cuda(sc.camera, p, key, lt.raygen)
+        q = renderer.frame_queue(p)
+        tkey = renderer.tile_key(key)
+        fused._fused_direct_cuda(sc, p, tkey, o, d, lt.fused, w, q)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(K1_REPS):
+            fused._fused_direct_cuda(sc, p, tkey, o, d, lt.fused, w, q)
+        end.record()
+        torch.cuda.synchronize()
+        print(json.dumps(dict(
+            scene=name, mode=mode, size=[w, h], spp=spp,
+            ms_per_spp=dt * 1e3 / spp,
+            mrays_per_s=w * h / (dt / spp) / 1e6,
+            mean_iters_per_ray=float(r.film.cost.double().sum()) / n,
+            trunc_frac=float(r.film.trunc.double().sum()) / n,
+            image_mean=float(r.film.accum.double().mean()),
+            k1_ms=start.elapsed_time(end) / K1_REPS,
+            film_sha256=_film_sha(r.film))), flush=True)
     print_smi()
 
 

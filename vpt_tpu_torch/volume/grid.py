@@ -1,5 +1,5 @@
 """Dense volume atlas and the corner-row packers (port of
-vpt_tpu/volume/grid.py, the single-grid subset).
+vpt_tpu/volume/grid.py).
 
 A trilinear fetch reads ONE row of the corner table: the 2x2x2
 neighbourhood of the base voxel (tap order c = x + 2y + 4z), then the
@@ -19,8 +19,7 @@ instanced scenes carries them too (accel/majorant.py).
 
 ``corner_dtype="bfloat16"`` stores the rows in torch.bfloat16, cast in
 torch (no ml_dtypes): half the bytes of a row (``to_corner_dtype``).
-
-Not ported: multi-grid atlases (ROADMAP A.6).
+The grids of a scene pack one after another into one table.
 """
 
 from __future__ import annotations
@@ -57,31 +56,35 @@ class HostGrid:
 
 @dataclass(frozen=True)
 class VolumeAtlas:
-    """Device tensors of the one grid of a single-instance scene."""
+    """Device tensors of a scene's G grids."""
 
     density: torch.Tensor          # (V,) f32 raw voxels (the bakes read it)
     # (V, 15 [+ 72 octant] [+ 8 emission] [+ 24 color] [+ 8 (1+L) taus]),
     # float32 or bfloat16
     density_corners: torch.Tensor
-    offset: torch.Tensor           # (1,) int32
-    emission_offset: torch.Tensor  # (1,) int32: 0, or -1 without emission
-    color_offset: torch.Tensor     # (1,) int32: 0, or -1 without color
-    dim: torch.Tensor              # (1, 3) int32 nx, ny, nz
-    bmin: torch.Tensor             # (1, 3) f32
-    max_density: torch.Tensor      # (1,) f32
-    min_density: torch.Tensor      # (1,) f32
-    voxel_size: torch.Tensor       # (1,) f32
+    offset: torch.Tensor           # (G,) int32 first row of each grid
+    # (G,) int32 each grid's start in a table of its channel alone, -1
+    # where it lacks the channel (the reference's values)
+    emission_offset: torch.Tensor
+    color_offset: torch.Tensor
+    dim: torch.Tensor              # (G, 3) int32 nx, ny, nz
+    bmin: torch.Tensor             # (G, 3) f32
+    max_density: torch.Tensor      # (G,) f32
+    min_density: torch.Tensor      # (G,) f32
+    voxel_size: torch.Tensor       # (G,) f32
     # 72 when the rows carry the octant extents in cols 15:87, else 0;
     # shifts every later channel (unified_layout)
     octant_cols: int = 0
 
     @functools.cached_property
     def has_emission(self) -> bool:
-        return int(self.emission_offset[0]) >= 0
+        """Any grid has an emission channel (the row's 8 columns)."""
+        return int(self.emission_offset.max()) >= 0
 
     @functools.cached_property
     def has_color(self) -> bool:
-        return int(self.color_offset[0]) >= 0
+        """Any grid has a color channel (the row's 24 columns)."""
+        return int(self.color_offset.max()) >= 0
 
 
 def unified_layout(atlas) -> tuple[int, int, int]:
@@ -394,44 +397,64 @@ def to_corner_dtype(rows: torch.Tensor, corner_dtype: str,
 def build_atlas(host_grids: list[HostGrid], band_divisors=None,
                 device=DEFAULT_DEVICE, corner_dtype: str = "float32",
                 octant_boxes: bool = False) -> VolumeAtlas:
-    """Pack the one grid of a single-instance scene into device tensors:
-    the corner rows in ``corner_dtype`` (to_corner_dtype), with the 72
-    octant columns after the 15 density columns where ``octant_boxes``,
-    then the emission and color taps (vpt_tpu/volume/grid.py:640-690)."""
-    if len(host_grids) != 1:
-        raise NotImplementedError("the port packs single-grid scenes only")
-    g = host_grids[0]
-    parts = [_corner_pack(np.asarray(g.density_zyx, np.float32),
-                          band_divisors, device=device,
-                          emit_zyx=g.emission_zyx,
-                          octant_boxes=octant_boxes)]
-    if g.emission_zyx is not None:
-        parts.append(_corner_pack_plain(torch.as_tensor(
-            np.asarray(g.emission_zyx, np.float32))).numpy())
-    if g.color_zyx is not None:
-        col = torch.as_tensor(np.asarray(g.color_zyx, np.float32))
-        parts.append(torch.stack([_corner_pack_plain(col[..., ch])
-                                  for ch in range(3)], -1).reshape(-1, 24)
-                     .numpy())
-    corners = np.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
+    """Pack the grids into device tensors, their corner rows one after
+    another (grid g's at ``offset[g]``), in ``corner_dtype``
+    (to_corner_dtype), with the 72 octant columns after the 15 density
+    columns where ``octant_boxes``, then the 8 emission and 24 color
+    columns wherever any grid has that channel: zeros (emission) and ones
+    (white) for a grid without it (vpt_tpu/volume/grid.py:600-690).  The
+    channel offsets are the reference's: each grid's start in a table of
+    that channel alone, -1 where the grid lacks it; the walk reads the
+    channel from the unified row at the density offset."""
+    any_em = any(g.emission_zyx is not None for g in host_grids)
+    any_col = any(g.color_zyx is not None for g in host_grids)
+    parts, offs, eoffs, coffs = [], [], [], []
+    dcur = ecur = ccur = 0
+    for g in host_grids:
+        nvox = int(np.prod(g.density_zyx.shape))
+        offs.append(dcur)
+        dcur += nvox
+        eoffs.append(ecur if g.emission_zyx is not None else -1)
+        ecur += nvox if g.emission_zyx is not None else 0
+        coffs.append(ccur if g.color_zyx is not None else -1)
+        ccur += nvox if g.color_zyx is not None else 0
+        part = [_corner_pack(np.asarray(g.density_zyx, np.float32),
+                             band_divisors, device=device,
+                             emit_zyx=g.emission_zyx,
+                             octant_boxes=octant_boxes)]
+        if any_em:
+            part.append(np.zeros((nvox, 8), np.float32)
+                        if g.emission_zyx is None else
+                        _corner_pack_plain(torch.as_tensor(np.asarray(
+                            g.emission_zyx, np.float32))).numpy())
+        if any_col:
+            if g.color_zyx is None:
+                part.append(np.ones((nvox, 24), np.float32))
+            else:
+                col = torch.as_tensor(np.asarray(g.color_zyx, np.float32))
+                part.append(torch.stack(
+                    [_corner_pack_plain(col[..., ch]) for ch in range(3)],
+                    -1).reshape(-1, 24).numpy())
+        parts.append(np.concatenate(part, axis=1) if len(part) > 1
+                     else part[0])
+    corners = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
     oct_cols = OCTANT_COLS if octant_boxes else 0
     f32 = dict(dtype=torch.float32, device=device)
-
-    def channel_offset(present):
-        return torch.tensor([0 if present else -1], dtype=torch.int32,
-                            device=device)
+    i32 = dict(dtype=torch.int32, device=device)
     return VolumeAtlas(
-        density=torch.tensor(g.density_zyx.reshape(-1), **f32),
+        density=torch.as_tensor(np.concatenate(
+            [np.asarray(g.density_zyx, np.float32).reshape(-1)
+             for g in host_grids]), **f32),
         density_corners=to_corner_dtype(torch.as_tensor(corners, **f32),
                                         corner_dtype, oct_cols),
-        offset=torch.zeros(1, dtype=torch.int32, device=device),
-        emission_offset=channel_offset(g.emission_zyx is not None),
-        color_offset=channel_offset(g.color_zyx is not None),
-        dim=torch.as_tensor(np.asarray(g.dim, np.int32)[None],
-                            device=device),
-        bmin=torch.as_tensor(np.asarray(g.bbox_min, np.float32)[None],
-                             **f32),
-        max_density=torch.tensor([g.max_density], **f32),
-        min_density=torch.tensor([g.min_density], **f32),
-        voxel_size=torch.tensor([g.voxel_size], **f32),
+        offset=torch.tensor(offs, **i32),
+        emission_offset=torch.tensor(eoffs, **i32),
+        color_offset=torch.tensor(coffs, **i32),
+        dim=torch.as_tensor(np.stack([np.asarray(g.dim, np.int32)
+                                      for g in host_grids]), device=device),
+        bmin=torch.as_tensor(np.stack([np.asarray(g.bbox_min, np.float32)
+                                       for g in host_grids]), **f32),
+        max_density=torch.tensor([g.max_density for g in host_grids], **f32),
+        min_density=torch.tensor([g.min_density for g in host_grids], **f32),
+        voxel_size=torch.tensor([g.voxel_size for g in host_grids], **f32),
         octant_cols=oct_cols)
