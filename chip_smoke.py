@@ -191,6 +191,29 @@ Phases, one JSON line each:
                sample), finite and not black; K1 against
                fused_direct_plain on the middle 64x64 of the frame's rays
                by phase 6's rule, and K1 alone on the frame, timed;
+  8h. reference — kernel K5's walk_direct (csrc/walk.cu; vpt_tpu_torch/
+               tools/time_walk.py): the main path's scene through
+               ProgressiveRenderer with engine="reference" at 1920x1080,
+               ray_depth 50, 2 warm-up + 8 timed spp: ms/spp, Mrays/s,
+               steps per ray, walk_direct and K3 once a sample and K1
+               never, finite and not black; K5 alone on one sample's
+               rays (CUDA events), its bounces, walk steps and bound;
+               `vpt-torch render procedural --engine reference` with the
+               light of phase 3 at 1080p, 8 spp (the PNG decodes, the EXR
+               finite and not black, walk_direct once a sample); K5
+               against direct_integrator_plain at 256x256 on that scene
+               and on config 2's puff with emission in float32 rows (its
+               EXT instance) by phase 6's rule, the bit-for-bit share
+               printed;
+  8i. volumetric — K5's walk_volumetric: `vpt-torch render procedural
+               --integrator volumetric` as a user types it (the simple
+               sky, 1920x1080, --ray-depth 50, 8 spp): the PNG decodes,
+               the EXR is finite and not black, walk_volumetric and K4
+               once a sample; the same scene under the c3 map with
+               hdri_importance (the CDF strategy) at 512x512; ms/spp,
+               steps and bounces per ray; K5 against vol_integrator_plain
+               at 256x256, ray_depth 8, on the sky, on the HDRI through
+               the CDF and on the EXT puff, by phase 6's rule;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -206,7 +229,9 @@ Phases, one JSON line each:
                small-shape wrappers' host cost: device time (profiler)
                beside event time, and the wrapper's parts by the host
                clock.
-Then the nvidia-smi line, the kernels' JSON line (K1 on both routes, its
+Then the nvidia-smi line, the kernels' JSON line (K5's walk_direct and
+walk_volumetric at 1080p with their parity cases and bounces per ray;
+K1 on both routes, its
 EXT variant at 1080p on the emissive grid with config 2 beside, its
 _bf16 instances on config 2 as the bench builds it with bigvol beside,
 its _octant instances on config 2 in float32 rows with octant columns,
@@ -481,7 +506,7 @@ def main():
     from vpt_tpu_torch.lights.lights import PointLights
     from vpt_tpu_torch.ops import cuda, probe
     from vpt_tpu_torch.render import film as film_mod
-    from vpt_tpu_torch.render import fused, integrator, renderer
+    from vpt_tpu_torch.render import fused, integrator, renderer, walk
     from vpt_tpu_torch.render.params import Environment, RenderParams
     from vpt_tpu_torch.scene.scene import attach_env_map, build_scene
     from vpt_tpu_torch.tools.common import (HBM_BYTES_PER_S, bound, c3_map,
@@ -532,7 +557,8 @@ def main():
                integrator.ENVIRONMENT_ATMOSPHERE,
                integrator.ENVIRONMENT_SKY_CACHE, fused.FUSED_DIRECT_BF16,
                fused.FUSED_DIRECT_OCTANT, fused.FUSED_DIRECT_LOOP,
-               fused.FUSED_DIRECT_CELLS_EXT]
+               fused.FUSED_DIRECT_CELLS_EXT, walk.WALK_DIRECT,
+               walk.WALK_VOLUMETRIC]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -1838,6 +1864,27 @@ def main():
     del bv, bv_rows, o, d, crop, out_k, out_p, lt
     torch.cuda.empty_cache()
 
+    # ---- 8h/8i. kernel K5: the reference engine, the volumetric ----------
+    # integrator (vpt_tpu_torch/tools/time_walk.py)
+    from vpt_tpu_torch.tools import time_walk
+    walk_res = {}
+    for name, fn in (("reference", time_walk.reference_phase),
+                     ("volumetric", time_walk.volumetric_phase)):
+        t0 = time.perf_counter()
+        walk_res[name] = fn(dev, scene)
+        emit(name, phase_s=time.perf_counter() - t0, **walk_res[name])
+    ref_res, vol_res = walk_res["reference"], walk_res["volumetric"]
+    launches[walk.WALK_DIRECT.name] = ref_res["render"]["launches"][
+        walk.WALK_DIRECT.name]
+    launches[walk.WALK_VOLUMETRIC.name] = vol_res["cli"]["launches"][
+        walk.WALK_VOLUMETRIC.name]
+    timing[walk.WALK_DIRECT.name] = (
+        ref_res["k5_alone"]["ms"], ref_res["parity"]["density"]["plain_ms"])
+    bounds[walk.WALK_DIRECT.name] = ref_res["k5_alone"]["bound"]
+    timing[walk.WALK_VOLUMETRIC.name] = (
+        vol_res["k5_alone_sky"]["ms"], vol_res["parity"]["sky"]["plain_ms"])
+    bounds[walk.WALK_VOLUMETRIC.name] = vol_res["k5_alone_sky"]["bound"]
+
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
         probe_gather, time_probes
@@ -2001,6 +2048,9 @@ def main():
                 fused_direct_octant=cfg2_oct["max_abs"])
     errs.update(fused_direct_loop=lp_time["tracked"]["max_abs"],
                 fused_direct_cells_ext=cx_time["tracked"]["max_abs"])
+    for k_, res_ in ((walk.WALK_DIRECT, ref_res),
+                     (walk.WALK_VOLUMETRIC, vol_res)):
+        errs[k_.name] = max(m["max_abs"] for m in res_["parity"].values())
     errs.update(fused_direct_cells=at_c5["max_abs"],
                 fused_direct_ext=at_size["max_abs"],
                 fused_direct=k1_1080["cached"]["max_abs"],
@@ -2243,6 +2293,43 @@ def main():
                           bit_share=full_hd["bit_share"],
                           ground_share=full_hd["ground_share"]),
         earth_bit_share=atm_res["cli_earth"]["bit_share"])
+    for k_, res_, alone, shape in (
+            (walk.WALK_DIRECT, ref_res, ref_res["k5_alone"],
+             f"{W}x{H}, the main path's scene (the 200^3 grid, one point "
+             f"light, the sun, BLACK), ray_depth {time_walk.RAY_DEPTH}, "
+             "one sample's rays in the reference's tiles of 16384"),
+            (walk.WALK_VOLUMETRIC, vol_res, vol_res["k5_alone_sky"],
+             f"{W}x{H}, the CLI's procedural scene (the 200^3 grid, no "
+             f"point light), the simple sky, ray_depth "
+             f"{time_walk.RAY_DEPTH}, one sample's rays")):
+        by_name[k_.name].update(
+            shape=shape,
+            design="one thread a ray, the whole walk in registers (the "
+                   "bounce loop, delta tracking with its empty-box jumps, "
+                   "the residual-ratio shadow walks, the emission walk and "
+                   "the next-event estimates; the sky's MIS with the map's "
+                   "taps, the simple sky's march and the CDF's binary "
+                   "searches); every draw computed from its counter under "
+                   "its tile's key; density-only and EXT instances; K4 "
+                   "after it for the sky, HDRI and the atmosphere",
+            tolerance=f"share of rays agreeing >= {MIN_SHARE}, image means "
+                      f"within {MAX_MEAN_REL}",
+            parity={n_: {f: m[f] for f in ("share", "bit_share",
+                                            "mean_rel", "max_abs",
+                                            "plain_ms", "kernel_ms")}
+                    for n_, m in res_["parity"].items()},
+            parity_size=f"{time_walk.PARITY}x{time_walk.PARITY}",
+            bounces_per_ray=alone["bounces_per_ray"],
+            steps_per_ray=alone["steps_per_ray"],
+            sky_evals_per_ray=alone["sky_evals_per_ray"],
+            launch_info=res_["launch_info"],
+            library_ms_note="none exists")
+    by_name[walk.WALK_VOLUMETRIC.name].update(
+        hdri_cdf_512=dict(ms=vol_res["hdri_cdf"]["k5_alone"]["ms"],
+                          bound_ms=vol_res["hdri_cdf"]["k5_alone"]["bound"][0],
+                          bound_by=vol_res["hdri_cdf"]["k5_alone"]["bound"][1],
+                          bounces_per_ray=vol_res["hdri_cdf"]["k5_alone"][
+                              "bounces_per_ray"]))
     for name, shape in shapes.items():
         by_name[name]["shape"] = shape
     print(smi, flush=True)

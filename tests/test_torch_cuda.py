@@ -24,7 +24,7 @@ from vpt_tpu_torch.core.camera import Camera
 from vpt_tpu_torch.lights.lights import PointLights
 from vpt_tpu_torch.ops import probe
 from vpt_tpu_torch.render import film as tfilm
-from vpt_tpu_torch.render import fused, renderer
+from vpt_tpu_torch.render import fused, renderer, walk
 from vpt_tpu_torch.render.integrator import _AtmParams, _EnvParams
 from vpt_tpu_torch.render.params import RenderParams
 from vpt_tpu_torch.scene.assets import ramp_lut
@@ -924,7 +924,10 @@ def _c_fields(source, struct):
     ("gather_rows.cu", "GatherLaunch", probe._GatherLaunch),
     ("film_accumulate.cu", "FilmArgs", tfilm._FilmArgs),
     ("environment.cu", "EnvParams", _EnvParams),
-    ("environment.cu", "AtmParams", _AtmParams)])
+    ("environment.cu", "AtmParams", _AtmParams),
+    ("walk.cu", "WalkParams", walk._WalkParams),
+    ("walk.cu", "WalkEnv", _EnvParams),
+    ("walk.cu", "WalkTables", walk._WalkTables)])
 def test_ctypes_mirrors_match_c_structs(source, struct, mirror):
     """The ctypes launch structs list the C structs' fields in order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]
@@ -1265,3 +1268,113 @@ def test_row_kind_picks_the_instances():
     assert m and [int(v) for v in m.groups()] == [
         cuda.ROWS_F32, cuda.ROWS_F32_OCTANT, cuda.ROWS_BF16,
         cuda.ROWS_BF16_OCTANT]
+
+
+# K5's cases: the environment (and, for the volumetric integrator's sky
+# estimate, whether the CDF strategy runs) on the blob, density-only or
+# EXT (emission, color, volume_depth 2)
+K5_ENVS = {"black": dict(environment_type=2),
+           "constant": dict(environment_type=3, sky_mult=0.5),
+           "sky": dict(environment_type=0),
+           "sky_cdf": dict(environment_type=0),
+           "hdri": dict(environment_type=1),
+           "hdri_cdf": dict(environment_type=1, hdri_importance=True)}
+
+
+def _k5_scene(device, env, ext):
+    from vpt_tpu_torch.scene.scene import attach_env_map, attach_sky_cdf
+    from vpt_tpu_torch.tools.common import c3_map
+    s = _blob_scene(device, emission=ext, color=ext)
+    if env.startswith("hdri"):
+        s = attach_env_map(s, c3_map(32, 64))
+    if env == "sky_cdf":
+        s = attach_sky_cdf(s)
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", list(K5_ENVS))
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("volumetric", [False, True])
+def test_k5_matches_plain(cuda_device, volumetric, ext, env):
+    """K5 (and K4 after it) against the plain integrator on the card by
+    the share rule, in several tiles of 1000 rays, each launch counted."""
+    from vpt_tpu_torch.render.integrator import direct_integrator_plain
+    from vpt_tpu_torch.render.vol_integrator import vol_integrator_plain
+    s = _k5_scene(cuda_device, env, ext)
+    p = RenderParams(width=48, height=40, ray_depth=6, max_track_steps=128,
+                     volume_depth=2 if ext else 1, emission_scale=2.0,
+                     phase_g1=0.3, **K5_ENVS[env])
+    key = rng.render_key(0, 2)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    counter = walk.WALK_VOLUMETRIC if volumetric else walk.WALK_DIRECT
+    before = counter.launches
+    run = walk.walk_volumetric if volumetric else walk.walk_direct
+    got = run(s, p, key, o, d, tile=1000)
+    assert counter.launches == before + 1
+    plain = vol_integrator_plain if volumetric else direct_integrator_plain
+    want = [torch.cat(parts) for parts in zip(*(
+        plain(s, p, rng.fold_in(key, 1000 + t), o[a:a + 1000],
+              d[a:a + 1000]) for t, a in enumerate(range(0, o.shape[0],
+                                                          1000))))]
+    share, rel = agreement([x.cpu().numpy() for x in got],
+                           [x.cpu().numpy() for x in want])
+    assert share >= 0.99 and rel <= 0.005, (share, rel)
+    assert float(want[0].mean()) > 0.0
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", [0, 1])
+def test_k5_renders_through_the_renderer(cuda_device, integrator):
+    """ProgressiveRenderer with engine="reference" (or the volumetric
+    integrator) launches K5 and K3 once a sample and K1 never."""
+    s = _k5_scene(cuda_device, "sky", False)
+    p = RenderParams(width=32, height=24, ray_depth=4, engine="reference",
+                     integrator=integrator, environment_type=0)
+    kernels = ((walk.WALK_VOLUMETRIC if integrator else walk.WALK_DIRECT),
+               tfilm.FILM_ACCUMULATE, fused.FUSED_DIRECT,
+               fused.FUSED_DIRECT_PRIMARY)
+    before = [k.launches for k in kernels]
+    r = renderer.ProgressiveRenderer(s, p)
+    r.render(3)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 3, 0, 0]
+    assert torch.isfinite(r.film.accum).all() and float(
+        r.film.accum.mean()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["instanced", "bfloat16", "octant",
+                                  "volumetric_atmosphere"])
+def test_k5_out_of_scope_raises_before_launch(cuda_device, case):
+    """What K5 does not take raises NotImplementedError before any launch,
+    naming its ROADMAP item; nothing falls back to a plain version."""
+    if case == "instanced":
+        s = _loop_scene(cuda_device, False)
+    elif case == "volumetric_atmosphere":
+        s = _atmosphere_scene(cuda_device)
+    else:
+        s = _blob_scene(cuda_device, corner_dtype=(
+            "bfloat16" if case == "bfloat16" else "float32"),
+            octant_boxes=case == "octant")
+    p = RenderParams(width=16, height=16, ray_depth=2, environment_type=0,
+                     integrator=int(case == "volumetric_atmosphere"),
+                     engine="reference")
+    o, d = renderer._primary_rays_cuda(s.camera, p, rng.render_key(0, 0))
+    before = (walk.WALK_DIRECT.launches, walk.WALK_VOLUMETRIC.launches)
+    run = (walk.walk_volumetric if case == "volumetric_atmosphere"
+           else walk.walk_direct)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        run(s, p, (0, 1), o, d)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        renderer.ProgressiveRenderer(s, p)
+    assert (walk.WALK_DIRECT.launches,
+            walk.WALK_VOLUMETRIC.launches) == before
+
+
+@pytest.mark.cuda
+def test_k5_launch_info(cuda_device):
+    for volumetric in (False, True):
+        for ext in (False, True):
+            info = walk.launch_info(volumetric, ext)
+            assert info["threads"] == 128 and info["blocks_per_sm"] >= 1

@@ -10,15 +10,16 @@ The parser takes the reference's flags one for one (``build_parser``).
 file's lights variant (its point lights over the procedural volume; the
 volumes variant exits, as ``.vdb`` scenes do, until the .vdb reader is
 ported), an optional
-``.hdr`` environment map (the positional ``env``), the fused engine with
-the direct integrator at volume depth 1, every environment type (the
+``.hdr`` environment map (the positional ``env``), the fused and the
+reference engine with the direct or the volumetric integrator, every
+environment type (the
 default is the simple sky, or HDRI when a map is given; ``--atmosphere``
 puts the Bruneton atmosphere in the simple sky's place, baked into a sky
 cache unless ``--no-bake-sky``), tracked or cached shadows, checkpoint
 and resume (the reference's npz keys, so a checkpoint moves between the
 two), PNG and EXR output and the alpha/cost/depth AOVs.  ``earth``
 renders the planet from orbit.  Everything runs on the card (``cuda:0``)
-through kernels K1-K4 unless ``--cpu`` asks for the CPU.  Every other
+through kernels K1-K5 unless ``--cpu`` asks for the CPU.  Every other
 option, and the ``view`` subcommand, exit with a message naming the
 ROADMAP item that ports it; nothing renders something else in its
 place.
@@ -184,10 +185,8 @@ def _check_render_slice(args) -> str:
     env = args.env_type or ("hdri" if (args.env or scene.endswith(".hdr"))
                             else "atmosphere")
     for flag, on, item in (
-            (f"--engine {args.engine}", args.engine != "fused",
-             "ROADMAP A.8, the other engines and integrators"),
-            ("--integrator volumetric", args.integrator != "direct",
-             "ROADMAP A.8, the other engines and integrators"),
+            ("--engine march", args.engine == "march",
+             "ROADMAP A.8, render/march.py"),
             (f"--denoise {args.denoise}", args.denoise != "none",
              "ROADMAP A.9, denoisers"),
             ("--sharded", args.sharded, "ROADMAP A.11, multi-GPU"),
@@ -198,6 +197,11 @@ def _check_render_slice(args) -> str:
              "ROADMAP A.8, render/debugviz.py")):
         if on:
             _not_ported(flag, item)
+    if (args.atmosphere and env == "atmosphere"
+            and args.integrator == "volumetric" and not args.cpu):
+        from vpt_tpu_torch.render.walk import ATMOSPHERE_NEE_ITEM
+        _not_ported("--integrator volumetric with --atmosphere on the card",
+                    ATMOSPHERE_NEE_ITEM)
     from vpt_tpu_torch.utils.io import UNPORTED_FORMATS
     ext = os.path.splitext(args.output)[1].lower()
     if ext in UNPORTED_FORMATS:
@@ -318,7 +322,9 @@ def cmd_render(args, stats=None):
     params = RenderParams(
         width=args.width, height=args.height, ray_depth=args.ray_depth,
         volume_depth=args.volume_depth,
-        integrator=int(Integrator.DIRECT), environment_type=int(env_type),
+        integrator=int(Integrator.DIRECT if args.integrator == "direct"
+                       else Integrator.VOLUMETRIC),
+        environment_type=int(env_type),
         engine=args.engine, seed=args.seed, shadow_mode=args.shadow_mode,
     ).replace(
         exposure_scale=args.exposure, azimuth=args.azimuth,

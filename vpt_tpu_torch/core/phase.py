@@ -102,3 +102,26 @@ def phase_sample(params, direction, key, normalized: bool = False):
                                 params.phase_g1, params.phase_g2,
                                 normalized)
     return sample_hg(direction, key, params.phase_g1, normalized)
+
+
+def sample_spherical(key, shape=(), device=None):
+    """A uniform sphere direction and its pdf, isotropic()
+    (render_kernel.cu:292-303): phi from split(key)[0], cos_theta from
+    split(key)[1], one element per ray."""
+    k1, k2 = rng.split(key)
+    phi = TWO_PI * rng.uniform(k1, shape, device)
+    cos_theta = 1.0 - 2.0 * rng.uniform(k2, shape, device)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
+                                       min=0.0))
+    wi = torch.stack([torch.cos(phi) * sin_theta,
+                      torch.sin(phi) * sin_theta, cos_theta], dim=-1)
+    return wi, torch.full(tuple(shape), isotropic(), dtype=torch.float32,
+                          device=device)
+
+
+def power_heuristic(nf, f_pdf, ng, g_pdf):
+    """The MIS power heuristic, beta = 2 (light.h:65-69), with the
+    reference's 1e-30 guard."""
+    f = nf * f_pdf
+    g = ng * g_pdf
+    return (f * f) / torch.clamp(f * f + g * g, min=1e-30)

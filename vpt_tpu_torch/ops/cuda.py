@@ -24,7 +24,8 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "csrc")
 SOURCES = ("fused_direct.cu", "raygen.cu", "film_accumulate.cu",
-           "environment.cu", "gather_rows.cu", "take_along.cu", "roll.cu")
+           "environment.cu", "walk.cu", "gather_rows.cu", "take_along.cu",
+           "roll.cu")
 HEADERS = ("vpt_common.cuh", "raygen.cuh", "probe_launch.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -99,6 +100,11 @@ def load_library() -> Library:
             ("vpt_div_known_sweep", [ctypes.c_float, ctypes.c_float,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong,
                                      vp, vp]),
+            ("vpt_walk", [i32, i32] + [vp] * 8),
+            ("vpt_walk_params_size", []),
+            ("vpt_walk_env_size", []),
+            ("vpt_walk_tables_size", []),
+            ("vpt_walk_launch_info", [i32, i32, vp]),
             ("vpt_gather_rows", [vp] * 5),
             ("vpt_gather_launch_size", []),
             ("vpt_take_along_i32", [vp] * 5),

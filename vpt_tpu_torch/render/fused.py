@@ -86,7 +86,7 @@ from vpt_tpu_torch.render.integrator import (EnvLaunch, add_environment,
                                              environment_radiance,
                                              needs_env_pos,
                                              prepare_environment)
-from vpt_tpu_torch.render.params import Environment, check_slice
+from vpt_tpu_torch.render.params import Environment, check_fused
 from vpt_tpu_torch.render.tracking import (FetchResult, _cells_banded_fetch,
                                            _emission_lut, _loop_banded_fetch,
                                            _sphere_block, _use_cells,
@@ -199,7 +199,7 @@ def _walk_box(scene):
 
 
 def _check_scene(scene, params):
-    check_slice(params)
+    check_fused(params)
     n = scene.instances.count
     check_instanced(n, scene.atlas.density_corners.dtype,
                     scene.atlas.octant_cols)
@@ -866,15 +866,22 @@ def _launch_args(launch: FusedLaunch, B: int, key, frame_width, queue=1):
         p.tile_w = p.tile_h = 0
     p.frame_w = frame_width or B
     p.key[0], p.key[1] = int(key[0]), int(key[1])
+    return (p,) + out_buffer(B, p.defer_env, launch.corners.device)
+
+
+def out_buffer(B: int, defer_env: int, device):
+    """(out, views): the output buffer of K1 and K5 for B rays, 7, 13 or
+    16 S floats for defer_env 0, 1 or 2 (S = B rounded up to a multiple
+    of 4), and its views (L, alpha, cost, unfinished, depth[, beta,
+    direction[, env_pos]]), each starting 16-byte aligned."""
     S = -(-B // 4) * 4
-    n_s = (7, 13, 16)[p.defer_env]
-    out = torch.empty(n_s * S, dtype=torch.float32,
-                      device=launch.corners.device)
+    n_s = (7, 13, 16)[defer_env]
+    out = torch.empty(n_s * S, dtype=torch.float32, device=device)
     views = (out[:3 * B].view(B, 3),) + tuple(
         out[i * S:i * S + B] for i in range(3, 7))
     views += tuple(out[i * S:i * S + 3 * B].view(B, 3)
                    for i in range(7, n_s, 3))
-    return p, out, views
+    return out, views
 
 
 def _finish(scene, params, launch: FusedLaunch, views):

@@ -1,6 +1,16 @@
-"""The terminal environment lookup (port of
-vpt_tpu/render/integrator.py::environment_radiance, :26-45) and kernel
-K4, which adds it to each finished ray's radiance on the card.
+"""The reference engine's direct integrator (port of
+vpt_tpu/render/integrator.py), the terminal environment lookup
+(``environment_radiance``, :26-45) and kernel K4, which adds it to each
+finished ray's radiance on the card.
+
+``direct_integrator`` traces one tile of rays with the reference's
+nested lane-masked loops (render_kernel.cu:1760-1857; QUIRKS #5, #6,
+#19): a bounce loop to ray_depth, at each bounce the closest object, up
+to volume_depth delta-tracking walks through the volume, the next-event
+estimates at a medium event, the object check after it and the sphere's
+shading.  On CPU tensors it runs ``direct_integrator_plain``, that loop
+in torch; on CUDA tensors kernel K5's ``walk_direct`` (render/walk.py,
+csrc/walk.cu), one thread a ray, and K4 after it.
 
 ``environment_radiance`` is K4's plain version.  ``add_environment``
 computes L + environment_radiance(pos, dir) * beta: on CPU tensors with
@@ -8,9 +18,9 @@ the plain version, on CUDA tensors with K4 (csrc/environment.cu), in
 place on L.  K4 takes the environments that depend on the direction,
 each a kind of its own: HDRI with a map, the simple sky (ATMOSPHERE
 without an atmosphere), the live Bruneton atmosphere (ATMOSPHERE with
-one; it also reads the ray's retired position, which K1 then writes)
-and its baked sky cache.  K1 adds BLACK and CONSTANT itself when a ray
-retires, so those launch no K4.
+one; it also reads the ray's retired position, which K1 and K5 then
+write) and its baked sky cache.  K1 and K5 add BLACK and CONSTANT
+themselves, so those launch no K4.
 """
 
 from __future__ import annotations
@@ -24,12 +34,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vpt_tpu_torch.core.phase import isotropic
-from vpt_tpu_torch.core.vecmath import degree_to_cartesian, true_div
+from vpt_tpu_torch.core import rng
+from vpt_tpu_torch.core.phase import isotropic, phase_sample
+from vpt_tpu_torch.core.vecmath import (EPS, aabb_intersect, cross,
+                                        degree_to_cartesian, dot, length,
+                                        normalize, reflect, true_div)
 from vpt_tpu_torch.ops import cuda
-from vpt_tpu_torch.render.nee import environment_light_radiance
+from vpt_tpu_torch.render.nee import (environment_light_radiance,
+                                      estimate_point_lights, estimate_sun)
 from vpt_tpu_torch.render.params import Environment
-from vpt_tpu_torch.render.tracking import vec3_param
+from vpt_tpu_torch.render.tracking import (_sphere_block, delta_track,
+                                           estimate_emission, transmittance,
+                                           vec3_param)
 
 ENVIRONMENT = cuda.Kernel(
     name="environment", route="cuda",
@@ -69,6 +85,156 @@ def environment_radiance(scene, params, pos, wi):
                 * vec3_param(params.sky_color, wi.device) * isotropic())
     li = environment_light_radiance(scene, params, pos, wi)
     return li * vec3_param(params.sky_color, wi.device) * params.sky_mult
+
+
+def _closest_object(scene, pos, direction):
+    """get_closest_object (render_kernel.cu:1118-1135): (obj, t_min), obj
+    0 none, 1 the volume's root box, 2 the sphere, with the AABB's tmin <
+    0 -> tmax quirk (vpt_tpu/render/integrator.py:49-59)."""
+    hit1, t1, _ = aabb_intersect(scene.root_pmin, scene.root_pmax, pos,
+                                 direction)
+    hit2, t2 = _sphere_block(scene, pos, direction)
+    obj = torch.where(hit1 & (~hit2 | (t1 < t2)), 1,
+                      torch.where(hit2, 2, 0))
+    t_min = torch.where(obj == 1, t1, torch.where(obj == 2, t2, 0.0))
+    return obj, t_min
+
+
+def _shade_sphere(scene, params, key, pos, direction, beta, L, mask):
+    """The sphere's surface event (render_kernel.cu:1807-1834): the
+    roughness lerp of the mirror and a cosine-hemisphere direction from
+    uniform(key, (B, 2)), and the direct sun through a shadow walk on
+    fold_in(key, 3); applied where ``mask`` (vpt_tpu/render/
+    integrator.py:62-99)."""
+    sph, dev = scene.sphere, pos.device
+    normal = normalize((pos - sph.center) / sph.radius)
+    nl = torch.where((dot(normal, direction) < 0.0)[:, None], normal,
+                     -normal)
+    u = rng.uniform(key, (pos.shape[0], 2), dev)
+    phi = 2.0 * math.pi * u[:, 0]
+    r2 = u[:, 1]
+    r2s = torch.sqrt(r2)
+    w = normalize(nl)
+    y_axis = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    ref_axis = torch.where((torch.abs(w[:, 0]) > 0.1)[:, None], y_axis,
+                           x_axis)
+    uax = normalize(cross(ref_axis, w))
+    vax = cross(w, uax)
+    hemi = normalize(uax * (torch.cos(phi) * r2s)[:, None]
+                     + vax * (torch.sin(phi) * r2s)[:, None]
+                     + w * torch.sqrt(torch.clamp(1.0 - r2, min=0.0))[:,
+                                                                      None])
+    mirror = reflect(direction, nl)
+    new_dir = mirror + (hemi - mirror) * sph.roughness
+    new_pos = pos + normal * EPS
+    new_beta = beta * sph.color
+    sun = degree_to_cartesian(params.azimuth, params.elevation, dev)
+    v_tr = transmittance(scene, params, rng.fold_in(key, 3), new_pos,
+                         sun.expand_as(pos).contiguous(), active=mask)
+    cos_l = torch.clamp(dot(sun.expand_as(normal), normal), min=0.0)
+    sun_add = (vec3_param(params.sun_color, dev) * params.sun_mult
+               * (v_tr * cos_l)[:, None] * new_beta)
+    m = mask[:, None]
+    return (torch.where(m, new_pos, pos), torch.where(m, new_dir, direction),
+            torch.where(m, new_beta, beta), L + torch.where(m, sun_add, 0.0))
+
+
+def _finish_walk(L, alpha, cost, depth):
+    """The integrators' outputs: (L, alpha <= 1, cost, trunc 0, depth),
+    float32, as the fused engine returns them."""
+    return (L, torch.clamp(alpha, max=1.0), cost.to(torch.float32),
+            torch.zeros_like(alpha), depth)
+
+
+def direct_integrator(scene, params, key, origin, direction):
+    """Trace one tile of (B, 3) rays with the direct integrator: (L,
+    alpha, cost, trunc, depth), float32 (B,) each but L; cost counts the
+    primary walks' steps, depth is the first event's distance (the
+    depth_calculator AOV, render_kernel.cu:1859-1889), trunc is 0.  CUDA
+    tensors launch K5's walk_direct (and K4 after it for an environment
+    that depends on the direction); CPU tensors run the plain loop."""
+    if origin.device.type == "cpu":
+        return direct_integrator_plain(scene, params, key, origin,
+                                       direction)
+    from vpt_tpu_torch.render import walk
+    return walk.walk_direct(scene, params, key, origin, direction)
+
+
+def direct_integrator_plain(scene, params, key, origin, direction):
+    """The reference's direct integrator in torch, lane-masked loop for
+    loop (vpt_tpu/render/integrator.py:102-191): bounce i draws from
+    fold_in(key, i); its v-th volume walk from fold_in(kd, 100 + v) and
+    that walk's HG direction from fold_in(fold_in(kd, 100 + v), 1); the
+    sun, point-light and emission estimates from fold_in(kd, 2 .. 4), the
+    sphere from fold_in(kd, 5).  ``mi`` carries the last active walk's
+    outcome; the HG direction changes before the estimates (QUIRKS #6);
+    emission is not scaled by beta (QUIRKS #5); a walk that leaves the
+    box never re-enters it (QUIRKS #19)."""
+    B, dev = origin.shape[0], origin.device
+    pos, dirn = origin, direction
+    beta = torch.ones((B, 3), dtype=torch.float32, device=dev)
+    L = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    alpha = torch.zeros(B, dtype=torch.float32, device=dev)
+    env_pos = origin
+    depth_aov = torch.zeros(B, dtype=torch.float32, device=dev)
+    cost = torch.zeros(B, dtype=torch.int32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    for depth_i in range(params.ray_depth):
+        if bool(done.all()):
+            break
+        kd = rng.fold_in(key, depth_i)
+        obj, t_min = _closest_object(scene, pos, dirn)
+        in_vol = (obj == 1) & ~done
+        pos_v = torch.where(in_vol[:, None],
+                            pos + dirn * (t_min + EPS)[:, None], pos)
+        mi = torch.zeros(B, dtype=torch.bool, device=dev)
+        for vd in range(params.volume_depth):
+            kv = rng.fold_in(kd, 100 + vd)
+            new_pos, mi_v, val, _, alpha_add, steps = delta_track(
+                scene, params, kv, pos_v, dirn, in_vol)
+            beta = torch.where(in_vol[:, None], beta * val, beta)
+            alpha = alpha + torch.where(in_vol, alpha_add, 0.0)
+            cost = cost + torch.where(in_vol, steps, 0)
+            pos_v = torch.where(in_vol[:, None], new_pos, pos_v)
+            mi = torch.where(in_vol, mi_v, mi)
+            sdir, _ = phase_sample(params, dirn, rng.fold_in(kv, 1))
+            dirn = torch.where((mi_v & in_vol)[:, None], sdir, dirn)
+            in_vol = in_vol & mi_v
+        pos = torch.where(((obj == 1) & ~done)[:, None], pos_v, pos)
+
+        first = depth_i == 0
+        if first:
+            depth_aov = torch.where(mi, length(origin - pos), depth_aov)
+        if bool(mi.any()):
+            sun = estimate_sun(scene, params, rng.fold_in(kd, 2), pos, dirn,
+                               active=mi)
+            L = L + torch.where(mi[:, None], sun * beta, 0.0)
+            if scene.lights.count > 0:
+                pl = estimate_point_lights(scene, params, rng.fold_in(kd, 3),
+                                           pos, dirn, active=mi)
+                L = L + torch.where(mi[:, None], pl * beta, 0.0)
+            if scene.atlas.has_emission:
+                em = estimate_emission(scene, params, rng.fold_in(kd, 4),
+                                       pos, dirn, active=mi)
+                L = L + torch.where(mi[:, None], em, 0.0)
+
+        obj2, t2 = _closest_object(scene, pos, dirn)
+        sph_mask = (obj2 == 2) & ~done
+        if first:
+            depth_aov = torch.where(sph_mask & ~mi, t2, depth_aov)
+        if bool(sph_mask.any()):
+            pos_s, dir_s, beta_s, L = _shade_sphere(
+                scene, params, rng.fold_in(kd, 5), pos + dirn * t2[:, None],
+                dirn, beta, L, sph_mask)
+            m = sph_mask[:, None]
+            pos = torch.where(m, pos_s, pos)
+            dirn = torch.where(m, dir_s, dirn)
+            beta = torch.where(m, beta_s, beta)
+            env_pos = torch.where(m, pos, env_pos)
+        done = done | ((obj == 0) & (obj2 != 2))
+    L = L + environment_radiance(scene, params, env_pos, dirn) * beta
+    return _finish_walk(L, alpha, cost, depth_aov)
 
 
 def defers_environment(scene, params) -> bool:

@@ -115,12 +115,15 @@ def resolve_queue(params: RenderParams, n_rays: int) -> int:
 
 def check_slice(params: RenderParams) -> None:
     """Raise NotImplementedError for every option the port does not
-    render yet — never render something else in its place."""
-    if params.engine != "fused":
-        raise NotImplementedError(f"engine {params.engine!r}: only "
-                                  "'fused' is ported")
-    if params.integrator != int(Integrator.DIRECT):
-        raise NotImplementedError("only the DIRECT integrator is ported")
+    render yet — never render something else in its place.  The renderer
+    takes the fused and the reference engine, each with either
+    integrator (the volumetric one on any engine, as the reference's
+    _engine_fn, vpt_tpu/render/renderer.py:64-93)."""
+    if params.engine not in ("fused", "reference"):
+        raise NotImplementedError(f"engine {params.engine!r}: 'fused' and "
+                                  "'reference' are ported (ROADMAP A.8, "
+                                  "render/march.py)")
+    Integrator(params.integrator)   # ValueError when unknown
     Environment(params.environment_type)   # ValueError when unknown
     if params.jitter != "white":
         raise NotImplementedError(f"jitter {params.jitter!r}: only "
@@ -134,3 +137,21 @@ def check_slice(params: RenderParams) -> None:
         raise ValueError(f"shadow_mode {params.shadow_mode!r}")
     if params.fused_loop_mode not in ("while", "fori"):
         raise ValueError(f"fused_loop_mode {params.fused_loop_mode!r}")
+
+
+def check_fused(params: RenderParams) -> None:
+    """check_slice, and the fused engine's own: the direct integrator on
+    engine 'fused' (the renderer sends the others elsewhere)."""
+    check_slice(params)
+    if params.engine != "fused":
+        raise NotImplementedError(f"engine {params.engine!r}: fused_direct "
+                                  "is the fused engine")
+    if params.integrator != int(Integrator.DIRECT):
+        raise NotImplementedError("fused_direct runs the DIRECT integrator")
+
+
+def walk_engine(params: RenderParams) -> bool:
+    """True when the renderer traces with the reference engine's walks:
+    the volumetric integrator on any engine, or the reference engine."""
+    return (params.integrator == int(Integrator.VOLUMETRIC)
+            or params.engine == "reference")

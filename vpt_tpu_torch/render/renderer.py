@@ -17,6 +17,12 @@ The keys: ``render_key(seed, it)``; jitter from ``fold_in(key, 17)``;
 the camera and trace keys from ``split(key)``; the single tile's key
 ``fold_in(trace_key, 1000)``.
 
+The reference engine and the volumetric integrator (``_trace_walks``)
+trace in the reference's tiles of ``fused_tile`` rays, tile t under
+``fold_in(trace_key, 1000 + t)``: on the card K2 and then kernel K5
+(render/walk.py) over every tile in one launch, K4 after it for the sky,
+HDRI and the atmosphere; on the CPU the plain integrators tile by tile.
+
 On a CUDA scene with cached shadows ``render_rays`` launches K1 (and K4
 after it for HDRI or the simple sky) on its in-kernel-ray route: each
 lane makes its primary ray with K2's code (csrc/raygen.cuh), so the
@@ -41,11 +47,15 @@ from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.vecmath import true_div
 from vpt_tpu_torch.ops import cuda
 from vpt_tpu_torch.render.film import Film, accumulate, to_display
+from vpt_tpu_torch.render import walk
 from vpt_tpu_torch.render.fused import (FusedLaunch, _fused_direct_cuda,
                                         _fused_direct_primary_cuda,
                                         fused_direct, prepare_fused)
-from vpt_tpu_torch.render.params import (RenderParams, check_slice,
-                                         resolve_queue)
+from vpt_tpu_torch.render.integrator import direct_integrator
+from vpt_tpu_torch.render.params import (Integrator, RenderParams,
+                                         check_slice, resolve_queue,
+                                         walk_engine)
+from vpt_tpu_torch.render.vol_integrator import vol_integrator
 
 JITTER_FOLD = 17
 TILE_FOLD = 1000
@@ -173,18 +183,28 @@ def primary_rays(camera, params, key, launch=None):
 
 @dataclass
 class Launches:
-    """The prepared kernel arguments of one (scene, params)."""
+    """The prepared kernel arguments of one (scene, params): K2's, and
+    K1's for the fused engine or K5's for the reference engine's walks."""
 
     raygen: _RaygenParams
-    fused: FusedLaunch
+    fused: FusedLaunch | None = None
+    walk: walk.WalkLaunch | None = None
+
+
+def _volumetric(params) -> bool:
+    return params.integrator == int(Integrator.VOLUMETRIC)
 
 
 def prepare(scene, params) -> Launches | None:
-    """Prepared K1/K2 arguments for a CUDA scene; None on the CPU."""
+    """Prepared K2 and K1 or K5 arguments for a CUDA scene; None on the
+    CPU."""
     if scene.device.type != "cuda":
         return None
-    return Launches(prepare_raygen(scene.camera, params),
-                    prepare_fused(scene, params))
+    raygen = prepare_raygen(scene.camera, params)
+    if walk_engine(params):
+        return Launches(raygen, walk=walk.prepare_walk(scene, params,
+                                                       _volumetric(params)))
+    return Launches(raygen, prepare_fused(scene, params))
 
 
 def tile_key(key):
@@ -220,14 +240,46 @@ def _trace_buffers_cuda(scene, params, key, launches=None):
         frame_queue(params))
 
 
+def _trace_walks(scene, params, key, launches=None):
+    """One sample through the reference engine's walks (the direct or the
+    volumetric integrator) on the primary rays, in the reference's tiles
+    of fused_tile rays (vpt_tpu/render/renderer.py:186-215): tile t
+    draws under fold_in(trace key, 1000 + t).  CUDA: K2, then K5 on every
+    tile in one launch (and K4 after it); CPU: the plain integrator tile
+    by tile."""
+    volumetric = _volumetric(params)
+    trace_key = rng.split(key)[1]
+    if scene.camera.origin.device.type == "cuda":
+        launches = launches or prepare(scene, params)
+        origin, direction = _primary_rays_cuda(scene.camera, params, key,
+                                               launches.raygen)
+        tile = min(params.fused_tile, max(origin.shape[0], 1))
+        run = walk.walk_volumetric if volumetric else walk.walk_direct
+        return run(scene, params, trace_key, origin, direction,
+                   launches.walk, tile)
+    origin, direction = primary_rays(scene.camera, params, key)
+    B = origin.shape[0]
+    tile = min(params.fused_tile, max(B, 1))
+    run = vol_integrator if volumetric else direct_integrator
+    outs = [run(scene, params, rng.fold_in(trace_key, TILE_FOLD + ti),
+                origin[a:a + tile], direction[a:a + tile])
+            for ti, a in enumerate(range(0, B, tile))]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 def render_rays(scene, params, key, launches: Launches | None = None):
     """One full-frame sample: (value (H,W,3), alpha (H,W), aux dict of
-    (H,W) AOVs cost/depth/trunc).  A CUDA scene runs K1 on the ray source
-    of RAYS_IN_KERNEL (and K4 after it for HDRI or the simple sky); a CPU
-    scene the plain primary_rays and fused_direct.  The step budget is
-    the frame's queue length (frame_queue)."""
+    (H,W) AOVs cost/depth/trunc).  The reference engine and the
+    volumetric integrator trace through their walks (_trace_walks); the
+    fused engine on a CUDA scene runs K1 on the ray source of
+    RAYS_IN_KERNEL (and K4 after it for HDRI or the simple sky), on a CPU
+    scene the plain primary_rays and fused_direct.  The fused step budget
+    is the frame's queue length (frame_queue)."""
     H, W = params.height, params.width
-    if scene.camera.origin.device.type == "cuda":
+    if walk_engine(params):
+        L, alpha, cost, unfinished, depth = _trace_walks(scene, params, key,
+                                                         launches)
+    elif scene.camera.origin.device.type == "cuda":
         trace = (_trace_primary_cuda if RAYS_IN_KERNEL[params.shadow_mode]
                  else _trace_buffers_cuda)
         L, alpha, cost, unfinished, depth = trace(scene, params, key,

@@ -1,5 +1,11 @@
-"""The per-step fetches and their helpers (port of
-vpt_tpu/render/tracking.py:46-196, 306-572).
+"""The per-step fetches and their helpers, and the reference engine's
+walks (port of vpt_tpu/render/tracking.py).
+
+The walks (:575-740): ``delta_track`` (free-path sampling at the global
+majorant, jumping guaranteed-empty boxes through ``unified_fetch``),
+``transmittance`` (residual ratio tracking) and ``estimate_emission``
+(the rate-weighted emission line integral), lane-masked loops that draw
+as the reference does; kernel K5 (csrc/walk.cu) runs them per ray.
 
 Single-instance scenes: one corner-row load (float32 or bfloat16 rows,
 read as float32) serves the trilinear density, the banded bound T_box
@@ -28,7 +34,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from vpt_tpu_torch.core.vecmath import (_amax3, _amin3, transform_point,
+from vpt_tpu_torch.core import rng
+from vpt_tpu_torch.core.vecmath import (EPS, _amax3, _amin3, aabb_contains,
+                                        aabb_intersect, transform_point,
                                         true_div)
 from vpt_tpu_torch.scene.geometry import _sphere_roots
 from vpt_tpu_torch.volume.grid import unified_layout
@@ -96,6 +104,14 @@ def _sphere_block(scene, pos, direction):
     return hit, torch.where(hit, tmin, 3.4e38)
 
 
+def _rows_index(atlas, flat):
+    """Corner-row indices kept in the table: a no-op for finite points,
+    whose indices are in range; a lane at a non-finite point (a masked
+    lane whose walk went to 1e30, the reference's gather reads NaN
+    there) reads row 0 instead of failing."""
+    return torch.clamp(flat, 0, atlas.density_corners.shape[0] - 1)
+
+
 def _row_norm_coords(row, pos):
     """Instance row (Instances.packed_rows) -> trilinear coordinates at
     world ``pos``: (i0 (..., 3) int64, frac, dim (..., 3) int64,
@@ -118,7 +134,7 @@ def _density_from_row(atlas, row, pos):
     i0, frac, dim, inb = _row_norm_coords(row, pos)
     flat = row[..., 18].to(torch.int64) + (
         i0[..., 2] * dim[..., 1] + i0[..., 1]) * dim[..., 0] + i0[..., 0]
-    rows = atlas.density_corners[flat]
+    rows = atlas.density_corners[_rows_index(atlas, flat)]
     return torch.where(inb, _wsum8(rows[..., :8], _trilerp_weights(frac)),
                        0.0)
 
@@ -129,7 +145,8 @@ def _grid_cols(atlas, row, pos, col, width):
     i0, frac, dim, inb = _row_norm_coords(row, pos)
     flat = row[..., 18].to(torch.int64) + (
         i0[..., 2] * dim[..., 1] + i0[..., 1]) * dim[..., 0] + i0[..., 0]
-    return (atlas.density_corners[flat][..., col:col + width],
+    return (atlas.density_corners[_rows_index(atlas, flat)][
+        ..., col:col + width],
             _trilerp_weights(frac), inb)
 
 
@@ -348,7 +365,7 @@ def _unified_fetch_single(scene, params, pos, direction,
     i0 = i0f.to(torch.int64)
     dim = [int(v) for v in dimf.tolist()]
     flat = off + (i0[..., 2] * dim[1] + i0[..., 1]) * dim[0] + i0[..., 0]
-    rows = scene.atlas.density_corners[flat].float()
+    rows = scene.atlas.density_corners[_rows_index(scene.atlas, flat)].float()
     w8 = _trilerp_weights(frac)
     density = torch.where(inb, _wsum8(rows[..., :8], w8), 0.0)
 
@@ -413,3 +430,179 @@ def unified_fetch_full(scene, params, pos, direction, with_tau=False):
     """The fused engine's one-load-per-step fetch."""
     return _unified_fetch_single(scene, params, pos, direction,
                                  with_tau=with_tau, banded=True, full=True)
+
+
+# ---------------------------------------------------------------------------
+# the reference engine's walks (vpt_tpu/render/tracking.py:575-740)
+# ---------------------------------------------------------------------------
+
+def unified_fetch(scene, params, pos, direction):
+    """(density, skip_dt) at world ``pos``: skip_dt > 0 only where the
+    region ahead is guaranteed empty, the distance the walk may jump
+    (vpt_tpu/render/tracking.py:306-375, not banded).  A single grid reads
+    its corner row; an instanced scene sums its instances and asks the
+    majorant grid's packed row for the empty box."""
+    if scene.instances.count == 1 and not _use_cells(scene):
+        return _unified_fetch_single(scene, params, pos, direction)
+    density = scene_density(scene, pos)
+    if scene.majorant is None:
+        return density, torch.zeros_like(density)
+    from vpt_tpu_torch.accel.majorant import empty_skip_t
+    empty, t_exit = empty_skip_t(scene.majorant, scene.root_pmin,
+                                 scene.root_pmax, pos, direction)
+    return density, torch.where(empty & (density <= 0.0) & (t_exit > 0.0),
+                                t_exit + 1e-3, 0.0)
+
+
+def _over(x: float, t):
+    """x / t as one float32 division (a Python number over a tensor is
+    reciprocal(t) * x in torch, rounded twice)."""
+    return torch.tensor(x, dtype=torch.float32, device=t.device) / t
+
+
+def _free_flight(u, rate_inv):
+    """-log1p(-u) * rate_inv: the exponential step, in the reference's
+    form (log1p, not log(1 - u), so a rare accept does not flip)."""
+    return -torch.log1p(-u) * rate_inv
+
+
+def delta_track(scene, params, key, pos, direction, active):
+    """Free-path sampling (``sample``, render_kernel.cu:1556-1681) for
+    (B, 3) rays at or inside the root box, step ``s`` drawing
+    uniform(fold_in(key, s), (B, 2)); at most max_track_steps steps.
+
+    Returns (new_pos, interaction, value, hit_sphere, alpha_add, steps):
+    ``value`` is WHITE on an exit without interaction, albedo * Cd * LUT
+    / extinction * energy_inject at a collision (render_kernel.cu:1674).
+    A walk cut by the step budget returns the point it reached, with
+    value WHITE (vpt_tpu/render/tracking.py:575-637)."""
+    B, dev = pos.shape[0], pos.device
+    sigma_max = scene.max_extinction * params.density_mult
+    inv_rate = 1.0 / torch.clamp(sigma_max, min=1e-12)
+    _, _, t_box = aabb_intersect(scene.root_pmin, scene.root_pmax, pos,
+                                 direction)
+    sph_hit, t_sph = _sphere_block(scene, pos, direction)
+    sphere_limited = sph_hit & (t_sph < t_box)
+    distance = torch.where(sphere_limited, t_sph, t_box)
+
+    _, skip = unified_fetch(scene, params, pos, direction)
+    t = torch.zeros(B, dtype=torch.float32, device=dev)
+    cur = active.clone()
+    interaction = torch.zeros(B, dtype=torch.bool, device=dev)
+    alpha_add = torch.zeros(B, dtype=torch.float32, device=dev)
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    for step in range(params.max_track_steps):
+        if not bool(cur.any()):
+            break
+        u = rng.uniform(rng.fold_in(key, step), (B, 2), dev)
+        do_skip = cur & (skip > 0.0)
+        dt = torch.where(do_skip, skip, _free_flight(u[:, 0], inv_rate))
+        t_new = torch.where(cur, t + dt, t)
+        exited = cur & (t_new >= distance)
+        d_new, skip = unified_fetch(scene, params,
+                                    pos + direction * t_new[:, None],
+                                    direction)
+        sampled = cur & ~do_skip & ~exited
+        alpha_add = alpha_add + torch.where(sampled, d_new, 0.0)
+        accept = sampled & (d_new / scene.max_extinction > u[:, 1])
+        interaction = interaction | accept
+        cur = cur & ~exited & ~accept
+        steps = steps + cur.to(torch.int32)
+        t = t_new
+
+    new_pos = pos + direction * t[:, None]
+    hit_sphere = active & sphere_limited & ~interaction
+    value = torch.ones((B, 3), dtype=torch.float32, device=dev)
+    if bool(interaction.any()):
+        lut = density_color_lut(scene, params, scene_density(scene, new_pos))
+        coll = (vec3_param(params.albedo, dev) * scene_color(scene, new_pos)
+                * lut / vec3_param(params.extinction, dev)
+                ) * params.energy_inject
+        value = torch.where(interaction[:, None], coll, value)
+    return new_pos, interaction, value, hit_sphere, alpha_add, steps
+
+
+def transmittance(scene, params, key, pos, direction, active=None):
+    """Residual ratio tracking (``Tr``, render_kernel.cu:1138-1273): the
+    control variate sigma_c = the scene's min extinction, T_c =
+    exp(-sigma_c distance); a start outside the box is pushed to it, a
+    ray that misses it has Tr 1, one that meets the sphere 0 (QUIRKS #7);
+    step ``s`` draws uniform(fold_in(key, s), (B,))
+    (vpt_tpu/render/tracking.py:640-693).  Lanes outside ``active`` (all
+    by default) take no step: their Tr is the caller's to ignore."""
+    B, dev = pos.shape[0], pos.device
+    root_min, root_max = scene.root_pmin, scene.root_pmax
+    hit, t_entry, _ = aabb_intersect(root_min, root_max, pos, direction)
+    inside = aabb_contains(root_min, root_max, pos)
+    miss = ~inside & ~hit
+    start = torch.where((~inside & hit)[:, None],
+                        pos + direction * (t_entry + EPS)[:, None], pos)
+    _, _, distance = aabb_intersect(root_min, root_max, start, direction)
+    distance = torch.clamp(distance, min=0.0)
+    sph_hit, _ = _sphere_block(scene, start, direction)
+
+    sigma_c = scene.min_extinction
+    sigma_r = torch.clamp(scene.max_extinction - sigma_c, min=1e-12)
+    rate_inv = _over(params.tr_depth, sigma_r)
+    t_c = torch.exp(-sigma_c * distance)
+
+    _, skip = unified_fetch(scene, params, start, direction)
+    t = torch.zeros(B, dtype=torch.float32, device=dev)
+    tr = torch.ones(B, dtype=torch.float32, device=dev)
+    cur = ~miss & ~sph_hit
+    if active is not None:
+        cur = cur & active
+    for step in range(params.max_track_steps):
+        if not bool(cur.any()):
+            break
+        u = rng.uniform(rng.fold_in(key, step), (B,), dev)
+        do_skip = cur & (skip > 0.0)
+        dt = torch.where(do_skip, skip, _free_flight(u, rate_inv))
+        t_new = torch.where(cur, t + dt, t)
+        exited = cur & (t_new >= distance)
+        d_new, skip = unified_fetch(scene, params,
+                                    start + direction * t_new[:, None],
+                                    direction)
+        sampled = cur & ~do_skip & ~exited
+        tr = torch.where(sampled, tr * (1.0 - (d_new - sigma_c) / sigma_r),
+                         tr)
+        cur = cur & ~exited & (torch.abs(tr) >= EPS)
+        t = t_new
+    tr = torch.clamp(tr * t_c, 0.0, 1.0)
+    tr = torch.where(miss, 1.0, tr)
+    return torch.where(sph_hit, 0.0, tr)
+
+
+def estimate_emission(scene, params, key, pos, direction, active=None,
+                      max_extinction=None):
+    """The rate-weighted emission line integral (render_kernel.cu:
+    1275-1339, QUIRKS #21): a walk at the ratio-tracking rate
+    tr_depth / (sigma * extinction.x) that sums scene_emission at every
+    sampled point, with no empty-space jumps (emission may lie where the
+    density is 0); ``max_extinction`` overrides sigma, the scene's max
+    extinction (vpt_tpu/render/tracking.py:696-740)."""
+    B, dev = pos.shape[0], pos.device
+    emission = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    if not scene.atlas.has_emission:
+        return emission
+    sig = scene.max_extinction if max_extinction is None else max_extinction
+    ext_x = vec3_param(params.extinction, dev)[0]
+    rate_inv = _over(params.tr_depth, torch.clamp(sig * ext_x, min=1e-12))
+    _, _, distance = aabb_intersect(scene.root_pmin, scene.root_pmax, pos,
+                                    direction)
+    distance = torch.clamp(distance, min=0.0)
+    cur = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
+           else active.clone())
+    t = torch.zeros(B, dtype=torch.float32, device=dev)
+    for step in range(params.max_track_steps):
+        if not bool(cur.any()):
+            break
+        u = rng.uniform(rng.fold_in(key, step), (B,), dev)
+        t_new = torch.where(cur, t + _free_flight(u, rate_inv), t)
+        exited = cur & (t_new >= distance)
+        sampled = cur & ~exited
+        e = scene_emission(scene, pos + direction * t_new[:, None], params)
+        emission = emission + torch.where(sampled[:, None], e, 0.0)
+        cur = sampled
+        t = t_new
+    return emission

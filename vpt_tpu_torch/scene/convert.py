@@ -11,8 +11,8 @@ either way.  An instanced scene carries its majorant grid
 (``"majorant.packed"``, and ``"majorant.cell_rows"`` ... where it has
 cell lists) and its world tau grid (``"world_tau"``); a single
 instance's majorant grid is dropped, since its walk never reads it.
-The environment CDF is not carried: the fused
-engine never reads it.  A Bruneton atmosphere is carried as its model
+The environment CDF is carried as its tables
+(``"env_cdf.func"`` ...).  A Bruneton atmosphere is carried as its model
 (``"atmosphere.params.*"``), its LUTs (``"atmosphere.luts.*"``) and its
 dims (``"atmosphere.dims.*"``); the reference's corner-packed LUTs
 (``"atmosphere.packed.*"``) are dropped, the port reads the plain ones.
@@ -102,6 +102,11 @@ def scene_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> Scene:
         parts["env_map"] = _tensor(
             np.ascontiguousarray(np.asarray(arrays["env_map"])[..., 0:3]),
             device)
+    if "env_cdf.cdf" in arrays:
+        from vpt_tpu_torch.sky.cdf import EnvCDF
+        parts["env_cdf"] = EnvCDF(**{
+            f.name: _tensor(arrays[f"env_cdf.{f.name}"], device)
+            for f in dataclasses.fields(EnvCDF)})
     if "atmosphere.luts.transmittance" in arrays:
         parts["atmosphere"] = _atmosphere_from_arrays(arrays, device)
     if "sky_cache" in arrays:
@@ -160,6 +165,10 @@ def scene_to_arrays(scene: Scene) -> dict:
                 out[f"majorant.{f.name}"] = v.cpu().numpy()
     if scene.world_tau is not None:
         out["world_tau"] = scene.world_tau.cpu().numpy()
+    if scene.env_cdf is not None:
+        for f in dataclasses.fields(scene.env_cdf):
+            out[f"env_cdf.{f.name}"] = getattr(scene.env_cdf,
+                                               f.name).cpu().numpy()
     if scene.atmosphere is not None:
         atm = scene.atmosphere
         for group in ("params", "luts", "dims"):

@@ -93,6 +93,9 @@ class Scene:
     # (H, W, 6) equirect cache
     atmosphere: Optional[object] = None
     sky_cache: Optional[torch.Tensor] = None
+    # the environment's importance CDF (sky/cdf.py::EnvCDF), read by the
+    # sky's next-event estimate of the reference and volumetric engines
+    env_cdf: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
@@ -241,18 +244,36 @@ def build_scene(host_grids: list[HostGrid],
         majorant=majorant)
 
 
-def attach_env_map(scene: Scene, env_map) -> Scene:
+def attach_env_map(scene: Scene, env_map, importance_sample: bool = True,
+                   full_res_cdf: bool = False) -> Scene:
     """Attach an equirect HDR environment, (H, W, 3), on the scene's
-    device (create_environment, main.cpp:945-978).  The reference also
-    builds the map's importance CDF here; only its sky NEE
-    (``estimate_sky``, reference and volumetric engines) reads it, so
-    the port builds none until those engines come (ROADMAP A.8)."""
-    env = torch.as_tensor(np.asarray(env_map, np.float32),
-                          device=scene.device)
+    device (create_environment, main.cpp:945-978), and with
+    ``importance_sample`` its importance CDF (sky/cdf.py), built on the
+    host at the reference's 180^2 resample, or at the map's own
+    resolution with ``full_res_cdf`` (vpt_tpu/scene/scene.py:310-327).
+    Only the sky's next-event estimate reads the CDF."""
+    env = torch.as_tensor(np.asarray(env_map, np.float32))
     if env.dim() != 3 or env.shape[2] != 3:
         raise ValueError(f"env_map: shape {tuple(env.shape)}, expected "
                          "(H, W, 3)")
-    return dataclasses.replace(scene, env_map=env.contiguous())
+    cdf = None
+    if importance_sample:
+        from vpt_tpu_torch.sky.cdf import CDF_RES, build_envmap_cdf
+        cdf = build_envmap_cdf(env, res=None if full_res_cdf
+                               else CDF_RES).to(scene.device)
+    return dataclasses.replace(scene, env_map=env.to(scene.device)
+                               .contiguous(), env_cdf=cdf)
+
+
+def attach_sky_cdf(scene: Scene, azimuth=150.0, elevation=30.0,
+                   sky_color=(1.0, 1.0, 1.0)) -> Scene:
+    """The simple sky's importance CDF for this sun (sky/cdf.py::
+    build_sky_cdf, built on the host), which the sky's next-event
+    estimate then samples under ATMOSPHERE; rebuild it when the sun
+    moves, as the reference does (main.cpp:1702-1705)."""
+    from vpt_tpu_torch.sky.cdf import build_sky_cdf
+    cdf = build_sky_cdf(azimuth, elevation, sky_color, device="cpu")
+    return dataclasses.replace(scene, env_cdf=cdf.to(scene.device))
 
 
 def attach_atmosphere(scene: Scene, atmosphere=None, cache_path=None,
