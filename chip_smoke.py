@@ -213,7 +213,14 @@ Phases, one JSON line each:
                hdri_importance (the CDF strategy) at 512x512; ms/spp,
                steps and bounces per ray; K5 against vol_integrator_plain
                at 256x256, ray_depth 8, on the sky, on the HDRI through
-               the CDF and on the EXT puff, by phase 6's rule;
+               the CDF, on the EXT puff and on the main scene with its
+               point light (all three NEE kinds), by phase 6's rule
+               and bit for bit; the main scene with its point light at
+               512x512 (NEE's point-light kind); every stage kernel of
+               the wavefront and the key table launched, each timed by
+               the profiler per K5 launch with its walk steps, queue
+               lengths by bounce and bound; the key table against
+               key_table_plain at 1080p, bit for bit;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -230,7 +237,8 @@ Phases, one JSON line each:
                beside event time, and the wrapper's parts by the host
                clock.
 Then the nvidia-smi line, the kernels' JSON line (K5's walk_direct and
-walk_volumetric at 1080p with their parity cases and bounces per ray;
+walk_volumetric at 1080p with their parity cases and bounces per ray,
+K5's key table and the wavefront's stage kernels;
 K1 on both routes, its
 EXT variant at 1080p on the emissive grid with config 2 beside, its
 _bf16 instances on config 2 as the bench builds it with bigvol beside,
@@ -558,7 +566,7 @@ def main():
                integrator.ENVIRONMENT_SKY_CACHE, fused.FUSED_DIRECT_BF16,
                fused.FUSED_DIRECT_OCTANT, fused.FUSED_DIRECT_LOOP,
                fused.FUSED_DIRECT_CELLS_EXT, walk.WALK_DIRECT,
-               walk.WALK_VOLUMETRIC]
+               walk.WALK_VOLUMETRIC, walk.WALK_KEYS, *walk.STAGE_KERNELS]
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -1884,6 +1892,24 @@ def main():
     timing[walk.WALK_VOLUMETRIC.name] = (
         vol_res["k5_alone_sky"]["ms"], vol_res["parity"]["sky"]["plain_ms"])
     bounds[walk.WALK_VOLUMETRIC.name] = vol_res["k5_alone_sky"]["bound"]
+    # K5's own kernels: the key table on both integrators' paths, the
+    # wavefront's stages on the volumetric phase's renders (the CLI's, the
+    # c3 map's and the point light's), each counted from 0 just before
+    # its render; a stage's time and bound per K5 launch at 1080p, its
+    # outputs held through walk_volumetric's parity cases
+    vol_paths = ("cli", "hdri_cdf", "point")
+    for k_ in (walk.WALK_KEYS, *walk.STAGE_KERNELS):
+        launches[k_.name] = sum(vol_res[n_]["launches"][k_.name]
+                                for n_ in vol_paths)
+        if k_ is walk.WALK_KEYS:
+            launches[k_.name] += ref_res["render"]["launches"][k_.name]
+        if launches[k_.name] <= 0:
+            raise RuntimeError(f"{k_.name} never launched on K5's paths")
+        split = vol_res["k5_alone_sky"]["kernels"][k_.name]
+        timing[k_.name] = (split["ms"], vol_res["keys"]["plain_ms"]
+                           if k_ is walk.WALK_KEYS
+                           else vol_res["parity"]["sky"]["plain_ms"])
+        bounds[k_.name] = split["bound"]
 
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
@@ -2051,6 +2077,9 @@ def main():
     for k_, res_ in ((walk.WALK_DIRECT, ref_res),
                      (walk.WALK_VOLUMETRIC, vol_res)):
         errs[k_.name] = max(m["max_abs"] for m in res_["parity"].values())
+    for k_ in walk.STAGE_KERNELS:
+        errs[k_.name] = errs[walk.WALK_VOLUMETRIC.name]
+    errs[walk.WALK_KEYS.name] = vol_res["keys"]["max_abs"]
     errs.update(fused_direct_cells=at_c5["max_abs"],
                 fused_direct_ext=at_size["max_abs"],
                 fused_direct=k1_1080["cached"]["max_abs"],
@@ -2304,16 +2333,20 @@ def main():
              f"{time_walk.RAY_DEPTH}, one sample's rays")):
         by_name[k_.name].update(
             shape=shape,
-            design="one thread a ray, the whole walk in registers (the "
-                   "bounce loop, delta tracking with its empty-box jumps, "
-                   "the residual-ratio shadow walks, the emission walk and "
-                   "the next-event estimates; the sky's MIS with the map's "
-                   "taps, the simple sky's march and the CDF's binary "
-                   "searches); every draw computed from its counter under "
-                   "its tile's key; density-only and EXT instances; K4 "
-                   "after it for the sky, HDRI and the atmosphere",
+            design=(("persistent warps: a lane runs one bounce of its ray "
+                     "a turn and takes the next ray from a counter when "
+                     "its own ends" if k_ is walk.WALK_DIRECT else
+                     "a wavefront of stage kernels over compacted path "
+                     "queues, per bounce: the keys, EXTEND, one NEE kernel "
+                     "per light kind, SCATTER; the path state in device "
+                     "buffers, queue lengths on the card, persistent "
+                     "blocks") + "; the tile's keys (bounce, walk and step "
+                    "keys) read from the per-tile key table, each draw "
+                    "computed in the thread from its counter; "
+                    "density-only and EXT instances; K4 after it for the "
+                    "sky, HDRI and the atmosphere"),
             tolerance=f"share of rays agreeing >= {MIN_SHARE}, image means "
-                      f"within {MAX_MEAN_REL}",
+                      f"within {MAX_MEAN_REL}, and every ray bit for bit",
             parity={n_: {f: m[f] for f in ("share", "bit_share",
                                             "mean_rel", "max_abs",
                                             "plain_ms", "kernel_ms")}
@@ -2324,7 +2357,26 @@ def main():
             sky_evals_per_ray=alone["sky_evals_per_ray"],
             launch_info=res_["launch_info"],
             library_ms_note="none exists")
+    for k_ in (walk.WALK_KEYS, *walk.STAGE_KERNELS):
+        alone = vol_res["k5_alone_sky"]
+        by_name[k_.name].update(
+            shape=f"{W}x{H}, the CLI's procedural scene, the simple sky, "
+                  f"ray_depth {time_walk.RAY_DEPTH}; ms and bound per K5 "
+                  "launch",
+            launches_per_k5=alone["kernels"][k_.name]["launches"],
+            walk_steps=alone["kernels"][k_.name]["steps"],
+            point_light_512=vol_res["point"]["k5_alone"]["kernels"].get(
+                k_.name),
+            launch_info=vol_res["launch_info"]["ext0"][
+                walk.STAGES[walk.LAUNCH_KINDS.index(k_)]],
+            plain_note=("key_table_plain at 1080p on the card, the table "
+                        "bit for bit" if k_ is walk.WALK_KEYS else
+                        "no plain version of its own: held through "
+                        "walk_volumetric's parity cases; plain_ms is "
+                        "vol_integrator_plain's"),
+            library_ms_note="none exists")
     by_name[walk.WALK_VOLUMETRIC.name].update(
+        queues=vol_res["k5_alone_sky"]["queues"],
         hdri_cdf_512=dict(ms=vol_res["hdri_cdf"]["k5_alone"]["ms"],
                           bound_ms=vol_res["hdri_cdf"]["k5_alone"]["bound"][0],
                           bound_by=vol_res["hdri_cdf"]["k5_alone"]["bound"][1],

@@ -927,7 +927,8 @@ def _c_fields(source, struct):
     ("environment.cu", "AtmParams", _AtmParams),
     ("walk.cu", "WalkParams", walk._WalkParams),
     ("walk.cu", "WalkEnv", _EnvParams),
-    ("walk.cu", "WalkTables", walk._WalkTables)])
+    ("walk.cu", "WalkTables", walk._WalkTables),
+    ("walk.cu", "WalkWork", walk._WalkWork)])
 def test_ctypes_mirrors_match_c_structs(source, struct, mirror):
     """The ctypes launch structs list the C structs' fields in order."""
     assert _c_fields(source, struct) == [f[0] for f in mirror._fields_]
@@ -1377,4 +1378,139 @@ def test_k5_launch_info(cuda_device):
     for volumetric in (False, True):
         for ext in (False, True):
             info = walk.launch_info(volumetric, ext)
+            assert info["threads"] == 128 and info["blocks_per_sm"] >= 1
+
+
+def _k5_plain_tiles(s, p, volumetric, key, o, d, tile):
+    """The plain integrator over the launch's tiles (tile 0: one tile
+    under ``key``), concatenated."""
+    from vpt_tpu_torch.render.integrator import direct_integrator_plain
+    from vpt_tpu_torch.render.vol_integrator import vol_integrator_plain
+    plain = vol_integrator_plain if volumetric else direct_integrator_plain
+    if tile == 0:
+        return plain(s, p, key, o, d)
+    return [torch.cat(parts) for parts in zip(*(
+        plain(s, p, rng.fold_in(key, 1000 + t), o[a:a + tile], d[a:a + tile])
+        for t, a in enumerate(range(0, o.shape[0], tile))))]
+
+
+def _assert_bits(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+
+
+def _k5_rays(s, w, h, key, **kw):
+    p = RenderParams(width=w, height=h, ray_depth=6, max_track_steps=128,
+                     phase_g1=0.3, **kw)
+    o, d = renderer._primary_rays_cuda(s.camera, p, key)
+    return p, o, d
+
+
+# (B = w * h, tile): B not a multiple of 128 in one tile, B below one
+# tile, several tiles with a ragged last one
+K5_SHAPES = {"one_tile": (37, 29, 0), "below_tile": (37, 29, 2000),
+             "ragged_tiles": (37, 29, 400)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(K5_SHAPES))
+@pytest.mark.parametrize("volumetric", [False, True])
+def test_k5_bit_for_bit_shapes(cuda_device, volumetric, shape):
+    """K5's new schedules write the plain version's bits at any B and
+    tiling: the tile and the index in it come from the ray index, never
+    from a queue slot."""
+    w, h, tile = K5_SHAPES[shape]
+    s = _k5_scene(cuda_device, "sky", False)
+    key = rng.render_key(3, 1)
+    p, o, d = _k5_rays(s, w, h, key, environment_type=0)
+    run = walk.walk_volumetric if volumetric else walk.walk_direct
+    got = run(s, p, key, o, d, tile=tile)
+    _assert_bits(got, _k5_plain_tiles(s, p, volumetric, key, o, d, tile))
+    assert float(got[0].mean()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_miss", "ray_depth_1", "ext",
+                                  "repeat"])
+@pytest.mark.parametrize("volumetric", [False, True])
+def test_k5_bit_for_bit_cases(cuda_device, volumetric, case):
+    """Every ray missing the box (every queue empty), ray_depth 1, EXT
+    with emission and color, and two launches giving the same bits."""
+    ext = case == "ext"
+    s = _k5_scene(cuda_device, "constant", ext)
+    key = rng.render_key(5, 2)
+    kw = dict(environment_type=3, sky_mult=0.5)
+    if ext:
+        kw.update(volume_depth=2, emission_scale=2.0)
+    p, o, d = _k5_rays(s, 40, 30, key, **kw)
+    if case == "all_miss":
+        d = -d
+    if case == "ray_depth_1":
+        p = p.replace(ray_depth=1)
+    run = walk.walk_volumetric if volumetric else walk.walk_direct
+    launch = walk.prepare_walk(s, p, volumetric)
+    got = run(s, p, key, o, d, launch=launch, tile=500)
+    _assert_bits(got, _k5_plain_tiles(s, p, volumetric, key, o, d, 500))
+    if case == "repeat":
+        _assert_bits(run(s, p, key, o, d, launch=launch, tile=500), got)
+    if case == "all_miss":
+        assert float(got[2].abs().sum()) == 0.0
+        if volumetric:
+            q = walk.queue_lengths(launch)
+            assert sum(q["scatter"]) == 0 and sum(q["live"][1:]) == 0
+
+
+@pytest.mark.cuda
+def test_k5_volumetric_all_nee_kinds(cuda_device):
+    """A launch whose paths take the sun, the point lights and the sky
+    (the three kinds of its NEE kernel), bit for bit, each stage kernel
+    counted once a bounce."""
+    s = _k5_scene(cuda_device, "sky_cdf", False)
+    key = rng.render_key(7, 0)
+    p, o, d = _k5_rays(s, 40, 32, key, environment_type=0)
+    launch = walk.prepare_walk(s, p, True)
+    kernels = walk.LAUNCH_KINDS
+    before = [k.launches for k in kernels]
+    got = walk.walk_volumetric(s, p, key, o, d, launch=launch, tile=512)
+    q = walk.queue_lengths(launch)
+    assert min(sum(q["sun"]), sum(q["point"]), sum(q["sky"])) > 0
+    _assert_bits(got, _k5_plain_tiles(s, p, True, key, o, d, 512))
+    added = dict(zip(walk.STAGES, (k.launches - b
+                                   for k, b in zip(kernels, before))))
+    assert added == dict(keys=p.ray_depth, direct=0, extend=p.ray_depth,
+                         nee=p.ray_depth, scatter=p.ray_depth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True])
+@pytest.mark.parametrize("env", ["sky", "hdri_cdf"])
+def test_k5_key_table_matches_plain(cuda_device, volumetric, env):
+    """walk_keys_kernel's table equals key_table_plain bit for bit (three
+    tiles, two bounces), with two HG lobes and two point lights."""
+    s = _k5_scene(cuda_device, env, False)
+    s = dataclasses.replace(s, lights=PointLights.make(
+        [[2.0, 3.0, 4.0], [-2.0, 3.0, 1.0]], [[1, 1, 1], [1, 0.5, 0.5]],
+        [30.0, 10.0], device=cuda_device))
+    p = RenderParams(width=16, height=16, ray_depth=3, max_track_steps=40,
+                     use_double_hg=True, phase_g2=-0.2, phase_f=0.7,
+                     **K5_ENVS[env])
+    launch = walk.prepare_walk(s, p, volumetric)
+    key = rng.render_key(11, 4)
+    layout = walk.launch_layout(launch)
+    for d0 in (0, 1):
+        got = walk.key_table(launch, key, 700, 256, d0)
+        want = walk.key_table_plain(layout, key, 3, 256, d0,
+                                    got.shape[1], cuda_device)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k5_stage_launch_info(cuda_device):
+    """Registers, local bytes and resident blocks of every K5 kernel: the
+    stage kernels at 8 blocks of 128 an SM or more where the compiler
+    allows it (PERF.md records them)."""
+    for stage in walk.STAGES:
+        for ext in (False, True):
+            info = walk.launch_info(stage != "direct", ext, stage)
             assert info["threads"] == 128 and info["blocks_per_sm"] >= 1

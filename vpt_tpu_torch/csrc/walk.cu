@@ -1,6 +1,5 @@
 // K5 — the reference engine's walks on the card: the direct integrator
-// (walk_direct) and the volumetric integrator (walk_volumetric), one
-// thread a ray, the whole walk in registers.
+// (walk_direct) and the volumetric integrator (walk_volumetric).
 //
 // Replaces: vpt_tpu/render/integrator.py::direct_integrator (:102) and
 // vpt_tpu/render/vol_integrator.py::vol_integrator (:46), with the walks
@@ -21,32 +20,60 @@
 // each of its ray's draws from its counter (vpt_common.cuh's threefry).
 // tile 0: the launch is one tile under `key` itself.  The loops of the
 // plain version stop when every lane is done, which changes no live
-// ray's draws, so a ray here stops when it is done.
+// ray's draws, so a ray here stops when it is done, and any schedule of
+// the rays writes the same bits.
 //
 // The terminal environment: BLACK and CONSTANT are added here; for the
 // simple sky, HDRI with a map and the Bruneton atmosphere each ray's beta
 // and direction (and for the live atmosphere its env_pos) go beside its
-// outputs to K4 (csrc/environment.cu), launched after this kernel, as
-// after K1.  The volumetric integrator's sky next-event estimate reads
-// the environment toward any direction here: BLACK, CONSTANT, HDRI (the
-// map's bilinear taps; uniform sphere, or the CDF's two binary searches
-// with hdri_importance) and the simple sky (its 16 x 8 march; with or
-// without the sky CDF), the sky and the map copied from environment.cu's
-// device code, which is left as it is.
+// outputs to K4 (csrc/environment.cu), launched after K5, as after K1.
+// The volumetric integrator's sky next-event estimate reads the
+// environment toward any direction here: BLACK, CONSTANT, HDRI (the map's
+// bilinear taps; uniform sphere, or the CDF's two binary searches with
+// hdri_importance) and the simple sky (its 16 x 8 march; with or without
+// the sky CDF), the sky and the map copied from environment.cu's device
+// code, which is left as it is.
 //
 // Scope: single-grid scenes in float32 corner rows without the octant
 // columns; EXT (a template argument) for an emission or a color channel
 // or volume_depth > 1.  The wrapper (render/walk.py) refuses the rest
 // before any launch.
 //
-// What bounds it: as K1, each walk step is one dependent load of a corner
-// row at a data-dependent address; the threefry draws (a step key and one
-// or two draws a step) are issued in the thread; the rays of a warp take
-// different numbers of steps and bounces.  A simple kernel that is right:
-// no persistent warps, no sorting by phase.  Measured on the H100
-// (PERF.md): walk_direct 20x its bound at 1080p, walk_volumetric 251x,
-// where with albedo 1 a ray scatters up to ray_depth times and one thread
-// a ray holds its warp for the warp's longest ray (warp efficiency 0.30).
+// What bounds it: each walk step is one dependent load of a corner row
+// at a data-dependent address, and its draws are threefry hashes issued
+// in the thread; the rays take different numbers of steps, walks and
+// bounces.  The design, for the H100:
+// - per-tile keys: every key above a ray's element index is the same for
+//   all the rays of a tile: the bounce key fold_in(tile key, depth), the
+//   walks' and the estimates' subkeys, and each walk's step keys
+//   fold_in(walk key, s).  walk_keys_kernel computes them once per tile
+//   and bounce into a table (a slab per tile and bounce, slot_key's
+//   layout); a ray reads its tile's slab, and only a step past
+//   key_steps, or a bounce the table does not hold, folds its key in the
+//   thread.  A walk step hashes twice where it hashed three times, a
+//   shadow step once where twice; uniform_at(key, element) stays in the
+//   thread: it is the ray's own draw.
+// - walk_direct: persistent warps (SMs x resident blocks).  A lane runs
+//   one bounce of its ray per turn; a lane whose ray ended takes the next
+//   ray from a global counter (K1's refill, a bounce at a time), so no
+//   lane waits for its warp's longest ray.
+// - walk_volumetric: a wavefront of stage kernels over compacted path
+//   queues.  The path state (PathState, 64 B a ray) and the queues live
+//   in device buffers the wrapper allocates once per launch size; per
+//   bounce d the host issues, with no round trip: walk_keys (the bounce's
+//   slabs), EXTEND (delta_track on the live queue, the breaks, the
+//   one-light pick; a path that ends writes its outputs), one NEE kernel
+//   per light kind on the paths that picked it (sun, point lights, sky:
+//   each warp runs one kind), and SCATTER (the emission walk on EXT, the
+//   phase sample, the survivors pushed into bounce d + 1's queue).  Queue
+//   lengths stay on the card; a stage whose queue is empty returns at
+//   once.  Each stage's blocks are persistent and take 32 paths at a time
+//   from a counter; a queue is filled by warp-aggregated atomics, so a
+//   path's slot in it is not its ray index: its tile and its index in the
+//   tile come from its ray index.  The order in which L sums is kept: a
+//   bounce's L + beta * (ld * 3) (NEE, or EXTEND for a kind with nothing
+//   to estimate) before SCATTER's + emission.
+// The measurements are in PERF.md (§6, PR 15).
 
 #include "vpt_common.cuh"
 
@@ -55,6 +82,7 @@ using namespace vpt;
 namespace {
 
 constexpr int THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t TILE_FOLD = 1000u;
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_SQ_F = 19.739208802178716f;   // 2 pi^2
@@ -62,6 +90,72 @@ constexpr float INV_4_PI_F = 0.0795774715459476678f;  // isotropic()
 constexpr int N_SAMPLES = 16, N_SAMPLES_LIGHT = 8;
 // the sky next-event estimate's environment (WalkParams::nee_env)
 constexpr int NEE_BLACK = 0, NEE_CONSTANT = 1, NEE_HDRI = 2, NEE_SKY = 3;
+
+// The slab of one tile at one bounce (render/walk.py::key_layout mirrors
+// it): key_scalars keys, then key_walks blocks of key_steps step keys, the
+// j-th block fold_in(the key of walk_slot(j), s) for s < key_steps.
+// walk_volumetric, kd = fold_in(tile key, depth), kl = fold_in(kd, 1),
+// ks = fold_in(kl, 3):
+//   V_WALK        fold_in(kd, 0): delta_track
+//   V_PICK        fold_in(kl, 0): uniform_sample_one_light's pick
+//   V_SUN         fold_in(fold_in(kl, 1), 0): the sun's shadow walk
+//   V_SKY_TR + i  split(ks, 2 + i): the sky's two shadow walks
+//   V_EMIT        fold_in(kd, 2): the emission walk
+//   V_SKY_U + i   split(split(ks, 0), i): the sky's light-sample draws
+//   V_SKY_HG + i  hg_key(split(ks, 1), i): the sky's phase sample
+//   V_SCATTER_HG + i  hg_key(fold_in(kd, 3), i): the scattering
+//   V_POINT + 2w + i  fold_in(kw, i), kw = fold_in(fold_in(kl, 2), w):
+//                 point-light walk w's pick (i 0) and shadow walk (i 1)
+//   walks: V_WALK, V_SUN, V_SKY_TR, V_SKY_TR + 1, each point light's,
+//   then V_EMIT where the scene has emission.
+// walk_direct, nv = volume_depth, kv = fold_in(kd, 100 + v):
+//   v < nv        kv: volume walk v
+//   nv + 4 v + i  hg_key(fold_in(kv, 1), i): its scattering
+//   5 nv + D_SUN  fold_in(fold_in(kd, 2), 0): the sun's shadow walk
+//   5 nv + D_EMIT fold_in(kd, 4): the emission walk
+//   5 nv + D_SPH  fold_in(kd, 5): the sphere's draws
+//   5 nv + D_SPH_TR  fold_in(fold_in(kd, 5), 3): the sphere's shadow walk
+//   5 nv + D_POINT + 2w + i  fold_in(kw, i), kw = fold_in(fold_in(kd, 3), w)
+//   walks: the nv volume walks, the sun's, each point light's, then the
+//   emission walk where the scene has emission, then the sphere's
+//   shadow walk where a sphere is on.
+constexpr int V_WALK = 0, V_PICK = 1, V_SUN = 2, V_SKY_TR = 3, V_EMIT = 5,
+              V_SKY_U = 6, V_SKY_HG = 8, V_SCATTER_HG = 12, V_POINT = 16;
+constexpr int D_SUN = 0, D_EMIT = 1, D_SPH = 2, D_SPH_TR = 3, D_POINT = 4;
+// the volumetric walks' blocks
+constexpr int VJ_WALK = 0, VJ_SUN = 1, VJ_SKY_TR = 2, VJ_POINT = 4;
+
+// walk_volumetric's path queues (WalkWork::queue, B ints each) and
+// counters (WalkWork::counts, N_COUNTS per bounce): C_* a queue's length,
+// W_* a stage's next unclaimed entry; each bounce's own, zeroed once per
+// launch.  walk_direct's ray counter is counts[0].
+constexpr int Q_LIVE = 0, Q_SUN = 2, Q_POINT = 3, Q_SKY = 4, Q_SCATTER = 5,
+              N_QUEUES = 6;
+constexpr int C_LIVE = 0, C_SUN = 1, C_POINT = 2, C_SKY = 3, C_SCATTER = 4,
+              W_EXTEND = 5, W_SUN = 6, W_POINT = 7, W_SKY = 8, W_SKY_B = 9,
+              W_SCATTER = 10, N_COUNTS = 11;
+// the kernels a launch counts (vpt_walk's `launches`)
+constexpr int L_KEYS = 0, L_DIRECT = 1, L_EXTEND = 2, L_NEE = 3,
+              L_SCATTER = 4, N_LAUNCH_KINDS = 5;
+// stats: [0] bounces, [1] walk steps, [2] sky evaluations; with 8, [3 +
+// k] the walk steps of walk_volumetric's stage k (EXTEND, sun, point
+// lights, sky, SCATTER)
+constexpr int N_STATS = 3, N_STATS_STAGES = 8;
+// resident blocks asked of the compiler for the stage kernels
+#ifndef WALK_STAGE_BLOCKS
+#define WALK_STAGE_BLOCKS 8
+#endif
+#ifndef WALK_DIRECT_BLOCKS
+#define WALK_DIRECT_BLOCKS 16
+#endif
+#ifndef WALK_DIRECT_REFILL_MIN
+#define WALK_DIRECT_REFILL_MIN 16
+#endif
+#ifndef WALK_DIRECT_PERSISTENT
+#define WALK_DIRECT_PERSISTENT 1
+#endif
+constexpr int STAGE_BLOCKS = WALK_STAGE_BLOCKS;
+constexpr int DIRECT_BLOCKS = WALK_DIRECT_BLOCKS;
 
 }  // namespace
 
@@ -71,7 +165,8 @@ struct WalkParams {
     int B, tile, ray_depth, volume_depth, max_steps, n_lights, n_pt_walks,
         reference_falloff, use_double_hg, defer_env, env_constant, nee_env,
         use_cdf, cdf_h, cdf_w, row_w, em_off, col_off, grid_off,
-        sph_enabled;
+        sph_enabled, n_tiles, key_scalars, key_walks, key_steps,
+        key_depths;
     int dim[3];
     unsigned key[2];
     float max_ext, inv_rate, sigma_c, sigma_r, rate_inv_tr, rate_inv_emit,
@@ -106,14 +201,41 @@ struct WalkTables {
     const float *m_cdf;     // (cdf_h,)
 };
 
+// The device buffers a launch works in, allocated by the wrapper once per
+// launch size.  Mirror of render/walk.py::_WalkWork.
+struct WalkWork {
+    float *state;       // (B, 16) PathState (walk_volumetric)
+    int *queue;         // (N_QUEUES, B) path queues (walk_volumetric)
+    unsigned *counts;   // (ray_depth + 1, N_COUNTS) counters
+    unsigned *keys;     // (n_tiles, key_depths, slab, 2): the key table
+};
+
 namespace {
+
+// The state of a path between walk_volumetric's stages, one per ray (96
+// B, six 16-byte words): a stage reads and writes it at the path's ray
+// index.  EXTEND writes the first four words (kind: its NEE kind), NEE
+// the estimate (ld; for the sky the light sample's part and, where the
+// phase sample contributes, that part in ld_b with has_b 1), SCATTER adds
+// the estimate to L.
+struct __align__(16) PathState {
+    float pos[3], dir[3], beta[3], L[3];
+    float alpha, depth_aov;
+    int cost, kind;
+    float ld[3], ld_b[3], has_b, pad;
+};
+
+__host__ __device__ __forceinline__ Key* table(const WalkWork& w) {
+    return reinterpret_cast<Key*>(w.keys);
+}
 
 struct Ctx {
     const WalkParams& p;
     const WalkEnv& e;
     const WalkTables& t;
-    Key kt;                  // the ray's tile key
-    unsigned long long idx;  // the ray's index in its tile
+    const Key* slab;   // the ray's tile's keys at this bounce, or null
+    Key kd;            // fold_in(tile key, depth), read where slab is null
+    uint32_t idx;      // the ray's index in its tile
     // the ray's walk steps (every walk) and sky evaluations, summed into
     // the launch's stats where it asks for them
     mutable unsigned n_steps, n_sky;
@@ -189,17 +311,205 @@ __device__ __forceinline__ float phase_eval(const WalkParams& p, float c) {
     return hg(c, p.g1);
 }
 
-// core/phase.py::sample_hg on key k (u1 from split(k)[0], phi from
-// split(k)[1], element idx): the direction and the phase value.
-__device__ V3 sample_hg(V3 wo, Key k, float g, unsigned long long idx,
+// --------------------------------------------------------------- keys --
+
+__device__ __forceinline__ Key ldg_key(const Key* k) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(k));
+    return Key{v.x, v.y};
+}
+
+// The i-th draw key of core/phase.py::phase_sample on key k: one lobe
+// draws u1 from split(k)[0] and phi from split(k)[1] (i 2, 3 unused, 0);
+// two lobes the same from split(k)[0] and split(k)[1] in turn.
+__device__ __forceinline__ Key hg_key(const WalkParams& p, Key k, int i) {
+    if (p.use_double_hg)
+        return split_at(split_at(k, (uint32_t)(i >> 1)), (uint32_t)(i & 1));
+    return i < 2 ? split_at(k, (uint32_t)i) : Key{0u, 0u};
+}
+
+__host__ __device__ __forceinline__ bool has_emit(const WalkParams& p) {
+    return p.em_off >= 0;
+}
+
+__host__ __device__ __forceinline__ int n_scalars(bool vol,
+                                                  const WalkParams& p) {
+    return vol ? V_POINT + 2 * p.n_pt_walks
+               : 5 * p.volume_depth + D_POINT + 2 * p.n_pt_walks;
+}
+
+__host__ __device__ __forceinline__ int n_walks(bool vol,
+                                                const WalkParams& p) {
+    return vol ? VJ_POINT + p.n_pt_walks + has_emit(p)
+               : p.volume_depth + 1 + p.n_pt_walks + has_emit(p) +
+                     (p.sph_enabled != 0);
+}
+
+// the walk blocks of walk_direct
+__device__ __forceinline__ int dj_sun(const WalkParams& p) {
+    return p.volume_depth;
+}
+__device__ __forceinline__ int dj_emit(const WalkParams& p) {
+    return p.volume_depth + 1 + p.n_pt_walks;
+}
+__device__ __forceinline__ int dj_sph(const WalkParams& p) {
+    return dj_emit(p) + has_emit(p);
+}
+__device__ __forceinline__ int vj_emit(const WalkParams& p) {
+    return VJ_POINT + p.n_pt_walks;
+}
+
+// the slot of walk block j's walk key
+template <bool VOL>
+__device__ __forceinline__ int walk_slot(const WalkParams& p, int j) {
+    if (VOL) {
+        if (j == VJ_WALK) return V_WALK;
+        if (j == VJ_SUN) return V_SUN;
+        if (j < VJ_POINT) return V_SKY_TR + j - VJ_SKY_TR;
+        if (j < vj_emit(p)) return V_POINT + 2 * (j - VJ_POINT) + 1;
+        return V_EMIT;
+    }
+    const int nv = p.volume_depth, d = 5 * nv;
+    if (j < nv) return j;
+    if (j == nv) return d + D_SUN;
+    if (j < dj_emit(p)) return d + D_POINT + 2 * (j - nv - 1) + 1;
+    if (has_emit(p) && j == dj_emit(p)) return d + D_EMIT;
+    return d + D_SPH_TR;
+}
+
+// The key in `slot` of the slab of bounce key kd (the layout above), from
+// the fold_in / split chains of the reference's integrators.
+template <bool VOL>
+__device__ Key slot_key(const WalkParams& p, Key kd, int slot) {
+    if (VOL) {
+        if (slot == V_WALK) return fold_in(kd, 0u);
+        if (slot == V_EMIT) return fold_in(kd, 2u);
+        if (slot >= V_SCATTER_HG && slot < V_POINT)
+            return hg_key(p, fold_in(kd, 3u), slot - V_SCATTER_HG);
+        const Key kl = fold_in(kd, 1u);
+        if (slot == V_PICK) return fold_in(kl, 0u);
+        if (slot == V_SUN) return fold_in(fold_in(kl, 1u), 0u);
+        if (slot >= V_POINT) {
+            const Key kw = fold_in(fold_in(kl, 2u),
+                                   (uint32_t)((slot - V_POINT) >> 1));
+            return fold_in(kw, (uint32_t)((slot - V_POINT) & 1));
+        }
+        const Key ks = fold_in(kl, 3u);
+        if (slot < V_EMIT) return split_at(ks, (uint32_t)(2 + slot - V_SKY_TR));
+        if (slot < V_SKY_HG)
+            return split_at(split_at(ks, 0u), (uint32_t)(slot - V_SKY_U));
+        return hg_key(p, split_at(ks, 1u), slot - V_SKY_HG);
+    }
+    const int nv = p.volume_depth;
+    if (slot < nv) return fold_in(kd, 100u + (uint32_t)slot);
+    if (slot < 5 * nv) {
+        const int v = (slot - nv) >> 2;
+        return hg_key(p, fold_in(fold_in(kd, 100u + (uint32_t)v), 1u),
+                      (slot - nv) & 3);
+    }
+    slot -= 5 * nv;
+    if (slot == D_SUN) return fold_in(fold_in(kd, 2u), 0u);
+    if (slot == D_EMIT) return fold_in(kd, 4u);
+    if (slot == D_SPH) return fold_in(kd, 5u);
+    if (slot == D_SPH_TR) return fold_in(fold_in(kd, 5u), 3u);
+    slot -= D_POINT;
+    const Key kw = fold_in(fold_in(kd, 3u), (uint32_t)(slot >> 1));
+    return fold_in(kw, (uint32_t)(slot & 1));
+}
+
+__device__ __forceinline__ Key tile_key(const WalkParams& p, int t) {
+    const Key key{p.key[0], p.key[1]};
+    return p.tile > 0 ? fold_in(key, TILE_FOLD + (uint32_t)t) : key;
+}
+
+__host__ __device__ __forceinline__ int slab_size(const WalkParams& p) {
+    return p.key_scalars + p.key_walks * p.key_steps;
+}
+
+// The key table of bounces [d0, d0 + key_depths): entry ((t * key_depths
+// + d - d0) * slab + slot), one thread an entry.
+template <bool VOL>
+__global__ void __launch_bounds__(THREADS)
+walk_keys_kernel(const __grid_constant__ WalkParams p, Key* __restrict__ keys, int d0) {
+    const int slab = slab_size(p);
+    const long long n = (long long)p.n_tiles * p.key_depths * slab;
+    for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
+         i += (long long)gridDim.x * THREADS) {
+        const int slot = (int)(i % slab);
+        const long long td = i / slab;
+        const int d = d0 + (int)(td % p.key_depths);
+        const Key kd = fold_in(tile_key(p, (int)(td / p.key_depths)),
+                               (uint32_t)d);
+        if (slot < p.key_scalars) {
+            keys[i] = slot_key<VOL>(p, kd, slot);
+        } else {
+            const int j = (slot - p.key_scalars) / p.key_steps;
+            const int s = (slot - p.key_scalars) % p.key_steps;
+            keys[i] = fold_in(slot_key<VOL>(p, kd, walk_slot<VOL>(p, j)),
+                              (uint32_t)s);
+        }
+    }
+}
+
+// The slab of tile t at bounce d in a table of bounces [d0, d0 +
+// key_depths), or null.
+__device__ __forceinline__ const Key* slab_at(const WalkParams& p,
+                                              const Key* keys, int t, int d,
+                                              int d0) {
+    if (d < d0 || d >= d0 + p.key_depths) return nullptr;
+    return keys + ((long long)t * p.key_depths + (d - d0)) * slab_size(p);
+}
+
+template <bool VOL>
+__device__ __forceinline__ Key key_at(const Ctx& c, int slot) {
+    return c.slab ? ldg_key(c.slab + slot) : slot_key<VOL>(c.p, c.kd, slot);
+}
+
+// A walk's step keys: the slab's for s < n, else folded in the thread.
+struct Steps {
+    const Key* cached;
+    int n;
+    Key base;
+    __device__ __forceinline__ Key at(int s) const {
+        return s < n ? ldg_key(cached + s) : fold_in(base, (uint32_t)s);
+    }
+};
+
+template <bool VOL>
+__device__ __forceinline__ Steps steps_of(const Ctx& c, int j) {
+    const Key base = key_at<VOL>(c, walk_slot<VOL>(c.p, j));
+    if (!c.slab) return Steps{nullptr, 0, base};
+    return Steps{c.slab + c.p.key_scalars + (long long)j * c.p.key_steps,
+                 c.p.key_steps, base};
+}
+
+struct HG {
+    Key k[4];
+};
+
+template <bool VOL>
+__device__ __forceinline__ HG hg_at(const Ctx& c, int slot0) {
+    HG h;
+    h.k[0] = key_at<VOL>(c, slot0);
+    h.k[1] = key_at<VOL>(c, slot0 + 1);
+    h.k[2] = h.k[3] = Key{0u, 0u};
+    if (c.p.use_double_hg) {
+        h.k[2] = key_at<VOL>(c, slot0 + 2);
+        h.k[3] = key_at<VOL>(c, slot0 + 3);
+    }
+    return h;
+}
+
+// core/phase.py::sample_hg: u1 from ka, phi from kb, element idx; the
+// direction and the phase value.
+__device__ V3 sample_hg(V3 wo, Key ka, Key kb, float g, uint32_t idx,
                         float& value) {
-    const float u1 = uniform_at(split_at(k, 0), idx);
+    const float u1 = uniform_at32(ka, idx);
     const float sqr_term = (1.0f - g * g) / (1.0f - g + 2.0f * g * u1);
     const float cos_aniso = (1.0f + g * g - sqr_term * sqr_term) /
                             (2.0f * (fabsf(g) < 1e-6f ? 1.0f : g));
     const float ct = fabsf(g) < EPS ? 1.0f - 2.0f * u1 : cos_aniso;
     const float st = sqrtf(jmax(1.0f - ct * ct, 0.0f));
-    const float phi = TWO_PI_F * uniform_at(split_at(k, 1), idx);
+    const float phi = TWO_PI_F * uniform_at32(kb, idx);
     const V3 v1 = -wo;
     const bool cond = fabsf(v1.x) > fabsf(v1.y);
     V3 v2 = cond ? v3(-v1.z, 0.0f, v1.x) : v3(0.0f, v1.z, -v1.y);
@@ -209,14 +519,15 @@ __device__ V3 sample_hg(V3 wo, Key k, float g, unsigned long long idx,
     return v2 * st * cosf(phi) + v3_ * st * sinf(phi) + wo * ct;
 }
 
-// core/phase.py::phase_sample on key k: one lobe, or both lobes from
-// split(k) with the directions lerped (QUIRKS #16).
-__device__ V3 phase_sample(const WalkParams& p, V3 dir, Key k,
-                           unsigned long long idx, float& value) {
-    if (!p.use_double_hg) return sample_hg(dir, k, p.g1, idx, value);
+// core/phase.py::phase_sample on its draw keys (hg_key): one lobe, or
+// both lobes with the directions lerped (QUIRKS #16).
+__device__ V3 phase_sample(const WalkParams& p, V3 dir, const HG& h,
+                           uint32_t idx, float& value) {
+    if (!p.use_double_hg) return sample_hg(dir, h.k[0], h.k[1], p.g1, idx,
+                                           value);
     float p1, p2;
-    const V3 d1 = sample_hg(dir, split_at(k, 0), p.g1, idx, p1);
-    const V3 d2 = sample_hg(dir, split_at(k, 1), p.g2, idx, p2);
+    const V3 d1 = sample_hg(dir, h.k[0], h.k[1], p.g1, idx, p1);
+    const V3 d2 = sample_hg(dir, h.k[2], h.k[3], p.g2, idx, p2);
     if (p.phase_f > 0.9999f) {
         value = p1;
         return d1;
@@ -289,44 +600,79 @@ __device__ __forceinline__ float density_at(const Ctx& c, V3 pos) {
 }
 
 // tracking.unified_fetch (not banded): the density and the distance the
-// walk may jump through a guaranteed-empty box (0 where it may not)
+// walk may jump through a guaranteed-empty box (0 where it may not).  Each
+// exit is computed only where it is the answer: the empty box's exit for
+// a point in the grid whose box is empty (T_box <= 0), the grid's entry
+// for a point outside it; a point in a box that is not empty jumps 0.
 __device__ __forceinline__ float fetch(const Ctx& c, V3 pos, V3 dir,
                                        float& skip) {
     const WalkParams& p = c.p;
     const Cell k = locate(c, pos);
-    const float* m = p.inv_xf;
-    const V3 idir = v3(dir.x * m[0] + dir.y * m[3] + dir.z * m[6],
-                       dir.x * m[1] + dir.y * m[4] + dir.z * m[7],
-                       dir.x * m[2] + dir.y * m[5] + dir.z * m[8]);
     const float* row = k.row;
     const float density = k.inb ? taps(k, 0) : 0.0f;
-    const float t_box = __ldg(row + 8);
-    const V3 cube_min =
-        k.i0f - v3(jmax(__ldg(row + 9), 0.0f), jmax(__ldg(row + 10), 0.0f),
-                   jmax(__ldg(row + 11), 0.0f));
-    const V3 cube_max =
-        k.i0f + v3(1.0f, 1.0f, 1.0f) +
-        v3(jmax(__ldg(row + 12), 0.0f), jmax(__ldg(row + 13), 0.0f),
-           jmax(__ldg(row + 14), 0.0f));
-    const V3 sd = v3(fabsf(idir.x) < 1e-12f ? 1e-12f : idir.x,
-                     fabsf(idir.y) < 1e-12f ? 1e-12f : idir.y,
-                     fabsf(idir.z) < 1e-12f ? 1e-12f : idir.z);
-    const V3 t1 = (cube_min - k.x_u) / sd;
-    const V3 t2 = (cube_max - k.x_u) / sd;
-    const float t_exit = jmin(jmin(jmax(t1.x, t2.x), jmax(t1.y, t2.y)),
-                              jmax(t1.z, t2.z));
-    const V3 bmin = v3(p.gbmin);
-    const V3 t1b = (bmin - k.ipos) / sd;
-    const V3 t2b = (bmin + v3(p.gdim) - k.ipos) / sd;
-    float t_entry = jmax(jmax(jmin(t1b.x, t2b.x), jmin(t1b.y, t2b.y)),
-                         jmin(t1b.z, t2b.z));
-    const float t_leave = jmin(jmin(jmax(t1b.x, t2b.x), jmax(t1b.y, t2b.y)),
-                               jmax(t1b.z, t2b.z));
-    const bool misses = (t_leave < jmax(t_entry, 0.0f)) || (t_leave <= 0.0f);
-    t_entry = misses ? 1e30f : jmax(t_entry, 0.0f);
-    const float skip_in = t_exit > 0.0f ? t_exit + 1e-3f : 0.0f;
-    const float skip_out = t_entry > 0.0f ? t_entry + 1e-3f : 0.0f;
-    skip = (k.inb && t_box <= 0.0f) ? skip_in : (k.inb ? 0.0f : skip_out);
+    skip = 0.0f;
+    const bool empty = k.inb && __ldg(row + 8) <= 0.0f;
+#ifndef WALK_EAGER_FETCH
+    if (empty || !k.inb) {
+#else
+    {
+#endif
+        const float* m = p.inv_xf;
+        const V3 idir = v3(dir.x * m[0] + dir.y * m[3] + dir.z * m[6],
+                           dir.x * m[1] + dir.y * m[4] + dir.z * m[7],
+                           dir.x * m[2] + dir.y * m[5] + dir.z * m[8]);
+        const V3 sd = v3(fabsf(idir.x) < 1e-12f ? 1e-12f : idir.x,
+                         fabsf(idir.y) < 1e-12f ? 1e-12f : idir.y,
+                         fabsf(idir.z) < 1e-12f ? 1e-12f : idir.z);
+#ifdef WALK_EAGER_FETCH
+        float s_in, s_out;
+#endif
+#ifndef WALK_EAGER_FETCH
+        if (empty) {
+#else
+        {
+#endif
+            const V3 cube_min =
+                k.i0f - v3(jmax(__ldg(row + 9), 0.0f),
+                           jmax(__ldg(row + 10), 0.0f),
+                           jmax(__ldg(row + 11), 0.0f));
+            const V3 cube_max =
+                k.i0f + v3(1.0f, 1.0f, 1.0f) +
+                v3(jmax(__ldg(row + 12), 0.0f), jmax(__ldg(row + 13), 0.0f),
+                   jmax(__ldg(row + 14), 0.0f));
+            const V3 t1 = (cube_min - k.x_u) / sd;
+            const V3 t2 = (cube_max - k.x_u) / sd;
+            const float t_exit = jmin(jmin(jmax(t1.x, t2.x), jmax(t1.y, t2.y)),
+                                      jmax(t1.z, t2.z));
+#ifndef WALK_EAGER_FETCH
+            skip = t_exit > 0.0f ? t_exit + 1e-3f : 0.0f;
+        } else {
+#else
+            s_in = t_exit > 0.0f ? t_exit + 1e-3f : 0.0f;
+        }
+        {
+#endif
+            const V3 bmin = v3(p.gbmin);
+            const V3 t1b = (bmin - k.ipos) / sd;
+            const V3 t2b = (bmin + v3(p.gdim) - k.ipos) / sd;
+            float t_entry = jmax(jmax(jmin(t1b.x, t2b.x), jmin(t1b.y, t2b.y)),
+                                 jmin(t1b.z, t2b.z));
+            const float t_leave =
+                jmin(jmin(jmax(t1b.x, t2b.x), jmax(t1b.y, t2b.y)),
+                     jmax(t1b.z, t2b.z));
+            const bool misses =
+                (t_leave < jmax(t_entry, 0.0f)) || (t_leave <= 0.0f);
+            t_entry = misses ? 1e30f : jmax(t_entry, 0.0f);
+#ifndef WALK_EAGER_FETCH
+            skip = t_entry > 0.0f ? t_entry + 1e-3f : 0.0f;
+#else
+            s_out = t_entry > 0.0f ? t_entry + 1e-3f : 0.0f;
+#endif
+        }
+#ifdef WALK_EAGER_FETCH
+        skip = empty ? s_in : (k.inb ? 0.0f : s_out);
+#endif
+    }
     return density;
 }
 
@@ -364,10 +710,10 @@ struct Track {
     bool interaction;
 };
 
-// tracking.delta_track for one active ray, steps on fold_in(key, s),
-// draws (idx * 2, idx * 2 + 1)
+// tracking.delta_track for one active ray, step s on ks.at(s), draws
+// (idx * 2, idx * 2 + 1)
 template <bool EXT>
-__device__ Track delta_track(const Ctx& c, Key key, V3 pos, V3 dir) {
+__device__ Track delta_track(const Ctx& c, const Steps& ks, V3 pos, V3 dir) {
     const WalkParams& p = c.p;
     bool hb;
     float tb0, t_box;
@@ -382,12 +728,16 @@ __device__ Track delta_track(const Ctx& c, Key key, V3 pos, V3 dir) {
     r.alpha_add = 0.0f;
     r.steps = 0;
     float t = 0.0f;
+    Key k = ks.at(0);
     for (int s = 0; s < p.max_steps; ++s) {
         ++c.n_steps;
-        const Key ks = fold_in(key, (uint32_t)s);
-        const float u0 = uniform_at(ks, c.idx * 2);
+        // the next step's key, loaded while this step's row is fetched
+        const Key k_next = ks.at(s + 1);
         const bool do_skip = skip > 0.0f;
-        const float dt = do_skip ? skip : -log1pf(-u0) * p.inv_rate;
+        // a jump draws nothing: the flight's uniform only where it is used
+        const float dt =
+            do_skip ? skip
+                    : -log1pf(-uniform_at32(k, c.idx * 2u)) * p.inv_rate;
         const float t_new = t + dt;
         const bool exited = t_new >= distance;
         float skip_new;
@@ -397,12 +747,13 @@ __device__ Track delta_track(const Ctx& c, Key key, V3 pos, V3 dir) {
         const bool sampled = !do_skip && !exited;
         if (sampled) r.alpha_add = r.alpha_add + d;
         const bool accept =
-            sampled && (d / p.max_ext > uniform_at(ks, c.idx * 2 + 1));
+            sampled && (d / p.max_ext > uniform_at32(k, c.idx * 2u + 1u));
         if (exited || accept) {
             r.interaction = accept;
             break;
         }
         r.steps += 1;
+        k = k_next;
     }
     r.pos = pos + dir * t;
     r.value = v3(1.0f, 1.0f, 1.0f);
@@ -419,10 +770,11 @@ __device__ Track delta_track(const Ctx& c, Key key, V3 pos, V3 dir) {
     return r;
 }
 
-// tracking.transmittance: residual ratio tracking on fold_in(key, s),
+// tracking.transmittance: residual ratio tracking, step s on ks.at(s),
 // draw idx; 1 for a ray that misses the box, 0 for one that meets the
 // sphere (QUIRKS #7)
-__device__ float transmittance(const Ctx& c, Key key, V3 pos, V3 dir) {
+__device__ float transmittance(const Ctx& c, const Steps& ks, V3 pos,
+                               V3 dir) {
     const WalkParams& p = c.p;
     bool hit;
     float t_entry, tmax;
@@ -440,13 +792,13 @@ __device__ float transmittance(const Ctx& c, Key key, V3 pos, V3 dir) {
     float skip;
     fetch(c, start, dir, skip);
     float tr = 1.0f, t = 0.0f;
+    Key k = ks.at(0);
     for (int s = 0; s < p.max_steps; ++s) {
         ++c.n_steps;
+        const Key k_next = ks.at(s + 1);
         const bool do_skip = skip > 0.0f;
         const float dt =
-            do_skip ? skip
-                    : -log1pf(-uniform_at(fold_in(key, (uint32_t)s), c.idx)) *
-                          p.rate_inv_tr;
+            do_skip ? skip : -log1pf(-uniform_at32(k, c.idx)) * p.rate_inv_tr;
         const float t_new = t + dt;
         const bool exited = t_new >= distance;
         float skip_new;
@@ -456,14 +808,16 @@ __device__ float transmittance(const Ctx& c, Key key, V3 pos, V3 dir) {
         if (!do_skip && !exited)
             tr = tr * (1.0f - (d - p.sigma_c) / p.sigma_r);
         if (exited || !(fabsf(tr) >= EPS)) break;
+        k = k_next;
     }
     return jclamp(tr * t_c, 0.0f, 1.0f);
 }
 
 // tracking.estimate_emission: the emission summed at each sample of a
-// walk at the ratio-tracking rate, no jumps, on fold_in(key, s), draw idx
+// walk at the ratio-tracking rate, no jumps, step s on ks.at(s), draw idx
 template <bool EXT>
-__device__ V3 estimate_emission(const Ctx& c, Key key, V3 pos, V3 dir) {
+__device__ V3 estimate_emission(const Ctx& c, const Steps& ks, V3 pos,
+                                V3 dir) {
     const WalkParams& p = c.p;
     V3 e = v3(0.0f, 0.0f, 0.0f);
     if (!EXT || p.em_off < 0) return e;
@@ -472,41 +826,47 @@ __device__ V3 estimate_emission(const Ctx& c, Key key, V3 pos, V3 dir) {
     aabb_intersect(p.root_min, p.root_max, pos, dir, hit, t0, distance);
     distance = jmax(distance, 0.0f);
     float t = 0.0f;
+    Key k = ks.at(0);
     for (int s = 0; s < p.max_steps; ++s) {
         ++c.n_steps;
-        const float u = uniform_at(fold_in(key, (uint32_t)s), c.idx);
+        const Key k_next = ks.at(s + 1);
+        const float u = uniform_at32(k, c.idx);
         t = t + -log1pf(-u) * p.rate_inv_emit;
         if (t >= distance) break;
         e = e + emission_at<EXT>(c, pos + dir * t);
+        k = k_next;
     }
     return e;
 }
 
 // ---------------------------------------------------------- the lights --
 
-// nee.estimate_sun: Tr * phase(cos) * sun_color * sun_mult
-__device__ V3 estimate_sun(const Ctx& c, Key key, V3 pos, V3 dir) {
+// nee.estimate_sun: Tr * phase(cos) * sun_color * sun_mult, the shadow
+// walk on ks
+__device__ V3 estimate_sun(const Ctx& c, const Steps& ks, V3 pos, V3 dir) {
     const WalkParams& p = c.p;
     const V3 wi = v3(p.sun_dir);
     const float ph = phase_eval(p, dot(dir, wi));
-    const float tp = transmittance(c, fold_in(key, 0), pos, wi) * ph;
+    const float tp = transmittance(c, ks, pos, wi) * ph;
     return v3(tp * p.sun_color[0] * p.sun_mult, tp * p.sun_color[1] * p.sun_mult,
               tp * p.sun_color[2] * p.sun_mult);
 }
 
 // nee.estimate_point_lights: min(L, 11) picks summed unnormalised
-// (QUIRKS #3), the falloff after reference_falloff (QUIRKS #2)
-__device__ V3 estimate_point_lights(const Ctx& c, Key key, V3 pos, V3 dir) {
+// (QUIRKS #3), the falloff after reference_falloff (QUIRKS #2); walk w's
+// pick key in slot slot0 + 2 w, its shadow walk in block j0 + w
+template <bool VOL>
+__device__ V3 estimate_point_lights(const Ctx& c, int slot0, int j0, V3 pos,
+                                    V3 dir) {
     const WalkParams& p = c.p;
     V3 total = v3(0.0f, 0.0f, 0.0f);
     for (int w = 0; w < p.n_pt_walks; ++w) {
-        const Key kw = fold_in(key, (uint32_t)w);
-        const float u = uniform_at(fold_in(kw, 0), c.idx);
+        const float u = uniform_at32(key_at<VOL>(c, slot0 + 2 * w), c.idx);
         const int li = min((int)(u * (float)p.n_lights), p.n_lights - 1);
         const float* light = c.t.lights + 7 * li;
         const V3 lp = v3(light);
         const V3 wi = normalize(lp - pos);
-        const float tr = transmittance(c, fold_in(kw, 1), pos, wi);
+        const float tr = transmittance(c, steps_of<VOL>(c, j0 + w), pos, wi);
         const float ph = phase_eval(p, dot(dir, wi));
         float sqr;
         if (p.reference_falloff)
@@ -704,22 +1064,20 @@ __device__ __forceinline__ float power_heuristic(float f, float g) {
     return (f * f) / jmax(f * f + g * g, 1e-30f);
 }
 
-// nee.estimate_sky: (a) a light sample (the CDF, or the uniform sphere)
-// weighted against the phase pdf, (b) a phase sample weighted against the
-// light pdf, each with its shadow walk; keys split(key, 4)
-__device__ V3 estimate_sky(const Ctx& c, Key key, V3 pos, V3 dir) {
+// nee.estimate_sky's strategy (a): a light sample (the CDF, or the
+// uniform sphere) weighted against the phase pdf, with its shadow walk on
+// split(key, 2); the draws on split(key, 0) (the slab's V_SKY_* slots)
+__device__ V3 sky_light(const Ctx& c, V3 pos, V3 dir) {
     const WalkParams& p = c.p;
-    const Key k_light = split_at(key, 0), k_phase = split_at(key, 1);
+    const float u_a = uniform_at32(key_at<true>(c, V_SKY_U), c.idx);
+    const float u_b = uniform_at32(key_at<true>(c, V_SKY_U + 1), c.idx);
     V3 wi;
     float light_pdf;
     if (p.use_cdf) {
-        wi = sample_env_cdf(c, uniform_at(split_at(k_light, 0), c.idx),
-                            uniform_at(split_at(k_light, 1), c.idx),
-                            light_pdf);
+        wi = sample_env_cdf(c, u_a, u_b, light_pdf);
     } else {
-        const float phi = TWO_PI_F * uniform_at(split_at(k_light, 0), c.idx);
-        const float ct =
-            1.0f - 2.0f * uniform_at(split_at(k_light, 1), c.idx);
+        const float phi = TWO_PI_F * u_a;
+        const float ct = 1.0f - 2.0f * u_b;
         const float st = sqrtf(jmax(0.0f, 1.0f - ct * ct));
         wi = v3(cosf(phi) * st, sinf(phi) * st, ct);
         light_pdf = INV_4_PI_F;
@@ -728,19 +1086,37 @@ __device__ V3 estimate_sky(const Ctx& c, Key key, V3 pos, V3 dir) {
     const float phase_pdf = phase_eval(p, dot(dir, wi));
     if (light_pdf > 0.0f && phase_pdf > 0.0f) {
         const V3 li = env_light(c, wi);
-        const float tr = transmittance(c, split_at(key, 2), pos, wi);
+        const float tr =
+            transmittance(c, steps_of<true>(c, VJ_SKY_TR), pos, wi);
         const float w = power_heuristic(light_pdf, phase_pdf);
         ld = li * (tr * phase_pdf * w / jmax(light_pdf, 1e-20f));
     }
-    float phase_pdf_b;
-    const V3 wi_b = phase_sample(p, dir, k_phase, c.idx, phase_pdf_b);
-    const float light_pdf_b = p.use_cdf ? pdf_env_cdf(c, wi_b) : INV_4_PI_F;
-    if (phase_pdf_b > 0.0f && light_pdf_b > 0.0f) {
-        const float w_b = power_heuristic(phase_pdf_b, light_pdf_b);
-        const float tr_b = transmittance(c, split_at(key, 3), pos, wi_b);
-        ld = ld + env_light(c, wi_b) * (tr_b * w_b);
-    }
     return ld;
+}
+
+// nee.estimate_sky's strategy (b): a phase sample on split(key, 1)
+// weighted against the light pdf, with its shadow walk on split(key, 3):
+// whether it contributes, and what (xb)
+__device__ bool sky_phase(const Ctx& c, V3 pos, V3 dir, V3& xb) {
+    const WalkParams& p = c.p;
+    float phase_pdf_b;
+    const V3 wi_b =
+        phase_sample(p, dir, hg_at<true>(c, V_SKY_HG), c.idx, phase_pdf_b);
+    const float light_pdf_b = p.use_cdf ? pdf_env_cdf(c, wi_b) : INV_4_PI_F;
+    xb = v3(0.0f, 0.0f, 0.0f);
+    if (!(phase_pdf_b > 0.0f && light_pdf_b > 0.0f)) return false;
+    const float w_b = power_heuristic(phase_pdf_b, light_pdf_b);
+    const float tr_b =
+        transmittance(c, steps_of<true>(c, VJ_SKY_TR + 1), pos, wi_b);
+    xb = env_light(c, wi_b) * (tr_b * w_b);
+    return true;
+}
+
+// nee.estimate_sky: strategy (a), plus (b) where it contributes
+__device__ V3 estimate_sky(const Ctx& c, V3 pos, V3 dir) {
+    V3 xb;
+    const V3 ld = sky_light(c, pos, dir);
+    return sky_phase(c, pos, dir, xb) ? ld + xb : ld;
 }
 
 // ------------------------------------------------------------ outputs --
@@ -780,177 +1156,731 @@ __device__ __forceinline__ void write_out(const WalkParams& p, float* out,
     }
 }
 
-// The ray's tile key and its index in the tile.
-__device__ __forceinline__ Ctx ray_ctx(const WalkParams& p, const WalkEnv& e,
-                                       const WalkTables& t, long long r) {
-    const Key key{p.key[0], p.key[1]};
-    if (p.tile <= 0) return Ctx{p, e, t, key, (unsigned long long)r, 0u, 0u};
-    return Ctx{p, e, t, fold_in(key, TILE_FOLD + (uint32_t)(r / p.tile)),
-               (unsigned long long)(r % p.tile), 0u, 0u};
-}
-
-// stats[0] += the ray's bounces, [1] its walk steps, [2] its sky
-// evaluations (a run that asks for them; null on the render path)
+// stats[0..2] += a lane's bounces, walk steps and sky evaluations, summed
+// over the warp first (every lane of the warp calls it)
 __device__ __forceinline__ void add_stats(unsigned long long* stats,
-                                          const Ctx& c, int bounces) {
+                                          unsigned bounces, const Ctx& c) {
     if (!stats) return;
-    atomicAdd(stats, (unsigned long long)bounces);
-    atomicAdd(stats + 1, (unsigned long long)c.n_steps);
-    atomicAdd(stats + 2, (unsigned long long)c.n_sky);
+    const unsigned b = __reduce_add_sync(FULL, bounces);
+    const unsigned s = __reduce_add_sync(FULL, c.n_steps);
+    const unsigned k = __reduce_add_sync(FULL, c.n_sky);
+    if ((threadIdx.x & 31) == 0) {
+        atomicAdd(stats, (unsigned long long)b);
+        atomicAdd(stats + 1, (unsigned long long)s);
+        atomicAdd(stats + 2, (unsigned long long)k);
+    }
 }
 
-// integrator.direct_integrator for ray r
+// ------------------------------------------------------ walk_direct --
+
+// One bounce of integrator.direct_integrator's loop for a live ray: the
+// closest object, the volume walks, the estimates at an event, the
+// sphere.  False when the ray is done (it met nothing, or reached
+// ray_depth).
 template <bool EXT>
-__global__ void __launch_bounds__(THREADS)
-walk_direct_kernel(const WalkParams p, const WalkEnv e, const WalkTables t,
+__device__ __forceinline__ bool direct_bounce(const Ctx& c, V3 org, V3& pos, V3& dir,
+                              V3& env_pos, V3& beta, V3& L, float& alpha,
+                              float& depth_aov, int& cost, int& depth) {
+    const WalkParams& p = c.p;
+    const int nv = p.volume_depth;
+    float t_min;
+    const int obj = closest_object(p, pos, dir, t_min);
+    bool mi = false;
+    if (obj == 1) {
+        V3 pos_v = pos + dir * (t_min + EPS);
+        for (int vd = 0; vd < (EXT ? nv : 1); ++vd) {
+            const Track tr =
+                delta_track<EXT>(c, steps_of<false>(c, vd), pos_v, dir);
+            beta = beta * tr.value;
+            alpha = alpha + tr.alpha_add;
+            cost += tr.steps;
+            pos_v = tr.pos;
+            mi = tr.interaction;
+            if (!mi) break;
+            float ph;
+            dir = phase_sample(p, dir, hg_at<false>(c, nv + 4 * vd), c.idx,
+                               ph);
+        }
+        pos = pos_v;
+    }
+    if (mi) {
+        if (depth == 0) depth_aov = length(org - pos);
+        L = L + estimate_sun(c, steps_of<false>(c, dj_sun(p)), pos, dir) *
+                    beta;
+        if (p.n_lights > 0)
+            L = L + estimate_point_lights<false>(c, 5 * nv + D_POINT, nv + 1,
+                                                 pos, dir) *
+                        beta;
+        if (EXT && p.em_off >= 0)
+            L = L + estimate_emission<EXT>(
+                        c, steps_of<false>(c, dj_emit(p)), pos, dir);
+    }
+    float t2;
+    const int obj2 = closest_object(p, pos, dir, t2);
+    if (obj2 == 2) {
+        if (depth == 0 && !mi) depth_aov = t2;
+        // integrator._shade_sphere on fold_in(kd, 5)
+        const Key ks = key_at<false>(c, 5 * nv + D_SPH);
+        const V3 hp = pos + dir * t2;
+        const V3 normal = normalize((hp - v3(p.sph_center)) / p.sph_radius);
+        const V3 nl = dot(normal, dir) < 0.0f ? normal : -normal;
+        const float phi = TWO_PI_F * uniform_at32(ks, c.idx * 2u);
+        const float r2 = uniform_at32(ks, c.idx * 2u + 1u);
+        const float r2s = sqrtf(r2);
+        const V3 w = normalize(nl);
+        const V3 ref_axis = fabsf(w.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f)
+                                              : v3(1.0f, 0.0f, 0.0f);
+        const V3 uax = normalize(cross(ref_axis, w));
+        const V3 vax = cross(w, uax);
+        const V3 hemi = normalize(uax * (cosf(phi) * r2s) +
+                                  vax * (sinf(phi) * r2s) +
+                                  w * sqrtf(jmax(1.0f - r2, 0.0f)));
+        const V3 mirror = reflect(dir, nl);
+        const V3 new_pos = hp + normal * EPS;
+        beta = beta * v3(p.sph_color);
+        const V3 sun = v3(p.sun_dir);
+        const float v_tr =
+            transmittance(c, steps_of<false>(c, dj_sph(p)), new_pos, sun);
+        const float k = v_tr * jmax(dot(sun, normal), 0.0f);
+        L = L + v3(p.sun_color[0] * p.sun_mult * k,
+                   p.sun_color[1] * p.sun_mult * k,
+                   p.sun_color[2] * p.sun_mult * k) * beta;
+        pos = new_pos;
+        dir = mirror + (hemi - mirror) * p.sph_rough;
+        env_pos = pos;
+    }
+    ++depth;
+    return !(obj == 0 && obj2 != 2) && depth < p.ray_depth;
+}
+
+// integrator.direct_integrator on persistent warps: a lane runs one bounce
+// of its ray per turn; when lanes are idle, one lane takes as many rays as
+// lanes are idle from the counter (one atomicAdd, the base shuffled to
+// the idle lanes, each taking the ray of its rank among them).
+template <bool EXT>
+__global__ void __launch_bounds__(THREADS, DIRECT_BLOCKS)
+walk_direct_kernel(const __grid_constant__ WalkParams p,
+    const __grid_constant__ WalkEnv e, const __grid_constant__ WalkTables t,
                    const float* __restrict__ origin,
                    const float* __restrict__ direction,
-                   float* __restrict__ out, unsigned long long* stats) {
-    const long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (r >= p.B) return;
-    const Ctx c = ray_ctx(p, e, t, r);
-    const V3 org = v3(origin + 3 * r);
-    V3 pos = org, dir = v3(direction + 3 * r), env_pos = org;
-    V3 beta = v3(1.0f, 1.0f, 1.0f), L = v3(0.0f, 0.0f, 0.0f);
+                   float* __restrict__ out, const Key* __restrict__ keys,
+                   unsigned* __restrict__ next_ray,
+                   unsigned long long* stats) {
+    const int lane = threadIdx.x & 31;
+    const long long S = ((long long)p.B + 3) & ~3LL;
+    Ctx c{p, e, t, nullptr, Key{0u, 0u}, 0u, 0u, 0u};
+    V3 org = v3(0.0f, 0.0f, 0.0f), pos = org, dir = org, env_pos = org,
+       beta = org, L = org;
     float alpha = 0.0f, depth_aov = 0.0f;
-    int cost = 0, depth = 0;
-    while (depth < p.ray_depth) {
-        const Key kd = fold_in(c.kt, (uint32_t)depth);
-        float t_min;
-        const int obj = closest_object(p, pos, dir, t_min);
-        bool mi = false;
-        if (obj == 1) {
-            V3 pos_v = pos + dir * (t_min + EPS);
-            for (int vd = 0; vd < (EXT ? p.volume_depth : 1); ++vd) {
-                const Key kv = fold_in(kd, 100u + (uint32_t)vd);
-                const Track tr = delta_track<EXT>(c, kv, pos_v, dir);
-                beta = beta * tr.value;
-                alpha = alpha + tr.alpha_add;
-                cost += tr.steps;
-                pos_v = tr.pos;
-                mi = tr.interaction;
-                if (!mi) break;
-                float ph;
-                dir = phase_sample(p, dir, fold_in(kv, 1), c.idx, ph);
+    int cost = 0, depth = 0, r = 0, tile_i = 0;
+    unsigned bounces = 0;
+    bool live = false, dry = false;
+    for (;;) {
+        while (!dry) {
+            const unsigned idle = __ballot_sync(FULL, !live);
+            if (__popc(idle) < WALK_DIRECT_REFILL_MIN) break;
+            const int leader = __ffs(idle) - 1;
+            const int n = __popc(idle);
+            unsigned base = 0u;
+            if (lane == leader) base = atomicAdd(next_ray, (unsigned)n);
+            base = __shfl_sync(FULL, base, leader);
+            dry = (unsigned long long)base + n >= (unsigned long long)p.B;
+            unsigned slot = base + __popc(idle & ((1u << lane) - 1u));
+            if (!WALK_DIRECT_PERSISTENT) {
+                slot = blockIdx.x * THREADS + threadIdx.x;
+                dry = true;
             }
-            pos = pos_v;
+            if (!live && slot < (unsigned)p.B) {
+                r = (int)slot;
+                tile_i = p.tile > 0 ? r / p.tile : 0;
+                c.idx = (uint32_t)(p.tile > 0 ? r % p.tile : r);
+                org = v3(origin + 3 * (long long)r);
+                pos = org;
+                env_pos = org;
+                dir = v3(direction + 3 * (long long)r);
+                beta = v3(1.0f, 1.0f, 1.0f);
+                L = v3(0.0f, 0.0f, 0.0f);
+                alpha = depth_aov = 0.0f;
+                cost = depth = 0;
+                live = p.ray_depth > 0;
+                if (!live)
+                    write_out(p, out, S, r, L, alpha, cost, depth_aov, beta,
+                              dir, env_pos);
+            }
         }
-        if (mi) {
-            if (depth == 0) depth_aov = length(org - pos);
-            L = L + estimate_sun(c, fold_in(kd, 2), pos, dir) * beta;
-            if (p.n_lights > 0)
-                L = L + estimate_point_lights(c, fold_in(kd, 3), pos, dir) *
-                            beta;
-            if (EXT && p.em_off >= 0)
-                L = L + estimate_emission<EXT>(c, fold_in(kd, 4), pos, dir);
+        if (!__any_sync(FULL, live)) break;
+        if (live) {
+            c.slab = slab_at(p, keys, tile_i, depth, 0);
+            if (!c.slab) c.kd = fold_in(tile_key(p, tile_i), (uint32_t)depth);
+            live = direct_bounce<EXT>(c, org, pos, dir, env_pos, beta, L,
+                                      alpha, depth_aov, cost, depth);
+            if (!live) {
+                write_out(p, out, S, r, L, alpha, cost, depth_aov, beta, dir,
+                          env_pos);
+                bounces += (unsigned)depth;
+            }
         }
-        float t2;
-        const int obj2 = closest_object(p, pos, dir, t2);
-        if (obj2 == 2) {
-            if (depth == 0 && !mi) depth_aov = t2;
-            // integrator._shade_sphere on fold_in(kd, 5)
-            const Key ks = fold_in(kd, 5);
-            const V3 hp = pos + dir * t2;
-            const V3 normal = normalize((hp - v3(p.sph_center)) / p.sph_radius);
-            const V3 nl = dot(normal, dir) < 0.0f ? normal : -normal;
-            const float phi = TWO_PI_F * uniform_at(ks, c.idx * 2);
-            const float r2 = uniform_at(ks, c.idx * 2 + 1);
-            const float r2s = sqrtf(r2);
-            const V3 w = normalize(nl);
-            const V3 ref_axis = fabsf(w.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f)
-                                                  : v3(1.0f, 0.0f, 0.0f);
-            const V3 uax = normalize(cross(ref_axis, w));
-            const V3 vax = cross(w, uax);
-            const V3 hemi = normalize(uax * (cosf(phi) * r2s) +
-                                      vax * (sinf(phi) * r2s) +
-                                      w * sqrtf(jmax(1.0f - r2, 0.0f)));
-            const V3 mirror = reflect(dir, nl);
-            const V3 new_pos = hp + normal * EPS;
-            beta = beta * v3(p.sph_color);
-            const V3 sun = v3(p.sun_dir);
-            const float v_tr = transmittance(c, fold_in(ks, 3), new_pos, sun);
-            const float k = v_tr * jmax(dot(sun, normal), 0.0f);
-            L = L + v3(p.sun_color[0] * p.sun_mult * k,
-                       p.sun_color[1] * p.sun_mult * k,
-                       p.sun_color[2] * p.sun_mult * k) * beta;
-            pos = new_pos;
-            dir = mirror + (hemi - mirror) * p.sph_rough;
-            env_pos = pos;
-        }
-        ++depth;
-        if (obj == 0 && obj2 != 2) break;
     }
-    write_out(p, out, ((long long)p.B + 3) & ~3LL, r, L, alpha, cost,
-              depth_aov, beta, dir, env_pos);
-    add_stats(stats, c, depth);
+    add_stats(stats, bounces, c);
 }
 
-// vol_integrator.vol_integrator for ray r
-template <bool EXT>
-__global__ void __launch_bounds__(THREADS)
-walk_volumetric_kernel(const WalkParams p, const WalkEnv e,
-                       const WalkTables t, const float* __restrict__ origin,
-                       const float* __restrict__ direction,
-                       float* __restrict__ out, unsigned long long* stats) {
-    const long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (r >= p.B) return;
-    const Ctx c = ray_ctx(p, e, t, r);
-    const V3 org = v3(origin + 3 * r);
-    V3 dir = v3(direction + 3 * r);
-    bool hit;
-    float t_entry, tmax;
-    aabb_intersect(p.root_min, p.root_max, org, dir, hit, t_entry, tmax);
-    V3 pos = hit ? org + dir * (t_entry + EPS) : org;
-    V3 beta = v3(1.0f, 1.0f, 1.0f), L = v3(0.0f, 0.0f, 0.0f);
-    float alpha = 0.0f, depth_aov = 0.0f;
-    int cost = 0, depth = 0;
-    for (; hit && depth < p.ray_depth; ++depth) {
-        const Key kd = fold_in(c.kt, (uint32_t)depth);
-        const Track tr = delta_track<EXT>(c, fold_in(kd, 0), pos, dir);
-        beta = beta * tr.value;
-        alpha = alpha + tr.alpha_add;
-        cost += tr.steps;
-        pos = tr.pos;
-        if (beta.x == 0.0f && beta.y == 0.0f && beta.z == 0.0f) break;
-        if (!tr.interaction) break;
-        if (depth == 0) depth_aov = length(org - pos);
-        // vol_integrator.uniform_sample_one_light on fold_in(kd, 1)
-        const Key kl = fold_in(kd, 1);
-        const int pick =
-            (int)(uniform_at(fold_in(kl, 0), c.idx) * 3.0f);
-        V3 ld = v3(0.0f, 0.0f, 0.0f);
-        if (pick == 0) {
-            ld = estimate_sun(c, fold_in(kl, 1), pos, dir);
-        } else if (pick == 1) {
-            if (p.n_lights > 0)
-                ld = estimate_point_lights(c, fold_in(kl, 2), pos, dir);
-        } else if (p.nee_env != NEE_BLACK) {
-            ld = estimate_sky(c, fold_in(kl, 3), pos, dir) * p.sky_mult;
-        }
-        L = L + beta * (ld * 3.0f);
-        if (EXT && p.em_off >= 0)
-            L = L + estimate_emission<EXT>(c, fold_in(kd, 2), pos, dir);
-        float ph;
-        dir = phase_sample(p, dir, fold_in(kd, 3), c.idx, ph);
-    }
+// --------------------------------------------------- walk_volumetric --
+
+constexpr int PATH_WORDS = 6;   // PathState's 16-byte words
+
+__device__ __forceinline__ const float4* path_words(const float* state,
+                                                    int r) {
+    return reinterpret_cast<const float4*>(state) + (long long)PATH_WORDS * r;
+}
+
+__device__ __forceinline__ void load_state(const float* state, int r, V3& pos,
+                                           V3& dir, V3& beta, V3& L,
+                                           float& alpha, float& depth_aov,
+                                           int& cost, int& kind) {
+    const float4* s = path_words(state, r);
+    const float4 a = s[0], b = s[1], c = s[2], d = s[3];
+    pos = v3(a.x, a.y, a.z);
+    dir = v3(a.w, b.x, b.y);
+    beta = v3(b.z, b.w, c.x);
+    L = v3(c.y, c.z, c.w);
+    alpha = d.x;
+    depth_aov = d.y;
+    cost = __float_as_int(d.z);
+    kind = __float_as_int(d.w);
+}
+
+__device__ __forceinline__ void store_state(float* state, int r, V3 pos,
+                                            V3 dir, V3 beta, V3 L,
+                                            float alpha, float depth_aov,
+                                            int cost, int kind) {
+    float4* s = reinterpret_cast<float4*>(state) + (long long)PATH_WORDS * r;
+    s[0] = make_float4(pos.x, pos.y, pos.z, dir.x);
+    s[1] = make_float4(dir.y, dir.z, beta.x, beta.y);
+    s[2] = make_float4(beta.z, L.x, L.y, L.z);
+    s[3] = make_float4(alpha, depth_aov, __int_as_float(cost),
+                       __int_as_float(kind));
+}
+
+// A path's end: its outputs, the environment looked up from the origin
+// while |beta| > 0.9999, from the last position otherwise.
+__device__ __forceinline__ void finish_path(const WalkParams& p, float* out,
+                                            const float* origin, int r,
+                                            V3 pos, V3 dir, V3 beta, V3 L,
+                                            float alpha, float depth_aov,
+                                            int cost) {
+    const V3 org = v3(origin + 3 * (long long)r);
     const V3 env_from = length(beta) > 0.9999f ? org : pos;
     write_out(p, out, ((long long)p.B + 3) & ~3LL, r, L, alpha, cost,
               depth_aov, beta, dir, env_from);
-    add_stats(stats, c, depth);
+}
+
+// the next 32 entries of a stage's queue for a warp (warp-uniform)
+__device__ __forceinline__ unsigned take32(unsigned* counter, int lane) {
+    unsigned base = 0u;
+    if (lane == 0) base = atomicAdd(counter, 32u);
+    return __shfl_sync(FULL, base, 0);
+}
+
+// the length of a queue an earlier kernel filled
+__device__ __forceinline__ unsigned queue_length(const unsigned* count) {
+    return *const_cast<const volatile unsigned*>(count);
+}
+
+// ray r onto queue q where `want` (every lane of the warp calls it): one
+// atomicAdd a warp, the lanes in lane order
+__device__ __forceinline__ void push(int* q, unsigned* count, int r,
+                                     bool want, int lane) {
+    const unsigned m = __ballot_sync(FULL, want);
+    if (!m) return;
+    const int leader = __ffs(m) - 1;
+    unsigned base = 0u;
+    if (lane == leader) base = atomicAdd(count, (unsigned)__popc(m));
+    base = __shfl_sync(FULL, base, leader);
+    if (want) q[base + __popc(m & ((1u << lane) - 1u))] = r;
+}
+
+__device__ __forceinline__ Ctx path_ctx(const WalkParams& p, const WalkEnv& e,
+                                        const WalkTables& t,
+                                        const Key* keys, int r) {
+    const int ti = p.tile > 0 ? r / p.tile : 0;
+    return Ctx{p, e, t, keys + (long long)ti * slab_size(p), Key{0u, 0u},
+               (uint32_t)(p.tile > 0 ? r % p.tile : r), 0u, 0u};
+}
+
+// stats[0..2] += a warp's bounces, walk steps and sky evaluations, and
+// with N_STATS_STAGES counters stats[3 + stage] += its walk steps (every
+// lane of the warp calls it)
+__device__ __forceinline__ void add_stage_stats(unsigned long long* stats,
+                                                int n_stats, int stage,
+                                                unsigned bounces,
+                                                unsigned steps,
+                                                unsigned sky) {
+    if (!stats) return;
+    const unsigned b = __reduce_add_sync(FULL, bounces);
+    const unsigned s = __reduce_add_sync(FULL, steps);
+    const unsigned k = __reduce_add_sync(FULL, sky);
+    if ((threadIdx.x & 31) == 0) {
+        atomicAdd(stats, (unsigned long long)b);
+        atomicAdd(stats + 1, (unsigned long long)s);
+        atomicAdd(stats + 2, (unsigned long long)k);
+        if (n_stats >= N_STATS_STAGES)
+            atomicAdd(stats + N_STATS + stage, (unsigned long long)s);
+    }
+}
+
+// the kinds of a path after EXTEND (what it is pushed onto)
+constexpr int K_DONE = 0, K_SUN = 1, K_POINT = 2, K_SKY = 3, K_NONE = 4;
+
+// EXTEND at bounce d: delta_track on fold_in(kd, 0) for each live path
+// (at d 0 every ray from the root box's entry), beta, alpha and cost
+// updated; a path whose beta is 0 or whose walk left the medium ends;
+// otherwise the depth AOV at d 0 and uniform_sample_one_light's pick
+// (fold_in(kl, 0)): the path goes onto the sun's, the point lights' or
+// the sky's queue, or nowhere where its kind has nothing to estimate (no
+// point light, a BLACK sky); and onto SCATTER's.
+template <bool EXT>
+__global__ void __launch_bounds__(THREADS, STAGE_BLOCKS)
+walk_extend_kernel(const __grid_constant__ WalkParams p,
+    const __grid_constant__ WalkEnv e, const __grid_constant__ WalkTables t,
+                   const float* __restrict__ origin,
+                   const float* __restrict__ direction,
+                   float* __restrict__ out, const __grid_constant__ WalkWork w, int d,
+                   unsigned long long* stats, int n_stats) {
+    const int lane = threadIdx.x & 31;
+    unsigned* cnt = w.counts + (long long)d * N_COUNTS;
+    const unsigned n = d == 0 ? (unsigned)p.B : queue_length(cnt + C_LIVE);
+    const int* live_q = w.queue + (long long)(Q_LIVE + (d & 1)) * p.B;
+    unsigned bounces = 0, steps = 0;
+    for (;;) {
+        const unsigned base = take32(cnt + W_EXTEND, lane);
+        if (base >= n) break;
+        const unsigned i = base + lane;
+        int r = -1, kind = K_DONE;
+        if (i < n) {
+            r = d == 0 ? (int)i : live_q[i];
+            Ctx c = path_ctx(p, e, t, table(w), r);
+            V3 pos, dir, beta, L;
+            float alpha, depth_aov;
+            int cost;
+            bool go = true;
+            if (d == 0) {
+                const V3 org = v3(origin + 3 * (long long)r);
+                dir = v3(direction + 3 * (long long)r);
+                bool hit;
+                float t_entry, tmax;
+                aabb_intersect(p.root_min, p.root_max, org, dir, hit,
+                               t_entry, tmax);
+                pos = hit ? org + dir * (t_entry + EPS) : org;
+                beta = v3(1.0f, 1.0f, 1.0f);
+                L = v3(0.0f, 0.0f, 0.0f);
+                alpha = depth_aov = 0.0f;
+                cost = 0;
+                go = hit && p.ray_depth > 0;
+            } else {
+                int kind_was;
+                load_state(w.state, r, pos, dir, beta, L, alpha, depth_aov,
+                           cost, kind_was);
+            }
+            if (go) {
+                const Track tr =
+                    delta_track<EXT>(c, steps_of<true>(c, VJ_WALK), pos, dir);
+                beta = beta * tr.value;
+                alpha = alpha + tr.alpha_add;
+                cost += tr.steps;
+                pos = tr.pos;
+                go = !(beta.x == 0.0f && beta.y == 0.0f && beta.z == 0.0f) &&
+                     tr.interaction;
+            }
+            if (!go) {
+                finish_path(p, out, origin, r, pos, dir, beta, L, alpha,
+                            depth_aov, cost);
+                bounces += (unsigned)d;
+            } else {
+                if (d == 0)
+                    depth_aov = length(v3(origin + 3 * (long long)r) - pos);
+                const int pick =
+                    (int)(uniform_at32(key_at<true>(c, V_PICK), c.idx) * 3.0f);
+                kind = pick == 0   ? K_SUN
+                       : pick == 1 ? (p.n_lights > 0 ? K_POINT : K_NONE)
+                                   : (p.nee_env != NEE_BLACK ? K_SKY : K_NONE);
+                store_state(w.state, r, pos, dir, beta, L, alpha, depth_aov,
+                            cost, kind);
+            }
+            steps += c.n_steps;
+        }
+        push(w.queue + (long long)Q_SUN * p.B, cnt + C_SUN, r, kind == K_SUN,
+             lane);
+        push(w.queue + (long long)Q_POINT * p.B, cnt + C_POINT, r,
+             kind == K_POINT, lane);
+        push(w.queue + (long long)Q_SKY * p.B, cnt + C_SKY, r, kind == K_SKY,
+             lane);
+        push(w.queue + (long long)Q_SCATTER * p.B, cnt + C_SCATTER, r,
+             kind != K_DONE, lane);
+    }
+    add_stage_stats(stats, n_stats, 0, bounces, steps, 0u);
+}
+
+// NEE at bounce d, one kernel for every kind: each warp takes 32 paths at
+// a time from the sky's light samples, then its phase samples, then the
+// sun's queue, then the point lights' (the longest work first, so the
+// kinds' tails overlap), each lane the estimate of its path's kind: the
+// sun on fold_in(kl, 1), the point lights on fold_in(kl, 2), the sky's
+// two strategies on fold_in(kl, 3) apart (sky_light, sky_phase).  It
+// writes the estimate into the path state; SCATTER adds it to L.
+constexpr int N_NEE_LISTS = 4;
+
+__global__ void __launch_bounds__(THREADS, STAGE_BLOCKS)
+walk_nee_kernel(const __grid_constant__ WalkParams p,
+                const __grid_constant__ WalkEnv e,
+                const __grid_constant__ WalkTables t,
+                const __grid_constant__ WalkWork w, int d,
+                unsigned long long* stats, int n_stats) {
+    const int lane = threadIdx.x & 31;
+    unsigned* cnt = w.counts + (long long)d * N_COUNTS;
+    // (queue, its length's counter, the list's work counter, stats stage)
+    const int q_of[N_NEE_LISTS] = {Q_SKY, Q_SKY, Q_SUN, Q_POINT};
+    const int c_of[N_NEE_LISTS] = {C_SKY, C_SKY, C_SUN, C_POINT};
+    const int w_of[N_NEE_LISTS] = {W_SKY, W_SKY_B, W_SUN, W_POINT};
+    unsigned steps[3] = {0u, 0u, 0u}, sky = 0;
+    for (int list = 0; list < N_NEE_LISTS;) {
+        const unsigned n = queue_length(cnt + c_of[list]);
+        const unsigned base = take32(cnt + w_of[list], lane);
+        if (base >= n) {
+            ++list;
+            continue;
+        }
+        const unsigned i = base + lane;
+        if (i < n) {
+        const int r = w.queue[(long long)q_of[list] * p.B + i];
+        const Ctx c = path_ctx(p, e, t, table(w), r);
+        const float4* sw = path_words(w.state, r);
+        const float4 a = sw[0], b = sw[1];
+        const V3 pos = v3(a.x, a.y, a.z), dir = v3(a.w, b.x, b.y);
+        float* out = w.state + 4LL * PATH_WORDS * r + 16;
+        if (list == 1) {
+            V3 xb;
+            const bool has_b = sky_phase(c, pos, dir, xb);
+            out[3] = xb.x;
+            out[4] = xb.y;
+            out[5] = xb.z;
+            out[6] = has_b ? 1.0f : 0.0f;
+        } else {
+            const V3 ld =
+                list == 0 ? sky_light(c, pos, dir)
+                : list == 2
+                    ? estimate_sun(c, steps_of<true>(c, VJ_SUN), pos, dir)
+                    : estimate_point_lights<true>(c, V_POINT, VJ_POINT, pos,
+                                                  dir);
+            out[0] = ld.x;
+            out[1] = ld.y;
+            out[2] = ld.z;
+        }
+        steps[list < 2 ? 2 : list - 2] += c.n_steps;
+        sky += c.n_sky;
+        }
+    }
+    add_stage_stats(stats, n_stats, K_SUN, 0u, steps[0], 0u);
+    add_stage_stats(stats, n_stats, K_POINT, 0u, steps[1], 0u);
+    add_stage_stats(stats, n_stats, K_SKY, 0u, steps[2], sky);
+}
+
+// SCATTER at bounce d on every path that met the medium: NEE's estimate
+// added to L, the emission walk on fold_in(kd, 2) (EXT with emission), the
+// phase sample on fold_in(kd, 3); a path at ray_depth ends, the others go
+// onto bounce d + 1's queue.
+template <bool EXT>
+__global__ void __launch_bounds__(THREADS, STAGE_BLOCKS)
+walk_scatter_kernel(const __grid_constant__ WalkParams p,
+    const __grid_constant__ WalkEnv e, const __grid_constant__ WalkTables t,
+                    const float* __restrict__ origin, float* __restrict__ out,
+                    const __grid_constant__ WalkWork w, int d, unsigned long long* stats,
+                    int n_stats) {
+    const int lane = threadIdx.x & 31;
+    unsigned* cnt = w.counts + (long long)d * N_COUNTS;
+    const unsigned n = queue_length(cnt + C_SCATTER);
+    const int* q = w.queue + (long long)Q_SCATTER * p.B;
+    const bool last = d + 1 >= p.ray_depth;
+    int* next_q = w.queue + (long long)(Q_LIVE + ((d + 1) & 1)) * p.B;
+    unsigned* next_cnt = cnt + N_COUNTS + C_LIVE;
+    unsigned bounces = 0, steps = 0;
+    for (;;) {
+        const unsigned base = take32(cnt + W_SCATTER, lane);
+        if (base >= n) break;
+        const unsigned i = base + lane;
+        int r = -1;
+        if (i < n) {
+            r = q[i];
+            const Ctx c = path_ctx(p, e, t, table(w), r);
+            V3 pos, dir, beta, L;
+            float alpha, depth_aov;
+            int cost;
+            int kind;
+            load_state(w.state, r, pos, dir, beta, L, alpha, depth_aov, cost,
+                       kind);
+            // NEE's estimate: L + beta * (ld * 3) (0 for a kind with
+            // nothing to estimate), then the emission
+            const float4* sw = path_words(w.state, r);
+            const float4 e4 = sw[4], f4 = sw[5];
+            V3 ld = v3(0.0f, 0.0f, 0.0f);
+            if (kind == K_SKY) {
+                ld = v3(e4.x, e4.y, e4.z);
+                if (f4.z != 0.0f) ld = ld + v3(e4.w, f4.x, f4.y);
+                ld = ld * p.sky_mult;
+            } else if (kind != K_NONE) {
+                ld = v3(e4.x, e4.y, e4.z);
+            }
+            L = L + beta * (ld * 3.0f);
+            if (EXT && p.em_off >= 0)
+                L = L + estimate_emission<EXT>(
+                            c, steps_of<true>(c, vj_emit(p)), pos, dir);
+            float ph;
+            dir = phase_sample(p, dir, hg_at<true>(c, V_SCATTER_HG), c.idx,
+                               ph);
+            if (last) {
+                finish_path(p, out, origin, r, pos, dir, beta, L, alpha,
+                            depth_aov, cost);
+                bounces += (unsigned)(d + 1);
+            } else {
+                store_state(w.state, r, pos, dir, beta, L, alpha, depth_aov,
+                            cost, K_DONE);
+            }
+            steps += c.n_steps;
+        }
+        push(next_q, next_cnt, r, r >= 0 && !last, lane);
+    }
+    add_stage_stats(stats, n_stats, 4, bounces, steps, 0u);
+}
+
+// (the megakernel measured as step 1 of the redesign: one lane a path, a
+// bounce a turn, refilled as walk_direct's)
+template <bool EXT>
+__device__ __forceinline__ bool vol_bounce(const Ctx& c, V3 org, V3& pos, V3& dir, V3& beta,
+                           V3& L, float& alpha, float& depth_aov, int& cost,
+                           int& depth) {
+    const WalkParams& p = c.p;
+    const Track tr = delta_track<EXT>(c, steps_of<true>(c, VJ_WALK), pos, dir);
+    beta = beta * tr.value;
+    alpha = alpha + tr.alpha_add;
+    cost += tr.steps;
+    pos = tr.pos;
+    if (beta.x == 0.0f && beta.y == 0.0f && beta.z == 0.0f) return false;
+    if (!tr.interaction) return false;
+    if (depth == 0) depth_aov = length(org - pos);
+    const int pick = (int)(uniform_at32(key_at<true>(c, V_PICK), c.idx) * 3.0f);
+    V3 ld = v3(0.0f, 0.0f, 0.0f);
+    if (pick == 0) {
+        ld = estimate_sun(c, steps_of<true>(c, VJ_SUN), pos, dir);
+    } else if (pick == 1) {
+        if (p.n_lights > 0)
+            ld = estimate_point_lights<true>(c, V_POINT, VJ_POINT, pos, dir);
+    } else if (p.nee_env != NEE_BLACK) {
+        ld = estimate_sky(c, pos, dir) * p.sky_mult;
+    }
+    L = L + beta * (ld * 3.0f);
+    if (EXT && p.em_off >= 0)
+        L = L + estimate_emission<EXT>(c, steps_of<true>(c, vj_emit(p)), pos,
+                                       dir);
+    float ph;
+    dir = phase_sample(p, dir, hg_at<true>(c, V_SCATTER_HG), c.idx, ph);
+    ++depth;
+    return depth < p.ray_depth;
 }
 
 template <bool EXT>
-int launch(bool volumetric, const WalkParams& p, const WalkEnv& e,
-           const WalkTables& t, const float* origin, const float* direction,
-           float* out, unsigned long long* stats, cudaStream_t st) {
-    const int blocks = (int)(((long long)p.B + THREADS - 1) / THREADS);
-    if (volumetric)
-        walk_volumetric_kernel<EXT><<<blocks, THREADS, 0, st>>>(
-            p, e, t, origin, direction, out, stats);
-    else
-        walk_direct_kernel<EXT><<<blocks, THREADS, 0, st>>>(
-            p, e, t, origin, direction, out, stats);
-    return (int)cudaGetLastError();
+__global__ void __launch_bounds__(THREADS)
+walk_volumetric_mega_kernel(const __grid_constant__ WalkParams p,
+                            const __grid_constant__ WalkEnv e,
+                            const __grid_constant__ WalkTables t,
+                            const float* __restrict__ origin,
+                            const float* __restrict__ direction,
+                            float* __restrict__ out,
+                            const Key* __restrict__ keys,
+                            unsigned* __restrict__ next_ray,
+                            unsigned long long* stats) {
+    const int lane = threadIdx.x & 31;
+    const long long S = ((long long)p.B + 3) & ~3LL;
+    Ctx c{p, e, t, nullptr, Key{0u, 0u}, 0u, 0u, 0u};
+    V3 org = v3(0.0f, 0.0f, 0.0f), pos = org, dir = org, beta = org, L = org;
+    float alpha = 0.0f, depth_aov = 0.0f;
+    int cost = 0, depth = 0, r = 0, tile_i = 0;
+    unsigned bounces = 0;
+    bool live = false, dry = false;
+    for (;;) {
+        while (!dry) {
+            const unsigned idle = __ballot_sync(FULL, !live);
+            if (!idle) break;
+            const int leader = __ffs(idle) - 1;
+            const int n = __popc(idle);
+            unsigned base = 0u;
+            if (lane == leader) base = atomicAdd(next_ray, (unsigned)n);
+            base = __shfl_sync(FULL, base, leader);
+            dry = (unsigned long long)base + n >= (unsigned long long)p.B;
+            const unsigned slot = base + __popc(idle & ((1u << lane) - 1u));
+            if (!live && slot < (unsigned)p.B) {
+                r = (int)slot;
+                tile_i = p.tile > 0 ? r / p.tile : 0;
+                c.idx = (uint32_t)(p.tile > 0 ? r % p.tile : r);
+                org = v3(origin + 3 * (long long)r);
+                dir = v3(direction + 3 * (long long)r);
+                bool hit;
+                float t_entry, tmax;
+                aabb_intersect(p.root_min, p.root_max, org, dir, hit, t_entry,
+                               tmax);
+                pos = hit ? org + dir * (t_entry + EPS) : org;
+                beta = v3(1.0f, 1.0f, 1.0f);
+                L = v3(0.0f, 0.0f, 0.0f);
+                alpha = depth_aov = 0.0f;
+                cost = depth = 0;
+                live = hit && p.ray_depth > 0;
+                if (!live) {
+                    const V3 env_from = length(beta) > 0.9999f ? org : pos;
+                    write_out(p, out, S, r, L, alpha, cost, depth_aov, beta,
+                              dir, env_from);
+                }
+            }
+        }
+        if (!__any_sync(FULL, live)) break;
+        if (live) {
+            c.slab = slab_at(p, keys, tile_i, depth, 0);
+            if (!c.slab) c.kd = fold_in(tile_key(p, tile_i), (uint32_t)depth);
+            live = vol_bounce<EXT>(c, org, pos, dir, beta, L, alpha,
+                                   depth_aov, cost, depth);
+            if (!live) {
+                const V3 env_from = length(beta) > 0.9999f ? org : pos;
+                write_out(p, out, S, r, L, alpha, cost, depth_aov, beta, dir,
+                          env_from);
+                bounces += (unsigned)depth;
+            }
+        }
+    }
+    add_stats(stats, bounces, c);
+}
+
+// ------------------------------------------------------------- launch --
+
+// The persistent grid of a kernel: SMs x its resident blocks of THREADS,
+// asked of the runtime once per kernel and device.
+cudaError_t persistent_grid(const void* fn, int& grid) {
+    struct Entry {
+        const void* fn;
+        int dev, grid;
+    };
+    static Entry cache[32];
+    static int n_cache = 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    for (int i = 0; i < n_cache; ++i)
+        if (cache[i].fn == fn && cache[i].dev == dev) {
+            grid = cache[i].grid;
+            return cudaSuccess;
+        }
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                          THREADS, 0);
+    if (e != cudaSuccess) return e;
+    if (sms <= 0 || per_sm <= 0) return cudaErrorInvalidConfiguration;
+    grid = sms * per_sm;
+    if (n_cache < 32) cache[n_cache++] = Entry{fn, dev, grid};
+    return cudaSuccess;
+}
+
+template <bool VOL>
+cudaError_t launch_keys(const WalkParams& p, Key* keys, int d0,
+                        cudaStream_t st) {
+    const long long n = (long long)p.n_tiles * p.key_depths * slab_size(p);
+    const long long blocks = (n + THREADS - 1) / THREADS;
+    walk_keys_kernel<VOL><<<(int)(blocks < 65535 ? blocks : 65535), THREADS,
+                            0, st>>>(p, keys, d0);
+    return cudaGetLastError();
+}
+
+template <bool EXT>
+cudaError_t launch_direct(const WalkParams& p, const WalkEnv& e,
+                          const WalkTables& t, const WalkWork& w,
+                          const float* origin, const float* direction,
+                          float* out, unsigned long long* stats,
+                          int* launches, cudaStream_t st) {
+    cudaError_t err = cudaMemsetAsync(w.counts, 0, sizeof(unsigned), st);
+    if (err == cudaSuccess) err = launch_keys<false>(p, table(w), 0, st);
+    if (err != cudaSuccess) return err;
+    ++launches[L_KEYS];
+    int grid = 0;
+    err = persistent_grid((const void*)walk_direct_kernel<EXT>, grid);
+    if (err != cudaSuccess) return err;
+    const long long need = ((long long)p.B + THREADS - 1) / THREADS;
+    if (!WALK_DIRECT_PERSISTENT) grid = (int)need;
+    walk_direct_kernel<EXT><<<(int)(need < grid ? need : grid), THREADS, 0,
+                              st>>>(p, e, t, origin, direction, out, table(w),
+                                    w.counts, stats);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++launches[L_DIRECT];
+    return err;
+}
+
+template <bool EXT>
+cudaError_t launch_volumetric_mega(const WalkParams& p, const WalkEnv& e,
+                                   const WalkTables& t, const WalkWork& w,
+                                   const float* origin,
+                                   const float* direction, float* out,
+                                   unsigned long long* stats, int* launches,
+                                   cudaStream_t st) {
+    cudaError_t err = cudaMemsetAsync(w.counts, 0, sizeof(unsigned), st);
+    if (err == cudaSuccess) err = launch_keys<true>(p, table(w), 0, st);
+    if (err != cudaSuccess) return err;
+    ++launches[L_KEYS];
+    int grid = 0;
+    err = persistent_grid((const void*)walk_volumetric_mega_kernel<EXT>, grid);
+    if (err != cudaSuccess) return err;
+    const long long need = ((long long)p.B + THREADS - 1) / THREADS;
+    walk_volumetric_mega_kernel<EXT><<<(int)(need < grid ? need : grid),
+                                       THREADS, 0, st>>>(
+        p, e, t, origin, direction, out, table(w), w.counts, stats);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++launches[L_EXTEND];
+    return err;
+}
+
+// walk_volumetric's wavefront: per bounce the keys, EXTEND, the NEE kinds
+// the scene has, SCATTER, all on `st` with no host round trip.
+template <bool EXT>
+cudaError_t launch_volumetric(const WalkParams& p, const WalkEnv& e,
+                              const WalkTables& t, const WalkWork& w,
+                              const float* origin, const float* direction,
+                              float* out, unsigned long long* stats,
+                              int n_stats, int* launches, cudaStream_t st) {
+    // no bounce (ray_depth 0): EXTEND at 0 writes every ray as it enters
+    const int depths = p.ray_depth > 0 ? p.ray_depth : 1;
+    cudaError_t err = cudaMemsetAsync(
+        w.counts, 0, sizeof(unsigned) * N_COUNTS * (depths + 1), st);
+    if (err != cudaSuccess) return err;
+    int g_ext = 0, g_nee = 0, g_sc = 0;
+    if ((err = persistent_grid((const void*)walk_extend_kernel<EXT>, g_ext)) ||
+        (err = persistent_grid((const void*)walk_nee_kernel, g_nee)) ||
+        (err = persistent_grid((const void*)walk_scatter_kernel<EXT>, g_sc)))
+        return err;
+    const long long need = ((long long)p.B + THREADS - 1) / THREADS;
+    const int g_first = (int)(need < g_ext ? need : g_ext);
+    for (int d = 0; d < depths; ++d) {
+        if ((err = launch_keys<true>(p, table(w), d, st))) return err;
+        ++launches[L_KEYS];
+        walk_extend_kernel<EXT><<<d == 0 ? g_first : g_ext, THREADS, 0, st>>>(
+            p, e, t, origin, direction, out, w, d, stats, n_stats);
+        if ((err = cudaGetLastError())) return err;
+        ++launches[L_EXTEND];
+        if (p.ray_depth <= 0) break;
+        walk_nee_kernel<<<g_nee, THREADS, 0, st>>>(p, e, t, w, d, stats,
+                                                    n_stats);
+        if ((err = cudaGetLastError())) return err;
+        ++launches[L_NEE];
+        walk_scatter_kernel<EXT><<<g_sc, THREADS, 0, st>>>(
+            p, e, t, origin, out, w, d, stats, n_stats);
+        if ((err = cudaGetLastError())) return err;
+        ++launches[L_SCATTER];
+    }
+    return cudaSuccess;
 }
 
 }  // namespace
@@ -958,43 +1888,114 @@ int launch(bool volumetric, const WalkParams& p, const WalkEnv& e,
 extern "C" int vpt_walk_params_size() { return (int)sizeof(WalkParams); }
 extern "C" int vpt_walk_env_size() { return (int)sizeof(WalkEnv); }
 extern "C" int vpt_walk_tables_size() { return (int)sizeof(WalkTables); }
+extern "C" int vpt_walk_work_size() { return (int)sizeof(WalkWork); }
 
 // K5 on the B rays in (B, 3) origin and direction buffers: `volumetric`
-// picks walk_volumetric over walk_direct, `ext` the EXT instances; `out`
-// holds 7, 13 or 16 S floats (write_out); `stats`, 3 unsigned 64-bit
-// counters the launch adds to (bounces, walk steps, sky evaluations), or
-// null.
+// picks walk_volumetric over walk_direct, `ext` the EXT instances; `work`
+// the buffers of a launch of this size (render/walk.py::_work): the key
+// table (n_tiles x key_depths slabs), the counters, and for
+// walk_volumetric the path states and queues; `out` holds 7, 13 or 16 S
+// floats (write_out); `stats`, n_stats (3 or 8) unsigned 64-bit counters
+// the launch adds to (bounces, walk steps, sky evaluations, then
+// walk_volumetric's steps by stage), or null; `launches`
+// (N_LAUNCH_KINDS ints) += the kernels launched, by kind.  `design` 1
+// runs walk_volumetric as the step-1 megakernel.
 extern "C" int vpt_walk(int volumetric, int ext, const void* params,
-                        const void* env, const void* tables,
+                        const void* env, const void* tables, const void* work,
                         const float* origin, const float* direction,
-                        float* out, void* stats, void* stream) {
+                        float* out, void* stats, int n_stats, int* launches,
+                        void* stream, int design) {
     const WalkParams& p = *static_cast<const WalkParams*>(params);
     const WalkTables& t = *static_cast<const WalkTables*>(tables);
+    const WalkWork& w = *static_cast<const WalkWork*>(work);
     if (p.B <= 0) return 0;
-    if (p.B > 0x7fffffff / 3 || p.tile < 0 || p.row_w < 15 ||
+    const int n_tiles =
+        p.tile > 0 ? (int)(((long long)p.B + p.tile - 1) / p.tile) : 1;
+    const bool vol = volumetric != 0;
+    if (p.B > 0x7fffffff / 16 || p.tile < 0 || p.row_w < 15 ||
         t.corners == nullptr || t.lut == nullptr || t.lights == nullptr ||
         (p.nee_env == NEE_HDRI && t.map == nullptr) ||
-        (p.use_cdf && (t.cdf == nullptr || p.cdf_h < 2 || p.cdf_w < 2)))
+        (p.use_cdf && (t.cdf == nullptr || p.cdf_h < 2 || p.cdf_w < 2)) ||
+        p.volume_depth < 1 || (!ext && p.volume_depth != 1) ||
+        p.n_tiles != n_tiles || p.key_scalars != n_scalars(vol, p) ||
+        p.key_walks != n_walks(vol, p) || p.key_steps < 0 ||
+        p.key_depths < 1 || (vol && design == 0 && p.key_depths != 1) ||
+        w.keys == nullptr || w.counts == nullptr ||
+        (vol && design == 0 && (w.state == nullptr || w.queue == nullptr)) ||
+        (stats != nullptr && n_stats != N_STATS && n_stats != N_STATS_STAGES))
         return (int)cudaErrorInvalidValue;
     const WalkEnv& e = *static_cast<const WalkEnv*>(env);
     const cudaStream_t st = (cudaStream_t)stream;
-    unsigned long long* n = static_cast<unsigned long long*>(stats);
-    return ext ? launch<true>(volumetric, p, e, t, origin, direction, out, n,
-                              st)
-               : launch<false>(volumetric, p, e, t, origin, direction, out,
-                               n, st);
+    unsigned long long* s = static_cast<unsigned long long*>(stats);
+    cudaError_t err;
+    if (!vol)
+        err = ext ? launch_direct<true>(p, e, t, w, origin, direction, out, s,
+                                        launches, st)
+                  : launch_direct<false>(p, e, t, w, origin, direction, out,
+                                         s, launches, st);
+    else if (design == 1)
+        err = ext ? launch_volumetric_mega<true>(p, e, t, w, origin,
+                                                 direction, out, s, launches,
+                                                 st)
+                  : launch_volumetric_mega<false>(p, e, t, w, origin,
+                                                  direction, out, s, launches,
+                                                  st);
+    else
+        err = ext ? launch_volumetric<true>(p, e, t, w, origin, direction,
+                                            out, s, n_stats, launches, st)
+                  : launch_volumetric<false>(p, e, t, w, origin, direction,
+                                             out, s, n_stats, launches, st);
+    return (int)err;
 }
 
-// info[0..3] of one instance (volumetric, ext): registers per thread,
-// local (spill and stack) bytes per thread, threads per block, resident
-// blocks per SM.
-extern "C" int vpt_walk_launch_info(int volumetric, int ext, int* info) {
+// The key table alone (walk_keys_kernel), bounces [d0, d0 + key_depths),
+// for the check against render/walk.py::key_table_plain.
+extern "C" int vpt_walk_keys(int volumetric, const void* params, void* keys,
+                             int d0, void* stream) {
+    const WalkParams& p = *static_cast<const WalkParams*>(params);
+    const bool vol = volumetric != 0;
+    if (p.n_tiles < 1 || p.key_scalars != n_scalars(vol, p) ||
+        p.key_walks != n_walks(vol, p) || p.key_steps < 0 ||
+        p.key_depths < 1 || keys == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    return (int)(vol ? launch_keys<true>(p, static_cast<Key*>(keys), d0, st)
+                     : launch_keys<false>(p, static_cast<Key*>(keys), d0,
+                                          st));
+}
+
+// info[0..3] of one kernel: registers per thread, local (spill and stack)
+// bytes per thread, threads per block, resident blocks per SM.  `stage`:
+// L_KEYS, L_DIRECT (walk_direct), L_EXTEND (walk_volumetric's EXTEND),
+// L_NEE, L_SCATTER; 7 the step-1 megakernel.
+extern "C" int vpt_walk_launch_info(int volumetric, int ext, int stage,
+                                    int* info) {
+    const void* fn = nullptr;
+    switch (stage) {
+        case L_KEYS:
+            fn = volumetric ? (const void*)walk_keys_kernel<true>
+                            : (const void*)walk_keys_kernel<false>;
+            break;
+        case L_DIRECT:
+            fn = ext ? (const void*)walk_direct_kernel<true>
+                     : (const void*)walk_direct_kernel<false>;
+            break;
+        case L_EXTEND:
+            fn = ext ? (const void*)walk_extend_kernel<true>
+                     : (const void*)walk_extend_kernel<false>;
+            break;
+        case L_NEE: fn = (const void*)walk_nee_kernel; break;
+        case L_SCATTER:
+            fn = ext ? (const void*)walk_scatter_kernel<true>
+                     : (const void*)walk_scatter_kernel<false>;
+            break;
+        case 7:
+            fn = ext ? (const void*)walk_volumetric_mega_kernel<true>
+                     : (const void*)walk_volumetric_mega_kernel<false>;
+            break;
+        default: return (int)cudaErrorInvalidValue;
+    }
     cudaFuncAttributes a{};
-    const void* fn =
-        volumetric ? (ext ? (const void*)walk_volumetric_kernel<true>
-                          : (const void*)walk_volumetric_kernel<false>)
-                   : (ext ? (const void*)walk_direct_kernel<true>
-                          : (const void*)walk_direct_kernel<false>);
     cudaError_t err = cudaFuncGetAttributes(&a, fn);
     int per_sm = 0;
     if (err == cudaSuccess)

@@ -100,11 +100,13 @@ def load_library() -> Library:
             ("vpt_div_known_sweep", [ctypes.c_float, ctypes.c_float,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong,
                                      vp, vp]),
-            ("vpt_walk", [i32, i32] + [vp] * 8),
+            ("vpt_walk", [i32, i32] + [vp] * 8 + [i32, vp, vp, i32]),
+            ("vpt_walk_keys", [i32, vp, vp, i32, vp]),
             ("vpt_walk_params_size", []),
             ("vpt_walk_env_size", []),
             ("vpt_walk_tables_size", []),
-            ("vpt_walk_launch_info", [i32, i32, vp]),
+            ("vpt_walk_work_size", []),
+            ("vpt_walk_launch_info", [i32, i32, i32, vp]),
             ("vpt_gather_rows", [vp] * 5),
             ("vpt_gather_launch_size", []),
             ("vpt_take_along_i32", [vp] * 5),

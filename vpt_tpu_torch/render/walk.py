@@ -1,9 +1,16 @@
 """Kernel K5 (csrc/walk.cu): the reference engine's walks on the card.
 
-``walk_direct`` runs render/integrator.py::direct_integrator and
-``walk_volumetric`` render/vol_integrator.py::vol_integrator on CUDA
-rays, one thread a ray; their plain versions are
-``direct_integrator_plain`` and ``vol_integrator_plain``.  K5 writes L,
+``walk_direct`` runs render/integrator.py::direct_integrator on CUDA rays
+on persistent warps (a lane a ray, a bounce a turn, refilled from a
+counter), ``walk_volumetric`` render/vol_integrator.py::vol_integrator
+as a wavefront of stage kernels over compacted path queues (per bounce:
+the keys, EXTEND, NEE with each warp on one light kind, SCATTER); both
+read the
+per-tile key table (``key_layout``, ``key_table_plain``).  Their plain
+versions are ``direct_integrator_plain`` and ``vol_integrator_plain``.
+The launch's device buffers (the key table, the counters, the path
+states and queues) are allocated once per launch size (``_work``) and
+reused across samples.  K5 writes L,
 alpha, cost, trunc (0) and depth as K1 lays them out
 (render/fused.py::out_buffer), adds BLACK and CONSTANT itself, and for
 the simple sky, HDRI with a map and the Bruneton atmosphere hands each
@@ -30,6 +37,7 @@ from dataclasses import dataclass
 
 import torch
 
+from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.vecmath import degree_to_cartesian
 from vpt_tpu_torch.ops import cuda
 from vpt_tpu_torch.render.fused import out_buffer
@@ -43,13 +51,52 @@ from vpt_tpu_torch.render.params import Environment, check_slice
 from vpt_tpu_torch.render.tracking import _over, vec3_param
 from vpt_tpu_torch.volume.grid import unified_layout
 
+_SOURCE = "vpt_tpu_torch/csrc/walk.cu"
+# one launch a _launch_k5 call: walk_direct's persistent kernel, and
+# walk_volumetric's wavefront as a whole
 WALK_DIRECT = cuda.Kernel(
-    name="walk_direct", route="cuda", source="vpt_tpu_torch/csrc/walk.cu",
+    name="walk_direct", route="cuda", source=_SOURCE,
     replaces="vpt_tpu/render/integrator.py:102")
 WALK_VOLUMETRIC = cuda.Kernel(
-    name="walk_volumetric", route="cuda",
-    source="vpt_tpu_torch/csrc/walk.cu",
+    name="walk_volumetric", route="cuda", source=_SOURCE,
     replaces="vpt_tpu/render/vol_integrator.py:46")
+# the kernels of a launch, each counted where it is launched: the key
+# table (both integrators; the walks' fold_in(key, step) and subkeys), and
+# walk_volumetric's stages, once a bounce each
+WALK_KEYS = cuda.Kernel(
+    name="walk_keys", route="cuda", source=_SOURCE,
+    replaces="vpt_tpu/render/tracking.py:600")
+WALK_EXTEND = cuda.Kernel(
+    name="walk_extend", route="cuda", source=_SOURCE,
+    replaces="vpt_tpu/render/vol_integrator.py:57")
+WALK_NEE = cuda.Kernel(
+    name="walk_nee", route="cuda", source=_SOURCE,
+    replaces="vpt_tpu/render/vol_integrator.py:25")
+WALK_SCATTER = cuda.Kernel(
+    name="walk_scatter", route="cuda", source=_SOURCE,
+    replaces="vpt_tpu/render/vol_integrator.py:77")
+# vpt_walk's launch kinds (walk.cu's L_*), in order
+LAUNCH_KINDS = (WALK_KEYS, WALK_DIRECT, WALK_EXTEND, WALK_NEE, WALK_SCATTER)
+STAGES = ("keys", "direct", "extend", "nee", "scatter")
+# walk_volumetric's stage kernels
+STAGE_KERNELS = (WALK_EXTEND, WALK_NEE, WALK_SCATTER)
+# the walk steps a stats tensor of N_STATS_STAGES counters holds by stage
+# (stats[3 + k]): EXTEND, NEE's sun, point lights and sky, SCATTER
+STEP_STAGES = ("extend", "sun", "point", "sky", "scatter")
+N_STATS, N_STATS_STAGES = 3, 8
+# walk.cu's path queues and counters (N_QUEUES x B ints; N_COUNTS per
+# bounce: the queue lengths C_LIVE .. C_SCATTER first)
+N_QUEUES, N_COUNTS = 6, 11
+PATH_FLOATS = 24   # PathState
+# the key table: the step keys of each walk for s < KEY_STEPS (a later
+# step folds its key in the thread), and walk_direct's bounces below
+# DIRECT_KEY_DEPTHS (a deeper bounce folds its keys in the thread;
+# walk_volumetric's table holds the bounce its stages run)
+KEY_STEPS, DIRECT_KEY_DEPTHS = 256, 4
+# the step-1 design of the redesign, for the measurement in PERF.md: 1
+# runs walk_volumetric as one persistent megakernel
+VOLUMETRIC_DESIGN = 0
+MEGA_KEY_DEPTHS = 8
 # the sky next-event estimate's environment (walk.cu's NEE_*)
 NEE_BLACK, NEE_CONSTANT, NEE_HDRI, NEE_SKY = range(4)
 INSTANCED_ITEM = ("ROADMAP A.8, K5 on instanced scenes and on bfloat16 "
@@ -65,7 +112,8 @@ class _WalkParams(ctypes.Structure):
         "B", "tile", "ray_depth", "volume_depth", "max_steps", "n_lights",
         "n_pt_walks", "reference_falloff", "use_double_hg", "defer_env",
         "env_constant", "nee_env", "use_cdf", "cdf_h", "cdf_w", "row_w",
-        "em_off", "col_off", "grid_off", "sph_enabled")] + [
+        "em_off", "col_off", "grid_off", "sph_enabled", "n_tiles",
+        "key_scalars", "key_walks", "key_steps", "key_depths")] + [
         ("dim", ctypes.c_int * 3), ("key", ctypes.c_uint * 2)] + [
         (n, ctypes.c_float) for n in (
             "max_ext", "inv_rate", "sigma_c", "sigma_r", "rate_inv_tr",
@@ -87,9 +135,17 @@ class _WalkTables(ctypes.Structure):
         "m_cdf")]
 
 
+class _WalkWork(ctypes.Structure):
+    """Mirror of ``WalkWork`` in csrc/walk.cu."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "state", "queue", "counts", "keys")]
+
+
 @dataclass
 class WalkLaunch:
-    """K5's launch arguments for one (scene, params), built once."""
+    """K5's launch arguments for one (scene, params), built once; ``work``
+    the device buffers of the last launch size (_work)."""
 
     volumetric: bool
     ext: bool
@@ -98,6 +154,147 @@ class WalkLaunch:
     tables: _WalkTables
     tensors: tuple                  # what the tables point at
     k4: EnvLaunch | None = None     # K4's, for a deferred environment
+    work: tuple | None = None       # (B, tile, _WalkWork, its tensors)
+
+
+TILE_FOLD = 1000   # the reference's tile keys: fold_in(key, 1000 + t)
+
+# The per-tile key table (csrc/walk.cu's slot_key): a slab per tile and
+# bounce of key_scalars keys, then key_walks blocks of key_steps step
+# keys.  walk_volumetric's scalar slots (kd = fold_in(tile key, depth),
+# kl = fold_in(kd, 1), ks = fold_in(kl, 3)):
+V_WALK, V_PICK, V_SUN, V_SKY_TR, V_EMIT = 0, 1, 2, 3, 5
+V_SKY_U, V_SKY_HG, V_SCATTER_HG, V_POINT = 6, 8, 12, 16
+# walk_direct's, after its 5 * volume_depth volume-walk slots
+D_SUN, D_EMIT, D_SPH, D_SPH_TR, D_POINT = range(5)
+
+
+@dataclass(frozen=True)
+class KeyLayout:
+    """A slab's layout: ``scalars`` keys, then a block of ``steps`` step
+    keys for each slot of ``walks`` (the walk keys they fold)."""
+
+    volumetric: bool
+    volume_depth: int
+    use_double_hg: bool
+    scalars: int
+    walks: tuple
+    steps: int
+
+    @property
+    def slab(self) -> int:
+        return self.scalars + len(self.walks) * self.steps
+
+
+def key_layout(volumetric: bool, n_pt_walks: int, volume_depth: int,
+               has_emit: bool, sphere: bool, use_double_hg: bool,
+               steps: int) -> KeyLayout:
+    """csrc/walk.cu's slab for these settings: n_scalars, walk_slot."""
+    if volumetric:
+        walks = [V_WALK, V_SUN, V_SKY_TR, V_SKY_TR + 1]
+        walks += [V_POINT + 2 * w + 1 for w in range(n_pt_walks)]
+        walks += [V_EMIT] if has_emit else []
+        scalars = V_POINT + 2 * n_pt_walks
+    else:
+        d = 5 * volume_depth
+        walks = list(range(volume_depth)) + [d + D_SUN]
+        walks += [d + D_POINT + 2 * w + 1 for w in range(n_pt_walks)]
+        walks += [d + D_EMIT] if has_emit else []
+        walks += [d + D_SPH_TR] if sphere else []
+        scalars = d + D_POINT + 2 * n_pt_walks
+    return KeyLayout(volumetric, volume_depth, bool(use_double_hg), scalars,
+                     tuple(walks), steps)
+
+
+def _fold(k, n):
+    """fold_in(k, n) (= split(k)[n]) on keys of python ints or int64
+    tensors and a counter of either."""
+    return rng.threefry2x32(k[0], k[1], 0, n)
+
+
+def _hg_key(layout: KeyLayout, k, i: int):
+    if layout.use_double_hg:
+        return _fold(_fold(k, i >> 1), i & 1)
+    if i < 2:
+        return _fold(k, i)
+    zero = k[0] * 0
+    return (zero, zero)
+
+
+def slot_key(layout: KeyLayout, kd, slot: int):
+    """The key in ``slot`` of the slab of bounce key ``kd``: the fold_in /
+    split chains of vpt_tpu's integrators (walk.cu's slot_key)."""
+    if layout.volumetric:
+        if slot == V_WALK:
+            return _fold(kd, 0)
+        if slot == V_EMIT:
+            return _fold(kd, 2)
+        if V_SCATTER_HG <= slot < V_POINT:
+            return _hg_key(layout, _fold(kd, 3), slot - V_SCATTER_HG)
+        kl = _fold(kd, 1)
+        if slot == V_PICK:
+            return _fold(kl, 0)
+        if slot == V_SUN:
+            return _fold(_fold(kl, 1), 0)
+        if slot >= V_POINT:
+            kw = _fold(_fold(kl, 2), (slot - V_POINT) >> 1)
+            return _fold(kw, (slot - V_POINT) & 1)
+        ks = _fold(kl, 3)
+        if slot < V_EMIT:
+            return _fold(ks, 2 + slot - V_SKY_TR)
+        if slot < V_SKY_HG:
+            return _fold(_fold(ks, 0), slot - V_SKY_U)
+        return _hg_key(layout, _fold(ks, 1), slot - V_SKY_HG)
+    nv = layout.volume_depth
+    if slot < nv:
+        return _fold(kd, 100 + slot)
+    if slot < 5 * nv:
+        v = (slot - nv) >> 2
+        return _hg_key(layout, _fold(_fold(kd, 100 + v), 1), (slot - nv) & 3)
+    slot -= 5 * nv
+    if slot == D_SUN:
+        return _fold(_fold(kd, 2), 0)
+    if slot == D_EMIT:
+        return _fold(kd, 4)
+    if slot == D_SPH:
+        return _fold(kd, 5)
+    if slot == D_SPH_TR:
+        return _fold(_fold(kd, 5), 3)
+    slot -= D_POINT
+    return _fold(_fold(_fold(kd, 3), slot >> 1), slot & 1)
+
+
+def key_table_plain(layout: KeyLayout, key, n_tiles: int, tile: int, d0: int,
+                    depths: int, device="cpu") -> torch.Tensor:
+    """walk_keys_kernel's table in torch: (n_tiles, depths, slab, 2) int64
+    uint32 words, bounce d0 + i's slab of tile t at [t, i]; tile t's key
+    fold_in(key, 1000 + t), or ``key`` itself for tile 0."""
+    t = torch.arange(n_tiles, dtype=torch.int64, device=device)
+    k = (torch.full_like(t, key[0]), torch.full_like(t, key[1]))
+    kt = _fold(k, TILE_FOLD + t) if tile > 0 else k
+    s = torch.arange(layout.steps, dtype=torch.int64, device=device)
+    out = torch.empty((n_tiles, depths, layout.slab, 2), dtype=torch.int64,
+                      device=device)
+    for i in range(depths):
+        kd = _fold(kt, d0 + i)
+        for slot in range(layout.scalars):
+            out[:, i, slot, 0], out[:, i, slot, 1] = slot_key(layout, kd,
+                                                              slot)
+        for j, ws in enumerate(layout.walks):
+            b = slot_key(layout, kd, ws)
+            a = layout.scalars + j * layout.steps
+            out[:, i, a:a + layout.steps, 0], out[
+                :, i, a:a + layout.steps, 1] = _fold(
+                (b[0][:, None], b[1][:, None]), s[None, :])
+    return out
+
+
+def launch_layout(launch: "WalkLaunch") -> KeyLayout:
+    """The key layout a prepared launch's kernels read."""
+    p = launch.params
+    return key_layout(launch.volumetric, p.n_pt_walks, p.volume_depth,
+                      p.em_off >= 0, bool(p.sph_enabled),
+                      bool(p.use_double_hg), p.key_steps)
 
 
 def check_walk_scene(scene, params, volumetric: bool) -> None:
@@ -156,6 +353,7 @@ def prepare_walk(scene, params, volumetric: bool) -> WalkLaunch:
     cuda.check_struct(_WalkParams, lib.vpt_walk_params_size)
     cuda.check_struct(_EnvParams, lib.vpt_walk_env_size)
     cuda.check_struct(_WalkTables, lib.vpt_walk_tables_size)
+    cuda.check_struct(_WalkWork, lib.vpt_walk_work_size)
     dev = scene.device
     corners = scene.atlas.density_corners
     cuda.check_cuda_tensor(corners, "density_corners", dtype=torch.float32)
@@ -239,37 +437,120 @@ def prepare_walk(scene, params, volumetric: bool) -> WalkLaunch:
             setattr(t, name, tab.data_ptr())
             tensors.append(tab)
     ext_variant = p.em_off >= 0 or p.col_off >= 0 or p.volume_depth > 1
+    layout = key_layout(volumetric, p.n_pt_walks, p.volume_depth,
+                        p.em_off >= 0, bool(p.sph_enabled),
+                        bool(p.use_double_hg), min(p.max_steps, KEY_STEPS))
+    p.key_scalars, p.key_walks = layout.scalars, len(layout.walks)
+    p.key_steps = layout.steps
+    p.key_depths = (1 if volumetric else
+                    max(1, min(p.ray_depth, DIRECT_KEY_DEPTHS)))
     k4 = prepare_environment(scene, params) if p.defer_env else None
     return WalkLaunch(volumetric, ext_variant, p, _walk_env(scene, params),
                       t, tuple(tensors), k4)
+
+
+def n_tiles(B: int, tile: int) -> int:
+    """The tiles of a launch of B rays: ceil(B / tile), or 1 for tile 0."""
+    return -(-B // tile) if tile > 0 else 1
+
+
+def _work(launch: WalkLaunch, p: _WalkParams, dev):
+    """The launch's device buffers for p.B rays in p.tile tiles, kept on
+    the launch and reused while the size stays: the key table (n_tiles x
+    key_depths slabs), the counters, and for walk_volumetric's stages the
+    path states (PATH_FLOATS a ray) and the N_QUEUES queues."""
+    if launch.work is not None and launch.work[:2] == (p.B, p.tile):
+        return launch.work[2]
+    stages = launch.volumetric and p.key_depths == 1
+    slab = p.key_scalars + p.key_walks * p.key_steps
+    keys = torch.empty(2 * p.n_tiles * p.key_depths * slab,
+                       dtype=torch.int32, device=dev)
+    counts = torch.empty(N_COUNTS * (max(p.ray_depth, 1) + 1),
+                         dtype=torch.int32, device=dev)
+    tensors = [keys, counts]
+    w = _WalkWork(None, None, counts.data_ptr(), keys.data_ptr())
+    if stages:
+        state = torch.empty(PATH_FLOATS * p.B, dtype=torch.float32,
+                            device=dev)
+        queue = torch.empty(N_QUEUES * p.B, dtype=torch.int32, device=dev)
+        w.state, w.queue = state.data_ptr(), queue.data_ptr()
+        tensors += [state, queue]
+    launch.work = (p.B, p.tile, w, tuple(tensors))
+    return w
+
+
+def _launch_params(launch: WalkLaunch, B: int, tile: int, key):
+    p = _WalkParams.from_buffer_copy(launch.params)
+    p.B, p.tile = B, tile
+    p.n_tiles = n_tiles(B, tile)
+    p.key[0], p.key[1] = int(key[0]), int(key[1])
+    if launch.volumetric and VOLUMETRIC_DESIGN == 1:
+        p.key_depths = max(1, min(p.ray_depth, MEGA_KEY_DEPTHS))
+    return p
 
 
 def _launch_k5(launch: WalkLaunch, key, origin, direction, tile: int,
                stats=None):
     """K5 alone: its output views (fused.out_buffer, as K1's): L,
     alpha, cost, trunc, depth, and for a deferred environment beta, the
-    direction and env_pos.  ``stats``: a (3,) int64 tensor on the card
-    the launch adds the rays' bounces, walk steps and sky evaluations
-    to, or None."""
+    direction and env_pos.  ``stats``: an int64 tensor on the card of
+    N_STATS counters the launch adds the rays' bounces, walk steps and sky
+    evaluations to (or N_STATS_STAGES: then also walk_volumetric's walk
+    steps by stage, STEP_STAGES' order), or None."""
     dev = launch.tensors[0].device
     B = origin.shape[0]
     cuda.check_cuda_tensor(origin, "origin", (B, 3), torch.float32, dev)
     cuda.check_cuda_tensor(direction, "direction", (B, 3), torch.float32,
                            dev)
-    p = _WalkParams.from_buffer_copy(launch.params)
-    p.B, p.tile = B, tile
-    p.key[0], p.key[1] = int(key[0]), int(key[1])
+    p = _launch_params(launch, B, tile, key)
+    w = _work(launch, p, dev)
     out, views = out_buffer(B, p.defer_env, dev)
+    launches = (ctypes.c_int * len(LAUNCH_KINDS))()
     rc = cuda.load_library().dll.vpt_walk(
         int(launch.volumetric), int(launch.ext), ctypes.byref(p),
         ctypes.byref(launch.env), ctypes.byref(launch.tables),
-        origin.data_ptr(), direction.data_ptr(), out.data_ptr(),
-        None if stats is None else stats.data_ptr(),
-        cuda.current_stream(dev))
+        ctypes.byref(w), origin.data_ptr(), direction.data_ptr(),
+        out.data_ptr(), None if stats is None else stats.data_ptr(),
+        0 if stats is None else stats.numel(), launches,
+        cuda.current_stream(dev), VOLUMETRIC_DESIGN)
     counter = WALK_VOLUMETRIC if launch.volumetric else WALK_DIRECT
     cuda.check_status(rc, counter.name)
+    for k, n in zip(LAUNCH_KINDS, launches):
+        if k is not WALK_DIRECT:
+            k.launches += n
     counter.launches += 1
     return views
+
+
+def queue_lengths(launch: WalkLaunch) -> dict:
+    """walk_volumetric's queue lengths by bounce after its last launch
+    (the counters it left on the card): the live paths EXTEND walked, the
+    paths each NEE kind and SCATTER took."""
+    if launch.work is None or not launch.volumetric:
+        raise ValueError("no walk_volumetric launch on this WalkLaunch")
+    B = launch.work[0]
+    depth = max(launch.params.ray_depth, 1)
+    c = launch.work[3][1].view(-1, N_COUNTS)[:depth].cpu()
+    live = [B] + c[1:, 0].tolist()
+    return dict(live=live, sun=c[:, 1].tolist(), point=c[:, 2].tolist(),
+                sky=c[:, 3].tolist(), scatter=c[:, 4].tolist())
+
+
+def key_table(launch: WalkLaunch, key, B: int, tile: int, d0: int = 0):
+    """walk_keys_kernel's table for a launch of B rays in tiles of
+    ``tile`` and bounces [d0, d0 + key_depths), as key_table_plain's
+    (n_tiles, key_depths, slab, 2) int64 words: for the check against
+    it."""
+    p = _launch_params(launch, B, tile, key)
+    layout = launch_layout(launch)
+    dev = launch.tensors[0].device
+    keys = torch.empty(2 * p.n_tiles * p.key_depths * layout.slab,
+                       dtype=torch.int32, device=dev)
+    cuda.check_status(cuda.load_library().dll.vpt_walk_keys(
+        int(launch.volumetric), ctypes.byref(p), keys.data_ptr(), d0,
+        cuda.current_stream(dev)), WALK_KEYS.name)
+    return (keys.view(p.n_tiles, p.key_depths, layout.slab, 2).to(
+        torch.int64) & rng.MASK)
 
 
 def _run(scene, params, key, origin, direction, volumetric, launch, tile,
@@ -308,11 +589,16 @@ def walk_volumetric(scene, params, key, origin, direction, launch=None,
                 stats)
 
 
-def launch_info(volumetric: bool, ext: bool) -> dict:
-    """One K5 instance's registers and local bytes per thread, threads
-    per block and resident blocks per SM, from the CUDA runtime."""
+def launch_info(volumetric: bool, ext: bool, stage: str | None = None) -> dict:
+    """One K5 kernel's registers and local bytes per thread, threads per
+    block and resident blocks per SM, from the CUDA runtime.  ``stage``:
+    one of STAGES ("keys"; walk_direct's "direct"; walk_volumetric's
+    "extend", "nee", "scatter"), by default the integrator's walk
+    ("direct", or "extend")."""
+    stage = stage or ("extend" if volumetric else "direct")
     info = (ctypes.c_int * 4)()
     cuda.check_status(cuda.load_library().dll.vpt_walk_launch_info(
-        int(volumetric), int(ext), info), "walk launch info")
+        int(volumetric), int(ext), STAGES.index(stage), info),
+        "walk launch info")
     return dict(zip(("registers", "local_bytes", "threads",
                      "blocks_per_sm"), info))

@@ -2,9 +2,24 @@
 volumetric integrator, timed and held to their plain versions.
 
     python -m vpt_tpu_torch.tools.time_walk
+    python -m vpt_tpu_torch.tools.time_walk --against CHECKOUT
+    python vpt_tpu_torch/tools/time_walk.py --timing
 
 chip_smoke.py runs it as its phases ``reference`` and ``volumetric``; it
 prints one JSON line for each, and returns them for the kernels line.
+
+``--timing`` prints one JSON line of the films and times that decide
+whether a change kept K5's bits and what it gained: the 1080p films'
+SHA-256 through ProgressiveRenderer (the reference engine on the main
+scene, the volumetric integrator under the simple sky on the CLI's
+scene, and that scene under the c3 map through the CDF at 512x512), each
+render's ms/spp and K5 alone by CUDA events.  It calls only entry points
+every checkout since K5's has, so run by its path with another checkout
+first on PYTHONPATH it times that checkout.  ``--against CHECKOUT`` builds
+both checkouts' kernels (in parallel), then runs ``--timing`` in turns,
+CHECKOUT, this one, this one, CHECKOUT, each in a process of its own;
+it prints each run's line and a summary, and exits 1 unless every film's
+hash is the same on both sides.
 
 * ``reference``: the main path's scene (the procedural 200^3 grid, one
   point light, the sun, BLACK) through ProgressiveRenderer with
@@ -29,14 +44,17 @@ prints one JSON line for each, and returns them for the kernels line.
 
 The rule of a match (chip_smoke.py's phase 6): >= 99% of rays agree (L
 within rtol 1e-4 + atol 1e-6, alpha within 1e-5, cost and trunc exact)
-and the image means within 0.5%; the bit-for-bit share is printed.
+and the image means within 0.5%; and, since K5's redesign, every ray's
+outputs bit for bit (the bit-for-bit share, printed, is 1.0).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -140,7 +158,16 @@ def counters():
     return {k.name: k for k in (
         walk.WALK_DIRECT, walk.WALK_VOLUMETRIC, film_mod.FILM_ACCUMULATE,
         fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY, renderer.RAYGEN,
-        integrator.ENVIRONMENT)}
+        integrator.ENVIRONMENT, *getattr(walk, "LAUNCH_KINDS", ()))}
+
+
+def film_sha(film) -> str:
+    """SHA-256 of the film's five fields: equal for two checkouts whose
+    films agree bit for bit."""
+    h = hashlib.sha256()
+    for f in ("accum", "alpha", "depth", "cost", "trunc"):
+        h.update(getattr(film, f).contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def render(scene, p, dev, spp=TIMED_SPP):
@@ -165,7 +192,7 @@ def render(scene, p, dev, spp=TIMED_SPP):
                 / (n * (WARMUP_SPP + spp)),
                 launches={name: k.launches for name, k in ks.items()},
                 finite=bool(torch.isfinite(acc).all()),
-                mean=float(acc.double().mean()))
+                mean=float(acc.double().mean()), film_sha256=film_sha(r.film))
 
 
 def k5_alone(scene, p, dev, volumetric, reps=3):
@@ -174,8 +201,11 @@ def k5_alone(scene, p, dev, volumetric, reps=3):
     the rays' bounces, walk steps and sky evaluations; and the bound of
     that work (common.bound: the rays, the outputs, each row visited
     once, and K5_OPS_* a step, a bounce and a sky evaluation).  The warp
-    efficiency of its one-thread-a-ray schedule, from the cost AOV (the
-    primary walks' steps of each ray: fused.warp_efficiency at 32)."""
+    efficiency of a one-thread-a-ray schedule, from the cost AOV (the
+    primary walks' steps of each ray: fused.warp_efficiency at 32).  On a
+    checkout with K5's stage kernels also each kernel's device ms a
+    launch (torch.profiler), its walk steps and bound, and for
+    walk_volumetric the queue lengths by bounce."""
     key = rng.render_key(SEED, 0)
     o, d = renderer._primary_rays_cuda(scene.camera, p, key)
     launch = walk.prepare_walk(scene, p, volumetric)
@@ -190,20 +220,105 @@ def k5_alone(scene, p, dev, volumetric, reps=3):
     end.record()
     torch.cuda.synchronize(dev)
     ms = start.elapsed_time(end) / reps
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    staged = hasattr(walk, "STAGE_KERNELS")
+    stats = torch.zeros(walk.N_STATS_STAGES if staged else 3,
+                        dtype=torch.int64, device=dev)
     views = walk._launch_k5(launch, tkey, o, d, tile, stats)
-    bounces, steps, sky = (int(v) for v in stats.tolist())
+    counts = [int(v) for v in stats.tolist()]
+    bounces, steps, sky = counts[:3]
     n = o.shape[0]
     rows = min(steps, scene.atlas.density_corners.shape[0])
     out_bytes = 4 * (7 + 6 * bool(launch.params.defer_env))
     b = bound(n * (24 + out_bytes) + rows * ROW_BYTES,
               steps * K5_OPS_PER_STEP + bounces * K5_OPS_PER_BOUNCE
               + sky * SKY_OPS)
-    return dict(ms=ms, rays=n, bounces_per_ray=bounces / n,
-                steps_per_ray=steps / n, sky_evals_per_ray=sky / n,
-                primary_steps_per_ray=float(views[2].double().mean()),
-                warp_efficiency=fused.warp_efficiency(views[2]),
-                bound=b)
+    rec = dict(ms=ms, rays=n, bounces_per_ray=bounces / n,
+               steps_per_ray=steps / n, sky_evals_per_ray=sky / n,
+               primary_steps_per_ray=float(views[2].double().mean()),
+               warp_efficiency=fused.warp_efficiency(views[2]),
+               bound=b)
+    if staged:
+        rec["kernels"] = kernel_split(scene, launch, tkey, o, d, tile, dev,
+                                      counts)
+        if volumetric:
+            rec["queues"] = walk.queue_lengths(launch)
+    return rec
+
+
+# the profiler's name of each K5 kernel (csrc/walk.cu), by counter
+KERNEL_SYMBOLS = {"walk_keys": "walk_keys_kernel",
+                  "walk_direct": "walk_direct_kernel",
+                  "walk_extend": "walk_extend_kernel",
+                  "walk_nee": "walk_nee_kernel",
+                  "walk_scatter": "walk_scatter_kernel"}
+STATE_BYTES = 96   # walk.cu's PathState, read and written by a stage
+
+
+def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, reps=2):
+    """Each K5 kernel's device ms per K5 launch (torch.profiler over
+    ``reps`` launches), launches per K5 launch, and the bound of its
+    share of the work (``counts``: N_STATS_STAGES counters of one launch):
+    walk_keys its table written once, a key a threefry; walk_direct the
+    whole launch's; each stage its walk steps at K5_OPS_PER_STEP and the
+    path states of its queues (EXTEND also the bounces, the rays and the
+    outputs; NEE the sky evaluations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpt_tpu_torch.tools.common import device_times
+    before = {k.name: k.launches for k in walk.LAUNCH_KINDS}
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        for _ in range(reps):
+            walk._launch_k5(launch, tkey, o, d, tile)
+        torch.cuda.synchronize(dev)
+    times = device_times(pr)
+    n = o.shape[0]
+    p = walk._launch_params(launch, n, tile, tkey)
+    slab = p.key_scalars + p.key_walks * p.key_steps
+    n_keys = p.n_tiles * p.key_depths * slab * (
+        max(p.ray_depth, 1) if launch.volumetric else 1)
+    rows = scene.atlas.density_corners.shape[0]
+    queues = walk.queue_lengths(launch) if launch.volumetric else None
+    out_bytes = 4 * (7 + 6 * bool(launch.params.defer_env))
+    bounces, steps, sky = counts[:3]
+
+    def stage_bound(k, paths, extra_ops=0, extra_bytes=0):
+        st = counts[3 + k]
+        return bound(paths * 2 * STATE_BYTES + min(st, rows) * ROW_BYTES
+                     + extra_bytes, st * K5_OPS_PER_STEP + extra_ops)
+
+    bounds = {"walk_keys": bound(n_keys * 8, n_keys * 80)}
+    if launch.volumetric:
+        nee_steps = sum(counts[4:7])
+        bounds.update(
+            walk_extend=stage_bound(0, sum(queues["live"]),
+                                    bounces * K5_OPS_PER_BOUNCE,
+                                    n * (24 + out_bytes)),
+            walk_nee=bound(sum(sum(queues[k]) for k in ("sun", "point",
+                                                        "sky"))
+                           * 2 * STATE_BYTES + min(nee_steps, rows)
+                           * ROW_BYTES,
+                           nee_steps * K5_OPS_PER_STEP + sky * SKY_OPS),
+            walk_scatter=stage_bound(4, sum(queues["scatter"])))
+    else:
+        bounds["walk_direct"] = bound(
+            n * (24 + out_bytes) + min(steps, rows) * ROW_BYTES,
+            steps * K5_OPS_PER_STEP + bounces * K5_OPS_PER_BOUNCE)
+    out = {}
+    for k in walk.LAUNCH_KINDS:
+        if k.name not in bounds:
+            continue
+        sym = KERNEL_SYMBOLS[k.name]
+        ms = sum(t for name, (t, _) in times.items() if sym in name)
+        steps_k = {"walk_extend": counts[3], "walk_nee": sum(counts[4:7]),
+                   "walk_scatter": counts[7]}.get(k.name)
+        out[k.name] = dict(ms=ms / reps,
+                           launches=(k.launches - before[k.name]) / reps,
+                           bound=bounds[k.name], steps=steps_k)
+        if k is walk.WALK_NEE:
+            out[k.name]["steps_by_kind"] = dict(zip(
+                walk.STEP_STAGES[1:4], counts[4:7]))
+    return out
 
 
 def parity(scene, p, dev, volumetric):
@@ -232,9 +347,42 @@ def parity(scene, p, dev, volumetric):
     return out
 
 
+def keys_check(scene, p, dev, volumetric, depths=(0, 7)):
+    """walk_keys_kernel's table for one sample's launch (its tiles of
+    fused_tile rays) at bounces ``depths`` against key_table_plain on the
+    card, bit for bit: the kernel's and the plain version's ms (CUDA
+    events, mean of the bounces), the table's keys a bounce and whether
+    every key agrees (raises otherwise)."""
+    launch = walk.prepare_walk(scene, p, volumetric)
+    n = p.width * p.height
+    tile = min(p.fused_tile, n)
+    tkey = rng.split(rng.render_key(SEED, 0))[1]
+    layout = walk.launch_layout(launch)
+    k_ms = p_ms = 0.0
+    for d0 in depths:
+        walk.key_table(launch, tkey, n, tile, d0)
+        start = torch.cuda.Event(enable_timing=True)
+        mid = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = walk.key_table(launch, tkey, n, tile, d0)
+        mid.record()
+        want = walk.key_table_plain(layout, tkey, walk.n_tiles(n, tile), tile,
+                                    d0, got.shape[1], dev)
+        end.record()
+        torch.cuda.synchronize(dev)
+        k_ms += start.elapsed_time(mid) / len(depths)
+        p_ms += mid.elapsed_time(end) / len(depths)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"walk_keys: the table at bounce {d0} "
+                               "differs from key_table_plain")
+    return dict(ms=k_ms, plain_ms=p_ms, keys=int(got[:, :1].numel() // 2),
+                bit_equal=True, max_abs=0.0)
+
+
 def check(where, m):
     if not (m["share"] >= MIN_SHARE and m["mean_rel"] <= MAX_MEAN_REL
-            and m["mean"] > 0):
+            and m["mean"] > 0 and m["bit_share"] == 1.0):
         raise RuntimeError(f"{where}: K5 disagrees with its plain version "
                            f"or renders black: {m}")
 
@@ -267,8 +415,9 @@ def reference_phase(dev, scene=None):
                                   False)}
     for name, m in rec["parity"].items():
         check(f"reference/{name}", m)
-    rec["launch_info"] = {f"ext{e}": walk.launch_info(False, bool(e))
-                          for e in (0, 1)}
+    rec["launch_info"] = {f"ext{e}": {
+        st: walk.launch_info(False, bool(e), st) for st in ("direct", "keys")}
+        for e in (0, 1)}
     return rec
 
 
@@ -301,7 +450,8 @@ def cli_run(dev, argv, kernel, k4_launches, tmp=None):
     if (img.shape != (H, W, 3) or not np.isfinite(rad).all()
             or rad.mean() <= 0 or launches[kernel] != TIMED_SPP
             or launches["environment"] != k4_launches * TIMED_SPP
-            or launches["fused_direct"] or launches["fused_direct_primary"]):
+            or launches["fused_direct"] or launches["fused_direct_primary"]
+            or launches[walk.WALK_KEYS.name] <= 0):
         raise RuntimeError(f"the CLI run {argv}: {rec}")
     return rec
 
@@ -322,11 +472,25 @@ def volumetric_phase(dev, scene=None, tmp=None):
     ph = params(HDRI_SIZE, HDRI_SIZE, integrator=1, hdri_importance=True,
                 environment_type=int(Environment.HDRI))
     hd = framed(hdri, HDRI_SIZE, HDRI_SIZE)
+    rec["keys"] = keys_check(framed(sky, W, H), pv, dev, True)
     rec["hdri_cdf"] = render(hd, ph, dev)
     rec["hdri_cdf"]["k5_alone"] = k5_alone(hd, ph, dev, True)
-    if not (rec["hdri_cdf"]["finite"] and rec["hdri_cdf"]["mean"] > 0
-            and rec["hdri_cdf"]["launches"]["walk_volumetric"] == TIMED_SPP):
-        raise RuntimeError(f"volumetric: HDRI: {rec['hdri_cdf']}")
+    # the main scene with its point light: NEE's point-light kind
+    pp_ = params(HDRI_SIZE, HDRI_SIZE, integrator=1,
+                 environment_type=int(Environment.ATMOSPHERE))
+    sp = framed(scene, HDRI_SIZE, HDRI_SIZE)
+    rec["point"] = render(sp, pp_, dev)
+    rec["point"]["k5_alone"] = k5_alone(sp, pp_, dev, True)
+    for name in ("hdri_cdf", "point"):
+        r = rec[name]
+        if not (r["finite"] and r["mean"] > 0
+                and r["launches"]["walk_volumetric"] == TIMED_SPP):
+            raise RuntimeError(f"volumetric: {name}: {r}")
+    # every stage kernel of the wavefront launched on these paths
+    for k in (walk.WALK_KEYS, *walk.STAGE_KERNELS):
+        if sum(rec[n]["launches"][k.name] for n in ("hdri_cdf", "point")
+               ) + rec["cli"]["launches"][k.name] <= 0:
+            raise RuntimeError(f"volumetric: {k.name} never launched")
     pp = dict(integrator=1, ray_depth=VOL_PARITY_DEPTH)
     rec["parity"] = {
         "sky": parity(framed(sky, PARITY, PARITY), params(
@@ -336,19 +500,113 @@ def volumetric_phase(dev, scene=None, tmp=None):
             PARITY, PARITY, environment_type=int(Environment.HDRI),
             hdri_importance=True, **pp), dev, True),
         "ext_config2_f32": parity(config2_f32(dev), params(
-            PARITY, PARITY, emission_scale=2.0, **pp), dev, True)}
+            PARITY, PARITY, emission_scale=2.0, **pp), dev, True),
+        "sky_point": parity(framed(scene, PARITY, PARITY), params(
+            PARITY, PARITY, environment_type=int(Environment.ATMOSPHERE),
+            **pp), dev, True)}
     for name, m in rec["parity"].items():
         check(f"volumetric/{name}", m)
-    rec["launch_info"] = {f"ext{e}": walk.launch_info(True, bool(e))
-                          for e in (0, 1)}
+    rec["launch_info"] = {f"ext{e}": {
+        st: walk.launch_info(True, bool(e), st) for st in walk.STAGES
+        if st != "direct"} for e in (0, 1)}
     return rec
 
 
+def smi_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def timing_record(dev, scene=None) -> dict:
+    """``--timing``'s record: the films' SHA-256 and ms/spp of the three
+    renders (render()), and K5 alone by CUDA events (k5_alone's ms) on
+    each; entry points only, so it times whichever checkout is first on
+    PYTHONPATH."""
+    from vpt_tpu_torch.lights.lights import PointLights
+    from vpt_tpu_torch.scene.scene import attach_env_map
+    scene = main_scene(dev) if scene is None else scene
+    sky = dataclasses.replace(scene, lights=PointLights.empty(dev))
+    hdri = framed(attach_env_map(sky, c3_map(*HDRI_MAP)), HDRI_SIZE,
+                  HDRI_SIZE)
+    cases = (
+        ("reference", framed(scene, W, H), params(W, H, engine="reference"),
+         False),
+        ("volumetric", framed(sky, W, H),
+         params(W, H, integrator=1,
+                environment_type=int(Environment.ATMOSPHERE)), True),
+        ("hdri_cdf", hdri,
+         params(HDRI_SIZE, HDRI_SIZE, integrator=1, hdri_importance=True,
+                environment_type=int(Environment.HDRI)), True))
+    rec = {}
+    for name, sc, p, volumetric in cases:
+        r = render(sc, p, dev)
+        rec[name] = dict(ms_per_spp=r["ms_per_spp"],
+                         film_sha256=r["film_sha256"],
+                         k5_ms=k5_alone(sc, p, dev, volumetric)["ms"])
+    return rec
+
+
+def against(other: str, rounds: int = 1) -> int:
+    """``--against``: both checkouts' kernels built at once, then
+    --timing in turns (other, this, this, other) ``rounds`` times, each in
+    a process of its own; 1 unless every film hash agrees."""
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    other = os.path.abspath(other)
+    script = os.path.abspath(__file__)
+
+    def env(root):
+        return dict(os.environ, PYTHONPATH=root)
+
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "from vpt_tpu_torch.ops import cuda; "
+         "cuda.load_library()"], env=env(root)) for root in (other, here)]
+    if any(b.wait() for b in builds):
+        raise SystemExit("time_walk --against: a build failed")
+    runs = []
+    for _ in range(rounds):
+        for side, root in (("parent", other), ("this", here),
+                           ("this", here), ("parent", other)):
+            res = subprocess.run([sys.executable, script, "--timing"],
+                                 env=env(root), capture_output=True,
+                                 text=True)
+            if res.returncode != 0:
+                raise SystemExit(f"time_walk --timing on {root} failed:\n"
+                                 f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+            rec = json.loads(res.stdout.strip().splitlines()[-1])
+            rec.update(side=side, root=root)
+            print(json.dumps(rec), flush=True)
+            runs.append(rec)
+    names = [k for k in runs[0] if isinstance(runs[0][k], dict)]
+    same = all(len({r[n]["film_sha256"] for r in runs}) == 1 for n in names)
+    summary = {"against": other, "order": [r["side"] for r in runs],
+               "films_same": same, "nvidia_smi": smi_line()}
+    for n in names:
+        summary[n] = {f: [r[n][f] for r in runs]
+                      for f in ("ms_per_spp", "k5_ms")}
+        summary[n]["film_sha256"] = runs[0][n]["film_sha256"]
+    print(json.dumps(summary), flush=True)
+    return 0 if same else 1
+
+
 def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--timing", action="store_true")
+    ap.add_argument("--against", default=None)
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_walk: needs an NVIDIA GPU")
+    if args.against:
+        return against(args.against, args.rounds)
     dev = torch.device("cuda", 0)
     scene = main_scene(dev)
+    if args.timing:
+        print(json.dumps({"nvidia_smi": smi_line(),
+                          **timing_record(dev, scene)}), flush=True)
+        return 0
     for name, fn in (("reference", reference_phase),
                      ("volumetric", volumetric_phase)):
         print(json.dumps({"phase": name, **fn(dev, scene)}), flush=True)
