@@ -42,7 +42,8 @@
 // What bounds it: each walk step is one dependent load of a corner row
 // at a data-dependent address, and its draws are threefry hashes issued
 // in the thread; the rays take different numbers of steps, walks and
-// bounces.  The design, for the H100:
+// bounces, so a launch lasts as long as its longest walk.  The design, for
+// the H100:
 // - per-tile keys: every key above a ray's element index is the same for
 //   all the rays of a tile: the bounce key fold_in(tile key, depth), the
 //   walks' and the estimates' subkeys, and each walk's step keys
@@ -50,29 +51,36 @@
 //   and bounce into a table (a slab per tile and bounce, slot_key's
 //   layout); a ray reads its tile's slab, and only a step past
 //   key_steps, or a bounce the table does not hold, folds its key in the
-//   thread.  A walk step hashes twice where it hashed three times, a
-//   shadow step once where twice; uniform_at(key, element) stays in the
-//   thread: it is the ray's own draw.
+//   thread.  A walk step hashes twice where it hashed three times (once
+//   where it jumps), a shadow step once where twice; uniform_at(key,
+//   element) stays in the thread: it is the ray's own draw.
+// - the fetch computes an exit only where it is the answer (an empty
+//   box's, or the grid's entry from outside): a step in a box that is not
+//   empty divides 4 times, not 16.
 // - walk_direct: persistent warps (SMs x resident blocks).  A lane runs
-//   one bounce of its ray per turn; a lane whose ray ended takes the next
-//   ray from a global counter (K1's refill, a bounce at a time), so no
-//   lane waits for its warp's longest ray.
+//   one bounce of its ray per turn; once REFILL_MIN lanes of a warp are
+//   idle they take the next rays from a global counter (K1's refill, a
+//   bounce at a time), so lanes do not wait for their warp's longest ray.
+//   16 blocks of 128 an SM (32 registers): the walk is bound by latency,
+//   and more warps in flight beat the spills to local memory.
 // - walk_volumetric: a wavefront of stage kernels over compacted path
-//   queues.  The path state (PathState, 64 B a ray) and the queues live
+//   queues.  The path state (PathState, 96 B a ray) and the queues live
 //   in device buffers the wrapper allocates once per launch size; per
 //   bounce d the host issues, with no round trip: walk_keys (the bounce's
 //   slabs), EXTEND (delta_track on the live queue, the breaks, the
-//   one-light pick; a path that ends writes its outputs), one NEE kernel
-//   per light kind on the paths that picked it (sun, point lights, sky:
-//   each warp runs one kind), and SCATTER (the emission walk on EXT, the
-//   phase sample, the survivors pushed into bounce d + 1's queue).  Queue
-//   lengths stay on the card; a stage whose queue is empty returns at
-//   once.  Each stage's blocks are persistent and take 32 paths at a time
-//   from a counter; a queue is filled by warp-aggregated atomics, so a
-//   path's slot in it is not its ray index: its tile and its index in the
-//   tile come from its ray index.  The order in which L sums is kept: a
-//   bounce's L + beta * (ld * 3) (NEE, or EXTEND for a kind with nothing
-//   to estimate) before SCATTER's + emission.
+//   one-light pick; a path that ends writes its outputs), NEE (each warp
+//   on one kind: the sky's light samples, its phase samples, the sun, the
+//   point lights, as separate lists, so their tails overlap in one
+//   launch), and SCATTER (NEE's estimate added to L, the emission walk on
+//   EXT, the phase sample, the survivors pushed into bounce d + 1's
+//   queue).  Queue lengths stay on the card; a stage whose queue is empty
+//   returns at once.  Each stage's blocks are persistent and take 32
+//   paths at a time from a counter; a queue is filled by warp-aggregated
+//   atomics, so a path's slot in it is not its ray index: its tile and
+//   its index in the tile come from its ray index.  The order in which L
+//   sums is kept: a bounce's L + beta * (ld * 3), then + emission, both in
+//   SCATTER, NEE having written ld (the sky's as its two strategies'
+//   parts, added in estimate_sky's order).
 // The measurements are in PERF.md (§6, PR 15).
 
 #include "vpt_common.cuh"
@@ -141,21 +149,13 @@ constexpr int L_KEYS = 0, L_DIRECT = 1, L_EXTEND = 2, L_NEE = 3,
 // k] the walk steps of walk_volumetric's stage k (EXTEND, sun, point
 // lights, sky, SCATTER)
 constexpr int N_STATS = 3, N_STATS_STAGES = 8;
-// resident blocks asked of the compiler for the stage kernels
-#ifndef WALK_STAGE_BLOCKS
-#define WALK_STAGE_BLOCKS 8
-#endif
-#ifndef WALK_DIRECT_BLOCKS
-#define WALK_DIRECT_BLOCKS 16
-#endif
-#ifndef WALK_DIRECT_REFILL_MIN
-#define WALK_DIRECT_REFILL_MIN 16
-#endif
-#ifndef WALK_DIRECT_PERSISTENT
-#define WALK_DIRECT_PERSISTENT 1
-#endif
-constexpr int STAGE_BLOCKS = WALK_STAGE_BLOCKS;
-constexpr int DIRECT_BLOCKS = WALK_DIRECT_BLOCKS;
+// Resident blocks of THREADS asked of the compiler: the stage kernels 8
+// (64 registers; 6, 10 and 12 measured slower), walk_direct 16 (32
+// registers, the rest in local memory: 4, 5, 6, 8, 10 and 12 measured
+// slower); walk_direct's lanes refill once REFILL_MIN of a warp are idle
+// (1, 8 and 24 measured slower, 32 the same), so new rays come in runs of
+// neighbours.  PERF.md (§6, PR 15) has the measurements.
+constexpr int STAGE_BLOCKS = 8, DIRECT_BLOCKS = 16, REFILL_MIN = 16;
 
 }  // namespace
 
@@ -429,7 +429,8 @@ __host__ __device__ __forceinline__ int slab_size(const WalkParams& p) {
 // + d - d0) * slab + slot), one thread an entry.
 template <bool VOL>
 __global__ void __launch_bounds__(THREADS)
-walk_keys_kernel(const __grid_constant__ WalkParams p, Key* __restrict__ keys, int d0) {
+walk_keys_kernel(const __grid_constant__ WalkParams p, Key* __restrict__ keys,
+                 int d0) {
     const int slab = slab_size(p);
     const long long n = (long long)p.n_tiles * p.key_depths * slab;
     for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
@@ -612,11 +613,7 @@ __device__ __forceinline__ float fetch(const Ctx& c, V3 pos, V3 dir,
     const float density = k.inb ? taps(k, 0) : 0.0f;
     skip = 0.0f;
     const bool empty = k.inb && __ldg(row + 8) <= 0.0f;
-#ifndef WALK_EAGER_FETCH
     if (empty || !k.inb) {
-#else
-    {
-#endif
         const float* m = p.inv_xf;
         const V3 idir = v3(dir.x * m[0] + dir.y * m[3] + dir.z * m[6],
                            dir.x * m[1] + dir.y * m[4] + dir.z * m[7],
@@ -624,14 +621,7 @@ __device__ __forceinline__ float fetch(const Ctx& c, V3 pos, V3 dir,
         const V3 sd = v3(fabsf(idir.x) < 1e-12f ? 1e-12f : idir.x,
                          fabsf(idir.y) < 1e-12f ? 1e-12f : idir.y,
                          fabsf(idir.z) < 1e-12f ? 1e-12f : idir.z);
-#ifdef WALK_EAGER_FETCH
-        float s_in, s_out;
-#endif
-#ifndef WALK_EAGER_FETCH
         if (empty) {
-#else
-        {
-#endif
             const V3 cube_min =
                 k.i0f - v3(jmax(__ldg(row + 9), 0.0f),
                            jmax(__ldg(row + 10), 0.0f),
@@ -644,14 +634,8 @@ __device__ __forceinline__ float fetch(const Ctx& c, V3 pos, V3 dir,
             const V3 t2 = (cube_max - k.x_u) / sd;
             const float t_exit = jmin(jmin(jmax(t1.x, t2.x), jmax(t1.y, t2.y)),
                                       jmax(t1.z, t2.z));
-#ifndef WALK_EAGER_FETCH
             skip = t_exit > 0.0f ? t_exit + 1e-3f : 0.0f;
         } else {
-#else
-            s_in = t_exit > 0.0f ? t_exit + 1e-3f : 0.0f;
-        }
-        {
-#endif
             const V3 bmin = v3(p.gbmin);
             const V3 t1b = (bmin - k.ipos) / sd;
             const V3 t2b = (bmin + v3(p.gdim) - k.ipos) / sd;
@@ -663,15 +647,8 @@ __device__ __forceinline__ float fetch(const Ctx& c, V3 pos, V3 dir,
             const bool misses =
                 (t_leave < jmax(t_entry, 0.0f)) || (t_leave <= 0.0f);
             t_entry = misses ? 1e30f : jmax(t_entry, 0.0f);
-#ifndef WALK_EAGER_FETCH
             skip = t_entry > 0.0f ? t_entry + 1e-3f : 0.0f;
-#else
-            s_out = t_entry > 0.0f ? t_entry + 1e-3f : 0.0f;
-#endif
         }
-#ifdef WALK_EAGER_FETCH
-        skip = empty ? s_in : (k.inb ? 0.0f : s_out);
-#endif
     }
     return density;
 }
@@ -1178,9 +1155,11 @@ __device__ __forceinline__ void add_stats(unsigned long long* stats,
 // sphere.  False when the ray is done (it met nothing, or reached
 // ray_depth).
 template <bool EXT>
-__device__ __forceinline__ bool direct_bounce(const Ctx& c, V3 org, V3& pos, V3& dir,
-                              V3& env_pos, V3& beta, V3& L, float& alpha,
-                              float& depth_aov, int& cost, int& depth) {
+__device__ __forceinline__ bool direct_bounce(const Ctx& c, V3 org, V3& pos,
+                                              V3& dir, V3& env_pos, V3& beta,
+                                              V3& L, float& alpha,
+                                              float& depth_aov, int& cost,
+                                              int& depth) {
     const WalkParams& p = c.p;
     const int nv = p.volume_depth;
     float t_min;
@@ -1260,7 +1239,8 @@ __device__ __forceinline__ bool direct_bounce(const Ctx& c, V3 org, V3& pos, V3&
 template <bool EXT>
 __global__ void __launch_bounds__(THREADS, DIRECT_BLOCKS)
 walk_direct_kernel(const __grid_constant__ WalkParams p,
-    const __grid_constant__ WalkEnv e, const __grid_constant__ WalkTables t,
+                   const __grid_constant__ WalkEnv e,
+                   const __grid_constant__ WalkTables t,
                    const float* __restrict__ origin,
                    const float* __restrict__ direction,
                    float* __restrict__ out, const Key* __restrict__ keys,
@@ -1278,18 +1258,14 @@ walk_direct_kernel(const __grid_constant__ WalkParams p,
     for (;;) {
         while (!dry) {
             const unsigned idle = __ballot_sync(FULL, !live);
-            if (__popc(idle) < WALK_DIRECT_REFILL_MIN) break;
-            const int leader = __ffs(idle) - 1;
             const int n = __popc(idle);
+            if (n < REFILL_MIN) break;
+            const int leader = __ffs(idle) - 1;
             unsigned base = 0u;
             if (lane == leader) base = atomicAdd(next_ray, (unsigned)n);
             base = __shfl_sync(FULL, base, leader);
             dry = (unsigned long long)base + n >= (unsigned long long)p.B;
-            unsigned slot = base + __popc(idle & ((1u << lane) - 1u));
-            if (!WALK_DIRECT_PERSISTENT) {
-                slot = blockIdx.x * THREADS + threadIdx.x;
-                dry = true;
-            }
+            const unsigned slot = base + __popc(idle & ((1u << lane) - 1u));
             if (!live && slot < (unsigned)p.B) {
                 r = (int)slot;
                 tile_i = p.tile > 0 ? r / p.tile : 0;
@@ -1441,10 +1417,12 @@ constexpr int K_DONE = 0, K_SUN = 1, K_POINT = 2, K_SKY = 3, K_NONE = 4;
 template <bool EXT>
 __global__ void __launch_bounds__(THREADS, STAGE_BLOCKS)
 walk_extend_kernel(const __grid_constant__ WalkParams p,
-    const __grid_constant__ WalkEnv e, const __grid_constant__ WalkTables t,
+                   const __grid_constant__ WalkEnv e,
+                   const __grid_constant__ WalkTables t,
                    const float* __restrict__ origin,
                    const float* __restrict__ direction,
-                   float* __restrict__ out, const __grid_constant__ WalkWork w, int d,
+                   float* __restrict__ out,
+                   const __grid_constant__ WalkWork w, int d,
                    unsigned long long* stats, int n_stats) {
     const int lane = threadIdx.x & 31;
     unsigned* cnt = w.counts + (long long)d * N_COUNTS;
@@ -1591,10 +1569,11 @@ walk_nee_kernel(const __grid_constant__ WalkParams p,
 template <bool EXT>
 __global__ void __launch_bounds__(THREADS, STAGE_BLOCKS)
 walk_scatter_kernel(const __grid_constant__ WalkParams p,
-    const __grid_constant__ WalkEnv e, const __grid_constant__ WalkTables t,
+                    const __grid_constant__ WalkEnv e,
+                    const __grid_constant__ WalkTables t,
                     const float* __restrict__ origin, float* __restrict__ out,
-                    const __grid_constant__ WalkWork w, int d, unsigned long long* stats,
-                    int n_stats) {
+                    const __grid_constant__ WalkWork w, int d,
+                    unsigned long long* stats, int n_stats) {
     const int lane = threadIdx.x & 31;
     unsigned* cnt = w.counts + (long long)d * N_COUNTS;
     const unsigned n = queue_length(cnt + C_SCATTER);
@@ -1649,111 +1628,6 @@ walk_scatter_kernel(const __grid_constant__ WalkParams p,
         push(next_q, next_cnt, r, r >= 0 && !last, lane);
     }
     add_stage_stats(stats, n_stats, 4, bounces, steps, 0u);
-}
-
-// (the megakernel measured as step 1 of the redesign: one lane a path, a
-// bounce a turn, refilled as walk_direct's)
-template <bool EXT>
-__device__ __forceinline__ bool vol_bounce(const Ctx& c, V3 org, V3& pos, V3& dir, V3& beta,
-                           V3& L, float& alpha, float& depth_aov, int& cost,
-                           int& depth) {
-    const WalkParams& p = c.p;
-    const Track tr = delta_track<EXT>(c, steps_of<true>(c, VJ_WALK), pos, dir);
-    beta = beta * tr.value;
-    alpha = alpha + tr.alpha_add;
-    cost += tr.steps;
-    pos = tr.pos;
-    if (beta.x == 0.0f && beta.y == 0.0f && beta.z == 0.0f) return false;
-    if (!tr.interaction) return false;
-    if (depth == 0) depth_aov = length(org - pos);
-    const int pick = (int)(uniform_at32(key_at<true>(c, V_PICK), c.idx) * 3.0f);
-    V3 ld = v3(0.0f, 0.0f, 0.0f);
-    if (pick == 0) {
-        ld = estimate_sun(c, steps_of<true>(c, VJ_SUN), pos, dir);
-    } else if (pick == 1) {
-        if (p.n_lights > 0)
-            ld = estimate_point_lights<true>(c, V_POINT, VJ_POINT, pos, dir);
-    } else if (p.nee_env != NEE_BLACK) {
-        ld = estimate_sky(c, pos, dir) * p.sky_mult;
-    }
-    L = L + beta * (ld * 3.0f);
-    if (EXT && p.em_off >= 0)
-        L = L + estimate_emission<EXT>(c, steps_of<true>(c, vj_emit(p)), pos,
-                                       dir);
-    float ph;
-    dir = phase_sample(p, dir, hg_at<true>(c, V_SCATTER_HG), c.idx, ph);
-    ++depth;
-    return depth < p.ray_depth;
-}
-
-template <bool EXT>
-__global__ void __launch_bounds__(THREADS)
-walk_volumetric_mega_kernel(const __grid_constant__ WalkParams p,
-                            const __grid_constant__ WalkEnv e,
-                            const __grid_constant__ WalkTables t,
-                            const float* __restrict__ origin,
-                            const float* __restrict__ direction,
-                            float* __restrict__ out,
-                            const Key* __restrict__ keys,
-                            unsigned* __restrict__ next_ray,
-                            unsigned long long* stats) {
-    const int lane = threadIdx.x & 31;
-    const long long S = ((long long)p.B + 3) & ~3LL;
-    Ctx c{p, e, t, nullptr, Key{0u, 0u}, 0u, 0u, 0u};
-    V3 org = v3(0.0f, 0.0f, 0.0f), pos = org, dir = org, beta = org, L = org;
-    float alpha = 0.0f, depth_aov = 0.0f;
-    int cost = 0, depth = 0, r = 0, tile_i = 0;
-    unsigned bounces = 0;
-    bool live = false, dry = false;
-    for (;;) {
-        while (!dry) {
-            const unsigned idle = __ballot_sync(FULL, !live);
-            if (!idle) break;
-            const int leader = __ffs(idle) - 1;
-            const int n = __popc(idle);
-            unsigned base = 0u;
-            if (lane == leader) base = atomicAdd(next_ray, (unsigned)n);
-            base = __shfl_sync(FULL, base, leader);
-            dry = (unsigned long long)base + n >= (unsigned long long)p.B;
-            const unsigned slot = base + __popc(idle & ((1u << lane) - 1u));
-            if (!live && slot < (unsigned)p.B) {
-                r = (int)slot;
-                tile_i = p.tile > 0 ? r / p.tile : 0;
-                c.idx = (uint32_t)(p.tile > 0 ? r % p.tile : r);
-                org = v3(origin + 3 * (long long)r);
-                dir = v3(direction + 3 * (long long)r);
-                bool hit;
-                float t_entry, tmax;
-                aabb_intersect(p.root_min, p.root_max, org, dir, hit, t_entry,
-                               tmax);
-                pos = hit ? org + dir * (t_entry + EPS) : org;
-                beta = v3(1.0f, 1.0f, 1.0f);
-                L = v3(0.0f, 0.0f, 0.0f);
-                alpha = depth_aov = 0.0f;
-                cost = depth = 0;
-                live = hit && p.ray_depth > 0;
-                if (!live) {
-                    const V3 env_from = length(beta) > 0.9999f ? org : pos;
-                    write_out(p, out, S, r, L, alpha, cost, depth_aov, beta,
-                              dir, env_from);
-                }
-            }
-        }
-        if (!__any_sync(FULL, live)) break;
-        if (live) {
-            c.slab = slab_at(p, keys, tile_i, depth, 0);
-            if (!c.slab) c.kd = fold_in(tile_key(p, tile_i), (uint32_t)depth);
-            live = vol_bounce<EXT>(c, org, pos, dir, beta, L, alpha,
-                                   depth_aov, cost, depth);
-            if (!live) {
-                const V3 env_from = length(beta) > 0.9999f ? org : pos;
-                write_out(p, out, S, r, L, alpha, cost, depth_aov, beta, dir,
-                          env_from);
-                bounces += (unsigned)depth;
-            }
-        }
-    }
-    add_stats(stats, bounces, c);
 }
 
 // ------------------------------------------------------------- launch --
@@ -1811,35 +1685,11 @@ cudaError_t launch_direct(const WalkParams& p, const WalkEnv& e,
     err = persistent_grid((const void*)walk_direct_kernel<EXT>, grid);
     if (err != cudaSuccess) return err;
     const long long need = ((long long)p.B + THREADS - 1) / THREADS;
-    if (!WALK_DIRECT_PERSISTENT) grid = (int)need;
     walk_direct_kernel<EXT><<<(int)(need < grid ? need : grid), THREADS, 0,
                               st>>>(p, e, t, origin, direction, out, table(w),
                                     w.counts, stats);
     err = cudaGetLastError();
     if (err == cudaSuccess) ++launches[L_DIRECT];
-    return err;
-}
-
-template <bool EXT>
-cudaError_t launch_volumetric_mega(const WalkParams& p, const WalkEnv& e,
-                                   const WalkTables& t, const WalkWork& w,
-                                   const float* origin,
-                                   const float* direction, float* out,
-                                   unsigned long long* stats, int* launches,
-                                   cudaStream_t st) {
-    cudaError_t err = cudaMemsetAsync(w.counts, 0, sizeof(unsigned), st);
-    if (err == cudaSuccess) err = launch_keys<true>(p, table(w), 0, st);
-    if (err != cudaSuccess) return err;
-    ++launches[L_KEYS];
-    int grid = 0;
-    err = persistent_grid((const void*)walk_volumetric_mega_kernel<EXT>, grid);
-    if (err != cudaSuccess) return err;
-    const long long need = ((long long)p.B + THREADS - 1) / THREADS;
-    walk_volumetric_mega_kernel<EXT><<<(int)(need < grid ? need : grid),
-                                       THREADS, 0, st>>>(
-        p, e, t, origin, direction, out, table(w), w.counts, stats);
-    err = cudaGetLastError();
-    if (err == cudaSuccess) ++launches[L_EXTEND];
     return err;
 }
 
@@ -1898,13 +1748,12 @@ extern "C" int vpt_walk_work_size() { return (int)sizeof(WalkWork); }
 // floats (write_out); `stats`, n_stats (3 or 8) unsigned 64-bit counters
 // the launch adds to (bounces, walk steps, sky evaluations, then
 // walk_volumetric's steps by stage), or null; `launches`
-// (N_LAUNCH_KINDS ints) += the kernels launched, by kind.  `design` 1
-// runs walk_volumetric as the step-1 megakernel.
+// (N_LAUNCH_KINDS ints) += the kernels launched, by kind.
 extern "C" int vpt_walk(int volumetric, int ext, const void* params,
                         const void* env, const void* tables, const void* work,
                         const float* origin, const float* direction,
                         float* out, void* stats, int n_stats, int* launches,
-                        void* stream, int design) {
+                        void* stream) {
     const WalkParams& p = *static_cast<const WalkParams*>(params);
     const WalkTables& t = *static_cast<const WalkTables*>(tables);
     const WalkWork& w = *static_cast<const WalkWork*>(work);
@@ -1919,9 +1768,9 @@ extern "C" int vpt_walk(int volumetric, int ext, const void* params,
         p.volume_depth < 1 || (!ext && p.volume_depth != 1) ||
         p.n_tiles != n_tiles || p.key_scalars != n_scalars(vol, p) ||
         p.key_walks != n_walks(vol, p) || p.key_steps < 0 ||
-        p.key_depths < 1 || (vol && design == 0 && p.key_depths != 1) ||
+        p.key_depths < 1 || (vol && p.key_depths != 1) ||
         w.keys == nullptr || w.counts == nullptr ||
-        (vol && design == 0 && (w.state == nullptr || w.queue == nullptr)) ||
+        (vol && (w.state == nullptr || w.queue == nullptr)) ||
         (stats != nullptr && n_stats != N_STATS && n_stats != N_STATS_STAGES))
         return (int)cudaErrorInvalidValue;
     const WalkEnv& e = *static_cast<const WalkEnv*>(env);
@@ -1933,13 +1782,6 @@ extern "C" int vpt_walk(int volumetric, int ext, const void* params,
                                         launches, st)
                   : launch_direct<false>(p, e, t, w, origin, direction, out,
                                          s, launches, st);
-    else if (design == 1)
-        err = ext ? launch_volumetric_mega<true>(p, e, t, w, origin,
-                                                 direction, out, s, launches,
-                                                 st)
-                  : launch_volumetric_mega<false>(p, e, t, w, origin,
-                                                  direction, out, s, launches,
-                                                  st);
     else
         err = ext ? launch_volumetric<true>(p, e, t, w, origin, direction,
                                             out, s, n_stats, launches, st)
@@ -1967,7 +1809,7 @@ extern "C" int vpt_walk_keys(int volumetric, const void* params, void* keys,
 // info[0..3] of one kernel: registers per thread, local (spill and stack)
 // bytes per thread, threads per block, resident blocks per SM.  `stage`:
 // L_KEYS, L_DIRECT (walk_direct), L_EXTEND (walk_volumetric's EXTEND),
-// L_NEE, L_SCATTER; 7 the step-1 megakernel.
+// L_NEE, L_SCATTER.
 extern "C" int vpt_walk_launch_info(int volumetric, int ext, int stage,
                                     int* info) {
     const void* fn = nullptr;
@@ -1988,10 +1830,6 @@ extern "C" int vpt_walk_launch_info(int volumetric, int ext, int stage,
         case L_SCATTER:
             fn = ext ? (const void*)walk_scatter_kernel<true>
                      : (const void*)walk_scatter_kernel<false>;
-            break;
-        case 7:
-            fn = ext ? (const void*)walk_volumetric_mega_kernel<true>
-                     : (const void*)walk_volumetric_mega_kernel<false>;
             break;
         default: return (int)cudaErrorInvalidValue;
     }

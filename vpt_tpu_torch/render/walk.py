@@ -5,13 +5,12 @@ on persistent warps (a lane a ray, a bounce a turn, refilled from a
 counter), ``walk_volumetric`` render/vol_integrator.py::vol_integrator
 as a wavefront of stage kernels over compacted path queues (per bounce:
 the keys, EXTEND, NEE with each warp on one light kind, SCATTER); both
-read the
-per-tile key table (``key_layout``, ``key_table_plain``).  Their plain
-versions are ``direct_integrator_plain`` and ``vol_integrator_plain``.
-The launch's device buffers (the key table, the counters, the path
-states and queues) are allocated once per launch size (``_work``) and
-reused across samples.  K5 writes L,
-alpha, cost, trunc (0) and depth as K1 lays them out
+read the per-tile key table (``key_layout``, ``key_table_plain``).
+Their plain versions are ``direct_integrator_plain`` and
+``vol_integrator_plain``.  The launch's device buffers (the key table,
+the counters, the path states and queues) are allocated once per launch
+size (``_work``) and reused across samples.  K5 writes L, alpha, cost,
+trunc (0) and depth as K1 lays them out
 (render/fused.py::out_buffer), adds BLACK and CONSTANT itself, and for
 the simple sky, HDRI with a map and the Bruneton atmosphere hands each
 ray's beta, direction (and for the live atmosphere env_pos) to K4
@@ -93,10 +92,6 @@ PATH_FLOATS = 24   # PathState
 # DIRECT_KEY_DEPTHS (a deeper bounce folds its keys in the thread;
 # walk_volumetric's table holds the bounce its stages run)
 KEY_STEPS, DIRECT_KEY_DEPTHS = 256, 4
-# the step-1 design of the redesign, for the measurement in PERF.md: 1
-# runs walk_volumetric as one persistent megakernel
-VOLUMETRIC_DESIGN = 0
-MEGA_KEY_DEPTHS = 8
 # the sky next-event estimate's environment (walk.cu's NEE_*)
 NEE_BLACK, NEE_CONSTANT, NEE_HDRI, NEE_SKY = range(4)
 INSTANCED_ITEM = ("ROADMAP A.8, K5 on instanced scenes and on bfloat16 "
@@ -461,7 +456,6 @@ def _work(launch: WalkLaunch, p: _WalkParams, dev):
     path states (PATH_FLOATS a ray) and the N_QUEUES queues."""
     if launch.work is not None and launch.work[:2] == (p.B, p.tile):
         return launch.work[2]
-    stages = launch.volumetric and p.key_depths == 1
     slab = p.key_scalars + p.key_walks * p.key_steps
     keys = torch.empty(2 * p.n_tiles * p.key_depths * slab,
                        dtype=torch.int32, device=dev)
@@ -469,7 +463,7 @@ def _work(launch: WalkLaunch, p: _WalkParams, dev):
                          dtype=torch.int32, device=dev)
     tensors = [keys, counts]
     w = _WalkWork(None, None, counts.data_ptr(), keys.data_ptr())
-    if stages:
+    if launch.volumetric:
         state = torch.empty(PATH_FLOATS * p.B, dtype=torch.float32,
                             device=dev)
         queue = torch.empty(N_QUEUES * p.B, dtype=torch.int32, device=dev)
@@ -484,8 +478,6 @@ def _launch_params(launch: WalkLaunch, B: int, tile: int, key):
     p.B, p.tile = B, tile
     p.n_tiles = n_tiles(B, tile)
     p.key[0], p.key[1] = int(key[0]), int(key[1])
-    if launch.volumetric and VOLUMETRIC_DESIGN == 1:
-        p.key_depths = max(1, min(p.ray_depth, MEGA_KEY_DEPTHS))
     return p
 
 
@@ -512,7 +504,7 @@ def _launch_k5(launch: WalkLaunch, key, origin, direction, tile: int,
         ctypes.byref(w), origin.data_ptr(), direction.data_ptr(),
         out.data_ptr(), None if stats is None else stats.data_ptr(),
         0 if stats is None else stats.numel(), launches,
-        cuda.current_stream(dev), VOLUMETRIC_DESIGN)
+        cuda.current_stream(dev))
     counter = WALK_VOLUMETRIC if launch.volumetric else WALK_DIRECT
     cuda.check_status(rc, counter.name)
     for k, n in zip(LAUNCH_KINDS, launches):
