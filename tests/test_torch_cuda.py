@@ -1514,3 +1514,33 @@ def test_k5_stage_launch_info(cuda_device):
         for ext in (False, True):
             info = walk.launch_info(stage != "direct", ext, stage)
             assert info["threads"] == 128 and info["blocks_per_sm"] >= 1
+
+
+@pytest.fixture(scope="module")
+def walk_main_scene():
+    """tools/time_walk.py's main scene (the procedural 200^3 grid, one
+    point light, the sun), built once for its parity cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    from vpt_tpu_torch.tools import time_walk
+    return time_walk.main_scene(torch.device("cuda", 0))
+
+
+# tools/time_walk.py's parity cases: the reference engine's two, the
+# volumetric integrator's three, and its point-light case
+TIME_WALK_CASES = [(False, "density"), (False, "ext_config2_f32"),
+                   (True, "sky"), (True, "hdri_cdf"),
+                   (True, "ext_config2_f32"), (True, "sky_point")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric,case", TIME_WALK_CASES)
+def test_k5_time_walk_parity_cases(cuda_device, walk_main_scene, volumetric,
+                                   case):
+    """The chip_smoke.py phases' parity cases at 256^2, every ray bit for
+    bit with the plain integrator (time_walk.parity's bit_share)."""
+    from vpt_tpu_torch.tools import time_walk
+    scene, p = time_walk.parity_cases(cuda_device, walk_main_scene,
+                                      volumetric)[case]
+    m = time_walk.parity(scene, p, cuda_device, volumetric)
+    assert m["bit_share"] == 1.0 and m["mean"] > 0.0, m

@@ -80,7 +80,7 @@
 //   its index in the tile come from its ray index.  The order in which L
 //   sums is kept: a bounce's L + beta * (ld * 3), then + emission, both in
 //   SCATTER, NEE having written ld (the sky's as its two strategies'
-//   parts, added in estimate_sky's order).
+//   parts, added in nee.estimate_sky's order).
 // The measurements are in PERF.md (§6, PR 15).
 
 #include "vpt_common.cuh"
@@ -451,13 +451,12 @@ walk_keys_kernel(const __grid_constant__ WalkParams p, Key* __restrict__ keys,
     }
 }
 
-// The slab of tile t at bounce d in a table of bounces [d0, d0 +
-// key_depths), or null.
+// The slab of tile t at bounce d in a table of bounces [0, key_depths),
+// or null.
 __device__ __forceinline__ const Key* slab_at(const WalkParams& p,
-                                              const Key* keys, int t, int d,
-                                              int d0) {
-    if (d < d0 || d >= d0 + p.key_depths) return nullptr;
-    return keys + ((long long)t * p.key_depths + (d - d0)) * slab_size(p);
+                                              const Key* keys, int t, int d) {
+    if (d >= p.key_depths) return nullptr;
+    return keys + ((long long)t * p.key_depths + d) * slab_size(p);
 }
 
 template <bool VOL>
@@ -1089,13 +1088,6 @@ __device__ bool sky_phase(const Ctx& c, V3 pos, V3 dir, V3& xb) {
     return true;
 }
 
-// nee.estimate_sky: strategy (a), plus (b) where it contributes
-__device__ V3 estimate_sky(const Ctx& c, V3 pos, V3 dir) {
-    V3 xb;
-    const V3 ld = sky_light(c, pos, dir);
-    return sky_phase(c, pos, dir, xb) ? ld + xb : ld;
-}
-
 // ------------------------------------------------------------ outputs --
 
 // K5's outputs, one float buffer of 7 S floats, S = B rounded up to a
@@ -1133,18 +1125,24 @@ __device__ __forceinline__ void write_out(const WalkParams& p, float* out,
     }
 }
 
-// stats[0..2] += a lane's bounces, walk steps and sky evaluations, summed
-// over the warp first (every lane of the warp calls it)
-__device__ __forceinline__ void add_stats(unsigned long long* stats,
-                                          unsigned bounces, const Ctx& c) {
+// stats[0..2] += a warp's bounces, walk steps and sky evaluations, and
+// with N_STATS_STAGES counters stats[3 + stage] += its walk steps (every
+// lane of the warp calls it)
+__device__ __forceinline__ void add_stage_stats(unsigned long long* stats,
+                                                int n_stats, int stage,
+                                                unsigned bounces,
+                                                unsigned steps,
+                                                unsigned sky) {
     if (!stats) return;
     const unsigned b = __reduce_add_sync(FULL, bounces);
-    const unsigned s = __reduce_add_sync(FULL, c.n_steps);
-    const unsigned k = __reduce_add_sync(FULL, c.n_sky);
+    const unsigned s = __reduce_add_sync(FULL, steps);
+    const unsigned k = __reduce_add_sync(FULL, sky);
     if ((threadIdx.x & 31) == 0) {
         atomicAdd(stats, (unsigned long long)b);
         atomicAdd(stats + 1, (unsigned long long)s);
         atomicAdd(stats + 2, (unsigned long long)k);
+        if (n_stats >= N_STATS_STAGES)
+            atomicAdd(stats + N_STATS + stage, (unsigned long long)s);
     }
 }
 
@@ -1233,9 +1231,9 @@ __device__ __forceinline__ bool direct_bounce(const Ctx& c, V3 org, V3& pos,
 }
 
 // integrator.direct_integrator on persistent warps: a lane runs one bounce
-// of its ray per turn; when lanes are idle, one lane takes as many rays as
-// lanes are idle from the counter (one atomicAdd, the base shuffled to
-// the idle lanes, each taking the ray of its rank among them).
+// of its ray per turn; once REFILL_MIN lanes are idle, one lane takes as
+// many rays as lanes are idle from the counter (one atomicAdd, the base
+// shuffled to the idle lanes, each taking the ray of its rank among them).
 template <bool EXT>
 __global__ void __launch_bounds__(THREADS, DIRECT_BLOCKS)
 walk_direct_kernel(const __grid_constant__ WalkParams p,
@@ -1286,7 +1284,7 @@ walk_direct_kernel(const __grid_constant__ WalkParams p,
         }
         if (!__any_sync(FULL, live)) break;
         if (live) {
-            c.slab = slab_at(p, keys, tile_i, depth, 0);
+            c.slab = slab_at(p, keys, tile_i, depth);
             if (!c.slab) c.kd = fold_in(tile_key(p, tile_i), (uint32_t)depth);
             live = direct_bounce<EXT>(c, org, pos, dir, env_pos, beta, L,
                                       alpha, depth_aov, cost, depth);
@@ -1297,7 +1295,7 @@ walk_direct_kernel(const __grid_constant__ WalkParams p,
             }
         }
     }
-    add_stats(stats, bounces, c);
+    add_stage_stats(stats, N_STATS, 0, bounces, c.n_steps, c.n_sky);
 }
 
 // --------------------------------------------------- walk_volumetric --
@@ -1381,27 +1379,6 @@ __device__ __forceinline__ Ctx path_ctx(const WalkParams& p, const WalkEnv& e,
     const int ti = p.tile > 0 ? r / p.tile : 0;
     return Ctx{p, e, t, keys + (long long)ti * slab_size(p), Key{0u, 0u},
                (uint32_t)(p.tile > 0 ? r % p.tile : r), 0u, 0u};
-}
-
-// stats[0..2] += a warp's bounces, walk steps and sky evaluations, and
-// with N_STATS_STAGES counters stats[3 + stage] += its walk steps (every
-// lane of the warp calls it)
-__device__ __forceinline__ void add_stage_stats(unsigned long long* stats,
-                                                int n_stats, int stage,
-                                                unsigned bounces,
-                                                unsigned steps,
-                                                unsigned sky) {
-    if (!stats) return;
-    const unsigned b = __reduce_add_sync(FULL, bounces);
-    const unsigned s = __reduce_add_sync(FULL, steps);
-    const unsigned k = __reduce_add_sync(FULL, sky);
-    if ((threadIdx.x & 31) == 0) {
-        atomicAdd(stats, (unsigned long long)b);
-        atomicAdd(stats + 1, (unsigned long long)s);
-        atomicAdd(stats + 2, (unsigned long long)k);
-        if (n_stats >= N_STATS_STAGES)
-            atomicAdd(stats + N_STATS + stage, (unsigned long long)s);
-    }
 }
 
 // the kinds of a path after EXTEND (what it is pushed onto)

@@ -321,6 +321,35 @@ def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, reps=2):
     return out
 
 
+def parity_cases(dev, scene, volumetric):
+    """The phases' parity cases at PARITY^2, {name: (scene, params)} on
+    ``scene`` (main_scene's): the reference engine on it (density only)
+    and on config 2's puff (EXT); the volumetric integrator at ray_depth
+    VOL_PARITY_DEPTH on it without its point light under the simple sky
+    and under the c3 map through the CDF, on config 2's puff, and on it
+    with its point light under the simple sky (all three NEE kinds)."""
+    from vpt_tpu_torch.lights.lights import PointLights
+    from vpt_tpu_torch.scene.scene import attach_env_map
+    if not volumetric:
+        pp = params(PARITY, PARITY, engine="reference")
+        return {"density": (framed(scene, PARITY, PARITY), pp),
+                "ext_config2_f32": (config2_f32(dev),
+                                    pp.replace(emission_scale=2.0))}
+    sky = dataclasses.replace(scene, lights=PointLights.empty(dev))
+    hdri = attach_env_map(sky, c3_map(*HDRI_MAP))
+    pv = dict(integrator=1, ray_depth=VOL_PARITY_DEPTH)
+    atm = dict(environment_type=int(Environment.ATMOSPHERE), **pv)
+    return {
+        "sky": (framed(sky, PARITY, PARITY), params(PARITY, PARITY, **atm)),
+        "hdri_cdf": (framed(hdri, PARITY, PARITY), params(
+            PARITY, PARITY, environment_type=int(Environment.HDRI),
+            hdri_importance=True, **pv)),
+        "ext_config2_f32": (config2_f32(dev), params(
+            PARITY, PARITY, emission_scale=2.0, **pv)),
+        "sky_point": (framed(scene, PARITY, PARITY),
+                      params(PARITY, PARITY, **atm))}
+
+
 def parity(scene, p, dev, volumetric):
     """K5 (and K4 after it) against the plain integrator on the card on
     the PARITY^2 frame's rays as one tile under the sample's tile key:
@@ -407,12 +436,8 @@ def reference_phase(dev, scene=None):
         dev, ["--engine", "reference", "--env-type", "black", "--light",
               *(str(v) for v in LIGHT_POS), "1", "1", "1", str(LIGHT_POWER)],
         "walk_direct", 0)
-    pp = params(PARITY, PARITY, engine="reference")
-    c2 = config2_f32(dev)
-    rec["parity"] = {
-        "density": parity(framed(scene, PARITY, PARITY), pp, dev, False),
-        "ext_config2_f32": parity(c2, pp.replace(emission_scale=2.0), dev,
-                                  False)}
+    rec["parity"] = {name: parity(sc, pp, dev, False) for name, (sc, pp)
+                     in parity_cases(dev, scene, False).items()}
     for name, m in rec["parity"].items():
         check(f"reference/{name}", m)
     rec["launch_info"] = {f"ext{e}": {
@@ -491,19 +516,8 @@ def volumetric_phase(dev, scene=None, tmp=None):
         if sum(rec[n]["launches"][k.name] for n in ("hdri_cdf", "point")
                ) + rec["cli"]["launches"][k.name] <= 0:
             raise RuntimeError(f"volumetric: {k.name} never launched")
-    pp = dict(integrator=1, ray_depth=VOL_PARITY_DEPTH)
-    rec["parity"] = {
-        "sky": parity(framed(sky, PARITY, PARITY), params(
-            PARITY, PARITY, environment_type=int(Environment.ATMOSPHERE),
-            **pp), dev, True),
-        "hdri_cdf": parity(framed(hdri, PARITY, PARITY), params(
-            PARITY, PARITY, environment_type=int(Environment.HDRI),
-            hdri_importance=True, **pp), dev, True),
-        "ext_config2_f32": parity(config2_f32(dev), params(
-            PARITY, PARITY, emission_scale=2.0, **pp), dev, True),
-        "sky_point": parity(framed(scene, PARITY, PARITY), params(
-            PARITY, PARITY, environment_type=int(Environment.ATMOSPHERE),
-            **pp), dev, True)}
+    rec["parity"] = {name: parity(sc, pp, dev, True) for name, (sc, pp)
+                     in parity_cases(dev, scene, True).items()}
     for name, m in rec["parity"].items():
         check(f"volumetric/{name}", m)
     rec["launch_info"] = {f"ext{e}": {
@@ -547,10 +561,10 @@ def timing_record(dev, scene=None) -> dict:
     return rec
 
 
-def against(other: str, rounds: int = 1) -> int:
+def against(other: str) -> int:
     """``--against``: both checkouts' kernels built at once, then
-    --timing in turns (other, this, this, other) ``rounds`` times, each in
-    a process of its own; 1 unless every film hash agrees."""
+    --timing in turns (other, this, this, other), each in a process of its
+    own; 1 unless every film hash agrees."""
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     other = os.path.abspath(other)
@@ -565,19 +579,17 @@ def against(other: str, rounds: int = 1) -> int:
     if any(b.wait() for b in builds):
         raise SystemExit("time_walk --against: a build failed")
     runs = []
-    for _ in range(rounds):
-        for side, root in (("parent", other), ("this", here),
-                           ("this", here), ("parent", other)):
-            res = subprocess.run([sys.executable, script, "--timing"],
-                                 env=env(root), capture_output=True,
-                                 text=True)
-            if res.returncode != 0:
-                raise SystemExit(f"time_walk --timing on {root} failed:\n"
-                                 f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
-            rec = json.loads(res.stdout.strip().splitlines()[-1])
-            rec.update(side=side, root=root)
-            print(json.dumps(rec), flush=True)
-            runs.append(rec)
+    for side, root in (("parent", other), ("this", here), ("this", here),
+                       ("parent", other)):
+        res = subprocess.run([sys.executable, script, "--timing"],
+                             env=env(root), capture_output=True, text=True)
+        if res.returncode != 0:
+            raise SystemExit(f"time_walk --timing on {root} failed:\n"
+                             f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        rec.update(side=side, root=root)
+        print(json.dumps(rec), flush=True)
+        runs.append(rec)
     names = [k for k in runs[0] if isinstance(runs[0][k], dict)]
     same = all(len({r[n]["film_sha256"] for r in runs}) == 1 for n in names)
     summary = {"against": other, "order": [r["side"] for r in runs],
@@ -595,12 +607,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--timing", action="store_true")
     ap.add_argument("--against", default=None)
-    ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_walk: needs an NVIDIA GPU")
     if args.against:
-        return against(args.against, args.rounds)
+        return against(args.against)
     dev = torch.device("cuda", 0)
     scene = main_scene(dev)
     if args.timing:
