@@ -256,7 +256,8 @@ STATE_BYTES = 96   # walk.cu's PathState, read and written by a stage
 
 def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, reps=2):
     """Each K5 kernel's device ms per K5 launch (torch.profiler over
-    ``reps`` launches), launches per K5 launch, and the bound of its
+    ``reps`` launches: its mean launch times its launches a K5 launch),
+    launches per K5 launch, and the bound of its
     share of the work (``counts``: N_STATS_STAGES counters of one launch):
     walk_keys its table written once, a key a threefry; walk_direct the
     whole launch's; each stage its walk steps at K5_OPS_PER_STEP and the
@@ -309,12 +310,16 @@ def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, reps=2):
         if k.name not in bounds:
             continue
         sym = KERNEL_SYMBOLS[k.name]
-        ms = sum(t for name, (t, _) in times.items() if sym in name)
+        seen = [(t, c) for name, (t, c) in times.items() if sym in name]
+        per_k5 = (k.launches - before[k.name]) / reps
+        # the mean of the launches the profiler saw, times the launches a
+        # K5 launch makes (the profiler may miss some at its window's edge)
+        ms = (sum(t for t, _ in seen) / max(sum(c for _, c in seen), 1)
+              * per_k5)
         steps_k = {"walk_extend": counts[3], "walk_nee": sum(counts[4:7]),
                    "walk_scatter": counts[7]}.get(k.name)
-        out[k.name] = dict(ms=ms / reps,
-                           launches=(k.launches - before[k.name]) / reps,
-                           bound=bounds[k.name], steps=steps_k)
+        out[k.name] = dict(ms=ms, launches=per_k5, bound=bounds[k.name],
+                           steps=steps_k)
         if k is walk.WALK_NEE:
             out[k.name]["steps_by_kind"] = dict(zip(
                 walk.STEP_STAGES[1:4], counts[4:7]))
