@@ -81,7 +81,7 @@
 //   sums is kept: a bounce's L + beta * (ld * 3), then + emission, both in
 //   SCATTER, NEE having written ld (the sky's as its two strategies'
 //   parts, added in nee.estimate_sky's order).
-// The measurements are in PERF.md (§6, PR 15).
+// The measurements are in PERF.md (§6, the kernel table and K5's findings).
 
 #include "vpt_common.cuh"
 
@@ -154,7 +154,7 @@ constexpr int N_STATS = 3, N_STATS_STAGES = 8;
 // registers, the rest in local memory: 4, 5, 6, 8, 10 and 12 measured
 // slower); walk_direct's lanes refill once REFILL_MIN of a warp are idle
 // (1, 8 and 24 measured slower, 32 the same), so new rays come in runs of
-// neighbours.  PERF.md (§6, PR 15) has the measurements.
+// neighbours.  PERF.md (§6) has the measurements.
 constexpr int STAGE_BLOCKS = 8, DIRECT_BLOCKS = 16, REFILL_MIN = 16;
 
 }  // namespace
