@@ -198,6 +198,10 @@ Phases, one JSON line each:
                steps per ray, walk_direct and K3 once a sample and K1
                never, finite and not black; K5 alone on one sample's
                rays (CUDA events), its bounces, walk steps and bound;
+               those rays through walk_direct in the 1080p launch's tiles
+               of 16384, the leading 2048 rays of the first tile and of
+               the ragged last one held to direct_integrator_plain under
+               their tile keys, bit for bit;
                `vpt-torch render procedural --engine reference` with the
                light of phase 3 at 1080p, 8 spp (the PNG decodes, the EXR
                finite and not black, walk_direct once a sample); K5
@@ -218,9 +222,12 @@ Phases, one JSON line each:
                and bit for bit; the main scene with its point light at
                512x512 (NEE's point-light kind); every stage kernel of
                the wavefront and the key table launched, each timed by
-               the profiler per K5 launch with its walk steps, queue
-               lengths by bounce and bound; the key table against
-               key_table_plain at 1080p, bit for bit;
+               the profiler per K5 launch (slot by slot) with its
+               walk steps, queue lengths by bounce and bound (the bytes
+               the stage moves); the CLI's scene at 1080p, ray_depth 50,
+               the leading 2048 rays of the first and the ragged last
+               tile held to vol_integrator_plain, bit for bit; the key
+               table against key_table_plain at 1080p, bit for bit;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -2074,9 +2081,11 @@ def main():
                 fused_direct_octant=cfg2_oct["max_abs"])
     errs.update(fused_direct_loop=lp_time["tracked"]["max_abs"],
                 fused_direct_cells_ext=cx_time["tracked"]["max_abs"])
-    for k_, res_ in ((walk.WALK_DIRECT, ref_res),
-                     (walk.WALK_VOLUMETRIC, vol_res)):
-        errs[k_.name] = max(m["max_abs"] for m in res_["parity"].values())
+    for k_, res_, alone in ((walk.WALK_DIRECT, ref_res, ref_res["k5_alone"]),
+                            (walk.WALK_VOLUMETRIC, vol_res,
+                             vol_res["k5_alone_sky"])):
+        errs[k_.name] = max(m["max_abs"] for m in (
+            *res_["parity"].values(), *alone["tiles"].values()))
     for k_ in walk.STAGE_KERNELS:
         errs[k_.name] = errs[walk.WALK_VOLUMETRIC.name]
     errs[walk.WALK_KEYS.name] = vol_res["keys"]["max_abs"]
@@ -2352,6 +2361,9 @@ def main():
                                             "plain_ms", "kernel_ms")}
                     for n_, m in res_["parity"].items()},
             parity_size=f"{time_walk.PARITY}x{time_walk.PARITY}",
+            tiles_at_size={t: {f: m[f] for f in (
+                "first_ray", "tile_rays", "rays", "in_box", "bit_share",
+                "max_abs", "plain_ms")} for t, m in alone["tiles"].items()},
             bounces_per_ray=alone["bounces_per_ray"],
             steps_per_ray=alone["steps_per_ray"],
             sky_evals_per_ray=alone["sky_evals_per_ray"],

@@ -14,9 +14,10 @@ SHA-256 through ProgressiveRenderer (the reference engine on the main
 scene, the volumetric integrator under the simple sky on the CLI's
 scene, and that scene under the c3 map through the CDF at 512x512), each
 render's ms/spp and K5 alone by CUDA events.  It calls only entry points
-every checkout since K5's has, so run by its path with another checkout
-first on PYTHONPATH it times that checkout.  ``--against CHECKOUT`` builds
-both checkouts' kernels (in parallel), then runs ``--timing`` in turns,
+every checkout since K5's redesign has, so run by its path with another
+checkout first on PYTHONPATH it times that checkout.  ``--against
+CHECKOUT`` builds both checkouts' kernels (in parallel), then runs
+``--timing`` in turns,
 CHECKOUT, this one, this one, CHECKOUT, each in a process of its own;
 it prints each run's line and a summary, and exits 1 unless every film's
 hash is the same on both sides.
@@ -28,9 +29,13 @@ hash is the same on both sides.
   and K3 launched once a sample and K1 never, the image finite and not
   black.  K5 alone on one sample's rays, timed by CUDA events, and once
   more counting its bounces, walk steps and sky evaluations (the bound's
-  inputs).  `vpt-torch render procedural --engine reference` with that
-  light, BLACK, at 1080p, 8 spp: the PNG decodes, the EXR is finite and
-  not black, walk_direct once a sample.  K5 against direct_integrator_plain on the card at 256x256,
+  inputs); those rays through walk_direct in the launch's tiles, the
+  leading 2048 rays of its first and its ragged last tile held bit for
+  bit to direct_integrator_plain under their tile keys.  `vpt-torch
+  render procedural --engine reference` with that light, BLACK, at
+  1080p, 8 spp: the PNG decodes, the EXR is finite and not black,
+  walk_direct once a sample.  K5 against direct_integrator_plain on the
+  card at 256x256,
   one tile of all the rays, on that scene (density only) and on config
   2's puff with emission in float32 rows (EXT).
 * ``volumetric``: ``vpt-torch render procedural --integrator
@@ -39,8 +44,12 @@ hash is the same on both sides.
   sample launches walk_volumetric once and K4 once; then the same scene
   under the c3 golden's HDRI map (512 x 256) at 512x512 with
   hdri_importance, so the CDF strategy runs; ms/spp, steps and bounces
-  per ray.  K5 against vol_integrator_plain at 256x256, ray_depth 8, on
-  the sky, on the HDRI through the CDF and on the EXT puff.
+  per ray; the CLI's scene at 1080p, ray_depth 50, held in the first and
+  the ragged last tile as the reference engine's.  K5 against
+  vol_integrator_plain at 256x256, ray_depth 8, on the sky, on the HDRI
+  through the CDF, on the EXT puff and on the main scene with its point
+  light.  Each K5 kernel's device ms by torch.profiler, slot by slot over
+  four K5 launches, and each stage's bound from the bytes it moves.
 
 The rule of a match (chip_smoke.py's phase 6): >= 99% of rays agree (L
 within rtol 1e-4 + atol 1e-6, alpha within 1e-5, cost and trunc exact)
@@ -79,6 +88,9 @@ PARITY, VOL_PARITY_DEPTH = 256, 8
 HDRI_SIZE, HDRI_MAP = 512, (256, 512)
 EMIT_CAMERA = (0.0, 1.0, 9.0)   # config 2's camera (the bench's aim)
 MIN_SHARE, MAX_MEAN_REL = 0.99, 0.005
+# tile_parity's tiles of the main path's launch (the first and the last)
+# and the leading rays of each held to the plain integrator
+TILE_CHECK, TILE_RAYS = (0, -1), 2048
 # K5's operations, counted from csrc/walk.cu as K1's are (a threefry-2x32
 # is 80 integer operations, counted at the float32 rate): a walk step is
 # a step key and one or two draws (3 threefry at most) and ~200 float
@@ -158,7 +170,7 @@ def counters():
     return {k.name: k for k in (
         walk.WALK_DIRECT, walk.WALK_VOLUMETRIC, film_mod.FILM_ACCUMULATE,
         fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY, renderer.RAYGEN,
-        integrator.ENVIRONMENT, *getattr(walk, "LAUNCH_KINDS", ()))}
+        integrator.ENVIRONMENT, *walk.LAUNCH_KINDS)}
 
 
 def film_sha(film) -> str:
@@ -195,17 +207,10 @@ def render(scene, p, dev, spp=TIMED_SPP):
                 mean=float(acc.double().mean()), film_sha256=film_sha(r.film))
 
 
-def k5_alone(scene, p, dev, volumetric, reps=3):
-    """K5 alone on one sample's primary rays (K2's), no K4: its device
-    ms by CUDA events over ``reps`` launches, then one launch counting
-    the rays' bounces, walk steps and sky evaluations; and the bound of
-    that work (common.bound: the rays, the outputs, each row visited
-    once, and K5_OPS_* a step, a bounce and a sky evaluation).  The warp
-    efficiency of a one-thread-a-ray schedule, from the cost AOV (the
-    primary walks' steps of each ray: fused.warp_efficiency at 32).  On a
-    checkout with K5's stage kernels also each kernel's device ms a
-    launch (torch.profiler), its walk steps and bound, and for
-    walk_volumetric the queue lengths by bounce."""
+def k5_ms(scene, p, dev, volumetric, reps=3):
+    """K5 alone on one sample's primary rays (K2's), no K4: its device ms
+    by CUDA events over ``reps`` launches after one, and the launch, its
+    tile key, rays and tile (entry points only, for --timing)."""
     key = rng.render_key(SEED, 0)
     o, d = renderer._primary_rays_cuda(scene.camera, p, key)
     launch = walk.prepare_walk(scene, p, volumetric)
@@ -219,17 +224,27 @@ def k5_alone(scene, p, dev, volumetric, reps=3):
         walk._launch_k5(launch, tkey, o, d, tile)
     end.record()
     torch.cuda.synchronize(dev)
-    ms = start.elapsed_time(end) / reps
-    staged = hasattr(walk, "STAGE_KERNELS")
-    stats = torch.zeros(walk.N_STATS_STAGES if staged else 3,
-                        dtype=torch.int64, device=dev)
+    return start.elapsed_time(end) / reps, (launch, tkey, o, d, tile)
+
+
+def k5_alone(scene, p, dev, volumetric, tiles=False):
+    """k5_ms's time, then one launch counting the rays' bounces, walk
+    steps and sky evaluations, by stage for walk_volumetric; and the bound
+    of that work (common.bound: the rays, the outputs, each row visited
+    once, and K5_OPS_* a step, a bounce and a sky evaluation).  The warp
+    efficiency of a one-thread-a-ray schedule, from the cost AOV (the
+    primary walks' steps of each ray: fused.warp_efficiency at 32).  Each
+    K5 kernel's device ms a launch (kernel_split), and for walk_volumetric
+    the queue lengths by bounce.  ``tiles``: also the same rays held to
+    the plain integrator in the tiles of TILE_CHECK (tile_parity)."""
+    ms, (launch, tkey, o, d, tile) = k5_ms(scene, p, dev, volumetric)
+    stats = torch.zeros(walk.N_STATS_STAGES, dtype=torch.int64, device=dev)
     views = walk._launch_k5(launch, tkey, o, d, tile, stats)
     counts = [int(v) for v in stats.tolist()]
     bounces, steps, sky = counts[:3]
     n = o.shape[0]
     rows = min(steps, scene.atlas.density_corners.shape[0])
-    out_bytes = 4 * (7 + 6 * bool(launch.params.defer_env))
-    b = bound(n * (24 + out_bytes) + rows * ROW_BYTES,
+    b = bound(n * (24 + out_bytes(launch)) + rows * ROW_BYTES,
               steps * K5_OPS_PER_STEP + bounces * K5_OPS_PER_BOUNCE
               + sky * SKY_OPS)
     rec = dict(ms=ms, rays=n, bounces_per_ray=bounces / n,
@@ -237,12 +252,21 @@ def k5_alone(scene, p, dev, volumetric, reps=3):
                primary_steps_per_ray=float(views[2].double().mean()),
                warp_efficiency=fused.warp_efficiency(views[2]),
                bound=b)
-    if staged:
-        rec["kernels"] = kernel_split(scene, launch, tkey, o, d, tile, dev,
-                                      counts)
-        if volumetric:
-            rec["queues"] = walk.queue_lengths(launch)
+    queues = walk.queue_lengths(launch) if volumetric else None
+    rec["kernels"] = kernel_split(scene, launch, tkey, o, d, tile, dev,
+                                  counts, queues)
+    if volumetric:
+        rec["queues"] = queues
+    if tiles:
+        rec["tiles"] = tile_parity(scene, p, dev, volumetric,
+                                   (launch, tkey, o, d, tile))
     return rec
+
+
+def out_bytes(launch) -> int:
+    """The bytes of one ray's outputs (write_out: 7 floats, 6 more for a
+    deferred environment)."""
+    return 4 * (7 + 6 * bool(launch.params.defer_env))
 
 
 # the profiler's name of each K5 kernel (csrc/walk.cu), by counter
@@ -251,75 +275,140 @@ KERNEL_SYMBOLS = {"walk_keys": "walk_keys_kernel",
                   "walk_extend": "walk_extend_kernel",
                   "walk_nee": "walk_nee_kernel",
                   "walk_scatter": "walk_scatter_kernel"}
-STATE_BYTES = 96   # walk.cu's PathState, read and written by a stage
+# what walk.cu's stages move a path: PathState's first four 16-byte words
+# (load_state / store_state), its six (SCATTER's read), the two a light
+# estimate reads (pos, dir), the estimate it writes (ld; the sky's phase
+# sample xb and has_b), a queue entry, and a ray's origin and direction
+STATE4, STATE6, NEE_READ, LD_BYTES, XB_BYTES, QUEUE = 64, 96, 32, 12, 16, 4
+RAY_BYTES, ORIGIN = 24, 12
 
 
-def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, reps=2):
-    """Each K5 kernel's device ms per K5 launch (torch.profiler over
-    ``reps`` launches: its mean launch times its launches a K5 launch),
-    launches per K5 launch, and the bound of its
-    share of the work (``counts``: N_STATS_STAGES counters of one launch):
+def stage_bytes(queues, out_b: int) -> dict:
+    """The bytes each of walk_volumetric's stages moves in one launch, by
+    bounce from its queue lengths (walk.queue_lengths), as walk.cu's
+    stages read and write them: EXTEND reads the rays at bounce 0 and a
+    queue entry and four state words after it, writes the outputs of a
+    path that ends (reading its origin again after bounce 0), four state
+    words and queue entries for one that goes on; NEE reads a queue entry
+    and two state words and writes its estimate, once for each kind and
+    once more for the sky's phase sample; SCATTER reads a queue entry and
+    six state words, writes the outputs at the last bounce, four state
+    words and a queue entry before it.  Rows are not in these (stage
+    bounds add them)."""
+    live, sc = queues["live"], queues["scatter"]
+    depth = len(live)
+    ext = nee = sca = 0
+    for d in range(depth):
+        ended = live[d] - sc[d]
+        ext += live[d] * (RAY_BYTES if d == 0 else QUEUE + STATE4)
+        ext += ended * (out_b + (ORIGIN if d else 0))
+        lights = queues["sun"][d] + queues["point"][d] + queues["sky"][d]
+        ext += sc[d] * (STATE4 + QUEUE) + lights * QUEUE
+        nee += lights * (QUEUE + NEE_READ + LD_BYTES)
+        nee += queues["sky"][d] * (QUEUE + NEE_READ + XB_BYTES)
+        sca += sc[d] * (QUEUE + STATE6)
+        sca += sc[d] * (out_b + ORIGIN if d + 1 >= depth
+                        else STATE4 + QUEUE)
+    return {"walk_extend": ext, "walk_nee": nee, "walk_scatter": sca}
+
+
+def launch_slots(events, order, rounds, reps):
+    """Each K5 kernel's device ms per K5 launch from one profiler window
+    of ``reps`` K5 launches, each ``rounds`` rounds of the kernels
+    ``order`` in turn (walk_volumetric: keys, EXTEND, NEE, SCATTER a
+    bounce; walk_direct: keys, walk_direct): ``events``, (start µs, name,
+    ms) of the kernels the profiler recorded, each put in the first slot
+    of its name after the last one filled, so that a launch it did not
+    record leaves its slot empty.  {name: (ms, empty slots)}: the sum over
+    the rounds of each slot's mean over the K5 launches that recorded it
+    (the same rays, keys and bounce in each); raises where none recorded
+    a slot or a kernel is past the last slot."""
+    n = len(order)
+    got, pos = {}, -1
+    for _, name, ms in sorted(events):
+        i = order.index(name)
+        c = (pos - i) // n + 1
+        if c >= rounds * reps:
+            raise RuntimeError(f"kernel_split: more {name} launches than "
+                               f"{rounds * reps}")
+        got[c, name] = ms
+        pos = c * n + i
+    out = {}
+    for name in order:
+        total, empty = 0.0, 0
+        for b in range(rounds):
+            seen = [got[r * rounds + b, name] for r in range(reps)
+                    if (r * rounds + b, name) in got]
+            if not seen:
+                raise RuntimeError(f"kernel_split: the profiler recorded "
+                                   f"no launch of {name} in round {b}")
+            total += sum(seen) / len(seen)
+            empty += reps - len(seen)
+        out[name] = (total, empty)
+    return out
+
+
+def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, queues,
+                 reps=4):
+    """Each K5 kernel's device ms per K5 launch by torch.profiler over
+    ``reps`` launches in one window, slot by slot (launch_slots: a launch
+    the profiler did not record stands in from the same slot of the
+    other K5 launches, counted in ``unrecorded``); launches per K5 launch,
+    and the bound of its share of the work (``counts``: N_STATS_STAGES
+    counters of one launch; ``queues``: walk_volumetric's queue lengths):
     walk_keys its table written once, a key a threefry; walk_direct the
-    whole launch's; each stage its walk steps at K5_OPS_PER_STEP and the
-    path states of its queues (EXTEND also the bounces, the rays and the
-    outputs; NEE the sky evaluations)."""
+    whole launch's; each stage the bytes it moves (stage_bytes) and each
+    row its walk steps visit once, and its walk steps at K5_OPS_PER_STEP
+    (EXTEND also the bounces, NEE the sky evaluations), so the stages'
+    operations add up to the integrator's."""
     from torch.profiler import ProfilerActivity, profile
-
-    from vpt_tpu_torch.tools.common import device_times
-    before = {k.name: k.launches for k in walk.LAUNCH_KINDS}
     torch.cuda.synchronize(dev)
+    before = {k.name: k.launches for k in walk.LAUNCH_KINDS}
     with profile(activities=[ProfilerActivity.CUDA]) as pr:
         for _ in range(reps):
             walk._launch_k5(launch, tkey, o, d, tile)
         torch.cuda.synchronize(dev)
-    times = device_times(pr)
+    launched = {k.name: k.launches - before[k.name] for k in walk.LAUNCH_KINDS
+                if k.launches > before[k.name]}
+    rounds = {n_ // reps for n_ in launched.values()}
+    if len(rounds) != 1 or any(n_ % reps for n_ in launched.values()):
+        raise RuntimeError(f"kernel_split: launches {launched} are not "
+                           f"rounds of every kernel")
+    events = [(e.time_range.start, name, e.time_range.elapsed_us() / 1e3)
+              for e in pr.events()
+              if "CUDA" in str(getattr(e, "device_type", ""))
+              for name, sym in KERNEL_SYMBOLS.items() if sym in e.name]
+    times = launch_slots(events, list(launched), rounds.pop(), reps)
     n = o.shape[0]
     p = walk._launch_params(launch, n, tile, tkey)
     slab = p.key_scalars + p.key_walks * p.key_steps
     n_keys = p.n_tiles * p.key_depths * slab * (
         max(p.ray_depth, 1) if launch.volumetric else 1)
     rows = scene.atlas.density_corners.shape[0]
-    queues = walk.queue_lengths(launch) if launch.volumetric else None
-    out_bytes = 4 * (7 + 6 * bool(launch.params.defer_env))
     bounces, steps, sky = counts[:3]
-
-    def stage_bound(k, paths, extra_ops=0, extra_bytes=0):
-        st = counts[3 + k]
-        return bound(paths * 2 * STATE_BYTES + min(st, rows) * ROW_BYTES
-                     + extra_bytes, st * K5_OPS_PER_STEP + extra_ops)
-
     bounds = {"walk_keys": bound(n_keys * 8, n_keys * 80)}
+    steps_of = {}
     if launch.volumetric:
-        nee_steps = sum(counts[4:7])
-        bounds.update(
-            walk_extend=stage_bound(0, sum(queues["live"]),
-                                    bounces * K5_OPS_PER_BOUNCE,
-                                    n * (24 + out_bytes)),
-            walk_nee=bound(sum(sum(queues[k]) for k in ("sun", "point",
-                                                        "sky"))
-                           * 2 * STATE_BYTES + min(nee_steps, rows)
-                           * ROW_BYTES,
-                           nee_steps * K5_OPS_PER_STEP + sky * SKY_OPS),
-            walk_scatter=stage_bound(4, sum(queues["scatter"])))
+        moved = stage_bytes(queues, out_bytes(launch))
+        steps_of = {"walk_extend": counts[3], "walk_nee": sum(counts[4:7]),
+                    "walk_scatter": counts[7]}
+        ops = {"walk_extend": bounces * K5_OPS_PER_BOUNCE,
+               "walk_nee": sky * SKY_OPS, "walk_scatter": 0}
+        for name, st in steps_of.items():
+            bounds[name] = bound(moved[name] + min(st, rows) * ROW_BYTES,
+                                 st * K5_OPS_PER_STEP + ops[name])
     else:
         bounds["walk_direct"] = bound(
-            n * (24 + out_bytes) + min(steps, rows) * ROW_BYTES,
+            n * (24 + out_bytes(launch)) + min(steps, rows) * ROW_BYTES,
             steps * K5_OPS_PER_STEP + bounces * K5_OPS_PER_BOUNCE)
     out = {}
     for k in walk.LAUNCH_KINDS:
         if k.name not in bounds:
             continue
-        sym = KERNEL_SYMBOLS[k.name]
-        seen = [(t, c) for name, (t, c) in times.items() if sym in name]
-        per_k5 = (k.launches - before[k.name]) / reps
-        # the mean of the launches the profiler saw, times the launches a
-        # K5 launch makes (the profiler may miss some at its window's edge)
-        ms = (sum(t for t, _ in seen) / max(sum(c for _, c in seen), 1)
-              * per_k5)
-        steps_k = {"walk_extend": counts[3], "walk_nee": sum(counts[4:7]),
-                   "walk_scatter": counts[7]}.get(k.name)
-        out[k.name] = dict(ms=ms, launches=per_k5, bound=bounds[k.name],
-                           steps=steps_k)
+        out[k.name] = dict(ms=times[k.name][0],
+                           launches=launched[k.name] / reps,
+                           unrecorded=times[k.name][1],
+                           bound=bounds[k.name], steps=steps_of.get(k.name))
         if k is walk.WALK_NEE:
             out[k.name]["steps_by_kind"] = dict(zip(
                 walk.STEP_STAGES[1:4], counts[4:7]))
@@ -381,6 +470,49 @@ def parity(scene, p, dev, volumetric):
     return out
 
 
+def tile_parity(scene, p, dev, volumetric, shot):
+    """The main path's launch held to the plain integrator at its own
+    shapes: walk_direct or walk_volumetric (K4 after it) on ``shot``'s
+    rays (k5_ms's launch, tile key, rays and tile) in tiles of ``tile``,
+    and the plain integrator on the leading TILE_RAYS rays of each tile of
+    TILE_CHECK (the first and the last, ragged at 1080p) under that tile's
+    key fold_in(tkey, 1000 + t), where a ray's draws are those of its
+    index in its tile.  Every output bit for bit (raises otherwise):
+    match()'s numbers, the rays that entered the box and the plain
+    version's ms (host clock after a sync), by tile."""
+    from vpt_tpu_torch.core.vecmath import aabb_intersect
+    from vpt_tpu_torch.render.integrator import direct_integrator_plain
+    from vpt_tpu_torch.render.vol_integrator import vol_integrator_plain
+    launch, tkey, o, d, tile = shot
+    run = walk.walk_volumetric if volumetric else walk.walk_direct
+    plain = vol_integrator_plain if volumetric else direct_integrator_plain
+    got = run(scene, p, tkey, o, d, launch, tile)
+    B = o.shape[0]
+    tiles = walk.n_tiles(B, tile)
+    out = {}
+    for t in TILE_CHECK:
+        t %= tiles
+        a = t * tile
+        m = min(TILE_RAYS, B - a)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        want = plain(scene, p, rng.fold_in(tkey, walk.TILE_FOLD + t),
+                     o[a:a + m], d[a:a + m])
+        torch.cuda.synchronize(dev)
+        rec = match(tuple(v[a:a + m] for v in got), want)
+        hit = aabb_intersect(scene.root_pmin, scene.root_pmax, o[a:a + m],
+                             d[a:a + m])[0]
+        rec.update(tile=t, first_ray=a, tile_rays=min(tile, B - a),
+                   in_box=int(hit.sum()), ray_depth=p.ray_depth,
+                   plain_ms=(time.perf_counter() - t0) * 1e3)
+        if rec["bit_share"] != 1.0:
+            raise RuntimeError(f"K5 at {p.width}x{p.height}, tile {t}: "
+                               f"not bit for bit with its plain version: "
+                               f"{rec}")
+        out[str(t)] = rec
+    return out
+
+
 def keys_check(scene, p, dev, volumetric, depths=(0, 7)):
     """walk_keys_kernel's table for one sample's launch (its tiles of
     fused_tile rays) at bounces ``depths`` against key_table_plain on the
@@ -436,7 +568,7 @@ def reference_phase(dev, scene=None):
     if not (rec["render"]["finite"] and rec["render"]["mean"] > 0):
         raise RuntimeError(f"reference: the image is not finite or black: "
                            f"{rec['render']}")
-    rec["k5_alone"] = k5_alone(main, p, dev, False)
+    rec["k5_alone"] = k5_alone(main, p, dev, False, tiles=True)
     rec["cli"] = cli_run(
         dev, ["--engine", "reference", "--env-type", "black", "--light",
               *(str(v) for v in LIGHT_POS), "1", "1", "1", str(LIGHT_POWER)],
@@ -497,7 +629,8 @@ def volumetric_phase(dev, scene=None, tmp=None):
     sky = dataclasses.replace(scene, lights=PointLights.empty(dev))
     pv = params(W, H, integrator=1,
                 environment_type=int(Environment.ATMOSPHERE))
-    rec["k5_alone_sky"] = k5_alone(framed(sky, W, H), pv, dev, True)
+    rec["k5_alone_sky"] = k5_alone(framed(sky, W, H), pv, dev, True,
+                                   tiles=True)
     hdri = attach_env_map(sky, c3_map(*HDRI_MAP))
     ph = params(HDRI_SIZE, HDRI_SIZE, integrator=1, hdri_importance=True,
                 environment_type=int(Environment.HDRI))
@@ -539,7 +672,7 @@ def smi_line() -> str:
 
 def timing_record(dev, scene=None) -> dict:
     """``--timing``'s record: the films' SHA-256 and ms/spp of the three
-    renders (render()), and K5 alone by CUDA events (k5_alone's ms) on
+    renders (render()), and K5 alone by CUDA events (k5_ms) on
     each; entry points only, so it times whichever checkout is first on
     PYTHONPATH."""
     from vpt_tpu_torch.lights.lights import PointLights
@@ -562,7 +695,7 @@ def timing_record(dev, scene=None) -> dict:
         r = render(sc, p, dev)
         rec[name] = dict(ms_per_spp=r["ms_per_spp"],
                          film_sha256=r["film_sha256"],
-                         k5_ms=k5_alone(sc, p, dev, volumetric)["ms"])
+                         k5_ms=k5_ms(sc, p, dev, volumetric)[0])
     return rec
 
 
