@@ -222,7 +222,7 @@ Phases, one JSON line each:
                and bit for bit; the main scene with its point light at
                512x512 (NEE's point-light kind); every stage kernel of
                the wavefront and the key table launched, each timed by
-               the profiler per K5 launch (slot by slot) with its
+               CUDA events between K5's kernels, per K5 launch, with its
                walk steps, queue lengths by bounce and bound (the bytes
                the stage moves); the CLI's scene at 1080p, ray_depth 50,
                the leading 2048 rays of the first and the ragged last

@@ -1484,6 +1484,24 @@ def test_k5_volumetric_all_nee_kinds(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("volumetric", [False, True])
+def test_k5_timed_launch(cuda_device, volumetric):
+    """A launch timed by kernel_ms writes the untimed launch's bits, and
+    gives every kernel it launched a device time above 0."""
+    s = _k5_scene(cuda_device, "sky", False)
+    key = rng.render_key(3, 1)
+    p, o, d = _k5_rays(s, 40, 30, key, environment_type=0)
+    launch = walk.prepare_walk(s, p, volumetric)
+    want = [v.clone() for v in walk._launch_k5(launch, key, o, d, 500)]
+    before = {k.name: k.launches for k in walk.LAUNCH_KINDS}
+    ms = {}
+    got = walk._launch_k5(launch, key, o, d, 500, kernel_ms=ms)
+    _assert_bits(got, want)
+    for k in walk.LAUNCH_KINDS:
+        assert (ms[k.name] > 0.0) == (k.launches > before[k.name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volumetric", [False, True])
 @pytest.mark.parametrize("env", ["sky", "hdri_cdf"])
 def test_k5_key_table_matches_plain(cuda_device, volumetric, env):
     """walk_keys_kernel's table equals key_table_plain bit for bit (three

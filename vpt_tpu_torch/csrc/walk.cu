@@ -83,6 +83,8 @@
 //   parts, added in nee.estimate_sky's order).
 // The measurements are in PERF.md (§6, the kernel table and K5's findings).
 
+#include <vector>
+
 #include "vpt_common.cuh"
 
 using namespace vpt;
@@ -1638,6 +1640,69 @@ cudaError_t persistent_grid(const void* fn, int& grid) {
     return cudaSuccess;
 }
 
+// Holds its stream for `ns` nanoseconds of the card's clock: a timed
+// launch (StageTimer) queues all its kernels behind it, so that the card
+// runs them back to back and no host gap falls between two events.
+__global__ void walk_hold_kernel(unsigned long long ns) {
+    unsigned long long t0, t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+    do {
+        __nanosleep(1000);
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    } while (t - t0 < ns);
+}
+
+constexpr unsigned long long HOLD_NS = 50000000ull;  // 50 ms
+
+// Each kernel's device ms in one launch of vpt_walk, by CUDA events: an
+// event after the launch's set-up (mark(-1)) and one after each kernel
+// (mark(kind)), the time between two events going to the kind of the
+// second.  `ms` null: untimed, and nothing is recorded.
+struct StageTimer {
+    float* ms = nullptr;  // N_LAUNCH_KINDS sums, or null
+    cudaStream_t st = nullptr;
+    std::vector<cudaEvent_t> ev;
+    std::vector<int> kind;
+
+    cudaError_t hold() {
+        if (!ms) return cudaSuccess;
+        walk_hold_kernel<<<1, 1, 0, st>>>(HOLD_NS);
+        return cudaGetLastError();
+    }
+    cudaError_t mark(int k) {
+        if (!ms) return cudaSuccess;
+        cudaEvent_t e;
+        cudaError_t err = cudaEventCreate(&e);
+        if (err != cudaSuccess) return err;
+        ev.push_back(e);
+        kind.push_back(k);
+        return cudaEventRecord(e, st);
+    }
+    // After the launch is queued: cudaErrorNotReady where the card had
+    // passed the first event already (the hold was too short for the
+    // queue, and a host gap may lie inside a time); else each kind's ms
+    // added to `ms`.  Destroys the events.
+    cudaError_t finish(cudaError_t err) {
+        if (!ms) return err;
+        if (err == cudaSuccess && !ev.empty()) {
+            if (cudaEventQuery(ev[0]) == cudaErrorNotReady)
+                (void)cudaGetLastError();  // not an error: clear it
+            else
+                err = cudaErrorNotReady;
+        }
+        if (err == cudaSuccess && !ev.empty())
+            err = cudaEventSynchronize(ev.back());
+        for (size_t i = 1; i < ev.size() && err == cudaSuccess; ++i) {
+            float t = 0.f;
+            err = cudaEventElapsedTime(&t, ev[i - 1], ev[i]);
+            if (err == cudaSuccess && kind[i] >= 0) ms[kind[i]] += t;
+        }
+        for (cudaEvent_t e : ev) cudaEventDestroy(e);
+        ev.clear();
+        return err;
+    }
+};
+
 template <bool VOL>
 cudaError_t launch_keys(const WalkParams& p, Key* keys, int d0,
                         cudaStream_t st) {
@@ -1653,9 +1718,11 @@ cudaError_t launch_direct(const WalkParams& p, const WalkEnv& e,
                           const WalkTables& t, const WalkWork& w,
                           const float* origin, const float* direction,
                           float* out, unsigned long long* stats,
-                          int* launches, cudaStream_t st) {
+                          int* launches, StageTimer& tm, cudaStream_t st) {
     cudaError_t err = cudaMemsetAsync(w.counts, 0, sizeof(unsigned), st);
+    if (err == cudaSuccess) err = tm.mark(-1);
     if (err == cudaSuccess) err = launch_keys<false>(p, table(w), 0, st);
+    if (err == cudaSuccess) err = tm.mark(L_KEYS);
     if (err != cudaSuccess) return err;
     ++launches[L_KEYS];
     int grid = 0;
@@ -1666,6 +1733,7 @@ cudaError_t launch_direct(const WalkParams& p, const WalkEnv& e,
                               st>>>(p, e, t, origin, direction, out, table(w),
                                     w.counts, stats);
     err = cudaGetLastError();
+    if (err == cudaSuccess) err = tm.mark(L_DIRECT);
     if (err == cudaSuccess) ++launches[L_DIRECT];
     return err;
 }
@@ -1677,11 +1745,13 @@ cudaError_t launch_volumetric(const WalkParams& p, const WalkEnv& e,
                               const WalkTables& t, const WalkWork& w,
                               const float* origin, const float* direction,
                               float* out, unsigned long long* stats,
-                              int n_stats, int* launches, cudaStream_t st) {
+                              int n_stats, int* launches, StageTimer& tm,
+                              cudaStream_t st) {
     // no bounce (ray_depth 0): EXTEND at 0 writes every ray as it enters
     const int depths = p.ray_depth > 0 ? p.ray_depth : 1;
     cudaError_t err = cudaMemsetAsync(
         w.counts, 0, sizeof(unsigned) * N_COUNTS * (depths + 1), st);
+    if (err == cudaSuccess) err = tm.mark(-1);
     if (err != cudaSuccess) return err;
     int g_ext = 0, g_nee = 0, g_sc = 0;
     if ((err = persistent_grid((const void*)walk_extend_kernel<EXT>, g_ext)) ||
@@ -1691,20 +1761,23 @@ cudaError_t launch_volumetric(const WalkParams& p, const WalkEnv& e,
     const long long need = ((long long)p.B + THREADS - 1) / THREADS;
     const int g_first = (int)(need < g_ext ? need : g_ext);
     for (int d = 0; d < depths; ++d) {
-        if ((err = launch_keys<true>(p, table(w), d, st))) return err;
+        if ((err = launch_keys<true>(p, table(w), d, st)) ||
+            (err = tm.mark(L_KEYS)))
+            return err;
         ++launches[L_KEYS];
         walk_extend_kernel<EXT><<<d == 0 ? g_first : g_ext, THREADS, 0, st>>>(
             p, e, t, origin, direction, out, w, d, stats, n_stats);
-        if ((err = cudaGetLastError())) return err;
+        if ((err = cudaGetLastError()) || (err = tm.mark(L_EXTEND))) return err;
         ++launches[L_EXTEND];
         if (p.ray_depth <= 0) break;
         walk_nee_kernel<<<g_nee, THREADS, 0, st>>>(p, e, t, w, d, stats,
                                                     n_stats);
-        if ((err = cudaGetLastError())) return err;
+        if ((err = cudaGetLastError()) || (err = tm.mark(L_NEE))) return err;
         ++launches[L_NEE];
         walk_scatter_kernel<EXT><<<g_sc, THREADS, 0, st>>>(
             p, e, t, origin, out, w, d, stats, n_stats);
-        if ((err = cudaGetLastError())) return err;
+        if ((err = cudaGetLastError()) || (err = tm.mark(L_SCATTER)))
+            return err;
         ++launches[L_SCATTER];
     }
     return cudaSuccess;
@@ -1725,12 +1798,14 @@ extern "C" int vpt_walk_work_size() { return (int)sizeof(WalkWork); }
 // floats (write_out); `stats`, n_stats (3 or 8) unsigned 64-bit counters
 // the launch adds to (bounces, walk steps, sky evaluations, then
 // walk_volumetric's steps by stage), or null; `launches`
-// (N_LAUNCH_KINDS ints) += the kernels launched, by kind.
+// (N_LAUNCH_KINDS ints) += the kernels launched, by kind; `kernel_ms`
+// (N_LAUNCH_KINDS floats, or null) += each kind's device ms in this launch
+// (StageTimer: the launch queued behind walk_hold_kernel, and waited for).
 extern "C" int vpt_walk(int volumetric, int ext, const void* params,
                         const void* env, const void* tables, const void* work,
                         const float* origin, const float* direction,
                         float* out, void* stats, int n_stats, int* launches,
-                        void* stream) {
+                        float* kernel_ms, void* stream) {
     const WalkParams& p = *static_cast<const WalkParams*>(params);
     const WalkTables& t = *static_cast<const WalkTables*>(tables);
     const WalkWork& w = *static_cast<const WalkWork*>(work);
@@ -1753,18 +1828,25 @@ extern "C" int vpt_walk(int volumetric, int ext, const void* params,
     const WalkEnv& e = *static_cast<const WalkEnv*>(env);
     const cudaStream_t st = (cudaStream_t)stream;
     unsigned long long* s = static_cast<unsigned long long*>(stats);
-    cudaError_t err;
-    if (!vol)
-        err = ext ? launch_direct<true>(p, e, t, w, origin, direction, out, s,
-                                        launches, st)
-                  : launch_direct<false>(p, e, t, w, origin, direction, out,
-                                         s, launches, st);
-    else
-        err = ext ? launch_volumetric<true>(p, e, t, w, origin, direction,
-                                            out, s, n_stats, launches, st)
-                  : launch_volumetric<false>(p, e, t, w, origin, direction,
-                                             out, s, n_stats, launches, st);
-    return (int)err;
+    StageTimer tm;
+    tm.ms = kernel_ms;
+    tm.st = st;
+    cudaError_t err = tm.hold();
+    if (err == cudaSuccess) {
+        if (!vol)
+            err = ext ? launch_direct<true>(p, e, t, w, origin, direction,
+                                            out, s, launches, tm, st)
+                      : launch_direct<false>(p, e, t, w, origin, direction,
+                                             out, s, launches, tm, st);
+        else
+            err = ext ? launch_volumetric<true>(p, e, t, w, origin,
+                                                direction, out, s, n_stats,
+                                                launches, tm, st)
+                      : launch_volumetric<false>(p, e, t, w, origin,
+                                                 direction, out, s, n_stats,
+                                                 launches, tm, st);
+    }
+    return (int)tm.finish(err);
 }
 
 // The key table alone (walk_keys_kernel), bounces [d0, d0 + key_depths),

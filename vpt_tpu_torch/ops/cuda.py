@@ -100,7 +100,7 @@ def load_library() -> Library:
             ("vpt_div_known_sweep", [ctypes.c_float, ctypes.c_float,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong,
                                      vp, vp]),
-            ("vpt_walk", [i32, i32] + [vp] * 8 + [i32, vp, vp]),
+            ("vpt_walk", [i32, i32] + [vp] * 8 + [i32, vp, vp, vp]),
             ("vpt_walk_keys", [i32, vp, vp, i32, vp]),
             ("vpt_walk_params_size", []),
             ("vpt_walk_env_size", []),

@@ -83,6 +83,9 @@ STAGE_KERNELS = (WALK_EXTEND, WALK_NEE, WALK_SCATTER)
 # (stats[3 + k]): EXTEND, NEE's sun, point lights and sky, SCATTER
 STEP_STAGES = ("extend", "sun", "point", "sky", "scatter")
 N_STATS, N_STATS_STAGES = 3, 8
+# vpt_walk's status where a timed launch's hold kernel ended before the
+# host had queued the launch (cudaErrorNotReady)
+HOLD_TOO_SHORT = 600
 # walk.cu's path queues and counters (N_QUEUES x B ints; N_COUNTS per
 # bounce: the queue lengths C_LIVE .. C_SCATTER first)
 N_QUEUES, N_COUNTS = 6, 11
@@ -482,13 +485,17 @@ def _launch_params(launch: WalkLaunch, B: int, tile: int, key):
 
 
 def _launch_k5(launch: WalkLaunch, key, origin, direction, tile: int,
-               stats=None):
+               stats=None, kernel_ms=None):
     """K5 alone: its output views (fused.out_buffer, as K1's): L,
     alpha, cost, trunc, depth, and for a deferred environment beta, the
     direction and env_pos.  ``stats``: an int64 tensor on the card of
     N_STATS counters the launch adds the rays' bounces, walk steps and sky
     evaluations to (or N_STATS_STAGES: then also walk_volumetric's walk
-    steps by stage, STEP_STAGES' order), or None."""
+    steps by stage, STEP_STAGES' order), or None.  ``kernel_ms``: a dict
+    that each LAUNCH_KINDS name's device ms in this launch is added to
+    (CUDA events between its kernels, the launch queued behind a hold
+    kernel so that no host gap falls inside a time; the call waits for
+    the launch), or None."""
     dev = launch.tensors[0].device
     B = origin.shape[0]
     cuda.check_cuda_tensor(origin, "origin", (B, 3), torch.float32, dev)
@@ -498,15 +505,22 @@ def _launch_k5(launch: WalkLaunch, key, origin, direction, tile: int,
     w = _work(launch, p, dev)
     out, views = out_buffer(B, p.defer_env, dev)
     launches = (ctypes.c_int * len(LAUNCH_KINDS))()
+    ms = None if kernel_ms is None else (ctypes.c_float * len(LAUNCH_KINDS))()
     rc = cuda.load_library().dll.vpt_walk(
         int(launch.volumetric), int(launch.ext), ctypes.byref(p),
         ctypes.byref(launch.env), ctypes.byref(launch.tables),
         ctypes.byref(w), origin.data_ptr(), direction.data_ptr(),
         out.data_ptr(), None if stats is None else stats.data_ptr(),
-        0 if stats is None else stats.numel(), launches,
+        0 if stats is None else stats.numel(), launches, ms,
         cuda.current_stream(dev))
     counter = WALK_VOLUMETRIC if launch.volumetric else WALK_DIRECT
+    if ms is not None and rc == HOLD_TOO_SHORT:
+        raise RuntimeError(f"{counter.name}: the card reached the timed "
+                           f"launch before the host had queued it")
     cuda.check_status(rc, counter.name)
+    if ms is not None:
+        for k, t in zip(LAUNCH_KINDS, ms):
+            kernel_ms[k.name] = kernel_ms.get(k.name, 0.0) + t
     for k, n in zip(LAUNCH_KINDS, launches):
         if k is not WALK_DIRECT:
             k.launches += n

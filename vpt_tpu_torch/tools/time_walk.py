@@ -48,8 +48,8 @@ hash is the same on both sides.
   the ragged last tile as the reference engine's.  K5 against
   vol_integrator_plain at 256x256, ray_depth 8, on the sky, on the HDRI
   through the CDF, on the EXT puff and on the main scene with its point
-  light.  Each K5 kernel's device ms by torch.profiler, slot by slot over
-  four K5 launches, and each stage's bound from the bytes it moves.
+  light.  Each K5 kernel's device ms by CUDA events between its kernels
+  over four K5 launches, and each stage's bound from the bytes it moves.
 
 The rule of a match (chip_smoke.py's phase 6): >= 99% of rays agree (L
 within rtol 1e-4 + atol 1e-6, alpha within 1e-5, cost and trunc exact)
@@ -269,12 +269,6 @@ def out_bytes(launch) -> int:
     return 4 * (7 + 6 * bool(launch.params.defer_env))
 
 
-# the profiler's name of each K5 kernel (csrc/walk.cu), by counter
-KERNEL_SYMBOLS = {"walk_keys": "walk_keys_kernel",
-                  "walk_direct": "walk_direct_kernel",
-                  "walk_extend": "walk_extend_kernel",
-                  "walk_nee": "walk_nee_kernel",
-                  "walk_scatter": "walk_scatter_kernel"}
 # what walk.cu's stages move a path: PathState's first four 16-byte words
 # (load_state / store_state), its six (SCATTER's read), the two a light
 # estimate reads (pos, dir), the estimate it writes (ld; the sky's phase
@@ -312,48 +306,11 @@ def stage_bytes(queues, out_b: int) -> dict:
     return {"walk_extend": ext, "walk_nee": nee, "walk_scatter": sca}
 
 
-def launch_slots(events, order, rounds, reps):
-    """Each K5 kernel's device ms per K5 launch from one profiler window
-    of ``reps`` K5 launches, each ``rounds`` rounds of the kernels
-    ``order`` in turn (walk_volumetric: keys, EXTEND, NEE, SCATTER a
-    bounce; walk_direct: keys, walk_direct): ``events``, (start µs, name,
-    ms) of the kernels the profiler recorded, each put in the first slot
-    of its name after the last one filled, so that a launch it did not
-    record leaves its slot empty.  {name: (ms, empty slots)}: the sum over
-    the rounds of each slot's mean over the K5 launches that recorded it
-    (the same rays, keys and bounce in each); raises where none recorded
-    a slot or a kernel is past the last slot."""
-    n = len(order)
-    got, pos = {}, -1
-    for _, name, ms in sorted(events):
-        i = order.index(name)
-        c = (pos - i) // n + 1
-        if c >= rounds * reps:
-            raise RuntimeError(f"kernel_split: more {name} launches than "
-                               f"{rounds * reps}")
-        got[c, name] = ms
-        pos = c * n + i
-    out = {}
-    for name in order:
-        total, empty = 0.0, 0
-        for b in range(rounds):
-            seen = [got[r * rounds + b, name] for r in range(reps)
-                    if (r * rounds + b, name) in got]
-            if not seen:
-                raise RuntimeError(f"kernel_split: the profiler recorded "
-                                   f"no launch of {name} in round {b}")
-            total += sum(seen) / len(seen)
-            empty += reps - len(seen)
-        out[name] = (total, empty)
-    return out
-
-
 def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, queues,
                  reps=4):
-    """Each K5 kernel's device ms per K5 launch by torch.profiler over
-    ``reps`` launches in one window, slot by slot (launch_slots: a launch
-    the profiler did not record stands in from the same slot of the
-    other K5 launches, counted in ``unrecorded``); launches per K5 launch,
+    """Each K5 kernel's device ms per K5 launch, the mean over ``reps``
+    timed launches (_launch_k5's kernel_ms: CUDA events between the
+    kernels, every launch of every kernel timed); launches per K5 launch,
     and the bound of its share of the work (``counts``: N_STATS_STAGES
     counters of one launch; ``queues``: walk_volumetric's queue lengths):
     walk_keys its table written once, a key a threefry; walk_direct the
@@ -361,24 +318,13 @@ def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, queues,
     row its walk steps visit once, and its walk steps at K5_OPS_PER_STEP
     (EXTEND also the bounces, NEE the sky evaluations), so the stages'
     operations add up to the integrator's."""
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
     before = {k.name: k.launches for k in walk.LAUNCH_KINDS}
-    with profile(activities=[ProfilerActivity.CUDA]) as pr:
-        for _ in range(reps):
-            walk._launch_k5(launch, tkey, o, d, tile)
-        torch.cuda.synchronize(dev)
+    ms = {}
+    for _ in range(reps):
+        walk._launch_k5(launch, tkey, o, d, tile, kernel_ms=ms)
     launched = {k.name: k.launches - before[k.name] for k in walk.LAUNCH_KINDS
                 if k.launches > before[k.name]}
-    rounds = {n_ // reps for n_ in launched.values()}
-    if len(rounds) != 1 or any(n_ % reps for n_ in launched.values()):
-        raise RuntimeError(f"kernel_split: launches {launched} are not "
-                           f"rounds of every kernel")
-    events = [(e.time_range.start, name, e.time_range.elapsed_us() / 1e3)
-              for e in pr.events()
-              if "CUDA" in str(getattr(e, "device_type", ""))
-              for name, sym in KERNEL_SYMBOLS.items() if sym in e.name]
-    times = launch_slots(events, list(launched), rounds.pop(), reps)
     n = o.shape[0]
     p = walk._launch_params(launch, n, tile, tkey)
     slab = p.key_scalars + p.key_walks * p.key_steps
@@ -405,9 +351,8 @@ def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, queues,
     for k in walk.LAUNCH_KINDS:
         if k.name not in bounds:
             continue
-        out[k.name] = dict(ms=times[k.name][0],
+        out[k.name] = dict(ms=ms[k.name] / reps,
                            launches=launched[k.name] / reps,
-                           unrecorded=times[k.name][1],
                            bound=bounds[k.name], steps=steps_of.get(k.name))
         if k is walk.WALK_NEE:
             out[k.name]["steps_by_kind"] = dict(zip(
