@@ -6,8 +6,9 @@ NVIDIA GPU.
 
 Phases, one JSON line each:
   1. device  — the card's name and power limit, torch and CUDA versions;
-  2. build   — K1-K4 and the probe kernels P1-P3 (nvcc, csrc/*.cu, one
-               process per source) from the sources in this checkout, and
+  2. build   — K1-K5 and the probe kernels P1-P3 (nvcc, csrc/*.cu, one
+               process per source, each source's seconds) from the
+               sources in this checkout, and
                K3's first launch; K1's registers and spills (ptxas) and
                its schedule (SMs, resident blocks per SM) for both routes;
   2b. divide — K4's division by the sky's constants HR and HM
@@ -228,6 +229,21 @@ Phases, one JSON line each:
                the leading 2048 rays of the first and the ragged last
                tile held to vol_integrator_plain, bit for bit; the key
                table against key_table_plain at 1080p, bit for bit;
+  8j. walk_scenes — K5 on the bench's other scenes and skies
+               (time_walk.scenes_phase): config 2 as the bench builds it
+               (bfloat16 rows, octant columns, EXT) and in float32 rows
+               with octant columns, config 4 under the Bruneton
+               atmosphere at the full LutDims (live, baked, and live in
+               float32 rows), config 5 (cell lists), config5_ext (cell
+               lists x EXT) and loop8 (the static loop); each through
+               both integrators at 512x512, ray_depth 50: ms/spp, K5
+               alone by CUDA events with its bounces and walk steps a ray
+               and each kernel's ms and bound, every new instance
+               launched in the timed spp (each counted under its name,
+               walk.VARIANTS), K5 against the plain integrator on the
+               central 64x64 pixels' rays (the volumetric one at
+               ray_depth 8) bit for bit; the volumetric integrator at
+               1080p on config 5 and config 4 live; the phase's seconds;
   9. probes  — the probe entry points (vpt_tpu_torch/tools/probe_*.py)
                with their sweeps and the corner-table point, through
                P1-P3, each of which must launch, and P2 in each of its
@@ -245,7 +261,11 @@ Phases, one JSON line each:
                clock.
 Then the nvidia-smi line, the kernels' JSON line (K5's walk_direct and
 walk_volumetric at 1080p with their parity cases and bounces per ray,
-K5's key table and the wavefront's stage kernels;
+K5's key table and the wavefront's stage kernels; each of K5's
+instances beyond float32 rows without octant columns under the run-time
+sky that phase walk_scenes launched, with its launches there, its ms and
+bound per K5 launch on the first configuration that ran it, and its
+parity;
 K1 on both routes, its
 EXT variant at 1080p on the emissive grid with config 2 beside, its
 _bf16 instances on config 2 as the bench builds it with bigvol beside,
@@ -600,8 +620,9 @@ def main():
                                    bool(ext), bool(cells),
                                    ROW_SUFFIX[rows][2], loop=cells == 2)
                  for route in ROUTES for defer, ext, cells, rows in K1_VARIANTS}
-    emit("build", nvcc_s=t_nvcc, k3_first_launch_s=t_k3, library=lib.path,
-         ptxas=regs, k1_ptxas=k1_ptxas, k1_launch=k1_launch)
+    emit("build", nvcc_s=t_nvcc, nvcc_source_s=lib.nvcc_seconds,
+         k3_first_launch_s=t_k3, library=lib.path, ptxas=regs,
+         k1_ptxas=k1_ptxas, k1_launch=k1_launch)
     # the density-only variants as before: 5 blocks per SM, no spills
     # (ptxas reports only when this run built the library); EXT's,
     # CELLS's, env_pos's and the rows' new instances are reported
@@ -1918,12 +1939,22 @@ def main():
                            else vol_res["parity"]["sky"]["plain_ms"])
         bounds[k_.name] = split["bound"]
 
+    def to_stderr(text):
+        print(text, file=sys.stderr, flush=True)
+
+    # ---- 8j. K5 on the bench's other scenes and skies ------------------
+    # configs 2, 4 (live and baked), 5, config5_ext and loop8 as the bench
+    # builds them through both integrators, each instance held bit for bit
+    # to its plain version and counted from 0 just before its render
+    t0 = time.perf_counter()
+    scenes_res = time_walk.scenes_phase(dev, out=to_stderr)
+    emit("walk_scenes", phase_s=time.perf_counter() - t0, **scenes_res)
+    scene_entries = time_walk.scene_kernel_entries(scenes_res)
+
     # ---- 9. the probe entry points, then each probe kernel timed ---------
     from vpt_tpu_torch.tools import probe_axis0, probe_dyngather, \
         probe_gather, time_probes
 
-    def to_stderr(text):
-        print(text, file=sys.stderr, flush=True)
     for k in probe.KERNELS:
         k.launches = 0
     for d in probe.DESIGNS:
@@ -2396,6 +2427,7 @@ def main():
                               "bounces_per_ray"]))
     for name, shape in shapes.items():
         by_name[name]["shape"] = shape
+    line["kernels"] += scene_entries
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -900,8 +900,11 @@ def test_instanced_build_on_the_card_equals_cpu(cuda_device, resolution):
 
 
 def _c_fields(source, struct):
-    """Field names of a C struct in declaration order (arrays by name)."""
+    """Field names of a C struct in declaration order (arrays by name),
+    from the source or the headers it includes."""
     text = open(os.path.join(CSRC, source)).read()
+    for h in re.findall(r'#include "([^"]+)"', text):
+        text += open(os.path.join(CSRC, h)).read()
     body = re.search(r"struct %s \{(.*?)\};" % struct, text, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = []
@@ -909,7 +912,7 @@ def _c_fields(source, struct):
         decl = decl.strip()
         if not decl:
             continue
-        decl = re.sub(r"^(const\s+)?(int|unsigned|float)\s+", "", decl)
+        decl = re.sub(r"^(const\s+)?\w+\s+", "", decl)
         names += [re.sub(r"\[\d+\]|\*", "", n).strip()
                   for n in decl.split(",")]
     return names
@@ -928,6 +931,7 @@ def _c_fields(source, struct):
     ("walk.cu", "WalkParams", walk._WalkParams),
     ("walk.cu", "WalkEnv", _EnvParams),
     ("walk.cu", "WalkTables", walk._WalkTables),
+    ("walk.cu", "WalkScene", walk._WalkScene),
     ("walk.cu", "WalkWork", walk._WalkWork)])
 def test_ctypes_mirrors_match_c_structs(source, struct, mirror):
     """The ctypes launch structs list the C structs' fields in order."""
@@ -1344,30 +1348,95 @@ def test_k5_renders_through_the_renderer(cuda_device, integrator):
         r.film.accum.mean()) > 0
 
 
+def _k5_kind_scene(device, case):
+    """K5's scene and sky kinds beyond float32 rows without octant columns
+    under the run-time sky: a single grid in float32 rows with the octant
+    columns, in bfloat16 rows with and without them; 12 instances (cell
+    lists) and 4 (the static loop) of two grids; each density-only and
+    EXT (emission and color); the Bruneton atmosphere (the golden tiny
+    LUTs) live and baked, on the bfloat16 blob and on the cell lists."""
+    from vpt_tpu_torch.scene.scene import attach_atmosphere, attach_sky_cache
+    from vpt_tpu_torch.sky.bruneton import LutDims
+    ext = case.endswith("_ext")
+    kind = case[:-4] if ext else case
+    bf16 = dict(corner_dtype="bfloat16", octant_boxes=True)
+    if kind == "octant":
+        return _blob_scene(device, emission=ext, color=ext, octant_boxes=True)
+    if kind == "bf16":
+        return _blob_scene(device, emission=ext, color=ext, **bf16)
+    if kind == "bf16_no_octant":
+        return _blob_scene(device, emission=ext, color=ext,
+                           corner_dtype="bfloat16")
+    if kind in ("cells", "loop"):
+        return _loop_scene(device, ext, 12 if kind == "cells" else 4)
+    s = (_loop_scene(device, False, 12) if kind.endswith("cells")
+         else _blob_scene(device, **bf16))
+    s = attach_atmosphere(s, cache_path=GOLDEN_LUTS,
+                          dims=LutDims(**TINY_DIMS))
+    if kind.startswith("sky_cache"):
+        s = attach_sky_cache(s, 150.0, 30.0, 32, 64)
+    return s
+
+
+# (case, volumetric): the former refusals first (an instanced scene,
+# bfloat16 rows, octant columns, the volumetric integrator's sky NEE under
+# the Bruneton atmosphere), then every other kind
+K5_KIND_CASES = [("loop", False), ("bf16", False), ("octant", False),
+                 ("atmosphere", True)] + [
+    (c, v) for c in ("octant_ext", "bf16_ext", "bf16_no_octant", "cells",
+                     "cells_ext", "loop_ext") for v in (False, True)] + [
+    ("loop", True), ("bf16", True), ("octant", True), ("sky_cache", True),
+    ("atmosphere_cells", True), ("sky_cache_cells", True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["instanced", "bfloat16", "octant",
-                                  "volumetric_atmosphere"])
+@pytest.mark.parametrize("case,volumetric", K5_KIND_CASES)
+def test_k5_scene_kinds_bit_for_bit(cuda_device, case, volumetric):
+    """Each K5 instance beyond float32 rows without octant columns under
+    the run-time sky launches on its scene and writes the plain
+    integrator's bits at a ragged 37 x 29 in tiles of 400, every stage's
+    instance counted under its name."""
+    s = _k5_kind_scene(cuda_device, case)
+    key = rng.render_key(13, 2)
+    kw = dict(environment_type=0, emission_scale=2.0)
+    if case.endswith("_ext"):
+        kw["volume_depth"] = 2
+    p, o, d = _k5_rays(s, 37, 29, key, **kw)
+    launch = walk.prepare_walk(s, p, volumetric)
+    names = walk.instance_names(volumetric, launch.ext, launch.scene.kind,
+                                launch.scene.sky)
+    assert names
+    before = {n: walk.variant(n, k, launch.scene.kind).launches
+              for k, n in names.items()}
+    run = walk.walk_volumetric if volumetric else walk.walk_direct
+    got = run(s, p, key, o, d, launch=launch, tile=400)
+    _assert_bits(got, _k5_plain_tiles(s, p, volumetric, key, o, d, 400))
+    assert float(got[0].mean()) > 0.0
+    for k, n in names.items():
+        assert walk.VARIANTS[n].launches > before[n], n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bfloat16", "octant"])
 def test_k5_out_of_scope_raises_before_launch(cuda_device, case):
     """What K5 does not take raises NotImplementedError before any launch,
-    naming its ROADMAP item; nothing falls back to a plain version."""
-    if case == "instanced":
-        s = _loop_scene(cuda_device, False)
-    elif case == "volumetric_atmosphere":
-        s = _atmosphere_scene(cuda_device)
-    else:
-        s = _blob_scene(cuda_device, corner_dtype=(
-            "bfloat16" if case == "bfloat16" else "float32"),
-            octant_boxes=case == "octant")
+    naming its ROADMAP item; nothing falls back to a plain version: an
+    instanced scene in bfloat16 rows or with octant columns in its corner
+    rows (build_scene refuses both, ROADMAP A.10; made here by
+    swapping a single grid's atlas in)."""
+    s = _loop_scene(cuda_device, False)
+    rows = _blob_scene(cuda_device, corner_dtype=(
+        "bfloat16" if case == "bfloat16" else "float32"),
+        octant_boxes=case == "octant").atlas
+    s = dataclasses.replace(s, atlas=rows)
     p = RenderParams(width=16, height=16, ray_depth=2, environment_type=0,
-                     integrator=int(case == "volumetric_atmosphere"),
                      engine="reference")
     o, d = renderer._primary_rays_cuda(s.camera, p, rng.render_key(0, 0))
     before = (walk.WALK_DIRECT.launches, walk.WALK_VOLUMETRIC.launches)
-    run = (walk.walk_volumetric if case == "volumetric_atmosphere"
-           else walk.walk_direct)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        run(s, p, (0, 1), o, d)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    for run in (walk.walk_direct, walk.walk_volumetric):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+            run(s, p, (0, 1), o, d)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         renderer.ProgressiveRenderer(s, p)
     assert (walk.WALK_DIRECT.launches,
             walk.WALK_VOLUMETRIC.launches) == before
@@ -1530,8 +1599,14 @@ def test_k5_stage_launch_info(cuda_device):
     allows it (PERF.md records them)."""
     for stage in walk.STAGES:
         for ext in (False, True):
-            info = walk.launch_info(stage != "direct", ext, stage)
-            assert info["threads"] == 128 and info["blocks_per_sm"] >= 1
+            for sc in range(len(walk.SCENE_TAGS)):
+                skies = (range(len(walk.SKY_TAGS)) if stage == "nee"
+                         else (0,))
+                for sky in skies:
+                    info = walk.launch_info(stage != "direct", ext, stage,
+                                            sc, sky)
+                    assert (info["threads"] == 128
+                            and info["blocks_per_sm"] >= 1)
 
 
 @pytest.fixture(scope="module")

@@ -133,8 +133,10 @@ def test_tile_zero_is_one_tile_under_the_key_itself():
 
 def test_layout_constants_match_walk_cu():
     """The Python layout's slots and the buffers' shapes are csrc/walk.cu's
-    (the kernel also checks key_scalars and key_walks at each launch)."""
-    src = open(os.path.join(CSRC, "walk.cu")).read()
+    (its device code in csrc/walk.cuh; the kernel also checks key_scalars
+    and key_walks at each launch)."""
+    src = "".join(open(os.path.join(CSRC, f)).read()
+                  for f in ("walk.cu", "walk.cuh"))
 
     def consts(names):
         return [int(re.search(rf"\b{n} = (\d+)", src).group(1))

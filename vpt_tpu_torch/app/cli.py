@@ -197,11 +197,6 @@ def _check_render_slice(args) -> str:
              "ROADMAP A.8, render/debugviz.py")):
         if on:
             _not_ported(flag, item)
-    if (args.atmosphere and env == "atmosphere"
-            and args.integrator == "volumetric" and not args.cpu):
-        from vpt_tpu_torch.render.walk import ATMOSPHERE_NEE_ITEM
-        _not_ported("--integrator volumetric with --atmosphere on the card",
-                    ATMOSPHERE_NEE_ITEM)
     from vpt_tpu_torch.utils.io import UNPORTED_FORMATS
     ext = os.path.splitext(args.output)[1].lower()
     if ext in UNPORTED_FORMATS:

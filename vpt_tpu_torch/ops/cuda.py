@@ -24,9 +24,10 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "csrc")
 SOURCES = ("fused_direct.cu", "raygen.cu", "film_accumulate.cu",
-           "environment.cu", "walk.cu", "gather_rows.cu", "take_along.cu",
-           "roll.cu")
-HEADERS = ("vpt_common.cuh", "raygen.cuh", "probe_launch.cuh")
+           "environment.cu", "walk.cu", "walk_rows.cu", "walk_cells.cu",
+           "gather_rows.cu", "take_along.cu", "roll.cu")
+HEADERS = ("vpt_common.cuh", "raygen.cuh", "probe_launch.cuh",
+           "atmosphere.cuh", "walk.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -51,6 +52,9 @@ class Library:
     dll: ctypes.CDLL
     path: str
     ptxas_log: str         # empty when the library was already built
+    # each source's nvcc wall seconds, all started together, and the
+    # link's (empty when the library was already built)
+    nvcc_seconds: dict = None
 
 
 _LIBRARY: Library | None = None
@@ -77,9 +81,9 @@ def load_library() -> Library:
     build = os.path.abspath(os.path.join(CSRC, "build"))
     os.makedirs(build, exist_ok=True)
     path = os.path.join(build, f"libvpt_kernels_{h.hexdigest()[:16]}.so")
-    ptxas_log = ""
+    ptxas_log, seconds = "", {}
     if not os.path.exists(path):
-        ptxas_log = _build(path)
+        ptxas_log, seconds = _build(path)
     dll = ctypes.CDLL(path)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, args in (
@@ -100,13 +104,14 @@ def load_library() -> Library:
             ("vpt_div_known_sweep", [ctypes.c_float, ctypes.c_float,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong,
                                      vp, vp]),
-            ("vpt_walk", [i32, i32] + [vp] * 8 + [i32, vp, vp, vp]),
+            ("vpt_walk", [i32, i32] + [vp] * 9 + [i32, vp, vp, vp]),
             ("vpt_walk_keys", [i32, vp, vp, i32, vp]),
             ("vpt_walk_params_size", []),
             ("vpt_walk_env_size", []),
             ("vpt_walk_tables_size", []),
+            ("vpt_walk_scene_size", []),
             ("vpt_walk_work_size", []),
-            ("vpt_walk_launch_info", [i32, i32, i32, vp]),
+            ("vpt_walk_launch_info", [i32] * 5 + [vp]),
             ("vpt_gather_rows", [vp] * 5),
             ("vpt_gather_launch_size", []),
             ("vpt_take_along_i32", [vp] * 5),
@@ -116,41 +121,55 @@ def load_library() -> Library:
             ("vpt_device_limits", [i32, vp, vp])):
         getattr(dll, fn).restype = ctypes.c_int
         getattr(dll, fn).argtypes = args
-    _LIBRARY = Library(dll, path, ptxas_log)
+    _LIBRARY = Library(dll, path, ptxas_log, seconds)
     return _LIBRARY
 
 
-def _build(path: str) -> str:
-    """Compile every source to an object (one nvcc each, all started
-    together), link them into ``path``; returns the compilers' logs."""
+def _build(path: str, csrc: str = CSRC,
+           sources: tuple = SOURCES) -> tuple[str, dict]:
+    """Compile every source of ``csrc`` to an object (one nvcc each, all
+    started together), link them into ``path``; returns the compilers'
+    logs and each source's wall seconds (and the link's, under "link")."""
+    import threading
+    import time
     nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}"
-    procs = []
-    for s in SOURCES:
+    procs, outs, seconds = [], {}, {}
+    t0 = time.perf_counter()
+
+    def wait(s, proc):
+        outs[s] = proc.communicate()[0]
+        seconds[s] = time.perf_counter() - t0
+
+    for s in sources:
         obj = f"{tmp}.{s}.o"
-        procs.append((s, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, s)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for s, obj, proc in procs:
-        out = proc.communicate()[0]
-        logs.append(out)
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(csrc, s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        th = threading.Thread(target=wait, args=(s, proc))
+        th.start()
+        procs.append((s, obj, proc, th))
+    failed = []
+    for s, _, proc, th in procs:
+        th.join()
         if proc.returncode != 0:
-            failed.append(f"{s}:\n{out[-4000:]}")
+            failed.append(f"{s}:\n{outs[s][-4000:]}")
     try:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        t1 = time.perf_counter()
         res = subprocess.run([nvcc, *ARCH, "-shared", "-o", f"{tmp}.so",
-                              *(obj for _, obj, _ in procs)],
+                              *(obj for _, obj, _, _ in procs)],
                              capture_output=True, text=True)
+        seconds["link"] = time.perf_counter() - t1
         if res.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + res.stderr[-4000:])
         os.replace(f"{tmp}.so", path)
     finally:
-        for _, obj, _ in procs:
+        for _, obj, _, _ in procs:
             if os.path.exists(obj):
                 os.remove(obj)
-    return "".join(logs)
+    return "".join(outs[s] for s in sources), seconds
 
 
 def ptxas_summary(log: str) -> dict:

@@ -273,8 +273,8 @@ UV_TW, UV_TH, UV_R, UV_MU, UV_MUS, UV_IW, UV_IH = range(7)
 
 
 class _AtmParams(ctypes.Structure):
-    """Mirror of ``AtmParams`` in csrc/environment.cu: the atmosphere
-    kinds' LUTs (ATMOSPHERE's in K4's layout, sky/runtime.py::K4Luts),
+    """Mirror of ``AtmParams`` in csrc/atmosphere.cuh (K4's and K5's
+    Bruneton device code): the atmosphere kinds' LUTs (ATMOSPHERE's in K4's layout, sky/runtime.py::K4Luts),
     dims and float32 constants, each computed by the plain version's own
     torch expression (``atmosphere_params``)."""
 

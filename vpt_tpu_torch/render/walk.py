@@ -21,18 +21,25 @@ rays (vpt_tpu/render/renderer.py:186-215, :276-281), each ray drawing
 under fold_in(key, 1000 + its tile) at its index in the tile: the
 renderer's route (render/renderer.py::_trace_walks) with fused_tile.
 
-On the card K5 takes single-grid scenes in float32 corner rows without
-octant columns, density-only or EXT (emission, color, volume_depth > 1).
-Everything else raises NotImplementedError before any launch
-(``check_walk_scene``), naming its ROADMAP item; nothing falls back to a
-plain version on the card.
+On the card K5 takes every scene and sky the plain walks take
+(``scene_kind``, ``sky_kind``; each a template argument of the kernels
+that read it): single grids in float32 corner rows with or without the
+octant columns, or in bfloat16 rows; instanced scenes with cell lists
+and without (the static loop); density-only or EXT (emission, color,
+volume_depth > 1); and the volumetric integrator's sky estimate under
+the Bruneton atmosphere, live or baked.  What build_scene refuses
+(bfloat16 rows or octant columns on an instanced scene, ROADMAP A.10)
+raises before any launch (``check_walk_scene``); nothing falls back to
+a plain version on the card.  Each launch counts its stage kernels'
+instances by name (``instance_names``, ``VARIANTS``) beside the
+per-stage counters.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -40,14 +47,15 @@ from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.vecmath import degree_to_cartesian
 from vpt_tpu_torch.ops import cuda
 from vpt_tpu_torch.render.fused import out_buffer
-from vpt_tpu_torch.render.integrator import (EnvLaunch, _c3, _EnvParams,
-                                             _f, add_environment,
+from vpt_tpu_torch.render.integrator import (EnvLaunch, _AtmParams, _c3,
+                                             _EnvParams, _f, add_environment,
                                              defers_environment,
                                              needs_env_pos,
                                              prepare_environment)
 from vpt_tpu_torch.render.nee import LIGHT_BUDGET, uses_env_cdf
 from vpt_tpu_torch.render.params import Environment, check_slice
-from vpt_tpu_torch.render.tracking import _over, vec3_param
+from vpt_tpu_torch.render.tracking import (_over, _use_cells, cell_layout,
+                                           cell_size, vec3_param)
 from vpt_tpu_torch.volume.grid import unified_layout
 
 _SOURCE = "vpt_tpu_torch/csrc/walk.cu"
@@ -97,10 +105,15 @@ PATH_FLOATS = 24   # PathState
 KEY_STEPS, DIRECT_KEY_DEPTHS = 256, 4
 # the sky next-event estimate's environment (walk.cu's NEE_*)
 NEE_BLACK, NEE_CONSTANT, NEE_HDRI, NEE_SKY = range(4)
-INSTANCED_ITEM = ("ROADMAP A.8, K5 on instanced scenes and on bfloat16 "
-                  "rows and octant columns")
-ATMOSPHERE_NEE_ITEM = ("ROADMAP A.8, walk_volumetric's sky NEE under the "
-                       "Bruneton atmosphere")
+# walk.cuh's scene kinds (SC_*) and the sky kinds of the volumetric
+# integrator's NEE (SKY_*), each with the tag its instances' names carry
+SC_F32, SC_F32_OCT, SC_BF16, SC_CELLS, SC_LOOP = range(5)
+SCENE_TAGS = ("", "octant", "bf16", "cells", "loop")
+SKY_RUNTIME, SKY_ATMOSPHERE, SKY_CACHE = range(3)
+SKY_TAGS = ("", "atmosphere", "sky_cache")
+# the counters of the instances beyond SC_F32 under the run-time sky,
+# by name (instance_names), made at their first launch
+VARIANTS: dict = {}
 
 
 class _WalkParams(ctypes.Structure):
@@ -133,6 +146,15 @@ class _WalkTables(ctypes.Structure):
         "m_cdf")]
 
 
+class _WalkScene(ctypes.Structure):
+    """Mirror of ``WalkScene`` in csrc/walk.cuh."""
+
+    _fields_ = [("cells", ctypes.c_void_p), ("inst", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("kind", "sky", "octant", "R", "cell_w",
+                                    "ids_off", "k")] + [
+        ("cs", ctypes.c_float * 3), ("atm", _AtmParams)]
+
+
 class _WalkWork(ctypes.Structure):
     """Mirror of ``WalkWork`` in csrc/walk.cu."""
 
@@ -153,6 +175,9 @@ class WalkLaunch:
     tensors: tuple                  # what the tables point at
     k4: EnvLaunch | None = None     # K4's, for a deferred environment
     work: tuple | None = None       # (B, tile, _WalkWork, its tensors)
+    # the scene and sky kinds and what their kernels read beyond the
+    # tables (SC_F32 under the run-time sky: kind and sky 0, no tables)
+    scene: _WalkScene = field(default_factory=_WalkScene)
 
 
 TILE_FOLD = 1000   # the reference's tile keys: fold_in(key, 1000 + t)
@@ -295,22 +320,98 @@ def launch_layout(launch: "WalkLaunch") -> KeyLayout:
                       bool(p.use_double_hg), p.key_steps)
 
 
+def scene_kind(scene) -> int:
+    """walk.cuh's scene kind of ``scene``, as tracking.unified_fetch picks
+    its branch: cell lists, the static loop, or a single grid by its
+    rows."""
+    if _use_cells(scene):
+        return SC_CELLS
+    if scene.instances.count > 1:
+        return SC_LOOP
+    if scene.atlas.density_corners.dtype == torch.bfloat16:
+        return SC_BF16
+    return SC_F32_OCT if scene.atlas.octant_cols else SC_F32
+
+
+def sky_kind(scene, params, volumetric: bool) -> int:
+    """The sky kind of the volumetric integrator's NEE: the Bruneton
+    atmosphere's, live or baked, under ATMOSPHERE with one attached (the
+    direct integrator reads no sky in K5)."""
+    if (not volumetric
+            or params.environment_type != int(Environment.ATMOSPHERE)
+            or getattr(scene, "atmosphere", None) is None):
+        return SKY_RUNTIME
+    return SKY_CACHE if scene.sky_cache is not None else SKY_ATMOSPHERE
+
+
+def instance_names(volumetric: bool, ext: bool, sc: int, sky: int) -> dict:
+    """{LAUNCH_KINDS name: the name of the instance a launch runs for it},
+    for the stages whose instance is not SC_F32's under the run-time sky:
+    the kernel, the scene's tag, "_ext" for EXT, the sky's tag for NEE
+    (walk_scatter reads the scene only on EXT, and SC_F32_OCT's emission
+    is SC_F32's: walk.cuh::scatter_sc)."""
+    tag, names = SCENE_TAGS[sc], {}
+    suffix = "_ext" if ext else ""
+    if sc != SC_F32:
+        names["walk_direct" if not volumetric else "walk_extend"] = (
+            f"walk_{'extend' if volumetric else 'direct'}_{tag}{suffix}")
+    if volumetric:
+        nee = "walk_nee" + (f"_{tag}" if sc != SC_F32 else "") + (
+            f"_{SKY_TAGS[sky]}" if sky != SKY_RUNTIME else "")
+        if nee != "walk_nee":
+            names["walk_nee"] = nee
+        if ext and sc not in (SC_F32, SC_F32_OCT):
+            names["walk_scatter"] = f"walk_scatter_{tag}_ext"
+    return names
+
+
+_VARIANT_SITES = {
+    "walk_direct": "vpt_tpu/render/integrator.py:102",
+    "walk_extend": "vpt_tpu/render/vol_integrator.py:57",
+    "walk_nee": "vpt_tpu/render/vol_integrator.py:25",
+    "walk_scatter": "vpt_tpu/render/vol_integrator.py:77"}
+# the sources that instantiate each scene kind's kernels beyond SC_F32's,
+# and the reference's code each kind adds to the walk
+_KIND_SOURCES = {SC_F32: "vpt_tpu_torch/csrc/walk_rows.cu",
+                 SC_F32_OCT: "vpt_tpu_torch/csrc/walk_rows.cu",
+                 SC_BF16: "vpt_tpu_torch/csrc/walk_rows.cu",
+                 SC_CELLS: "vpt_tpu_torch/csrc/walk_cells.cu",
+                 SC_LOOP: "vpt_tpu_torch/csrc/walk_cells.cu"}
+KIND_SITES = {
+    "octant": "vpt_tpu/render/tracking.py:502 + accel/majorant.py:232",
+    "bf16": "vpt_tpu/render/tracking.py:445 (astype) + :502",
+    "cells": "vpt_tpu/render/tracking.py:150, :230, :261, :284",
+    "loop": "vpt_tpu/render/tracking.py:320 (:361-395), :230, :261, :284",
+    "atmosphere": "vpt_tpu/render/nee.py:23-47 + sky/runtime.py:161",
+    "sky_cache": "vpt_tpu/render/nee.py:23-47 + sky/runtime.py:203"}
+
+
+def variant(name: str, stage: str, sc: int) -> cuda.Kernel:
+    """The counter of instance ``name`` of ``stage`` on scene kind ``sc``
+    (VARIANTS)."""
+    if name not in VARIANTS:
+        VARIANTS[name] = cuda.Kernel(name=name, route="cuda",
+                                     source=_KIND_SOURCES[sc],
+                                     replaces=_VARIANT_SITES[stage])
+    return VARIANTS[name]
+
+
 def check_walk_scene(scene, params, volumetric: bool) -> None:
     """Raise before any launch for what K5 does not take on the card:
-    instanced scenes, bfloat16 rows, octant columns, and the volumetric
-    integrator's sky estimate under the Bruneton atmosphere."""
+    an unported parameter (check_slice), and what build_scene refuses,
+    an instanced scene in bfloat16 rows or with the octant
+    columns in its corner rows (ROADMAP A.10), or one without a majorant
+    grid."""
     check_slice(params)
-    if scene.instances.count != 1:
-        raise NotImplementedError(
-            f"K5 on an instanced scene ({INSTANCED_ITEM})")
-    if (scene.atlas.density_corners.dtype != torch.float32
-            or scene.atlas.octant_cols):
-        raise NotImplementedError("K5 on bfloat16 corner rows or octant "
-                                  f"columns ({INSTANCED_ITEM})")
-    if (volumetric and params.environment_type == int(Environment.ATMOSPHERE)
-            and getattr(scene, "atmosphere", None) is not None):
-        raise NotImplementedError(f"the sky NEE with a Bruneton atmosphere "
-                                  f"({ATMOSPHERE_NEE_ITEM})")
+    if scene.instances.count > 1 or _use_cells(scene):
+        if (scene.atlas.density_corners.dtype != torch.float32
+                or scene.atlas.octant_cols):
+            raise NotImplementedError(
+                "K5 on an instanced scene in bfloat16 rows or with octant "
+                "columns in its corner rows (ROADMAP A.10)")
+        if scene.majorant is None:
+            raise ValueError("an instanced scene without a majorant grid: "
+                             "its walk reads the grid's bounds")
 
 
 def _nee_env(scene, params) -> int:
@@ -351,10 +452,13 @@ def prepare_walk(scene, params, volumetric: bool) -> WalkLaunch:
     cuda.check_struct(_WalkParams, lib.vpt_walk_params_size)
     cuda.check_struct(_EnvParams, lib.vpt_walk_env_size)
     cuda.check_struct(_WalkTables, lib.vpt_walk_tables_size)
+    cuda.check_struct(_WalkScene, lib.vpt_walk_scene_size)
     cuda.check_struct(_WalkWork, lib.vpt_walk_work_size)
     dev = scene.device
     corners = scene.atlas.density_corners
-    cuda.check_cuda_tensor(corners, "density_corners", dtype=torch.float32)
+    sc = scene_kind(scene)
+    cuda.check_cuda_tensor(corners, "density_corners", dtype=(
+        torch.bfloat16 if sc == SC_BF16 else torch.float32))
     for name in ("density_color_lut", "emission_lut"):
         cuda.check_cuda_tensor(getattr(scene, name), name, (256, 3),
                                torch.float32, dev)
@@ -443,8 +547,29 @@ def prepare_walk(scene, params, volumetric: bool) -> WalkLaunch:
     p.key_depths = (1 if volumetric else
                     max(1, min(p.ray_depth, DIRECT_KEY_DEPTHS)))
     k4 = prepare_environment(scene, params) if p.defer_env else None
+    ws = _WalkScene()
+    ws.kind, ws.sky = sc, sky_kind(scene, params, volumetric)
+    ws.octant = int(bool(scene.atlas.octant_cols))
+    if sc in (SC_CELLS, SC_LOOP):
+        major = scene.majorant
+        rows = major.cell_rows if sc == SC_CELLS else major.packed
+        inst = scene.instances.packed_rows
+        cuda.check_cuda_tensor(rows, "majorant rows", dtype=torch.float32,
+                               device=dev)
+        cuda.check_cuda_tensor(inst, "packed_rows",
+                               (scene.instances.count, 24), torch.float32,
+                               dev)
+        ws.cells, ws.inst = rows.data_ptr(), inst.data_ptr()
+        ws.R, ws.cell_w = major.resolution, rows.shape[1]
+        ws.ids_off, ws.k = ((rows.shape[1], scene.instances.count)
+                            if sc == SC_LOOP else cell_layout(scene)[:2])
+        ws.octant = int(major.packed.shape[1] >= 79)
+        ws.cs = _c3(cell_size(scene).tolist())
+        tensors += [rows, inst]
+    if ws.sky != SKY_RUNTIME:
+        ws.atm = k4.atm   # the atmosphere's LUTs or cache, as K4 reads them
     return WalkLaunch(volumetric, ext_variant, p, _walk_env(scene, params),
-                      t, tuple(tensors), k4)
+                      t, tuple(tensors), k4, scene=ws)
 
 
 def n_tiles(B: int, tile: int) -> int:
@@ -509,7 +634,8 @@ def _launch_k5(launch: WalkLaunch, key, origin, direction, tile: int,
     rc = cuda.load_library().dll.vpt_walk(
         int(launch.volumetric), int(launch.ext), ctypes.byref(p),
         ctypes.byref(launch.env), ctypes.byref(launch.tables),
-        ctypes.byref(w), origin.data_ptr(), direction.data_ptr(),
+        ctypes.byref(launch.scene), ctypes.byref(w), origin.data_ptr(),
+        direction.data_ptr(),
         out.data_ptr(), None if stats is None else stats.data_ptr(),
         0 if stats is None else stats.numel(), launches, ms,
         cuda.current_stream(dev))
@@ -521,9 +647,14 @@ def _launch_k5(launch: WalkLaunch, key, origin, direction, tile: int,
     if ms is not None:
         for k, t in zip(LAUNCH_KINDS, ms):
             kernel_ms[k.name] = kernel_ms.get(k.name, 0.0) + t
+    names = instance_names(launch.volumetric, launch.ext, launch.scene.kind,
+                           launch.scene.sky)
     for k, n in zip(LAUNCH_KINDS, launches):
         if k is not WALK_DIRECT:
             k.launches += n
+        if k.name in names:
+            variant(names[k.name], k.name, launch.scene.kind).launches += (
+                n if k is not WALK_DIRECT else 1)
     counter.launches += 1
     return views
 
@@ -595,16 +726,18 @@ def walk_volumetric(scene, params, key, origin, direction, launch=None,
                 stats)
 
 
-def launch_info(volumetric: bool, ext: bool, stage: str | None = None) -> dict:
+def launch_info(volumetric: bool, ext: bool, stage: str | None = None,
+                sc: int = SC_F32, sky: int = SKY_RUNTIME) -> dict:
     """One K5 kernel's registers and local bytes per thread, threads per
     block and resident blocks per SM, from the CUDA runtime.  ``stage``:
     one of STAGES ("keys"; walk_direct's "direct"; walk_volumetric's
     "extend", "nee", "scatter"), by default the integrator's walk
-    ("direct", or "extend")."""
+    ("direct", or "extend"); ``sc`` and ``sky`` the scene and sky kinds
+    whose instance it is."""
     stage = stage or ("extend" if volumetric else "direct")
     info = (ctypes.c_int * 4)()
     cuda.check_status(cuda.load_library().dll.vpt_walk_launch_info(
-        int(volumetric), int(ext), STAGES.index(stage), info),
+        int(volumetric), int(ext), STAGES.index(stage), sc, sky, info),
         "walk launch info")
     return dict(zip(("registers", "local_bytes", "threads",
                      "blocks_per_sm"), info))

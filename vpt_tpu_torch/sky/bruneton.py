@@ -431,13 +431,23 @@ def _chunked(fn, args, samples_per_texel):
                       for i in range(0, args[0].shape[0], step)])
 
 
+def _index(xf, n):
+    """The integer index of a floored coordinate in [0, n - 1], clamped
+    as the reference's gathers clamp an index out of range: a no-op for a
+    finite coordinate, which is in range already; a NaN one (a lane whose
+    value the caller discards, e.g. the volumetric integrator's sky
+    estimate at the far point of a walk that left the grid) reads a
+    texel instead of failing."""
+    return torch.clamp(xf.long(), 0, n - 1)
+
+
 def tex2d(tex, u, v):
     """Bilinear lookup with clamped edges (CUDA tex2D semantics)."""
     H, W = tex.shape[0], tex.shape[1]
     x = torch.clamp(u * W - 0.5, 0.0, W - 1.0)
     y = torch.clamp(v * H - 0.5, 0.0, H - 1.0)
     x0f, y0f = torch.floor(x), torch.floor(y)
-    x0, y0 = x0f.long(), y0f.long()
+    x0, y0 = _index(x0f, W), _index(y0f, H)
     x1 = torch.clamp(x0 + 1, max=W - 1)
     y1 = torch.clamp(y0 + 1, max=H - 1)
     fx = (x - x0f)[..., None]
@@ -453,7 +463,7 @@ def tex3d(tex, u, v, w):
     y = torch.clamp(v * H - 0.5, 0.0, H - 1.0)
     z = torch.clamp(w * D - 0.5, 0.0, D - 1.0)
     x0f, y0f, z0f = torch.floor(x), torch.floor(y), torch.floor(z)
-    x0, y0, z0 = x0f.long(), y0f.long(), z0f.long()
+    x0, y0, z0 = _index(x0f, W), _index(y0f, H), _index(z0f, D)
     x1 = torch.clamp(x0 + 1, max=W - 1)
     y1 = torch.clamp(y0 + 1, max=H - 1)
     z1 = torch.clamp(z0 + 1, max=D - 1)

@@ -112,8 +112,15 @@ def common_name(name: str) -> str:
     are float32 rows without the octant branch (their defaults: the older
     builds had no such arguments, and the corner rows' parameter mangles
     as the row argument); K4's parameter list dropped (the atmosphere
-    kinds appended arguments to it)."""
+    kinds appended arguments to it); K5's parameter lists dropped, with
+    its scene and sky kinds where they are a single grid's float32 rows
+    without octant columns under the run-time sky (0: the older builds
+    had neither argument, and the scene struct appended an argument)."""
     name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name)
+    name = re.sub(r"(walk_(?:direct|extend|scatter)_kernelILb[01]E)"
+                  r"(?:Li0E)?E.*", r"\1E", name)
+    name = re.sub(r"(walk_nee_kernel)(?:ILi0ELi0EE|E).*", r"\1", name)
+    name = re.sub(r"(walk_keys_kernelILb[01]EE).*", r"\1", name)
     name = re.sub(r"(fused_direct_kernelILb[01]E)Lb([01])E", r"\1Li\2E",
                   name)
     name = re.sub(r"(fused_direct_kernelI(?:L[bi]\d+E){4})(?:fLb0E)?E.*",

@@ -4,9 +4,11 @@ volumetric integrator, timed and held to their plain versions.
     python -m vpt_tpu_torch.tools.time_walk
     python -m vpt_tpu_torch.tools.time_walk --against CHECKOUT
     python vpt_tpu_torch/tools/time_walk.py --timing
+    python -m vpt_tpu_torch.tools.time_walk --scenes
 
-chip_smoke.py runs it as its phases ``reference`` and ``volumetric``; it
-prints one JSON line for each, and returns them for the kernels line.
+chip_smoke.py runs it as its phases ``reference``, ``volumetric`` and
+``walk_scenes`` (``--scenes`` alone: scenes_phase); it prints one JSON
+line for each, and returns them for the kernels line.
 
 ``--timing`` prints one JSON line of the films and times that decide
 whether a change kept K5's bits and what it gained: the 1080p films'
@@ -50,6 +52,18 @@ hash is the same on both sides.
   through the CDF, on the EXT puff and on the main scene with its point
   light.  Each K5 kernel's device ms by CUDA events between its kernels
   over four K5 launches, and each stage's bound from the bytes it moves.
+* ``walk_scenes`` (``--scenes``; scenes_phase): the bench's
+  configurations whose scenes and skies K5 takes beyond a single grid's
+  float32 rows without octant columns under the run-time sky
+  (walk_scene_configs: configs 2 and 4 in the bench's bfloat16 rows with
+  octant columns, config 2 also in float32 rows with them, config 4 live
+  and baked at the full LutDims and live in float32 rows, config 5 with
+  cell lists, config5_ext, loop8), through both integrators at 512x512:
+  render()'s numbers, every new instance launched (walk.VARIANTS), K5
+  alone with its kernels' ms and bounds (scene_bytes, sky_ops), and K5
+  against the plain integrator on the central 64x64 pixels' rays, bit
+  for bit; the volumetric integrator at 1080p on config 5 and config 4
+  live.  scene_kernel_entries turns it into the kernels line's entries.
 
 The rule of a match (chip_smoke.py's phase 6): >= 99% of rays agree (L
 within rtol 1e-4 + atol 1e-6, alpha within 1e-5, cost and trunc exact)
@@ -101,7 +115,10 @@ TILE_CHECK, TILE_RAYS = (0, -1), 2048
 K5_OPS_PER_STEP = 3 * 80 + 200
 K5_OPS_PER_BOUNCE = 8 * 80 + 300
 SKY_OPS = 4858
-ROW_BYTES = 15 * 4   # the columns a step loads (emission on EXT not counted)
+# an instanced scene's step: the majorant cell row's 7 packed columns
+# (its ids beside them with cell lists) and one corner row's 8 density
+# taps; every instance row (24 floats) once
+CELL_COLS, TAP_BYTES, INSTANCE_BYTES = 7, 8 * 4, 24 * 4
 
 
 def match(got, want):
@@ -139,16 +156,17 @@ def main_scene(dev):
     return build_scene([grid], lights=lights, device=dev)
 
 
-def config2_f32(dev):
+def config2_f32(dev, **rows):
     """Config 2's puff (the bench's 64^3 blob, emission 0.9 density) in
-    float32 rows without octant columns, the ramp emission LUT, its
-    camera 9 in front of and 1 above its centre."""
+    float32 rows without octant columns (``rows``: build_scene's
+    corner_dtype and octant_boxes), the ramp emission LUT, its camera 9
+    in front of and 1 above its centre."""
     from vpt_tpu_torch.core.camera import Camera
     from vpt_tpu_torch.scene.assets import ramp_lut
     from vpt_tpu_torch.scene.scene import build_scene
     from vpt_tpu_torch.tools.common import bench_blob
     s = build_scene([bench_blob(emission=True)], emission_lut=ramp_lut(),
-                    device=dev)
+                    device=dev, **rows)
     c = (s.root_pmin + s.root_pmax).cpu().numpy() / 2
     return dataclasses.replace(s, camera=Camera.make(
         c + np.array(EMIT_CAMERA), c, vfov=40.0, aspect=1.0, device=dev))
@@ -167,10 +185,15 @@ def params(w, h, **kw):
 
 
 def counters():
+    """The render path's kernel counters by name, K5's instances beyond
+    SC_F32 under the run-time sky (walk.VARIANTS, where the checkout on
+    PYTHONPATH has them: --timing runs older ones too) among them."""
     return {k.name: k for k in (
         walk.WALK_DIRECT, walk.WALK_VOLUMETRIC, film_mod.FILM_ACCUMULATE,
         fused.FUSED_DIRECT, fused.FUSED_DIRECT_PRIMARY, renderer.RAYGEN,
-        integrator.ENVIRONMENT, *walk.LAUNCH_KINDS)}
+        integrator.ENVIRONMENT, integrator.ENVIRONMENT_ATMOSPHERE,
+        integrator.ENVIRONMENT_SKY_CACHE, *walk.LAUNCH_KINDS,
+        *getattr(walk, "VARIANTS", {}).values())}
 
 
 def film_sha(film) -> str:
@@ -243,10 +266,10 @@ def k5_alone(scene, p, dev, volumetric, tiles=False):
     counts = [int(v) for v in stats.tolist()]
     bounces, steps, sky = counts[:3]
     n = o.shape[0]
-    rows = min(steps, scene.atlas.density_corners.shape[0])
-    b = bound(n * (24 + out_bytes(launch)) + rows * ROW_BYTES,
+    b = bound(n * (24 + out_bytes(launch))
+              + scene_bytes(scene, launch, steps, sky=True),
               steps * K5_OPS_PER_STEP + bounces * K5_OPS_PER_BOUNCE
-              + sky * SKY_OPS)
+              + sky * sky_ops(launch))
     rec = dict(ms=ms, rays=n, bounces_per_ray=bounces / n,
                steps_per_ray=steps / n, sky_evals_per_ray=sky / n,
                primary_steps_per_ray=float(views[2].double().mean()),
@@ -261,6 +284,42 @@ def k5_alone(scene, p, dev, volumetric, tiles=False):
         rec["tiles"] = tile_parity(scene, p, dev, volumetric,
                                    (launch, tkey, o, d, tile))
     return rec
+
+
+def scene_bytes(scene, launch, steps: int, sky: bool = False) -> int:
+    """The bytes of the scene's tables that ``steps`` walk steps read at
+    least, each row once (render/walk.py::scene_kind): a single grid's 15
+    columns a step loads, at 4 bytes (2 in bfloat16 rows), for min(steps,
+    rows) corner rows; an instanced scene's majorant cell row (CELL_COLS
+    and, with cell lists, the K ids) for min(steps, cells) cells, one
+    corner row's 8 density taps for min(steps, rows) rows, and every
+    instance row once; with ``sky``, under the Bruneton sky kinds, the
+    atmosphere's LUTs in K4's layout or its cache once (what NEE reads)."""
+    rows = scene.atlas.density_corners
+    sc = launch.scene.kind
+    if sc in (walk.SC_CELLS, walk.SC_LOOP):
+        cells = launch.scene.R ** 3
+        width = CELL_COLS + (launch.scene.k if sc == walk.SC_CELLS else 0)
+        n = (min(steps, cells) * width * 4 + min(steps, rows.shape[0])
+             * TAP_BYTES + scene.instances.count * INSTANCE_BYTES)
+    else:
+        n = min(steps, rows.shape[0]) * 15 * rows.element_size()
+    if sky and launch.scene.sky == walk.SKY_ATMOSPHERE:
+        n += scene.atmosphere.k4_luts.nbytes
+    elif sky and launch.scene.sky == walk.SKY_CACHE:
+        n += scene.sky_cache.numel() * 4
+    return n
+
+
+def sky_ops(launch) -> int:
+    """The operations of one sky evaluation of the launch's NEE: the simple
+    sky's march, or, under the Bruneton sky kinds, K4's counts
+    (tools/time_atmosphere.py: a sky ray's, the fewer of a live one's two
+    branches, or the cache's lookup)."""
+    from vpt_tpu_torch.tools.time_atmosphere import (ATM_SKY_OPS,
+                                                     SKY_CACHE_OPS)
+    return {walk.SKY_ATMOSPHERE: ATM_SKY_OPS,
+            walk.SKY_CACHE: SKY_CACHE_OPS}.get(launch.scene.sky, SKY_OPS)
 
 
 def out_bytes(launch) -> int:
@@ -330,7 +389,6 @@ def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, queues,
     slab = p.key_scalars + p.key_walks * p.key_steps
     n_keys = p.n_tiles * p.key_depths * slab * (
         max(p.ray_depth, 1) if launch.volumetric else 1)
-    rows = scene.atlas.density_corners.shape[0]
     bounces, steps, sky = counts[:3]
     bounds = {"walk_keys": bound(n_keys * 8, n_keys * 80)}
     steps_of = {}
@@ -339,13 +397,15 @@ def kernel_split(scene, launch, tkey, o, d, tile, dev, counts, queues,
         steps_of = {"walk_extend": counts[3], "walk_nee": sum(counts[4:7]),
                     "walk_scatter": counts[7]}
         ops = {"walk_extend": bounces * K5_OPS_PER_BOUNCE,
-               "walk_nee": sky * SKY_OPS, "walk_scatter": 0}
+               "walk_nee": sky * sky_ops(launch), "walk_scatter": 0}
         for name, st in steps_of.items():
-            bounds[name] = bound(moved[name] + min(st, rows) * ROW_BYTES,
-                                 st * K5_OPS_PER_STEP + ops[name])
+            bounds[name] = bound(
+                moved[name] + scene_bytes(scene, launch, st,
+                                          sky=name == "walk_nee"),
+                st * K5_OPS_PER_STEP + ops[name])
     else:
         bounds["walk_direct"] = bound(
-            n * (24 + out_bytes(launch)) + min(steps, rows) * ROW_BYTES,
+            n * (24 + out_bytes(launch)) + scene_bytes(scene, launch, steps),
             steps * K5_OPS_PER_STEP + bounces * K5_OPS_PER_BOUNCE)
     out = {}
     for k in walk.LAUNCH_KINDS:
@@ -389,15 +449,21 @@ def parity_cases(dev, scene, volumetric):
                       params(PARITY, PARITY, **atm))}
 
 
-def parity(scene, p, dev, volumetric):
+def parity(scene, p, dev, volumetric, crop=None):
     """K5 (and K4 after it) against the plain integrator on the card on
-    the PARITY^2 frame's rays as one tile under the sample's tile key:
-    match()'s numbers, the plain version's ms (one call, host clock after
-    a sync) and K5's."""
+    the frame's rays (the PARITY^2 frame's in parity_cases), or on the
+    central ``crop`` x ``crop`` pixels' of it, as one tile under the
+    sample's tile key: match()'s numbers, the plain version's ms (one
+    call, host clock after a sync) and K5's."""
     from vpt_tpu_torch.render.integrator import direct_integrator_plain
     from vpt_tpu_torch.render.vol_integrator import vol_integrator_plain
     key = rng.render_key(SEED, 1)
     o, d = renderer._primary_rays_cuda(scene.camera, p, key)
+    if crop:
+        y = torch.arange(crop, device=dev) + (p.height - crop) // 2
+        x = torch.arange(crop, device=dev) + (p.width - crop) // 2
+        i = (y[:, None] * p.width + x[None, :]).reshape(-1)
+        o, d = o[i].contiguous(), d[i].contiguous()
     tkey = renderer.tile_key(key)
     run = walk.walk_volumetric if volumetric else walk.walk_direct
     plain = vol_integrator_plain if volumetric else direct_integrator_plain
@@ -609,6 +675,199 @@ def volumetric_phase(dev, scene=None, tmp=None):
     return rec
 
 
+# the walk_scenes phase: the bench's configurations whose scenes and
+# skies K5 takes beyond float32 rows without octant columns under the
+# run-time sky, at SCENES_SIZE^2 through both integrators, each held bit
+# for bit to its plain version on the central CROP^2 pixels' rays
+# (the volumetric integrator at ray_depth VOL_PARITY_DEPTH), and the
+# volumetric integrator at 1080p on SCENES_HD
+SCENES_SIZE, CROP = 512, 64
+SCENES_HD = ("config5", "config4_live")
+CONFIG4_OFFSET = (0.0, 0.5, 9.0)   # bench.py:661, aim_camera's offset
+
+
+def walk_scene_configs(dev, timings=None) -> dict:
+    """{name: (scene, its params' keywords, a function of the aspect that
+    reframes the scene)} as the bench builds them (tools/common.py): config
+    2 (bench.py:583-596: the 64^3 puff with emission, bfloat16 rows with
+    the octant columns, BLACK, emission_scale 2) and beside it in float32
+    rows with the octant columns; config 4 (bench.py:649-681: the puff in
+    the bench's rows under the Bruneton atmosphere at the full LutDims,
+    live, and baked at 256 x 512) and live in float32 rows without octant
+    columns; config 5 (bench.py:629-704: 1024 instances of the 24^3 puff
+    with cell lists at R 64, CONSTANT); config5_ext (its instances with
+    emission and color) and loop8 (bench.py:710-800: the static loop,
+    BLACK, emission_scale 2).  ``timings`` receives each build's seconds
+    (the atmosphere's precompute under "config4_luts")."""
+    from vpt_tpu_torch.core.camera import Camera
+    from vpt_tpu_torch.scene.scene import (attach_atmosphere,
+                                           attach_sky_cache, build_scene)
+    from vpt_tpu_torch.sky.bruneton import LutDims
+    from vpt_tpu_torch.sky.runtime import make_atmosphere
+    from vpt_tpu_torch.tools import common
+    t = {} if timings is None else timings
+    atm = dict(environment_type=int(Environment.ATMOSPHERE))
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        sc = fn()
+        torch.cuda.synchronize(dev)
+        t[name] = time.perf_counter() - t0
+        return sc
+
+    def emit_aim(s_, aspect=1.0):
+        c = (s_.root_pmin + s_.root_pmax).cpu().numpy() / 2
+        return dataclasses.replace(s_, camera=Camera.make(
+            c + np.array(EMIT_CAMERA), c, vfov=40.0, aspect=aspect,
+            device=dev))
+
+    def c4_aim(s_, aspect=1.0):
+        c = (s_.root_pmin + s_.root_pmax).cpu().numpy() / 2
+        return dataclasses.replace(s_, camera=Camera.make(
+            c + np.array(CONFIG4_OFFSET), c, vfov=40.0, aspect=aspect,
+            device=dev))
+
+    c2 = dict(emission_scale=2.0)
+    out["config2"] = (timed("config2", lambda: config2_f32(
+        dev, **common.BENCH_ROWS)), c2, emit_aim)
+    out["config2_f32_octant"] = (timed("config2_f32_octant", lambda:
+                                       config2_f32(dev, octant_boxes=True)),
+                                 c2, emit_aim)
+    luts = timed("config4_luts", lambda: make_atmosphere(LutDims(),
+                                                         device=dev))
+    live = timed("config4", lambda: c4_aim(attach_atmosphere(build_scene(
+        [common.bench_blob()], device=dev, **common.BENCH_ROWS),
+        atmosphere=luts)))
+    out["config4_live"] = (live, atm, c4_aim)
+    out["config4_baked"] = (timed("config4_bake", lambda: attach_sky_cache(
+        live, AZIMUTH, ELEVATION, 256, 512)), atm, c4_aim)
+    out["config4_f32_live"] = (timed("config4_f32", lambda: c4_aim(
+        attach_atmosphere(build_scene([common.bench_blob()], device=dev),
+                          atmosphere=luts))), atm, c4_aim)
+    const = dict(environment_type=int(Environment.CONSTANT))
+
+    def config5():
+        ids, xforms = common.cloud_xforms(1024)
+        return common.aim_cloud(build_scene(
+            [common.bench_blob(n=24)], instance_grid_ids=ids,
+            instance_xforms=xforms, device=dev))
+    out["config5"] = (timed("config5", config5), const, common.aim_cloud)
+    out["config5_ext"] = (timed("config5_ext", lambda:
+                                common.config5_ext_scene(dev)), const,
+                          common.aim_cloud)
+    out["loop8"] = (timed("loop8", lambda: common.loop8_scene(dev)), c2,
+                    common.aim_loop8)
+    return out
+
+
+def _instances_launched(rec, names) -> dict:
+    """{instance name: its launches in a render record}; raises where one
+    of ``names`` never launched."""
+    got = {n: rec["launches"].get(n, 0) for n in names}
+    missing = [n for n, k in got.items() if k <= 0]
+    if missing:
+        raise RuntimeError(f"walk_scenes: {missing} never launched: "
+                           f"{rec['launches']}")
+    return got
+
+
+def scenes_phase(dev, out=print):
+    """The ``walk_scenes`` phase's record: for each of walk_scene_configs,
+    its build seconds; through each integrator at SCENES_SIZE^2 (ray_depth
+    50): render()'s ms/spp, the image finite and not black, the instances
+    the launches ran (walk.instance_names), each launched in the timed spp;
+    K5 alone (k5_alone: ms, bounces and walk steps a ray from the launch's
+    counters, each kernel's ms by CUDA events and bound); K5 against the
+    plain integrator on the central CROP^2 pixels' rays, every output bit
+    for bit (the volumetric integrator at ray_depth VOL_PARITY_DEPTH);
+    then the volumetric integrator at 1920x1080 on SCENES_HD (render() and
+    k5_alone).  Raises on any difference, black or non-finite image, or
+    an instance that did not launch; prints a line a run."""
+    timings = {}
+    configs = walk_scene_configs(dev, timings)
+    rec = {"build_s": timings}
+    for name, (scene, kw, aim) in configs.items():
+        rec[name] = {}
+        for volumetric in (False, True):
+            p = params(SCENES_SIZE, SCENES_SIZE, engine="reference",
+                       integrator=int(volumetric), **kw)
+            launch = walk.prepare_walk(scene, p, volumetric)
+            names = walk.instance_names(volumetric, launch.ext,
+                                        launch.scene.kind, launch.scene.sky)
+            r = render(scene, p, dev)
+            if not (r["finite"] and r["mean"] > 0):
+                raise RuntimeError(f"walk_scenes {name}: the image is not "
+                                   f"finite or black: {r}")
+            r["instances"] = _instances_launched(r, names.values())
+            r["stage_instances"] = names
+            r["k5_alone"] = k5_alone(scene, p, dev, volumetric)
+            pp = p.replace(ray_depth=VOL_PARITY_DEPTH) if volumetric else p
+            m = parity(scene, pp, dev, volumetric, crop=CROP)
+            m.update(crop=CROP, ray_depth=pp.ray_depth)
+            check(f"walk_scenes/{name}/"
+                  f"{'volumetric' if volumetric else 'reference'}", m)
+            r["parity"] = m
+            key = "volumetric" if volumetric else "reference"
+            rec[name][key] = r
+            out(json.dumps({"walk_scene": name, "integrator": key,
+                            "ms_per_spp": r["ms_per_spp"],
+                            "k5_ms": r["k5_alone"]["ms"],
+                            "parity": m}))
+    for name in SCENES_HD:
+        scene, kw, aim = configs[name]
+        hd = aim(scene, W / H)
+        p = params(W, H, engine="reference", integrator=1, **kw)
+        r = render(hd, p, dev)
+        if not (r["finite"] and r["mean"] > 0):
+            raise RuntimeError(f"walk_scenes {name} at 1080p: {r}")
+        r["k5_alone"] = k5_alone(hd, p, dev, True)
+        rec[name]["volumetric_1080p"] = r
+        out(json.dumps({"walk_scene": name, "integrator": "volumetric",
+                        "size": [W, H], "ms_per_spp": r["ms_per_spp"],
+                        "k5_ms": r["k5_alone"]["ms"]}))
+    return rec
+
+
+def scene_kernel_entries(rec) -> list:
+    """The kernels line's entries of the instances the walk_scenes phase
+    (scenes_phase's ``rec``) launched: each instance's launches summed over
+    its SCENES_SIZE^2 renders' timed spp; its ms and bound per K5 launch
+    (kernel_split) on the first configuration that ran it, and that
+    run's parity (the plain integrator's ms on the CROP^2 rays, the
+    largest |dL| over every run of the instance: 0 where bit for bit)."""
+    entries = {}
+    for name, runs in rec.items():
+        if name == "build_s":
+            continue
+        for integ in ("reference", "volumetric"):
+            r = runs[integ]
+            for stage, inst in r["stage_instances"].items():
+                k = walk.VARIANTS[inst]
+                split = r["k5_alone"]["kernels"][stage]
+                sites = [site for t, site in walk.KIND_SITES.items()
+                         if inst.endswith(f"_{t}") or f"_{t}_" in inst]
+                e = entries.setdefault(inst, dict(
+                    name=inst, route=k.route, source=k.source,
+                    replaces=k.replaces, also_replaces="; ".join(sites),
+                    launches=0, max_abs_err=0.0, ms=split["ms"],
+                    plain_ms=r["parity"]["plain_ms"],
+                    bound_ms=split["bound"][0], bound_by=split["bound"][1],
+                    library_ms=None, library_ms_note="none exists",
+                    shape=f"{name}, {SCENES_SIZE}x{SCENES_SIZE}, {integ}, "
+                          f"ray_depth {RAY_DEPTH}: ms and bound per K5 "
+                          f"launch; plain_ms the plain integrator's on "
+                          f"the central {CROP}x{CROP} pixels' rays",
+                    bounces_per_ray=r["k5_alone"]["bounces_per_ray"],
+                    steps_per_ray=r["k5_alone"]["steps_per_ray"],
+                    configs=[]))
+                e["launches"] += r["instances"][inst]
+                e["max_abs_err"] = max(e["max_abs_err"],
+                                       r["parity"]["max_abs"])
+                e["configs"].append(f"{name}/{integ}")
+    return list(entries.values())
+
+
 def smi_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -689,6 +948,7 @@ def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--timing", action="store_true")
+    ap.add_argument("--scenes", action="store_true")
     ap.add_argument("--against", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -696,6 +956,10 @@ def main(argv=None):
     if args.against:
         return against(args.against)
     dev = torch.device("cuda", 0)
+    if args.scenes:
+        print(json.dumps({"phase": "walk_scenes", "nvidia_smi": smi_line(),
+                          **scenes_phase(dev)}), flush=True)
+        return 0
     scene = main_scene(dev)
     if args.timing:
         print(json.dumps({"nvidia_smi": smi_line(),
